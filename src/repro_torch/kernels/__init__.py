@@ -1,0 +1,15 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) + their plain PyTorch
+versions.
+
+rss_scan_agg — fused RSS visibility resolve + on-device aggregate
+               (scalar, grouped flat-lane, grouped chunked) and the
+               materialized-view delta fold
+
+A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
+version for CPU tensors; nothing else picks between them.  The device of
+the tensors comes from the entry point (`config.resolve_device`).
+"""
+
+from .config import resolve_device
+
+__all__ = ["resolve_device"]
