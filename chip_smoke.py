@@ -1,26 +1,44 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (`src/repro_torch`) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # the full run: build, kernels, driver
+    python3 chip_smoke.py            # the full run: build, kernels, paths
 
 Phases, in order (any failure exits non-zero; no phase catches its own):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build the CUDA kernels from `src/repro_torch/csrc/` with nvcc (sm_90a)
-   into `build/repro_torch/`;
+2. build the CUDA kernels from `src/repro_torch/csrc/*.cu` with nvcc
+   (sm_90a) into `build/repro_torch/`, one nvcc per source, all at once;
 3. kernel phase: each of the four `rss_scan_agg` kernels on numpy-seeded
    inputs at the main path's shapes (P = 400,000 pages, K = 8 slots,
    E = 32 elements; M in {0, 64, 4096} members; G in {1, 16, 40, 256}
-   groups; a 256-row delta into a 64-lane tile) must be `torch.equal` to
-   its plain PyTorch version on the card; prints kernel, plain and bound
-   times (CUDA events, median, L2 flushed before each launch);
+   groups; a 256-row delta into a 64-lane tile), and the two gather
+   kernels (`version_gather`, `rss_gather`) at the mirror's shape (int32,
+   P = 400,000, K = 8, E = 32, M in {0, 64, 4096}), at an embedding-row
+   param store (bf16, P = 151,936, K = 2, E = 1,024: Qwen1.5-0.5B's
+   vocabulary and width) and at edge shapes (K in {1, 3, 33}, E in
+   {1, 3, 640}, unaligned rows) must be `torch.equal` to their plain
+   PyTorch versions on the card; prints kernel, plain and bound times
+   (CUDA events, median, L2 flushed before each launch);
 4. small-driver phase: a small `run_single_node` on "cuda" and on "cpu"
    with one seed must give equal metrics and OLAP outputs;
-5. driver phase: `run_single_node` at TPC-C's cardinalities (4 warehouses,
-   10 districts, 3,000 customers per district, 100,000 items, 3,000
-   orders per district) with `check_scans` (every plan result asserted
-   equal to the per-key engine oracle), batched plans and materialized
-   views; every kernel must have launched in it.
+5. driver phase: `run_single_node` at TPC-C's cardinalities (4
+   warehouses, 10 districts, 3,000 customers per district, 100,000 items,
+   3,000 orders per district) with `check_scans` (every plan result
+   asserted equal to the per-key engine oracle), batched plans and
+   materialized views; every `rss_scan_agg` kernel must have launched;
+6. snapshot-read path phase: a `SingleNodeHTAP` paged mirror at the same
+   cardinalities (640,044 pages) after OLTP traffic that leaves writers
+   in flight; the whole mirror read through `torch_store()` +
+   `snapshot_read_members` (rss_gather) must decode to
+   `mirror.scan_members` and to the engine's per-key protected reads,
+   with at least one page read at a previous version; `snapshot_read`
+   (version_gather) at the floor and at the newest commit must equal
+   `mirror.scan_at`, and a `gather_pages` sub-store its rows;
+7. param-store phase: the bf16 embedding store on the card, a few hundred
+   `publish_page`s at rising ts under a rising `gc_floor`, read by
+   `snapshot_read` / `snapshot_read_members` at several watermarks
+   against a dict-of-versions oracle; both gather kernels must have
+   launched in phases 6 and 7.
 
 It prints one `{"kernels": [...]}` JSON line, the card line, and last
 `{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
@@ -32,6 +50,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import random
 import subprocess
 import sys
 import time
@@ -40,9 +59,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = "src/repro_torch/csrc/rss_scan_agg.cu"
 TPU_SRC = "src/repro/kernels/rss_scan_agg/kernel.py"
+GATHER_SRC = "src/repro_torch/csrc/gather.cu"
+GATHER_TPU = {
+    "version_gather": "src/repro/kernels/version_gather/kernel.py:48",
+    "rss_gather": "src/repro/kernels/rss_gather/kernel.py:66"}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 SLEEP_CYCLES = 20_000_000          # lets the host enqueue ahead of a timing
 ROUNDS = 150                       # driver rounds at TPC-C scale
+PATH_TXNS = 3000                   # OLTP transactions before the read
+# TPC-C cardinalities (TPC-C spec 1.4 / 4.3.3.1; CH-benCHmark): 4
+# warehouses, 10 districts each, 3,000 customers per district, 100,000
+# stock items per warehouse, 3,000 orders per district
+TPCC = dict(warehouses=4, districts=10, customers=3000, items=100_000,
+            order_capacity=3000)
+# Qwen1.5-0.5B's embedding table (src/repro/configs/qwen1_5_0_5b.py):
+# vocabulary 151,936 rows of d_model 1,024, here with K = 2 versions
+EMBED_P, EMBED_K, EMBED_E = 151_936, 2, 1024
 
 
 def card_line() -> str:
@@ -103,11 +135,17 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
     results = {}
 
     def check(name, got, want):
+        """kernel == plain: `torch.equal`, and for the gathers (which copy
+        bits) the same bit patterns too."""
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            diff = (got.long() - want.long()).abs().max().item()
+            diff = (got.double() - want.double()).abs().max().item()
             raise AssertionError(f"{name}: kernel != plain (max |d| {diff})")
-        err = (got.long() - want.long()).abs().max().item() \
+        bits = {2: torch.int16, 4: torch.int32}.get(got.element_size())
+        if bits is not None and not torch.equal(got.view(bits),
+                                                want.view(bits)):
+            raise AssertionError(f"{name}: kernel != plain bit patterns")
+        err = (got.double() - want.double()).abs().max().item() \
             if got.numel() else 0
         res = results.setdefault(name, {"max_abs_err": 0})
         res["max_abs_err"] = max(res["max_abs_err"], err)
@@ -197,7 +235,80 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
         lambda: K_mod.rss_delta_fold(acc_t, delta_t),
         lambda: R.rss_delta_fold_ref(acc_t, delta_t),
         dp * 32 + 2 * lp * 128 * 4)
+
+    gather_kernels(torch, np, check, report, results, data, ts, members,
+                   floor)
     return results
+
+
+def gather_kernels(torch, np, check, report, results, data, ts, members,
+                   floor):
+    """version_gather and rss_gather against their plain versions: at the
+    mirror's shape (the scan phase's store), at the bf16 embedding store,
+    and at edge shapes.  Bound: per page K*4 bytes of ts, one row read and
+    one row written, plus M*4 bytes of members."""
+    from repro_torch.kernels.rss_gather import kernel as RG
+    from repro_torch.kernels.rss_gather import ref as RGR
+    from repro_torch.kernels.version_gather import kernel as VG
+    from repro_torch.kernels.version_gather import ref as VGR
+
+    def both(name, shape, d, t, mem, fl, wm, timed):
+        nbytes = d.shape[0] * (d.shape[1] * 4 + 2 * d.shape[2]
+                               * d.element_size())
+        rss = lambda: RG.rss_gather(d, t, mem, fl)
+        rss_p = lambda: RGR.rss_gather_ref(d, t, mem, fl)
+        vg = lambda: VG.version_gather(d, t, wm)
+        vg_p = lambda: VGR.version_gather_ref(d, t, wm)
+        check("rss_gather", rss(), rss_p())
+        check("version_gather", vg(), vg_p())
+        if not timed:
+            return None
+        return (report("rss_gather", f"{shape} M={mem.numel()}", rss, rss_p,
+                       nbytes + mem.numel() * 4),
+                report("version_gather", shape, vg, vg_p, nbytes))
+
+    P, K, E = data.shape
+    for m, mem in members.items():
+        t = both("mirror", f"int32 P={P} K={K} E={E}", data, ts, mem, floor,
+                 floor, timed=True)
+        if m == 64:               # the mirror's concurrent window
+            results["rss_gather"]["times"] = t[0]
+            results["version_gather"]["times"] = t[1]
+
+    dev = data.device
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    emb = torch.randn((EMBED_P, EMBED_K, EMBED_E), generator=g, device=dev,
+                      dtype=torch.bfloat16)
+    emb_ts = torch.randint(0, 1000, (EMBED_P, EMBED_K), generator=g,
+                           device=dev, dtype=torch.int32)
+    rng = np.random.default_rng(1)
+    mem = torch.from_numpy(np.sort(rng.choice(np.arange(251, 1000), 64,
+                                              replace=False)).astype(
+        np.int32)).to(dev)
+    both("embedding", f"bf16 P={EMBED_P} K={EMBED_K} E={EMBED_E}", emb,
+         emb_ts, mem, 250, 500, timed=True)
+    del emb, emb_ts
+
+    n_edge = 0
+    for dtype in (torch.bfloat16, torch.int32):
+        for k in (1, 3, 33):
+            for e in (1, 3, 640):
+                for offset in (0, 1):           # 1: rows not 16-B aligned
+                    p = 10_007
+                    flat = torch.randint(-2**31, 2**31 - 1,
+                                         (p * k * e + offset,), generator=g,
+                                         device=dev, dtype=torch.int32)
+                    d = (flat.to(torch.bfloat16) if dtype == torch.bfloat16
+                         else flat)[offset:].view(p, k, e)
+                    t = torch.randint(0, 60, (p, k), generator=g,
+                                      device=dev, dtype=torch.int32)
+                    mem = torch.arange(31, 60, 3, dtype=torch.int32,
+                                       device=dev)
+                    both("edge", "", d, t, mem, 20, 40, timed=False)
+                    n_edge += 1
+    print(f"kernel gathers: {n_edge} edge shapes (K 1/3/33, E 1/3/640, "
+          "bf16/int32, aligned/unaligned rows) equal to plain", flush=True)
 
 
 # ------------------------------------------------------------ driver phases
@@ -282,11 +393,7 @@ def driver_phase(torch, K_mod, rounds: int,
                  profile_dir: Path | None = None) -> dict:
     from repro_torch.mvcc import Scale, run_single_node
 
-    # TPC-C cardinalities (TPC-C spec 1.4 / 4.3.3.1; CH-benCHmark): 4
-    # warehouses, 10 districts each, 3,000 customers per district, 100,000
-    # stock items per warehouse, 3,000 orders per district
-    scale = Scale(warehouses=4, districts=10, customers=3000, items=100_000,
-                  order_capacity=3000)
+    scale = Scale(**TPCC)
     run = lambda: run_single_node(
         olap_mode="ssi+rss", oltp_clients=8, olap_clients=4, rounds=rounds,
         seed=0, scale=scale, olap_scan=True, paged_olap=True,
@@ -315,6 +422,211 @@ def driver_phase(torch, K_mod, rounds: int,
     return launches
 
 
+# ------------------------------------------------------ snapshot-read path
+def oltp_traffic(engine, scale, n_txns: int, refresh, *, clients: int = 8,
+                 seed: int = 0, refresh_every: int = 64):
+    """Interleave `clients` OLTP writers of the `mvcc.workload` mix one
+    step each per round until `n_txns` have finished, calling `refresh()`
+    every `refresh_every` rounds (as the driver refreshes its RSS); the
+    writers open at the end stay in flight.  Returns (commits, aborts,
+    keys written by committed transactions)."""
+    from repro_torch.mvcc import SerializationFailure, Status, \
+        oltp_transaction
+
+    rng = random.Random(seed)
+    live = [None] * clients          # [txn, step generator, pending, keys]
+    done = commits = aborts = rounds = 0
+    written = set()
+    while done < n_txns:
+        rounds += 1
+        if rounds % refresh_every == 0:
+            refresh()
+        for i in range(clients):
+            c = live[i]
+            if c is None:
+                gen, name = oltp_transaction(rng, scale)
+                live[i] = [engine.begin(read_only=name == "order_status"),
+                           gen, None, []]
+                continue
+            txn, gen, pending, keys = c
+            try:
+                if txn.status == Status.ABORTED:
+                    raise SerializationFailure(txn.abort_reason)
+                try:
+                    step = gen.send(pending)
+                except StopIteration:
+                    engine.commit(txn)
+                    commits += 1
+                    written.update(keys)
+                    done += 1
+                    live[i] = None
+                    continue
+                c[2] = None
+                if step[0] == "r":
+                    c[2] = engine.read(txn, step[1])
+                elif step[0] == "w":
+                    engine.write(txn, step[1], step[2])
+                    keys.append(step[1])
+            except SerializationFailure:
+                aborts += 1
+                done += 1
+                live[i] = None
+    in_flight = sum(1 for c in live if c is not None and c[3])
+    return commits, aborts, written, in_flight
+
+
+def path_phase(torch, n_txns: int, device: str = "cuda") -> dict:
+    """The whole TPC-C-scale mirror read at a pinned RSS snapshot through
+    the gather kernels, held against the mirror's host scans and the
+    engine's per-key protected reads.  Returns phase timings (s).
+    (`device="cpu"` runs the plain versions: a rehearsal off the card.)"""
+    from repro_torch.kernels.rss_gather.ops import (member_tensor,
+                                                    snapshot_read_members)
+    from repro_torch.kernels.rss_gather.ref import rss_gather_ref
+    from repro_torch.kernels.version_gather.ops import snapshot_read
+    from repro_torch.mvcc import Scale, SingleNodeHTAP, load_initial
+    from repro_torch.tensorstore import decode_value, gather_pages
+
+    times = {}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        now = time.perf_counter()
+        times[name] = now - clock[0]
+        clock[0] = now
+
+    scale = Scale(**TPCC)
+    htap = SingleNodeHTAP("ssi+rss", paged=True, device=device,
+                          reserve_keys=scale.key_families())
+    load_initial(htap.engine, scale)
+    htap.refresh_rss()
+    lap("setup_load_s")
+    commits, aborts, written, in_flight = oltp_traffic(
+        htap.engine, scale, n_txns, htap.refresh_rss)
+    htap.refresh_rss()
+    rid, snap = htap.prot.acquire()
+    lap("oltp_s")
+    mirror = htap.mirror
+    members = mirror.member_seqs_for(snap)
+    store = mirror.torch_store()
+    lap("export_s")
+    out = snapshot_read_members(store, members, snap.floor_seq)
+    lap("rss_read_s")
+    if not torch.equal(out, rss_gather_ref(
+            store["data"], store["ts"],
+            member_tensor(members, store["ts"].device), snap.floor_seq)):
+        raise AssertionError("rss_gather != plain on the mirror")
+    lap("plain_check_s")
+    keys, page_of = mirror.keys, mirror.page_of      # page i holds keys[i]
+    dev_vals = [decode_value(r) for r in out[:len(keys)].cpu().numpy()]
+    lap("decode_s")
+    host_vals = mirror.scan_members(keys, snap)
+    lap("scan_members_s")
+    if dev_vals != host_vals:
+        bad = next(i for i, (a, b) in enumerate(zip(dev_vals, host_vals))
+                   if a != b)
+        raise AssertionError(f"rss_gather != scan_members at {keys[bad]}: "
+                             f"{dev_vals[bad]} != {host_vals[bad]}")
+    read = dict(zip(keys, dev_vals))
+    rng = random.Random(1)
+    check_keys = sorted(written) + rng.sample(keys, min(10_000, len(keys)))
+    reader = htap.engine.begin(read_only=True, rss=snap)
+    for k in check_keys:
+        want = htap.engine.read(reader, k)
+        want = 0 if want is None else want    # never written: the codec's 0
+        if read[k] != want:
+            raise AssertionError(f"rss_gather != engine read at {k}: "
+                                 f"{read[k]} != {want}")
+    lap("engine_reads_s")
+    for wm in (snap.floor_seq, mirror.watermark):
+        at = snapshot_read(store, wm)
+        if [decode_value(r) for r in at[:len(keys)].cpu().numpy()] != \
+                mirror.scan_at(keys, wm):
+            raise AssertionError(f"version_gather != scan_at at {wm}")
+    older = int((out != at).any(dim=1).sum())     # at: the newest commit
+    if older == 0:
+        raise AssertionError("no page read a previous version: the RSS "
+                             "read never skipped a committed writer")
+    sub_keys = check_keys[:5000]
+    sub = gather_pages(store, [page_of[k] for k in sub_keys])
+    got = snapshot_read_members(sub, members, snap.floor_seq).cpu().numpy()
+    if [decode_value(r) for r in got[:len(sub_keys)]] != \
+            [read[k] for k in sub_keys]:
+        raise AssertionError("gather_pages sub-store read != whole read")
+    lap("scan_at_and_sub_s")
+    htap.prot.release(rid)
+    gb = store["data"].numel() * 4 / 1e9
+    print(f"path: {mirror.n_pages} pages ({gb:.3f} GB of pages on the "
+          f"card), {commits} commits {aborts} aborts, "
+          f"{in_flight} writers in flight, RSS floor {snap.floor_seq} with "
+          f"{len(members)} members above it, newest commit "
+          f"{mirror.watermark}; {len(check_keys)} keys held against the "
+          f"engine; {older} pages read a previous version", flush=True)
+    print("path times: " + " ".join(f"{k}={v:.3f}"
+                                    for k, v in times.items()), flush=True)
+    return times
+
+
+# ------------------------------------------------------------- param store
+def param_store_phase(torch, device: str = "cuda") -> None:
+    """The bf16 embedding store on the card: publishes in three waves at
+    rising ts, each under the gc_floor of the wave's start (the pinned
+    readers' horizon), then reads at several watermarks at or above the
+    last floor and one RSS member read, each held against a
+    dict-of-versions oracle over every row."""
+    from repro_torch.kernels.rss_gather.ops import snapshot_read_members
+    from repro_torch.kernels.version_gather.ops import snapshot_read
+    from repro_torch.tensorstore import init_store, publish_page
+
+    t0 = time.perf_counter()
+    dev = torch.device(device)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    initial = torch.randn((EMBED_P, EMBED_E), generator=g, device=dev)
+    store = init_store(EMBED_P, EMBED_K, EMBED_E, torch.bfloat16,
+                       initial=initial, device=dev)
+    rng = random.Random(2)
+    versions = {}                       # row -> [(ts, bf16 payload)]
+    ts = floor = 0
+    for _wave in range(3):
+        floor = ts                      # readers pinned at the wave's start
+        for row in rng.sample(range(EMBED_P), 120):
+            ts += rng.randint(1, 3)
+            payload = torch.randn(EMBED_E, generator=g, device=dev)
+            publish_page(store, row, payload, ts, gc_floor=floor)
+            versions.setdefault(row, []).append(
+                (ts, payload.to(torch.bfloat16)))
+    members = sorted(rng.sample(range(floor + 1, ts + 1), (ts - floor) // 2))
+    base = initial.to(torch.bfloat16)
+
+    def expect(visible):
+        want = base.clone()
+        for row, vs in versions.items():
+            seen = [p for t, p in vs if visible(t)]
+            if seen:
+                want[row] = seen[-1]
+        return want
+
+    n = 0
+    for wm in (floor, (floor + ts) // 2, ts):
+        got = snapshot_read(store, wm)
+        if not torch.equal(got, expect(lambda t: t <= wm)):
+            raise AssertionError(f"param store: snapshot_read at {wm}")
+        n += 1
+    mem = set(members)
+    got = snapshot_read_members(store, members, floor)
+    if not torch.equal(got, expect(lambda t: t <= floor or t in mem)):
+        raise AssertionError("param store: snapshot_read_members")
+    print(f"param store: {EMBED_P}x{EMBED_K}x{EMBED_E} bf16 "
+          f"({store['data'].numel() * 2 / 1e9:.3f} GB), "
+          f"{sum(len(v) for v in versions.values())} publishes over "
+          f"{len(versions)} rows, gc_floor {floor}; {n} watermark reads + "
+          f"1 member read ({len(members)} members) == oracle in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -330,7 +642,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.rss_gather import kernel as RG
     from repro_torch.kernels.rss_scan_agg import kernel as K_mod
+    from repro_torch.kernels.version_gather import kernel as VG
 
     t_start = time.perf_counter()
     card = card_line()
@@ -339,12 +654,13 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    lib = K_mod.build()
-    print(f"build: {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for line in K_mod.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print(f"ptxas: {line.strip()}", flush=True)
+    libs = cuda_build.build()
+    names = ", ".join(str(p.relative_to(ROOT)) for p in libs.values())
+    print(f"build: {names} in {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"ptxas {name}: {line.strip()}", flush=True)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     results = kernel_phase(torch, np, K_mod, flush)
@@ -352,15 +668,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     small_driver_phase()
     launches = driver_phase(torch, K_mod, ROUNDS, args.profile)
+    torch.cuda.empty_cache()
 
-    replaces = {"rss_scan_agg": 189, "rss_scan_agg_grouped": 260,
-                "rss_scan_agg_chunked": 405, "rss_delta_fold": 524}
+    # the snapshot-read paths: gather launches counted from 0 in each
+    for phase in (lambda: path_phase(torch, PATH_TXNS),
+                  lambda: param_store_phase(torch)):
+        RG.reset_launches()
+        VG.reset_launches()
+        phase()
+        for fn in (VG.version_gather, RG.rss_gather):
+            if fn.launches == 0:
+                raise AssertionError(f"{fn.__name__} never launched")
+            launches[fn.__name__] = launches.get(fn.__name__, 0) \
+                + fn.launches
+    print(f"path launches: version_gather {launches['version_gather']} "
+          f"rss_gather {launches['rss_gather']}", flush=True)
+
+    replaces = {"rss_scan_agg": f"{TPU_SRC}:189",
+                "rss_scan_agg_grouped": f"{TPU_SRC}:260",
+                "rss_scan_agg_chunked": f"{TPU_SRC}:405",
+                "rss_delta_fold": f"{TPU_SRC}:524", **GATHER_TPU}
     rows = []
-    for name, line in replaces.items():
+    for name, where in replaces.items():
         ms, plain_ms, bound_ms = results[name]["times"]
-        rows.append({"name": name, "route": "cuda", "source": SRC,
-                     "replaces": f"{TPU_SRC}:{line}",
-                     "launches": launches[name],
+        rows.append({"name": name, "route": "cuda",
+                     "source": GATHER_SRC if name in GATHER_TPU else SRC,
+                     "replaces": where, "launches": launches[name],
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})

@@ -1,13 +1,18 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) + their plain PyTorch
 versions.
 
-rss_scan_agg — fused RSS visibility resolve + on-device aggregate
-               (scalar, grouped flat-lane, grouped chunked) and the
-               materialized-view delta fold
+version_gather — SI-V snapshot visibility gather (the paper's hot spot)
+rss_gather     — RSS set-membership visibility gather (previous-version
+                 read)
+rss_scan_agg   — fused RSS visibility resolve + on-device aggregate
+                 (scalar, grouped flat-lane, grouped chunked) and the
+                 materialized-view delta fold
 
 A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 version for CPU tensors; nothing else picks between them.  The device of
-the tensors comes from the entry point (`config.resolve_device`).
+the tensors comes from the entry point (`config.resolve_device`).  Every
+source under `csrc/` is built by `cuda_build.build()`, one nvcc each, at
+first use.
 """
 
 from .config import resolve_device

@@ -29,113 +29,38 @@ wrapper counts real kernel launches only.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
+from ..cuda_build import check as _check
+from ..cuda_build import i32 as _i32
+from ..cuda_build import load
+from ..cuda_build import on_cuda as _on_cuda
+from ..cuda_build import reset_counts
+from ..cuda_build import stream as _stream
+from ..cuda_build import tensor_arg as _arg
+
 _I32_MAX = 2 ** 31 - 1
-_I32_MIN = -2 ** 31
 
 # chunk geometry unit of the reference's select stage: 64 pages per row
 SELECT_BLOCK = 64
 
-_SRC = Path(__file__).resolve().parents[2] / "csrc" / "rss_scan_agg.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_LIB = None
-BUILD_LOG = ""          # nvcc's output of this process's build (ptxas -v)
-
-
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
-    found = str(cand) if cand.exists() else shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
-                           "kernels are built from source at first use")
-    return found
-
-
-def build() -> Path:
-    """Compile the kernel source for sm_90a into BUILD_DIR (once per
-    source content: the library name carries the source hash) and return
-    the shared library's path."""
-    global BUILD_LOG
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"librss_scan_agg_{digest}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                               str(_SRC)], capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{BUILD_LOG}")
-        os.replace(tmp, lib)
-    return lib
+def _bind(lib) -> None:
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.rsa_scan_agg.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i, p, p]
+    lib.rsa_scan_agg_grouped.argtypes = [p, p, p, p, i, ll, i, i, i, p, i,
+                                         i, p, p]
+    lib.rsa_scan_agg_chunked.argtypes = [p, p, p, p, i, ll, i, i, i, p, i,
+                                         ll, i, p, p]
+    lib.rsa_delta_fold.argtypes = [p, p, i, ll, p, p]
+    for fn in (lib.rsa_scan_agg, lib.rsa_scan_agg_grouped,
+               lib.rsa_scan_agg_chunked, lib.rsa_delta_fold):
+        fn.restype = ctypes.c_int
 
 
 def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.rsa_scan_agg.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i,
-                                     p, p]
-        lib.rsa_scan_agg_grouped.argtypes = [p, p, p, p, i, ll, i, i, i, p,
-                                             i, i, p, p]
-        lib.rsa_scan_agg_chunked.argtypes = [p, p, p, p, i, ll, i, i, i, p,
-                                             i, ll, i, p, p]
-        lib.rsa_delta_fold.argtypes = [p, p, i, ll, p, p]
-        for fn in (lib.rsa_scan_agg, lib.rsa_scan_agg_grouped,
-                   lib.rsa_scan_agg_chunked, lib.rsa_delta_fold):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
-
-
-def _check(err: int, name: str) -> None:
-    if err:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    """True for CUDA tensors (launch the kernel), False for CPU tensors
-    (plain version); anything else raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"unsupported device {t.device}")
-
-
-def _arg(t: torch.Tensor, name: str, dev: torch.device, ndim: int):
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, expected {dev}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {t.dtype}")
-    if t.dim() != ndim:
-        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return t.data_ptr()
-
-
-def _i32(v, name: str) -> int:
-    v = int(v)
-    if not _I32_MIN <= v <= _I32_MAX:
-        raise OverflowError(f"{name}={v} does not fit int32")
-    return v
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+    return load("rss_scan_agg", _bind)
 
 
 def _store_args(data, ts, member_ts):
@@ -323,10 +248,7 @@ for _fn in KERNELS:
 
 def reset_launches() -> dict:
     """Zero every wrapper's `launches` count; returns the counts before."""
-    before = {fn.__name__: fn.launches for fn in KERNELS}
-    for fn in KERNELS:
-        fn.launches = 0
-    return before
+    return reset_counts(KERNELS)
 
 
 def tree_fold_partials(partials: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ...obs import REGISTRY, StatsView
+from ..rss_gather.ops import member_tensor as _members
 from .kernel import (rss_delta_fold, rss_scan_agg, rss_scan_agg_chunked,
                      rss_scan_agg_grouped, tree_fold_partials)
 
@@ -89,13 +90,6 @@ def select_grouped_mode(n_pages: int, n_groups: int, n_plans: int = 1, *,
 def _device_i32(x, dev: torch.device) -> torch.Tensor:
     """Upload a host array-like as an int32 tensor on `dev`."""
     return torch.as_tensor(np.ascontiguousarray(x, np.int32), device=dev)
-
-
-def _members(member_ts, dev: torch.device) -> torch.Tensor:
-    """Member timestamps as the sorted int32 device array the kernels
-    binary-search."""
-    return _device_i32(np.sort(np.asarray(member_ts, np.int32).reshape(-1)),
-                       dev)
 
 
 # --- overflow guard ---------------------------------------------------------

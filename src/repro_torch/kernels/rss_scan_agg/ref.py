@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..rss_gather.ref import gather_slots, rss_visible_slots_ref
 from .kernel import _chunk_shape
 
 _I32_MAX = 2 ** 31 - 1
@@ -24,28 +25,8 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
     return (((x + 2 ** 31) & (2 ** 32 - 1)) - 2 ** 31).to(torch.int32)
 
 
-def rss_visible_slots_ref(ts: torch.Tensor, member_ts: torch.Tensor,
-                          floor=0) -> torch.Tensor:
-    """ts [P,K] int32, member_ts [M] int32, scalar floor -> [P] slot index
-    of the newest slot whose ts is at-or-below `floor` or a member (ties:
-    lowest slot; no visible slot: slot 0).  M == 0 with floor 0 resolves
-    every page to its newest ts == 0 slot."""
-    if member_ts.numel() == 0:
-        is_member = ts <= floor
-    else:
-        is_member = (ts <= floor) | torch.isin(ts, member_ts)
-    masked = torch.where(is_member, ts, -1)
-    best = masked.max(dim=1, keepdim=True).values
-    k = ts.shape[1]
-    idx = torch.arange(k, dtype=torch.int32, device=ts.device)[None, :]
-    return torch.where(masked == best, idx, k).min(dim=1).values.to(
-        torch.int32)
-
-
 def _resolve_tag_x(data, ts, member_ts, floor):
-    slot = rss_visible_slots_ref(ts, member_ts, floor).long()
-    rows = torch.arange(data.shape[0], device=data.device)
-    sel = data[rows, slot]                                 # [P, E]
+    sel = gather_slots(data, rss_visible_slots_ref(ts, member_ts, floor))
     return sel[:, 0], sel[:, 1]
 
 

@@ -1,7 +1,12 @@
-"""RSS-versioned paged stores: the WAL mirror, its plan executor and
-materialized views (PyTorch port of `repro.tensorstore`'s OLAP path)."""
+"""RSS-versioned tensor stores (PyTorch port of `repro.tensorstore`): the
+page-granular snapshot-read store, the versioned parameter store, the WAL
+mirror, its plan executor and materialized views."""
 
-from .paged import as_page_range
+from .versioned import VersionedParamStore
+from .paged import (init_store, store_from_numpy, visible_slots,
+                    snapshot_read_ref, visible_slots_members,
+                    snapshot_read_members, publish_page, as_page_range,
+                    gather_pages)
 from .materialized import MaterializedView
 from .mirror import PagedMirror, decode_value, encode_value
 from .version_store import (AggOp, AggPlan, BatchPlan, ChainVersionStore,
@@ -11,7 +16,10 @@ from .version_store import (AggOp, AggPlan, BatchPlan, ChainVersionStore,
                             plan_keys)
 
 __all__ = [
-    "as_page_range",
+    "VersionedParamStore",
+    "init_store", "store_from_numpy", "visible_slots", "snapshot_read_ref",
+    "visible_slots_members", "snapshot_read_members", "publish_page",
+    "as_page_range", "gather_pages",
     "PagedMirror", "MaterializedView", "encode_value", "decode_value",
     "VersionStore", "ChainVersionStore", "PagedVersionStore",
     "AggOp", "AggPlan", "BatchPlan", "MultiAggPlan", "GroupByPlan",

@@ -124,3 +124,114 @@ def test_small_driver_cuda_equals_cpu(dev):
               "serve_latency_by_plan", "serve_stage_latency"):
         a.pop(k), b.pop(k)
     assert a == b
+
+
+# ------------------------------------------------------------ gather kernels
+GATHER_DTYPES = ["bfloat16", "float16", "float32", "int32"]
+
+
+def _gather_inputs(dev, P, K, E, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    if dtype == "int32":
+        data = torch.from_numpy(rng.integers(-2**31, 2**31, (P, K, E),
+                                             dtype=np.int64).astype(np.int32))
+    else:
+        data = torch.from_numpy(rng.standard_normal((P, K, E)).astype(
+            np.float32)).to(getattr(torch, dtype))
+    ts = torch.from_numpy(rng.integers(0, 9000, (P, K)).astype(np.int32))
+    return data.to(dev), ts.to(dev), rng
+
+
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("K", [1, 2, 8, 33])
+@pytest.mark.parametrize("E", [1, 3, 32, 640, 1024])
+def test_gather_kernels_equal_plain(dev, dtype, K, E):
+    """Both gather kernels == their plain versions, bitwise, for every
+    element size, slot count (K = 33 loops past one warp) and row width
+    (E = 1 and 3 give rows that are not 16-byte multiples)."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.rss_gather import ref as RR
+    from repro_torch.kernels.version_gather import kernel as VK
+    from repro_torch.kernels.version_gather import ref as VR
+
+    data, ts, rng = _gather_inputs(dev, 301, K, E, dtype, seed=K * E)
+    for M in (0, 7, 4096):
+        mem = torch.from_numpy(np.sort(rng.choice(
+            np.arange(4001, 9000), M, replace=False)).astype(np.int32)).to(dev)
+        for floor in (0, 4000):
+            assert torch.equal(RK.rss_gather(data, ts, mem, floor),
+                               RR.rss_gather_ref(data, ts, mem, floor))
+    for wm in (0, 4000, 9000):
+        assert torch.equal(VK.version_gather(data, ts, wm),
+                           VR.version_gather_ref(data, ts, wm))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_gather_kernels_on_unaligned_rows(dev, offset):
+    """A contiguous store that starts `offset` elements into its storage:
+    row addresses are not 16-byte aligned, so the copy takes the narrow
+    path."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.rss_gather import ref as RR
+    from repro_torch.kernels.version_gather import kernel as VK
+    from repro_torch.kernels.version_gather import ref as VR
+
+    P, K, E = 97, 3, 40
+    flat, ts, _ = _gather_inputs(dev, 1, 1, P * K * E + offset, "bfloat16")
+    data = flat.view(-1)[offset:].view(P, K, E)
+    ts = ts.new_tensor(np.random.default_rng(offset).integers(
+        0, 50, (P, K)).astype(np.int32))
+    mem = torch.tensor([31, 40, 47], dtype=torch.int32, device=dev)
+    assert data.is_contiguous() and data.data_ptr() % 16
+    assert torch.equal(RK.rss_gather(data, ts, mem, 20),
+                       RR.rss_gather_ref(data, ts, mem, 20))
+    assert torch.equal(VK.version_gather(data, ts, 33),
+                       VR.version_gather_ref(data, ts, 33))
+
+
+def test_gather_kernels_copy_bits_and_empty_shapes(dev):
+    """NaN in an unselected slot and a selected -0.0 come through bit for
+    bit; P = 0 and E = 0 return empty outputs without a launch."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.version_gather import kernel as VK
+
+    data = torch.ones((64, 3, 17), device=dev)
+    data[:, 1] = float("nan")
+    data[:, 0, 0] = -0.0
+    ts = torch.zeros((64, 3), dtype=torch.int32, device=dev)
+    ts[:, 1:] = 50
+    empty = torch.zeros((0,), dtype=torch.int32, device=dev)
+    for out in (VK.version_gather(data, ts, 10),
+                RK.rss_gather(data, ts, empty, 0)):
+        assert torch.equal(out.view(torch.int32),
+                           data[:, 0].contiguous().view(torch.int32))
+    RK.reset_launches(), VK.reset_launches()
+    assert RK.rss_gather(data[:0], ts[:0], empty).shape == (0, 17)
+    assert VK.version_gather(data[:, :, :0].contiguous(), ts, 5).shape \
+        == (64, 0)
+    assert RK.rss_gather.launches == VK.version_gather.launches == 0
+
+
+def test_gather_wrappers_reject_bad_inputs_and_count_launches(dev):
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.version_gather import kernel as VK
+
+    data, ts, _ = _gather_inputs(dev, 64, 4, 16, "float32")
+    mem = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    RK.reset_launches(), VK.reset_launches()
+    RK.rss_gather(data, ts, mem, 0)
+    VK.version_gather(data, ts, 100)
+    assert RK.rss_gather.launches == VK.version_gather.launches == 1
+    with pytest.raises(ValueError):          # sliced, non-contiguous
+        RK.rss_gather(data[:, :, ::2], ts, mem, 0)
+    with pytest.raises(ValueError):
+        VK.version_gather(data, ts[:, ::2], 0)
+    with pytest.raises(ValueError):          # member_ts on the wrong device
+        RK.rss_gather(data, ts, mem.cpu(), 0)
+    with pytest.raises(TypeError):
+        RK.rss_gather(data, ts, mem.long(), 0)
+    with pytest.raises(ValueError):
+        VK.version_gather(data, ts[:-1], 0)
+    with pytest.raises(OverflowError):
+        VK.version_gather(data, ts, 2**31)
+    assert RK.rss_gather.launches == VK.version_gather.launches == 1
