@@ -38,7 +38,27 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    `publish_page`s at rising ts under a rising `gc_floor`, read by
    `snapshot_read` / `snapshot_read_members` at several watermarks
    against a dict-of-versions oracle; both gather kernels must have
-   launched in phases 6 and 7.
+   launched in phases 6 and 7;
+8. attention kernel phase: `flash_attention` at the serve path's prefill
+   shape (bf16, B = 8, S = T = 1,024, H = K = 16, hd = 64, causal), at a
+   GQA + window shape (H = 32, K = 8, hd = 128, window 256), at ragged
+   S = T = 1,000 (bf16, and f32 with TF32 off), and `decode_attention`
+   at B = 8, T = 1,088, valid_len in {1, 600, 1,088}, G = 1 (hd 64) and
+   G = 4 (hd 128), each against its plain PyTorch version on the card
+   (bf16 rtol = atol = 3e-2, f32 2e-5); prints kernel, plain, bound and
+   `scaled_dot_product_attention` (library) times;
+9. serve phase: Qwen1.5-0.5B (`repro_torch.configs`, full width and
+   depth, bf16, random weights from torch.Generator seed 0) published
+   into a `VersionedParamStore` and served by `ServingEngine`: request 1
+   (8 prompts of 1,024 tokens, 64 decode steps, refresh between steps)
+   while a writer publishes v2 (embedding rows and lm_head columns
+   perturbed) under request 1's pin, then request 2 on v2.  Checks: (a)
+   request 1's prefill and decode logits against the plain attention
+   path on the card; (b) prefill + decode against `forward` over the
+   whole 1,088 tokens; (c) 24 flash and 24 x 64 decode launches per
+   request; (d) request 2's snapshot LSN above request 1's, and request
+   1 served from v1 alone; then one more request under torch.profiler
+   for the device's busy time, idle share and time by kernel kind.
 
 It prints one `{"kernels": [...]}` JSON line, the card line, and last
 `{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
@@ -48,6 +68,7 @@ package `repro`.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import random
@@ -63,7 +84,13 @@ GATHER_SRC = "src/repro_torch/csrc/gather.cu"
 GATHER_TPU = {
     "version_gather": "src/repro/kernels/version_gather/kernel.py:48",
     "rss_gather": "src/repro/kernels/rss_gather/kernel.py:66"}
+ATTN_SRC = "src/repro_torch/csrc/attention.cu"
+ATTN_TPU = {
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:75",
+    "decode_attention": "src/repro/kernels/decode_attention/kernel.py:62"}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
+# H100 SXM dense peaks: bf16/f16 on the tensor cores, f32 outside them
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 SLEEP_CYCLES = 20_000_000          # lets the host enqueue ahead of a timing
 ROUNDS = 150                       # driver rounds at TPC-C scale
 PATH_TXNS = 3000                   # OLTP transactions before the read
@@ -75,6 +102,10 @@ TPCC = dict(warehouses=4, districts=10, customers=3000, items=100_000,
 # Qwen1.5-0.5B's embedding table (src/repro/configs/qwen1_5_0_5b.py):
 # vocabulary 151,936 rows of d_model 1,024, here with K = 2 versions
 EMBED_P, EMBED_K, EMBED_E = 151_936, 2, 1024
+# serve phase: the model, 8 prompts of 1,024 tokens, 64 decode steps
+# (cache of 1,088); the writer publishes v2 after this decode step
+SERVE_ARCH, SERVE_SMOKE = "qwen1.5-0.5b", False
+SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
 
 
 def card_line() -> str:
@@ -627,6 +658,376 @@ def param_store_phase(torch, device: str = "cuda") -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# -------------------------------------------------------- attention kernels
+def _visible_pairs(np, S: int, T: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the mask admits: the work this run's shapes
+    need (the causal triangle, the window band)."""
+    i = np.arange(S)
+    hi = np.minimum(i, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros(S, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def _bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    """The least time (ms) the card could take: bytes over the memory rate
+    or operations over the peak for the dtype, whichever is larger."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_kernel_phase(torch, np, flush) -> dict:
+    """flash_attention and decode_attention against their plain versions
+    on the card, in the model's layout as the serve path hands it (q
+    [B,S,H,hd], k/v or the cache [B,T,K,hd]), timed beside their bound
+    and `scaled_dot_product_attention` on the same work (GQA heads
+    expanded and masks built outside the timed region).  Returns
+    {name: {"max_abs_err", "times": (ms, plain, bound, library, by)}}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention.ops import decode_gqa
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention.ops import attention_bshd
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks in f32
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    tol = {"bfloat16": 3e-2, "float32": 2e-5}
+    results = {"flash_attention": {"max_abs_err": 0.0},
+               "decode_attention": {"max_abs_err": 0.0}}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=g, device=dev).to(
+            getattr(torch, dtype))
+
+    def check(name, label, got, want, dtype):
+        torch.cuda.synchronize()
+        got, want = got.float(), want.float()
+        err = (got - want).abs()
+        bad = ~(err <= tol[dtype] * (1 + want.abs()))
+        if not torch.isfinite(got).all() or bad.any():
+            raise AssertionError(f"{name} {label}: kernel != plain "
+                                 f"(max |d| {err.max().item()})")
+        res = results[name]
+        res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+
+    def report(name, label, fn, plain, library, nbytes, flops, dtype):
+        ms = time_ms(torch, fn, flush)
+        plain_ms = time_ms(torch, plain, flush, reps=5)
+        library_ms = time_ms(torch, library, flush)
+        bound_ms, by = _bound(nbytes, flops, dtype)
+        print(f"kernel {name} {label}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
+              f"library_ms={library_ms:.4f} ({nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+        return ms, plain_ms, bound_ms, library_ms, by
+
+    def sdpa(q, k, v, causal, window):
+        """SDPA in its own [B,H,S,hd] layout with K/V heads expanded."""
+        G = q.shape[2] // k.shape[2]
+        qh = q.transpose(1, 2).contiguous()
+        kh, vh = (x.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+                  for x in (k, v))
+        mask = None
+        if window:
+            i = torch.arange(q.shape[1], device=dev)[:, None]
+            j = torch.arange(k.shape[1], device=dev)[None, :]
+            mask = i - j < window
+            if causal:
+                mask &= i >= j
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, is_causal=causal and not window)
+
+    # (label, dtype, B, S, T, H, K, hd, causal, window, timed)
+    flash_cases = [
+        ("prefill", "bfloat16", 8, 1024, 1024, 16, 16, 64, True, 0, True),
+        ("gqa+window", "bfloat16", 2, 2048, 2048, 32, 8, 128, True, 256,
+         True),
+        ("ragged", "bfloat16", 2, 1000, 1000, 16, 16, 64, True, 0, False),
+        ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False)]
+    for (label, dt, B, S, T, H, K, hd, causal, window, timed) in flash_cases:
+        q = randn((B, S, H, hd), dt)
+        k, v = randn((B, T, K, hd), dt), randn((B, T, K, hd), dt)
+        fn = lambda: attention_bshd(q, k, v, causal=causal, window=window)
+        plain = lambda: attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=causal, window=window).transpose(1, 2)
+        shape = (f"{dt} B={B} S={S} T={T} H={H} K={K} hd={hd} "
+                 f"causal={causal} window={window}")
+        check("flash_attention", shape, fn(), plain(), dt)
+        if timed:
+            esz = q.element_size()
+            nbytes = esz * (2 * B * S * H * hd + 2 * B * T * K * hd)
+            flops = 4 * B * H * hd * _visible_pairs(np, S, T, causal,
+                                                    window)
+            t = report("flash_attention", f"{label} {shape}", fn, plain,
+                       sdpa(q, k, v, causal, window), nbytes, flops, dt)
+            if label == "prefill":
+                results["flash_attention"]["times"] = t
+        del q, k, v
+
+    # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies
+    for label, B, T, H, K, hd in (("G=1", 8, 1088, 16, 16, 64),
+                                  ("G=4", 8, 1088, 32, 8, 128)):
+        q = randn((B, H, hd), "bfloat16")
+        kc, vc = (randn((B, T, K, hd), "bfloat16") for _ in range(2))
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        for vl in (1, 600, T):
+            fn = lambda: decode_gqa(q, k, v, vl)
+            plain = lambda: decode_attention_ref(q, k, v, vl)
+            shape = f"bf16 B={B} T={T} H={H} K={K} hd={hd} valid_len={vl}"
+            check("decode_attention", shape, fn(), plain(), "bfloat16")
+            if vl != T:
+                continue
+            kx, vx = (x[:, :, :vl].repeat_interleave(H // K, 1).contiguous()
+                      for x in (k, v))
+            q4 = q[:, :, None].contiguous()
+            library = lambda: F.scaled_dot_product_attention(q4, kx, vx)
+            nbytes = 2 * (2 * B * H * hd + 2 * B * vl * K * hd)
+            t = report("decode_attention", f"{label} {shape}", fn, plain,
+                       library, nbytes, 4 * B * H * hd * vl, "bfloat16")
+            if label == "G=1":
+                results["decode_attention"]["times"] = t
+        del q, kc, vc, k, v
+    return results
+
+
+# ------------------------------------------------------------------ serving
+@contextlib.contextmanager
+def plain_attention():
+    """Inside the block, the layers' attention runs on the plain PyTorch
+    versions (the chunked online softmax and `decode_attention_ref`) on
+    the tensors' own device: the plain path that check (a) holds the
+    kernels against."""
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models import layers
+
+    saved = layers.attention_bshd, layers.decode_gqa
+    layers.attention_bshd = lambda q, k, v, *, causal, window: \
+        layers.flash_attention_chunked(q, k, v, causal=causal, window=window)
+    layers.decode_gqa = decode_attention_ref
+    try:
+        yield
+    finally:
+        layers.attention_bshd, layers.decode_gqa = saved
+
+
+def _logits_close(torch, what: str, got, want, rel: float = 3e-2) -> float:
+    """max |got - want| <= rel * max |want| (bf16 through 24 layers: the
+    residual stream is rounded to bf16 at every layer, so two orders of
+    the same sums move logits by a few 1e-3 of their max-abs; 3e-2 is the
+    CPU tests' bf16 tolerance).  Returns the ratio."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{what}: non-finite logits")
+    ratio = ((got - want).abs().max() / want.abs().max()).item()
+    if not ratio <= rel:
+        raise AssertionError(f"{what}: max |d| / max |logit| = {ratio:.4g}"
+                             f" > {rel}")
+    return ratio
+
+
+def serve_phase(torch, np, device: str = "cuda") -> dict:
+    """Qwen1.5-0.5B served from RSS-pinned parameter snapshots, with
+    checks (a)-(d) (see the module docstring).  Returns the attention
+    kernels' launches over both requests.  (`device="cpu"` runs the plain
+    versions, where no kernel launches: a rehearsal off the card.)"""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tensorstore import VersionedParamStore
+
+    cfg = get_config(SERVE_ARCH)
+    cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    B, S, N = SERVE_B, SERVE_S, SERVE_STEPS
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    v1 = init_params(cfg, g, dev)
+    # the writer's v2: the embedding tuner of examples/htap_train_serve.py
+    rows, d = cfg.vocab_size // 4, cfg.d_model
+    g.manual_seed(1)
+    v2 = dict(v1, embed=v1["embed"].clone(), lm_head=v1["lm_head"].clone())
+    v2["embed"][:rows] += 0.02 * torch.randn(
+        (rows, d), generator=g, device=dev).to(v1["embed"].dtype)
+    v2["lm_head"][:, :rows] += d ** -0.5 * torch.randn(
+        (d, rows), generator=g, device=dev).to(v1["lm_head"].dtype)
+    store = VersionedParamStore(slots=2)
+    store.publish(v1)
+    eng = ServingEngine(cfg, store, max_seq=S + N, device=dev)
+    eng.refresh()
+    prompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, S))).to(dev)
+    sync()
+    print(f"serve: {cfg.name} {cfg.param_count() / 1e9:.3f} B params "
+          f"({cfg.param_dtype}), init + publish in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    # observe the engine's calls (the pinned params, logits, the prefill's
+    # end) and let the writer publish v2 during request 1
+    log: dict = {}
+    prefill_fn, decode_fn = eng._prefill, eng._decode
+
+    def rec_prefill(p, b):
+        out = prefill_fn(p, b)
+        sync()
+        log["t_prefill"] = time.perf_counter()
+        log["params"].append(p)
+        log["logits"].append(out[0])
+        return out
+
+    def rec_decode(p, t, c, n):
+        out = decode_fn(p, t, c, n)
+        log["params"].append(p)
+        log["logits"].append(out[0])
+        if log["writer"] and len(log["logits"]) == 1 + SERVE_PUBLISH_AT:
+            tw = time.perf_counter()
+            log["v2_txn"] = store.publish(v2)      # commit, never waits
+            log["publish_us"] = (time.perf_counter() - tw) * 1e6
+            held = [s for s in store.slots if s.params is v1]
+            if not (held and held[0].valid and held[0].pins == 1) \
+                    or store.stats["gc_blocked"]:
+                raise AssertionError("the publish disturbed the pinned v1")
+        return out
+
+    eng._prefill, eng._decode = rec_prefill, rec_decode
+
+    def request(writer: bool):
+        log.update(params=[], logits=[], writer=writer)
+        sync()
+        t = time.perf_counter()
+        res = eng.generate({"tokens": prompts}, N,
+                           refresh_between_steps=True)
+        sync()
+        t_end = time.perf_counter()
+        prefill_s, decode_s = log["t_prefill"] - t, t_end - log["t_prefill"]
+        counts = (FK.flash_attention.launches, DK.decode_attention.launches)
+        return res, counts, list(log["logits"]), list(log["params"]), \
+            (prefill_s, decode_s)
+
+    FK.reset_launches()
+    DK.reset_launches()
+    res1, c1, logits1, pinned1, t1 = request(writer=True)
+    visible_after_1 = store.visible_lsn()
+    eng.refresh()
+    res2, c2, _, pinned2, t2 = request(writer=False)
+    launches = {"flash_attention": c2[0], "decode_attention": c2[1]}
+    for i, (res, (pre_s, dec_s)) in enumerate(((res1, t1), (res2, t2)), 1):
+        print(f"serve request {i}: snapshot lsn {res.snapshot_lsn} lag "
+              f"{res.freshness_lag}; prefill {pre_s * 1e3:.1f} ms "
+              f"({B}x{S} tokens), decode {dec_s / N * 1e3:.2f} ms per "
+              f"step, {B * N / dec_s:.1f} tokens/s ({B}x{N})", flush=True)
+
+    # (c) launches: one flash per layer per prefill, one decode per layer
+    # per step, in each request
+    if on_card:
+        per = (cfg.n_layers, cfg.n_layers * N)
+        if c1 != per or (c2[0] - c1[0], c2[1] - c1[1]) != per:
+            raise AssertionError(f"launches per request {c1}, "
+                                 f"{(c2[0] - c1[0], c2[1] - c1[1])} != {per}")
+    # (d) snapshots: request 1 served from v1 alone while v2 was published
+    # and became visible; request 2 pinned v2
+    if "v2_txn" not in log or not all(p is v1 for p in pinned1) \
+            or not all(p is v2 for p in pinned2):
+        raise AssertionError("a request was not served from one version")
+    if not (visible_after_1 > res1.snapshot_lsn and
+            res2.snapshot_lsn > res1.snapshot_lsn and
+            res2.freshness_lag == 0):
+        raise AssertionError(f"snapshot lsns {res1.snapshot_lsn} -> "
+                             f"{res2.snapshot_lsn} (visible "
+                             f"{visible_after_1})")
+    for res in (res1, res2):
+        if tuple(res.tokens.shape) != (B, N):
+            raise AssertionError(f"tokens {tuple(res.tokens.shape)}")
+
+    # (a) request 1's logits against the plain path on v1, teacher-forced
+    # with request 1's tokens
+    tok1 = res1.tokens
+    worst_a = 0.0
+    with plain_attention():
+        want, cache = prefill(v1, cfg, {"tokens": prompts}, cache_len=S + N)
+        worst_a = _logits_close(torch, "(a) prefill", logits1[0], want)
+        for k in range(N):
+            want, cache = decode_step(v1, cfg, tok1[:, k:k + 1], cache, S + k)
+            worst_a = max(worst_a, _logits_close(
+                torch, f"(a) decode step {k}", logits1[k + 1], want))
+    del cache
+    # (b) prefill + decode against forward over the whole sequence, one
+    # prompt at a time, so [B, S + N, V] logits are never held at once
+    full = torch.cat([prompts, tok1], dim=1)
+    got = torch.stack(logits1, dim=1)                  # [B, N + 1, V]
+    worst_b = 0.0
+    for b in range(B):
+        fwd = forward(v1, cfg, {"tokens": full[b:b + 1]})[0, S - 1:S + N]
+        worst_b = max(worst_b, _logits_close(torch, f"(b) prompt {b}",
+                                             got[b], fwd))
+    differ = int((res1.tokens != res2.tokens).sum())
+    print(f"serve checks: (a) kernel vs plain path max |d| / max |logit| "
+          f"{worst_a:.3g}; (b) prefill + decode vs forward {worst_b:.3g}; "
+          f"(c) launches per request flash {c1[0]} decode {c1[1]}; (d) v2 "
+          f"(txn {log['v2_txn']}) published at step {SERVE_PUBLISH_AT} in "
+          f"{log['publish_us']:.1f} us under request 1's pin, request 2 "
+          f"lsn {res2.snapshot_lsn} > {res1.snapshot_lsn}, {differ} of "
+          f"{B * N} tokens differ", flush=True)
+    eng._prefill, eng._decode = prefill_fn, decode_fn
+    if on_card:
+        serve_profile(torch, lambda: eng.generate({"tokens": prompts}, N),
+                      sum(t2))
+    return launches
+
+
+def serve_profile(torch, run, wall_unprofiled: float) -> None:
+    """One more request (as request 2) under torch.profiler (CUDA
+    activity): device busy time, and device time by kind — the two
+    attention kernels, matrix products (cuBLAS), the rest (PyTorch's
+    elementwise, copy and reduction kernels).  The profiler's callbacks
+    slow the host several times over, so the idle share is taken against
+    request 2's unprofiled wall (the device work is the same)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kinds: dict = {}
+    top = []
+    for e in prof.key_averages():
+        us, name = e.self_device_time_total, e.key
+        if us <= 0:
+            continue
+        low = name.lower()
+        kind = ("flash_attention" if "flash_kernel" in name else
+                "decode_attention" if "decode_kernel" in name else
+                "matmul" if any(w in low for w in ("gemm", "gemv", "xmma",
+                                                   "cutlass", "splitk",
+                                                   "nvjet"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+        top.append((us, e.count, name))
+    busy = sum(kinds.values()) / 1e6
+    print(f"serve profile: device busy {busy:.4f} s; idle share "
+          f"{1 - busy / wall_unprofiled:.4f} of request 2's "
+          f"{wall_unprofiled:.3f} s (profiled wall {wall:.3f} s); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; by kind: "
+          + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    for us, n, name in sorted(top, reverse=True)[:10]:
+        print(f"serve profile device: {us / 1e3:9.3f} ms x{n:6d} "
+              f"{name[:80]}", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -664,6 +1065,7 @@ def main() -> int:
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     results = kernel_phase(torch, np, K_mod, flush)
+    results.update(attention_kernel_phase(torch, np, flush))
     del flush
     torch.cuda.empty_cache()
     small_driver_phase()
@@ -683,6 +1085,12 @@ def main() -> int:
                 + fn.launches
     print(f"path launches: version_gather {launches['version_gather']} "
           f"rss_gather {launches['rss_gather']}", flush=True)
+    torch.cuda.empty_cache()
+    # the serve path: attention launches counted from 0 over both requests
+    launches.update(serve_phase(torch, np))
+    for name in ATTN_TPU:
+        if launches[name] == 0:
+            raise AssertionError(f"{name} never launched")
 
     replaces = {"rss_scan_agg": f"{TPU_SRC}:189",
                 "rss_scan_agg_grouped": f"{TPU_SRC}:260",
@@ -697,6 +1105,13 @@ def main() -> int:
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
+    for name, where in ATTN_TPU.items():
+        ms, plain_ms, bound_ms, library_ms, by = results[name]["times"]
+        rows.append({"name": name, "route": "cuda", "source": ATTN_SRC,
+                     "replaces": where, "launches": launches[name],
+                     "max_abs_err": results[name]["max_abs_err"],
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": by, "library_ms": library_ms})
     print(json.dumps({"kernels": rows}), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)

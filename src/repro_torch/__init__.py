@@ -13,9 +13,15 @@ Subpackages:
   kernels     CUDA kernels for sm_90a (built at first use) + plain
               PyTorch versions
   obs         metric registry and span tracing (its own, not `repro`'s)
+  configs     the ten architecture configs (data, copied)
+  models      the dense attention decoder: layers, init / forward /
+              prefill / decode, `params_from_numpy`
+  serve       ServingEngine: prefill + decode over RSS-pinned parameter
+              snapshots of a `VersionedParamStore`
 
 Device rule: entry points (`PagedMirror`, the HTAP facades, the
-`run_*` drivers) run on "cuda" unless the caller passes device="cpu", and
+`run_*` drivers, `init_params`, `ServingEngine`) run on "cuda" unless the
+caller passes device="cpu", and
 raise when CUDA is missing — see `kernels.config.resolve_device`.
 """
 

@@ -7,6 +7,9 @@ rss_gather     — RSS set-membership visibility gather (previous-version
 rss_scan_agg   — fused RSS visibility resolve + on-device aggregate
                  (scalar, grouped flat-lane, grouped chunked) and the
                  materialized-view delta fold
+flash_attention  — causal / sliding-window GQA attention over a whole
+                 sequence (prefill), online softmax in fp32
+decode_attention — one-token GQA attention over a KV cache (decode)
 
 A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 version for CPU tensors; nothing else picks between them.  The device of

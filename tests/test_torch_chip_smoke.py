@@ -1,8 +1,10 @@
-"""`chip_smoke.py`'s snapshot-read phases rehearsed on the CPU at a tiny
-size (the plain versions stand in for the kernels), so the script's own
-logic — traffic with writers left in flight, the whole-mirror read held
-against `scan_members`, `scan_at` and the engine, the param-store oracle
-— is checked here before it runs on the card at full size."""
+"""`chip_smoke.py`'s snapshot-read and serve phases rehearsed on the CPU
+at a tiny size (the plain versions stand in for the kernels), so the
+script's own logic — traffic with writers left in flight, the
+whole-mirror read held against `scan_members`, `scan_at` and the engine,
+the param-store oracle, the serve phase's writer under a pinned request
+and its checks (a), (b) and (d) — is checked here before it runs on the
+card at full size."""
 
 import sys
 from pathlib import Path
@@ -24,6 +26,10 @@ def smoke(monkeypatch):
         order_capacity=40))
     monkeypatch.setattr(chip_smoke, "EMBED_P", 2000)
     monkeypatch.setattr(chip_smoke, "EMBED_E", 48)
+    monkeypatch.setattr(chip_smoke, "SERVE_SMOKE", True)
+    for name, value in (("SERVE_B", 2), ("SERVE_S", 24), ("SERVE_STEPS", 6),
+                        ("SERVE_PUBLISH_AT", 2)):
+        monkeypatch.setattr(chip_smoke, name, value)
     return chip_smoke
 
 
@@ -37,6 +43,39 @@ def test_path_phase_on_cpu(smoke, capsys):
 def test_param_store_phase_on_cpu(smoke, capsys):
     smoke.param_store_phase(torch, device="cpu")
     assert "== oracle" in capsys.readouterr().out
+
+
+def test_serve_phase_on_cpu(smoke, capsys):
+    """Qwen1.5-0.5B's smoke variant (bf16) through the serve phase: no
+    kernel launches off the card, the plain path standing in."""
+    import numpy as np
+
+    launches = smoke.serve_phase(torch, np, device="cpu")
+    assert launches == {"flash_attention": 0, "decode_attention": 0}
+    out = capsys.readouterr().out
+    assert "serve request 2" in out and "serve checks: (a)" in out
+
+
+def test_plain_attention_swaps_the_layers_and_restores_them(smoke):
+    from repro_torch.models import layers
+
+    before = layers.attention_bshd, layers.decode_gqa
+    with smoke.plain_attention():
+        assert layers.attention_bshd is not before[0]
+        assert layers.decode_gqa is not before[1]
+    assert (layers.attention_bshd, layers.decode_gqa) == before
+
+
+def test_visible_pairs_and_bound(smoke):
+    import numpy as np
+
+    assert smoke._visible_pairs(np, 1024, 1024, True, 0) == 1024 * 1025 // 2
+    assert smoke._visible_pairs(np, 8, 8, False, 0) == 64
+    # causal window 3 over 6 rows: 1 + 2 + 3 + 3 + 3 + 3
+    assert smoke._visible_pairs(np, 6, 6, True, 3) == 15
+    t, by = smoke._bound(67.1e6, 17.2e9, "bfloat16")
+    assert by == "bytes" and abs(t - 67.1e6 / 3.35e12 * 1e3) < 1e-12
+    assert smoke._bound(1e6, 1e12, "float32")[1] == "operations"
 
 
 def test_chip_smoke_refuses_without_cuda(monkeypatch):

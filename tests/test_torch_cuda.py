@@ -235,3 +235,191 @@ def test_gather_wrappers_reject_bad_inputs_and_count_launches(dev):
     with pytest.raises(OverflowError):
         VK.version_gather(data, ts, 2**31)
     assert RK.rss_gather.launches == VK.version_gather.launches == 1
+
+
+# --------------------------------------------------------- attention kernels
+ATTN_DTYPES = ["bfloat16", "float16", "float32"]
+# kernel vs plain on the card: f32 to summation order (TF32 off); bf16 and
+# f16 to one rounding of the output in the working type
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 3e-2, "float16": 1e-2}
+
+
+@pytest.fixture
+def no_tf32(dev):
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield dev
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+def _attn_close(got, want, dtype):
+    tol = ATTN_TOL[dtype]
+    assert got.dtype == want.dtype == getattr(torch, dtype)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def _randn(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(getattr(torch,
+                                                                  dtype))
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_kernel_equals_plain(no_tf32, dtype, G, hd):
+    """Every mask (causal or not, window 0 or 64) at S = T = 256, ragged
+    S = T = 130 and ragged S != T; model layout through strides too."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.flash_attention.ops import attention_bshd
+
+    dev, K = no_tf32, 2
+    for S, T in ((256, 256), (130, 130), (70, 201), (201, 70)):
+        q = _randn(dev, (2, K * G, S, hd), dtype, S + hd)
+        k = _randn(dev, (2, K, T, hd), dtype, T + 1)
+        v = _randn(dev, (2, K, T, hd), dtype, T + 2)
+        for causal, window in ((True, 0), (True, 64), (False, 0),
+                               (False, 64)):
+            if S > T and window:
+                continue      # rows past T + window see no key: no contract
+            want = FR.attention_ref(q, k, v, causal=causal, window=window)
+            got = FK.flash_attention(q, k, v, causal=causal, window=window)
+            _attn_close(got, want, dtype)
+        qm, km, vm = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        got = attention_bshd(qm, km, vm, causal=True)
+        assert got.is_contiguous()           # back in the model's layout
+        _attn_close(got.transpose(1, 2), FR.attention_ref(q, k, v), dtype)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("G", [1, 2, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_decode_kernel_equals_plain(no_tf32, dtype, G, hd):
+    """valid_len edges (1, 2, one short of a 4-row step, T - 1, T) at the
+    serving cache length T = 1,088 and a ragged T = 100, over a
+    [B, T, K, hd] cache read through a transposed view."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.decode_attention.ops import decode_gqa
+
+    dev, K = no_tf32, 2
+    for T in (1088, 100):
+        q = _randn(dev, (3, K * G, hd), dtype, T)
+        kc = _randn(dev, (3, T, K, hd), dtype, T + 1)
+        vc = _randn(dev, (3, T, K, hd), dtype, T + 2)
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        for vl in (1, 2, 3, 7, T // 2, T - 1, T):
+            want = DR.decode_attention_ref(q, k, v, vl)
+            _attn_close(decode_gqa(q, k, v, vl), want, dtype)
+            _attn_close(DK.decode_attention(q, k.contiguous(), v.contiguous(),
+                                            vl), want, dtype)
+
+
+def test_attention_kernels_on_large_gqa_and_sliced_heads(no_tf32):
+    """G = 48 (MQA, several decode blocks per kv-head) and q given as a
+    slice of a wider head axis (strides that are not a plain layout)."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    dev = no_tf32
+    q = _randn(dev, (2, 48, 300), "bfloat16", 1)[..., :128]
+    k = _randn(dev, (2, 1, 300, 128), "bfloat16", 2)
+    v = _randn(dev, (2, 1, 300, 128), "bfloat16", 3)
+    for vl in (1, 150, 300):
+        _attn_close(DK.decode_attention(q, k, v, vl),
+                    DR.decode_attention_ref(q, k, v, vl), "bfloat16")
+    wide = _randn(dev, (2, 96, 200, 64), "float32", 4)
+    qs = wide[:, 10:58]                      # 48 heads out of 96
+    ks, vs = (_randn(dev, (2, 6, 200, 64), "float32", s) for s in (5, 6))
+    _attn_close(FK.flash_attention(qs, ks, vs, causal=True, window=32),
+                FR.attention_ref(qs, ks, vs, causal=True, window=32),
+                "float32")
+
+
+def test_attention_wrappers_reject_bad_inputs_and_count_launches(dev):
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    q = _randn(dev, (2, 4, 64, 64), "bfloat16", 0)
+    k = _randn(dev, (2, 2, 64, 64), "bfloat16", 1)
+    FK.reset_launches(), DK.reset_launches()
+    FK.flash_attention(q, k, k)
+    DK.decode_attention(q[:, :, 0], k, k, 64)
+    assert FK.flash_attention.launches == DK.decode_attention.launches == 1
+    with pytest.raises(ValueError):              # k on the wrong device
+        FK.flash_attention(q, k.cpu(), k)
+    with pytest.raises(TypeError):               # dtypes differ
+        FK.flash_attention(q, k.float(), k.float())
+    with pytest.raises(TypeError):               # no float64 kernel
+        FK.flash_attention(q.double(), k.double(), k.double())
+    with pytest.raises(ValueError):              # rank
+        FK.flash_attention(q[0], k, k)
+    with pytest.raises(ValueError):              # head dim not contiguous
+        FK.flash_attention(q.transpose(2, 3), k, k)
+    with pytest.raises(ValueError):              # head dim 48
+        FK.flash_attention(q[..., :48], k[..., :48], k[..., :48])
+    with pytest.raises(ValueError):              # H % K != 0
+        FK.flash_attention(q[:, :3], k, k)
+    with pytest.raises(ValueError):
+        FK.flash_attention(q, k, k, window=-1)
+    for vl in (0, 65):
+        with pytest.raises(ValueError):          # valid_len outside [1, T]
+            DK.decode_attention(q[:, :, 0], k, k, vl)
+    flat = _randn(dev, (2 * 2 * 64 * 64 + 1,), "bfloat16", 2)
+    unaligned = flat[1:].view(2, 2, 64, 64)
+    with pytest.raises(ValueError):              # cache not on 16 bytes
+        DK.decode_attention(q[:, :, 0], unaligned, k, 64)
+    assert FK.flash_attention.launches == DK.decode_attention.launches == 1
+
+
+def test_qwen_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
+    """The Qwen1.5-0.5B smoke variant (bf16) on the card: prefill and
+    decode through the kernels against the same run with the layers'
+    attention on the plain versions; logits within 3e-2 of their
+    max-abs; one flash launch per layer per prefill, one decode launch
+    per layer per step."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.models import layers
+
+    dev = no_tf32
+    cfg = smoke_variant(get_config("qwen1.5-0.5b"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 100))).to(dev)
+
+    def run():
+        out = []
+        logits, cache = prefill(params, cfg, {"tokens": toks[:, :90]},
+                                cache_len=100)
+        out.append(logits)
+        for n in range(90, 99):
+            logits, cache = decode_step(params, cfg, toks[:, n:n + 1],
+                                        cache, n)
+            out.append(logits)
+        return torch.stack(out).float()
+
+    FK.reset_launches(), DK.reset_launches()
+    got = run()
+    assert FK.flash_attention.launches == cfg.n_layers
+    assert DK.decode_attention.launches == cfg.n_layers * 9
+    monkeypatch.setattr(layers, "attention_bshd",
+                        lambda q, k, v, *, causal, window:
+                        layers.flash_attention_chunked(
+                            q, k, v, causal=causal, window=window))
+    monkeypatch.setattr(layers, "decode_gqa", decode_attention_ref)
+    want = run()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()

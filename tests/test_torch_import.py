@@ -30,8 +30,14 @@ def _port_modules():
 
 def test_every_port_module_imports_without_jax_or_repro():
     names = _port_modules()
-    assert "repro_torch.kernels.rss_scan_agg.kernel" in names
-    assert "repro_torch.mvcc.driver" in names
+    for name in ("repro_torch.kernels.rss_scan_agg.kernel",
+                 "repro_torch.mvcc.driver",
+                 "repro_torch.serve.engine",
+                 "repro_torch.kernels.flash_attention.kernel",
+                 "repro_torch.kernels.decode_attention.kernel",
+                 "repro_torch.models.transformer",
+                 "repro_torch.configs.qwen1_5_0_5b"):
+        assert name in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
