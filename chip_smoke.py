@@ -47,18 +47,36 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    G = 4 (hd 128), each against its plain PyTorch version on the card
    (bf16 rtol = atol = 3e-2, f32 2e-5); prints kernel, plain, bound and
    `scaled_dot_product_attention` (library) times;
-9. serve phase: Qwen1.5-0.5B (`repro_torch.configs`, full width and
-   depth, bf16, random weights from torch.Generator seed 0) published
-   into a `VersionedParamStore` and served by `ServingEngine`: request 1
-   (8 prompts of 1,024 tokens, 64 decode steps, refresh between steps)
-   while a writer publishes v2 (embedding rows and lm_head columns
-   perturbed) under request 1's pin, then request 2 on v2.  Checks: (a)
-   request 1's prefill and decode logits against the plain attention
-   path on the card; (b) prefill + decode against `forward` over the
-   whole 1,088 tokens; (c) 24 flash and 24 x 64 decode launches per
-   request; (d) request 2's snapshot LSN above request 1's, and request
-   1 served from v1 alone; then one more request under torch.profiler
-   for the device's busy time, idle share and time by kernel kind.
+9. WKV kernel phase: `wkv_scan` in the model's [B,T,H,N] layout at the
+   RWKV serve path's prefill shape (f32, B = 8, T = 1,024, H = 40,
+   N = 64) and decode shape (T = 1, the state as s0 and output, in
+   place), and at edge shapes (ragged T = 37, N = 32, bf16 and f16
+   inputs, s0 given at T > 1), against its plain version on the card at
+   rtol = atol = 1e-4 (the reference's tolerance for its kernel); at
+   RWKV6-3B's own decay scale (w_base = -6, unit r/k/v) f32 sums of
+   64 terms of size ~|o| cancel, so there the check holds |d| to 1e-4
+   of the output's max-abs; prints kernel, plain and bound times;
+10. serve phase, once per architecture: Qwen1.5-0.5B, then RWKV6-3B
+   (`repro_torch.configs`, full width and depth, bf16, random weights
+   from torch.Generator seed 0) published into a `VersionedParamStore`
+   and served by `ServingEngine`: request 1 (8 prompts of 1,024 tokens,
+   64 decode steps, refresh between steps) while a writer publishes v2
+   (embedding rows and lm_head columns perturbed) under request 1's pin,
+   then request 2 on v2.  Checks: (a) request 1's prefill and decode
+   logits against the plain path on the card (the layers' attention and
+   WKV on their plain versions); (b) prefill + decode against `forward`
+   over the whole 1,088 tokens; both within 3e-2 of the logits' max-abs
+   for Qwen.  RWKV6-3B's 32 bf16 layers amplify a 1e-6 relative change
+   of the WKV output to ~8% of the logits (the phase prints this noise
+   floor), so there (a) holds every `wkv_scan` launch of request 1's
+   replay against the plain version on the same inputs (1e-4), and (a)
+   and (b) run end to end on the same weights in f32 (1e-3); the bf16
+   ratios are printed; (c) each kernel's launches per request:
+   Qwen 24 flash in prefill and 24 x 64 decode attention, RWKV 32
+   `wkv_scan` in prefill and 32 x 64 in decode; (d) request 2's snapshot
+   LSN above request 1's, and request 1 served from v1 alone; then one
+   more request under torch.profiler for the device's busy time, idle
+   share and time by kernel kind.
 
 It prints one `{"kernels": [...]}` JSON line, the card line, and last
 `{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
@@ -88,6 +106,8 @@ ATTN_SRC = "src/repro_torch/csrc/attention.cu"
 ATTN_TPU = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:75",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:62"}
+WKV_SRC = "src/repro_torch/csrc/wkv.cu"
+WKV_TPU = {"wkv_scan": "src/repro/kernels/wkv_scan/kernel.py:64"}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 # H100 SXM dense peaks: bf16/f16 on the tensor cores, f32 outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
@@ -102,9 +122,20 @@ TPCC = dict(warehouses=4, districts=10, customers=3000, items=100_000,
 # Qwen1.5-0.5B's embedding table (src/repro/configs/qwen1_5_0_5b.py):
 # vocabulary 151,936 rows of d_model 1,024, here with K = 2 versions
 EMBED_P, EMBED_K, EMBED_E = 151_936, 2, 1024
-# serve phase: the model, 8 prompts of 1,024 tokens, 64 decode steps
-# (cache of 1,088); the writer publishes v2 after this decode step
-SERVE_ARCH, SERVE_SMOKE = "qwen1.5-0.5b", False
+# serve phase, per architecture: the kernels its path launches, each with
+# its launches per layer in a prefill and per layer in a decode step
+SERVE_KERNELS = {
+    "qwen1.5-0.5b": {"flash_attention": (1, 0), "decode_attention": (0, 1)},
+    "rwkv6-3b": {"wkv_scan": (1, 1)}}
+# checks (a) and (b) on the served bf16 logits: max |d| within this share
+# of the logits' max-abs (the CPU tests' bf16 tolerance).  None for
+# RWKV6-3B: its 32 bf16 layers move the logits by ~8% of their max-abs
+# for a 1e-6 relative change of the WKV output (PERF.md), so there the
+# kernel is held per launch and in f32 instead (`_wkv_checks`)
+SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None}
+SERVE_SMOKE = False
+# 8 prompts of 1,024 tokens, 64 decode steps (cache of 1,088); the writer
+# publishes v2 after this decode step
 SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
 
 
@@ -795,6 +826,127 @@ def attention_kernel_phase(torch, np, flush) -> dict:
     return results
 
 
+# -------------------------------------------------------------- WKV kernel
+def _wkv_plain(r, k, v, w_log, u, s0=None, *, state_out=None):
+    """`ops.wkv` on the plain version, on the tensors' own device: the
+    model's [B,T,H,N] layout in and out, as the kernel path."""
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_plain
+
+    B, T, H, N = r.shape
+    o, S = wkv_scan_plain(*(x.transpose(1, 2) for x in (r, k, v, w_log)),
+                          u[None].expand(B, H, N), s0, state_out=state_out)
+    return o.transpose(1, 2), S
+
+
+def _wkv_cost(B: int, T: int, H: int, N: int, itemsize: int, s0: bool):
+    """Bytes the scan must move (r, k, v, w_log read once, u, s0 when
+    given, o and the final state written once) and its f32 operations:
+    per step and head N^2 FMAs for o and N^2 mul+FMA for the state."""
+    nbytes = (4 * B * T * H * N * itemsize + H * N * 4 + B * T * H * N * 4
+              + (2 if s0 else 1) * B * H * N * N * 4)
+    return nbytes, 5 * B * H * T * N * N
+
+
+def wkv_kernel_phase(torch, np, flush) -> dict:
+    """wkv_scan against its plain version on the card, in the model's
+    layout as the RWKV serve path hands it (r/k/v/w_log [B,T,H,N], u
+    [H,N]), timed beside its bound; `library_ms` is None: no one PyTorch
+    call computes the WKV6 recurrence.  Returns {"max_abs_err", "times":
+    (ms, plain, bound, None, by)} of the prefill shape."""
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    res = {"max_abs_err": 0.0}
+    tol = 1e-4
+
+    def inputs(B, T, H, N, dtype, decay_scale):
+        """Model layout.  "reference": the reference kernel test's scales
+        (r, k 0.5 N(0,1), v N(0,1), decay exp(-exp(z - 2)), u 0.1 N(0,1));
+        "rwkv6": RWKV6-3B's own (unit r/k/v, decay exp(-exp(-6 + z)) of
+        w_base = -6, u 0.5 N(0,1))."""
+        n = lambda: torch.randn((B, T, H, N), generator=g, device=dev)
+        ref = decay_scale == "reference"
+        s = 0.5 if ref else 1.0
+        r, k, v = s * n(), s * n(), n()
+        w_log = -torch.exp(n() - 2 if ref else n() - 6)
+        u = (0.1 if ref else 0.5) * torch.randn((H, N), generator=g,
+                                                device=dev)
+        cast = getattr(torch, dtype)
+        return [x.to(cast) for x in (r, k, v, w_log)] + [u]
+
+    def check(label, got, want, normwise):
+        torch.cuda.synchronize()
+        seen = []
+        for what, a, b in zip(("o", "S"), got, want):
+            err = (a - b).abs()
+            bound = tol * (1 + (b.abs().max() if normwise else b.abs()))
+            if not torch.isfinite(a).all() or (err > bound).any():
+                raise AssertionError(f"wkv_scan {label} {what}: kernel != "
+                                     f"plain (max |d| {err.max().item()})")
+            res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+            seen.append(f"{what} max |d| {err.max().item():.4g} (max "
+                        f"|{what}| {b.abs().max().item():.4g})")
+        print(f"kernel wkv_scan {label}: {', '.join(seen)}, held "
+              f"{'norm-wise' if normwise else 'element-wise'}", flush=True)
+
+    def report(label, fn, plain, cost):
+        ms = time_ms(torch, fn, flush)
+        plain_ms = time_ms(torch, plain, flush, reps=5)
+        nbytes, flops = cost
+        bound_ms, by = _bound(nbytes, flops, "float32")
+        print(f"kernel wkv_scan {label}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({by}; "
+              f"ops at the f32 peak outside the tensor cores "
+              f"{flops / PEAK_FLOPS['float32'] * 1e3:.4f} ms) "
+              f"library_ms=null (no PyTorch call computes the WKV6 "
+              f"recurrence) ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} "
+              f"GFLOP)", flush=True)
+        return ms, plain_ms, bound_ms, None, by
+
+    # (label, dtype, B, T, H, N, s0 given, decay scale, timed)
+    cases = [("prefill", "float32", 8, 1024, 40, 64, False, "reference",
+              True),
+             ("prefill", "float32", 8, 1024, 40, 64, False, "rwkv6", False),
+             ("ragged T", "float32", 2, 37, 8, 64, False, "rwkv6", False),
+             ("N=32", "float32", 2, 300, 4, 32, False, "reference", False),
+             ("bf16", "bfloat16", 2, 256, 8, 64, False, "reference", False),
+             ("f16", "float16", 2, 100, 8, 64, True, "reference", False),
+             ("s0", "float32", 2, 50, 8, 64, True, "reference", False)]
+    for label, dt, B, T, H, N, with_s0, scale, timed in cases:
+        r, k, v, w_log, u = inputs(B, T, H, N, dt, scale)
+        s0 = torch.randn((B, H, N, N), generator=g, device=dev) \
+            if with_s0 else None
+        shape = (f"{dt} B={B} T={T} H={H} N={N} s0={with_s0} "
+                 f"decay={scale}")
+        got = wkv(r, k, v, w_log, u, s0)
+        check(f"{label} {shape}", got, _wkv_plain(r, k, v, w_log, u, s0),
+              normwise=scale == "rwkv6")
+        if timed:
+            res["times"] = report(
+                f"{label} {shape}", lambda: wkv(r, k, v, w_log, u),
+                lambda: _wkv_plain(r, k, v, w_log, u),
+                _wkv_cost(B, T, H, N, r.element_size(), False))
+        elif label == "prefill":
+            state = got[1]            # decode from the prompt's state
+    # decode: one token from that state, read and written in place
+    r, k, v, w_log, u = inputs(8, 1, 40, 64, "float32", "rwkv6")
+    want = _wkv_plain(r, k, v, w_log, u, state)
+    got = wkv(r, k, v, w_log, u, state, state_out=state)
+    if got[1] is not state:
+        raise AssertionError("wkv_scan decode: the state was not written "
+                             "in place")
+    check("decode", got, want, normwise=True)
+    report("decode f32 B=8 T=1 H=40 N=64 s0=state_out (in place)",
+           lambda: wkv(r, k, v, w_log, u, state, state_out=state),
+           lambda: _wkv_plain(r, k, v, w_log, u, state, state_out=state),
+           _wkv_cost(8, 1, 40, 64, 4, True))
+    print(f"kernel wkv_scan: {len(cases) + 1} shapes within {tol} of "
+          f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
+    return res
+
+
 # ------------------------------------------------------------------ serving
 @contextlib.contextmanager
 def plain_attention():
@@ -815,35 +967,174 @@ def plain_attention():
         layers.attention_bshd, layers.decode_gqa = saved
 
 
-def _logits_close(torch, what: str, got, want, rel: float = 3e-2) -> float:
-    """max |got - want| <= rel * max |want| (bf16 through 24 layers: the
-    residual stream is rounded to bf16 at every layer, so two orders of
-    the same sums move logits by a few 1e-3 of their max-abs; 3e-2 is the
-    CPU tests' bf16 tolerance).  Returns the ratio."""
+@contextlib.contextmanager
+def plain_wkv():
+    """Inside the block, the layers' WKV runs on the plain version
+    (`wkv_scan_ref`) on the tensors' own device: with `plain_attention`,
+    the plain path that check (a) holds the kernels against."""
+    from repro_torch.models import layers
+
+    saved = layers.wkv
+    layers.wkv = _wkv_plain
+    try:
+        yield
+    finally:
+        layers.wkv = saved
+
+
+def _logits_close(torch, what: str, got, want, rel) -> float:
+    """max |got - want| <= rel * max |want| (no bound when `rel` is None);
+    raises on non-finite logits.  Returns the ratio."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{what}: non-finite logits")
     ratio = ((got - want).abs().max() / want.abs().max()).item()
-    if not ratio <= rel:
+    if rel is not None and not ratio <= rel:
         raise AssertionError(f"{what}: max |d| / max |logit| = {ratio:.4g}"
                              f" > {rel}")
     return ratio
 
 
-def serve_phase(torch, np, device: str = "cuda") -> dict:
-    """Qwen1.5-0.5B served from RSS-pinned parameter snapshots, with
-    checks (a)-(d) (see the module docstring).  Returns the attention
-    kernels' launches over both requests.  (`device="cpu"` runs the plain
-    versions, where no kernel launches: a rehearsal off the card.)"""
-    from repro_torch.configs import get_config, smoke_variant
+def _teacher_forced(cfg, params, prompts, toks, S: int, N: int) -> list:
+    """Logits of a prefill of `prompts` and N decode steps fed `toks`
+    (a request replayed with its own tokens)."""
+    from repro_torch.models import decode_step, prefill
+
+    logits, cache = prefill(params, cfg, {"tokens": prompts},
+                            cache_len=S + N)
+    out = [logits]
+    for k in range(N):
+        logits, cache = decode_step(params, cfg, toks[:, k:k + 1], cache,
+                                    S + k)
+        out.append(logits)
+    return out
+
+
+def _check_a(torch, cfg, params, prompts, toks, logits, S, N, rel) -> float:
+    """(a): a request's logits against the plain path's on the same
+    params, teacher-forced with the request's tokens."""
+    with plain_attention(), plain_wkv():
+        want = _teacher_forced(cfg, params, prompts, toks, S, N)
+    return max(_logits_close(torch, f"(a) step {k}", got, w, rel)
+               for k, (got, w) in enumerate(zip(logits, want)))
+
+
+def _check_b(torch, cfg, params, prompts, toks, logits, S, N, rel) \
+        -> float:
+    """(b): prefill + decode logits against `forward` over the whole
+    sequence, one prompt at a time, so [B, S + N, V] logits are never
+    held at once."""
+    from repro_torch.models import forward
+
+    full = torch.cat([prompts, toks], dim=1)
+    got = torch.stack(logits, dim=1)                   # [B, N + 1, V]
+    worst = 0.0
+    for b in range(full.shape[0]):
+        fwd = forward(params, cfg, {"tokens": full[b:b + 1]})[0, S - 1:S + N]
+        worst = max(worst, _logits_close(torch, f"(b) prompt {b}", got[b],
+                                         fwd, rel))
+    return worst
+
+
+def _tree_float(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_float(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_tree_float(v) for v in tree)
+    return tree.float()
+
+
+def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
+    """RWKV6's checks of the kernel in its path, where the bf16 logits
+    cannot hold it at 3e-2 (the model's 32 bf16 layers turn f32-level
+    differences of the WKV output into ~8% of the logits' max-abs):
+    (a) per launch: every `wkv_scan` launch of a teacher-forced replay
+    of request 1 against the plain version on the same inputs, o and S
+    within 1e-4 of their max-abs; (a) and (b) end to end on the same
+    weights widened to f32, within 1e-3 of the logits' max-abs; and the
+    bf16 model's own noise floor: its plain prefill against itself with
+    every layer's WKV output times (1 + 1e-6 z).  Returns the report."""
+    from repro_torch.models import layers
+
+    kernel_wkv, worst = layers.wkv, 0.0
+
+    def checked(r, k, v, w_log, u, s0=None, *, state_out=None):
+        nonlocal worst
+        want = _wkv_plain(r, k, v, w_log, u, s0)  # before s0 is written
+        got = kernel_wkv(r, k, v, w_log, u, s0, state_out=state_out)
+        for what, a, b in zip(("o", "S"), got, want):
+            ratio = ((a - b).abs().max() / b.abs().max()).item()
+            if not ratio <= 1e-4:
+                raise AssertionError(f"(a) wkv_scan launch, {what}: max |d|"
+                                     f" / max = {ratio:.4g} > 1e-4")
+            worst = max(worst, ratio)
+        return got
+
+    layers.wkv = checked
+    try:
+        _teacher_forced(cfg, params, prompts, toks, S, N)
+    finally:
+        layers.wkv = kernel_wkv
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    p32 = _tree_float(params)
+    got = _teacher_forced(cfg32, p32, prompts, toks, S, N)
+    a32 = _check_a(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)
+    b32 = _check_b(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)
+    del p32, got
+    g = torch.Generator(device=prompts.device)
+    g.manual_seed(5)
+
+    def noisy(r, k, v, w_log, u, s0=None, *, state_out=None):
+        o, S_ = _wkv_plain(r, k, v, w_log, u, s0, state_out=state_out)
+        z = torch.randn(o.shape, generator=g, device=o.device)
+        return o * (1 + 1e-6 * z), S_
+
+    with plain_wkv():
+        plain = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+        layers.wkv = noisy
+        perturbed = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+    floor = _logits_close(torch, "noise floor", perturbed, plain, None)
+    return (f"bf16 noise floor (plain prefill vs itself with its WKV output "
+            f"x (1 + 1e-6 z)) {floor:.3g}; (a) per wkv_scan launch max |d| "
+            f"/ max {worst:.3g} (<= 1e-4); f32 end to end (a) {a32:.3g}, "
+            f"(b) {b32:.3g} (<= 1e-3)")
+
+
+def _numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_numel(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(_numel(v) for v in tree)
+    return tree.numel()
+
+
+def _kernel_wrappers() -> dict:
+    """name -> the kernel wrapper whose `launches` counts its launches."""
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
-    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    return {"flash_attention": FK.flash_attention,
+            "decode_attention": DK.decode_attention,
+            "wkv_scan": WK.wkv_scan}
+
+
+def serve_phase(torch, np, device: str = "cuda",
+                arch: str = "qwen1.5-0.5b") -> dict:
+    """`arch` served from RSS-pinned parameter snapshots, with checks
+    (a)-(d) (see the module docstring).  Returns the launches of the
+    architecture's kernels over both requests, counted from 0 just
+    before request 1.  (`device="cpu"` runs the plain versions, where no
+    kernel launches: a rehearsal off the card.)"""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import init_params
     from repro_torch.serve import ServingEngine
     from repro_torch.tensorstore import VersionedParamStore
 
-    cfg = get_config(SERVE_ARCH)
+    cfg = get_config(arch)
     cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
+    wrappers = {name: _kernel_wrappers()[name] for name in SERVE_KERNELS[arch]}
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -867,19 +1158,21 @@ def serve_phase(torch, np, device: str = "cuda") -> dict:
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S))).to(dev)
     sync()
-    print(f"serve: {cfg.name} {cfg.param_count() / 1e9:.3f} B params "
-          f"({cfg.param_dtype}), init + publish in "
+    print(f"serve: {cfg.name} {_numel(v1) / 1e9:.3f} B params "
+          f"({cfg.param_dtype}, {cfg.n_layers} layers), init + publish in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # observe the engine's calls (the pinned params, logits, the prefill's
     # end) and let the writer publish v2 during request 1
     log: dict = {}
     prefill_fn, decode_fn = eng._prefill, eng._decode
+    counts = lambda: {name: fn.launches for name, fn in wrappers.items()}
 
     def rec_prefill(p, b):
         out = prefill_fn(p, b)
         sync()
         log["t_prefill"] = time.perf_counter()
+        log["c_prefill"] = counts()
         log["params"].append(p)
         log["logits"].append(out[0])
         return out
@@ -901,38 +1194,43 @@ def serve_phase(torch, np, device: str = "cuda") -> dict:
     eng._prefill, eng._decode = rec_prefill, rec_decode
 
     def request(writer: bool):
+        """One request; its launches per kernel as (prefill, decode)."""
         log.update(params=[], logits=[], writer=writer)
         sync()
+        c0 = counts()
         t = time.perf_counter()
         res = eng.generate({"tokens": prompts}, N,
                            refresh_between_steps=True)
         sync()
         t_end = time.perf_counter()
         prefill_s, decode_s = log["t_prefill"] - t, t_end - log["t_prefill"]
-        counts = (FK.flash_attention.launches, DK.decode_attention.launches)
-        return res, counts, list(log["logits"]), list(log["params"]), \
+        c1, c2 = log["c_prefill"], counts()
+        per = {name: (c1[name] - c0[name], c2[name] - c1[name])
+               for name in wrappers}
+        return res, per, list(log["logits"]), list(log["params"]), \
             (prefill_s, decode_s)
 
-    FK.reset_launches()
-    DK.reset_launches()
-    res1, c1, logits1, pinned1, t1 = request(writer=True)
+    for fn in wrappers.values():
+        fn.launches = 0
+    res1, per1, logits1, pinned1, t1 = request(writer=True)
     visible_after_1 = store.visible_lsn()
     eng.refresh()
-    res2, c2, _, pinned2, t2 = request(writer=False)
-    launches = {"flash_attention": c2[0], "decode_attention": c2[1]}
+    res2, per2, _, pinned2, t2 = request(writer=False)
+    launches = counts()
     for i, (res, (pre_s, dec_s)) in enumerate(((res1, t1), (res2, t2)), 1):
-        print(f"serve request {i}: snapshot lsn {res.snapshot_lsn} lag "
-              f"{res.freshness_lag}; prefill {pre_s * 1e3:.1f} ms "
-              f"({B}x{S} tokens), decode {dec_s / N * 1e3:.2f} ms per "
-              f"step, {B * N / dec_s:.1f} tokens/s ({B}x{N})", flush=True)
+        print(f"serve request {i} ({cfg.name}): snapshot lsn "
+              f"{res.snapshot_lsn} lag {res.freshness_lag}; prefill "
+              f"{pre_s * 1e3:.1f} ms ({B}x{S} tokens), decode "
+              f"{dec_s / N * 1e3:.2f} ms per step, {B * N / dec_s:.1f} "
+              f"tokens/s ({B}x{N})", flush=True)
 
-    # (c) launches: one flash per layer per prefill, one decode per layer
-    # per step, in each request
-    if on_card:
-        per = (cfg.n_layers, cfg.n_layers * N)
-        if c1 != per or (c2[0] - c1[0], c2[1] - c1[1]) != per:
-            raise AssertionError(f"launches per request {c1}, "
-                                 f"{(c2[0] - c1[0], c2[1] - c1[1])} != {per}")
+    # (c) launches: each kernel's per-layer launches in the prefill and in
+    # every decode step, in each request
+    want = {name: (pre * cfg.n_layers, dec * cfg.n_layers * N)
+            for name, (pre, dec) in SERVE_KERNELS[arch].items()}
+    if on_card and not per1 == per2 == want:
+        raise AssertionError(f"launches per request {per1}, {per2} != "
+                             f"{want}")
     # (d) snapshots: request 1 served from v1 alone while v2 was published
     # and became visible; request 2 pinned v2
     if "v2_txn" not in log or not all(p is v1 for p in pinned1) \
@@ -949,30 +1247,22 @@ def serve_phase(torch, np, device: str = "cuda") -> dict:
             raise AssertionError(f"tokens {tuple(res.tokens.shape)}")
 
     # (a) request 1's logits against the plain path on v1, teacher-forced
-    # with request 1's tokens
-    tok1 = res1.tokens
-    worst_a = 0.0
-    with plain_attention():
-        want, cache = prefill(v1, cfg, {"tokens": prompts}, cache_len=S + N)
-        worst_a = _logits_close(torch, "(a) prefill", logits1[0], want)
-        for k in range(N):
-            want, cache = decode_step(v1, cfg, tok1[:, k:k + 1], cache, S + k)
-            worst_a = max(worst_a, _logits_close(
-                torch, f"(a) decode step {k}", logits1[k + 1], want))
-    del cache
-    # (b) prefill + decode against forward over the whole sequence, one
-    # prompt at a time, so [B, S + N, V] logits are never held at once
-    full = torch.cat([prompts, tok1], dim=1)
-    got = torch.stack(logits1, dim=1)                  # [B, N + 1, V]
-    worst_b = 0.0
-    for b in range(B):
-        fwd = forward(v1, cfg, {"tokens": full[b:b + 1]})[0, S - 1:S + N]
-        worst_b = max(worst_b, _logits_close(torch, f"(b) prompt {b}",
-                                             got[b], fwd))
+    # with request 1's tokens; (b) prefill + decode against forward.  On
+    # the served bf16 model, bounded where its rounding noise allows
+    # (SERVE_BF16_TOL); for RWKV6 the kernel is held by `_wkv_checks`
+    tok1, rel = res1.tokens, SERVE_BF16_TOL[arch]
+    worst_a = _check_a(torch, cfg, v1, prompts, tok1, logits1, S, N, rel)
+    worst_b = _check_b(torch, cfg, v1, prompts, tok1, logits1, S, N, rel)
+    bound = f"<= {rel}" if rel is not None else "not bounded"
+    extra = f"; {_wkv_checks(torch, cfg, v1, prompts, tok1, S, N)}" \
+        if "wkv_scan" in wrappers else ""
     differ = int((res1.tokens != res2.tokens).sum())
-    print(f"serve checks: (a) kernel vs plain path max |d| / max |logit| "
-          f"{worst_a:.3g}; (b) prefill + decode vs forward {worst_b:.3g}; "
-          f"(c) launches per request flash {c1[0]} decode {c1[1]}; (d) v2 "
+    per_txt = ", ".join(f"{name} {pre} in prefill + {dec} in decode"
+                        for name, (pre, dec) in per1.items())
+    print(f"serve checks: (a) {cfg.name} kernel vs plain path max |d| / "
+          f"max |logit| {worst_a:.3g}; (b) prefill + decode vs forward "
+          f"{worst_b:.3g} (bf16, {bound}){extra}; (c) launches per "
+          f"request {per_txt}; (d) v2 "
           f"(txn {log['v2_txn']}) published at step {SERVE_PUBLISH_AT} in "
           f"{log['publish_us']:.1f} us under request 1's pin, request 2 "
           f"lsn {res2.snapshot_lsn} > {res1.snapshot_lsn}, {differ} of "
@@ -980,17 +1270,18 @@ def serve_phase(torch, np, device: str = "cuda") -> dict:
     eng._prefill, eng._decode = prefill_fn, decode_fn
     if on_card:
         serve_profile(torch, lambda: eng.generate({"tokens": prompts}, N),
-                      sum(t2))
+                      sum(t2), cfg.name)
     return launches
 
 
-def serve_profile(torch, run, wall_unprofiled: float) -> None:
+def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
     """One more request (as request 2) under torch.profiler (CUDA
     activity): device busy time, and device time by kind — the two
-    attention kernels, matrix products (cuBLAS), the rest (PyTorch's
-    elementwise, copy and reduction kernels).  The profiler's callbacks
-    slow the host several times over, so the idle share is taken against
-    request 2's unprofiled wall (the device work is the same)."""
+    attention kernels, the WKV kernel, matrix products (cuBLAS), the
+    rest (PyTorch's elementwise, copy and reduction kernels).  The
+    profiler's callbacks slow the host several times over, so the idle
+    share is taken against request 2's unprofiled wall (the device work
+    is the same)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.reset_peak_memory_stats()
@@ -1009,6 +1300,7 @@ def serve_profile(torch, run, wall_unprofiled: float) -> None:
         low = name.lower()
         kind = ("flash_attention" if "flash_kernel" in name else
                 "decode_attention" if "decode_kernel" in name else
+                "wkv_scan" if "wkv_kernel" in name else
                 "matmul" if any(w in low for w in ("gemm", "gemv", "xmma",
                                                    "cutlass", "splitk",
                                                    "nvjet"))
@@ -1016,7 +1308,7 @@ def serve_profile(torch, run, wall_unprofiled: float) -> None:
         kinds[kind] = kinds.get(kind, 0.0) + us
         top.append((us, e.count, name))
     busy = sum(kinds.values()) / 1e6
-    print(f"serve profile: device busy {busy:.4f} s; idle share "
+    print(f"serve {model} profile: device busy {busy:.4f} s; idle share "
           f"{1 - busy / wall_unprofiled:.4f} of request 2's "
           f"{wall_unprofiled:.3f} s (profiled wall {wall:.3f} s); peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; by kind: "
@@ -1024,7 +1316,7 @@ def serve_profile(torch, run, wall_unprofiled: float) -> None:
                       sorted(kinds.items(), key=lambda kv: -kv[1])),
           flush=True)
     for us, n, name in sorted(top, reverse=True)[:10]:
-        print(f"serve profile device: {us / 1e3:9.3f} ms x{n:6d} "
+        print(f"serve {model} profile device: {us / 1e3:9.3f} ms x{n:6d} "
               f"{name[:80]}", flush=True)
 
 
@@ -1066,6 +1358,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     results = kernel_phase(torch, np, K_mod, flush)
     results.update(attention_kernel_phase(torch, np, flush))
+    results["wkv_scan"] = wkv_kernel_phase(torch, np, flush)
     del flush
     torch.cuda.empty_cache()
     small_driver_phase()
@@ -1086,9 +1379,15 @@ def main() -> int:
     print(f"path launches: version_gather {launches['version_gather']} "
           f"rss_gather {launches['rss_gather']}", flush=True)
     torch.cuda.empty_cache()
-    # the serve path: attention launches counted from 0 over both requests
-    launches.update(serve_phase(torch, np))
-    for name in ATTN_TPU:
+    # the serve paths, one per architecture: each counts its kernels'
+    # launches from 0 over its two requests
+    for arch in SERVE_KERNELS:
+        t0 = time.perf_counter()
+        launches.update(serve_phase(torch, np, arch=arch))
+        torch.cuda.empty_cache()
+        print(f"serve phase {arch}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    for name in (*ATTN_TPU, *WKV_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")
 
@@ -1105,9 +1404,10 @@ def main() -> int:
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
-    for name, where in ATTN_TPU.items():
+    for name, where in {**ATTN_TPU, **WKV_TPU}.items():
         ms, plain_ms, bound_ms, library_ms, by = results[name]["times"]
-        rows.append({"name": name, "route": "cuda", "source": ATTN_SRC,
+        rows.append({"name": name, "route": "cuda",
+                     "source": ATTN_SRC if name in ATTN_TPU else WKV_SRC,
                      "replaces": where, "launches": launches[name],
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

@@ -10,6 +10,8 @@ rss_scan_agg   — fused RSS visibility resolve + on-device aggregate
 flash_attention  — causal / sliding-window GQA attention over a whole
                  sequence (prefill), online softmax in fp32
 decode_attention — one-token GQA attention over a KV cache (decode)
+wkv_scan       — the RWKV6 WKV recurrence (data-dependent per-channel
+                 decay), from a zero or a given state
 
 A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 version for CPU tensors; nothing else picks between them.  The device of

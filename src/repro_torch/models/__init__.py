@@ -1,5 +1,5 @@
 """Model zoo of the port: config-driven decoder stacks (the dense
-attention path; the other mixers wait for later slices)."""
+attention path and RWKV6; the other mixers wait for later slices)."""
 
 from .config import LayerSpec, ModelConfig, SHAPES, ShapeConfig
 from .convert import params_from_numpy

@@ -4,7 +4,9 @@
 pytree with numpy leaves (`jax.tree.map(np.asarray, params)`: ml_dtypes
 bfloat16 arrays for bf16 leaves) and returns the port's tree, leaf for
 leaf, after checking every key, shape and dtype against `init_params`'
-tree for `cfg`.  bf16 leaves cross through an int16 view, bit for bit.
+tree for `cfg` (which may mix dtypes: RWKV6 keeps its decay, bonus,
+ddlerp bases, groupnorm affine and channel-mix lerps in f32 beside bf16
+matrices).  bf16 leaves cross through an int16 view, bit for bit.
 """
 
 from __future__ import annotations

@@ -1,7 +1,9 @@
-"""Layer math of the dense attention path: norms, RoPE, attention
-(whole-sequence and one-token decode) and the dense MLPs.  Pure
-functions over parameter dicts of tensors, ported from
-`repro.models.layers` with the same names and the same arithmetic.
+"""Layer math of the dense attention path and of RWKV6: norms, RoPE,
+attention (whole-sequence and one-token decode), the dense MLPs, and
+RWKV6's time-mix (ddlerp token shift, WKV recurrence, per-head
+groupnorm) and channel-mix.  Pure functions over parameter dicts of
+tensors, ported from `repro.models.layers` with the same names and the
+same arithmetic.
 
 Attention: where the reference computes XLA twins of its Pallas kernels
 (`flash_attention_xla`, the inline einsum softmax of `attention_decode`),
@@ -11,7 +13,15 @@ the same contract) and takes the plain PyTorch versions for CPU tensors:
 the chunked online softmax of `flash_attention_chunked`, and
 `decode_attention_ref`.
 
-MoE, Mamba, RWKV and M-RoPE are not ported yet (ROADMAP queue 1 item 7).
+RWKV6: where the reference computes its XLA twin `_wkv_chunked` (an
+associative scan) or the one-step einsums of `rwkv_decode`, the port
+calls `kernels.wkv_scan.ops.wkv`: the Hopper kernel for CUDA tensors (the
+whole prompt in prefill; one step from the layer's state, updated in
+place, in decode), the sequential `wkv_scan_ref` for CPU tensors.  The
+reference's `f32 @ bf16` products (the f32 ddlerp streams against bf16
+weights) are computed in f32 as JAX computes them (`_mm32`).
+
+MoE, Mamba and M-RoPE are not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch.nn.functional as F
 from ..kernels.cuda_build import on_cuda
 from ..kernels.decode_attention.ops import decode_gqa
 from ..kernels.flash_attention.ops import attention_bshd
+from ..kernels.wkv_scan.ops import wkv
 
 Params = dict
 
@@ -305,3 +316,127 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")
     return h @ p["w_down"]
+
+
+# ---------------------------------------------------------------------- RWKV6
+def _mm32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w in f32: what JAX computes for the reference's f32 x bf16
+    products (torch refuses mixed dtypes)."""
+    return x.float() @ w.float()
+
+
+def rwkv_init(cfg, dtype, generator, device) -> Params:
+    d = cfg.d_model
+    lw, lx = 64, 32
+    s = 1.0 / math.sqrt(d)
+    n = lambda shape, scale: _normal(shape, scale, dtype, generator, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    p = {name: n((d, d), s) for name in ("wr", "wk", "wv", "wg", "wo")}
+    p["w_lora_a"] = n((d, lw), s)
+    p["w_lora_b"] = n((lw, d), 0.1)
+    p["w_base"] = torch.full((d,), -6.0, **f32)          # decay base
+    p["u"] = torch.zeros((d,), **f32)                    # time_first bonus
+    p["mix_base"] = torch.zeros((6, d), **f32)           # ddlerp bases
+    p["mix_lora_a"] = n((d, lx * 5), s)
+    p["mix_lora_b"] = n((5, lx, d), 0.1)
+    p["ln_w"] = torch.ones((d,), **f32)                  # post-wkv groupnorm
+    p["ln_b"] = torch.zeros((d,), **f32)
+    return p
+
+
+def _rwkv_ddlerp(p: Params, x: torch.Tensor, x_prev: torch.Tensor):
+    """Data-dependent token-shift (RWKV6 ddlerp): returns the 5 mixed
+    streams (r,k,v,w,g), f32 as in the reference (the f32 bases promote
+    the stream).  x/x_prev [B,T,D]."""
+    dx = x_prev - x
+    base = x + dx * p["mix_base"][0]
+    lora = torch.tanh(_mm32(base, p["mix_lora_a"]))     # [B,T,5*lx]
+    lora = lora.reshape(*lora.shape[:-1], 5, -1)        # [B,T,5,lx]
+    mixed = []
+    for i in range(5):
+        adj = _mm32(lora[..., i, :], p["mix_lora_b"][i])
+        mixed.append(x + dx * (p["mix_base"][i + 1] + adj))
+    return mixed  # [xr, xk, xv, xw, xg]
+
+
+def _rwkv_streams(p: Params, x: torch.Tensor, x_prev: torch.Tensor, cfg):
+    """r, k, v, w_log [B,T,H,N] and the gate g [B,T,D], all f32."""
+    B, T, D = x.shape
+    N = cfg.rwkv_head_dim
+    H = D // N
+    xr, xk, xv, xw, xg = _rwkv_ddlerp(p, x, x_prev)
+    rr = _mm32(xr, p["wr"]).reshape(B, T, H, N)
+    kk = _mm32(xk, p["wk"]).reshape(B, T, H, N)
+    vv = _mm32(xv, p["wv"]).reshape(B, T, H, N)
+    g = F.silu(_mm32(xg, p["wg"]))
+    w_log = -torch.exp(
+        p["w_base"] + _mm32(torch.tanh(_mm32(xw, p["w_lora_a"])),
+                            p["w_lora_b"])).reshape(B, T, H, N)
+    return rr, kk, vv, w_log, g
+
+
+def _rwkv_out(p: Params, o: torch.Tensor, x: torch.Tensor,
+              g: torch.Tensor) -> torch.Tensor:
+    """Per-head groupnorm of o [B,T,H,N] (population variance), the f32
+    affine, then the gated output projection."""
+    B, T, D = x.shape
+    mu = o.mean(-1, keepdim=True)
+    var = o.var(-1, keepdim=True, correction=0)
+    o = (o - mu) * torch.rsqrt(var + 1e-5)
+    o = o.reshape(B, T, D) * p["ln_w"] + p["ln_b"]
+    return _mm32(o.to(x.dtype) * g, p["wo"])
+
+
+def rwkv_apply(p: Params, x: torch.Tensor, cfg,
+               state: Optional[Params] = None):
+    """RWKV6 time-mix over a sequence from a zero shift and a zero state.
+    x [B,T,D] -> (y [B,T,D] f32, {"shift": [B,D], "wkv": [B,H,N,N]}).
+    With `state` (a layer's cache entries), the final state is written
+    into it in place and returned."""
+    T = x.shape[1]
+    x_prev = F.pad(x, (0, 0, 1, 0))[:, :T]
+    rr, kk, vv, w_log, g = _rwkv_streams(p, x, x_prev, cfg)
+    u = p["u"].reshape(rr.shape[2], rr.shape[3])
+    o, S = wkv(rr, kk, vv, w_log, u,
+               state_out=None if state is None else state["wkv"])
+    y = _rwkv_out(p, o, x, g)
+    if state is None:
+        return y, {"shift": x[:, -1], "wkv": S}
+    state["shift"].copy_(x[:, -1])
+    return y, state
+
+
+def rwkv_decode(p: Params, x: torch.Tensor, cfg, state: Params):
+    """One-token RWKV6 step.  x [B,1,D]; state {'shift':[B,D],
+    'wkv':[B,H,N,N]} (the layer's cache entries), read and then updated
+    IN PLACE: the kernel takes the state as `s0` and writes it back.
+    Returns (y [B,1,D] f32, state)."""
+    rr, kk, vv, w_log, g = _rwkv_streams(p, x, state["shift"][:, None],
+                                         cfg)
+    u = p["u"].reshape(rr.shape[2], rr.shape[3])
+    o, _ = wkv(rr, kk, vv, w_log, u, state["wkv"], state_out=state["wkv"])
+    y = _rwkv_out(p, o, x, g)
+    state["shift"].copy_(x[:, 0])
+    return y, state
+
+
+def rwkv_cmix_init(cfg, dtype, generator, device) -> Params:
+    d, f = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(d)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"wk": _normal((d, f), s, dtype, generator, device),
+            "wv": _normal((f, d), 1.0 / math.sqrt(f), dtype, generator,
+                          device),
+            "wr": _normal((d, d), s, dtype, generator, device),
+            "mix_k": torch.zeros((d,), **f32),
+            "mix_r": torch.zeros((d,), **f32)}
+
+
+def rwkv_cmix_apply(p: Params, x: torch.Tensor, x_prev: torch.Tensor) \
+        -> torch.Tensor:
+    """RWKV channel-mix.  x [B,T,D]; x_prev = token-shifted x."""
+    dx = x_prev - x
+    xk = x + dx * p["mix_k"]
+    xr = x + dx * p["mix_r"]
+    k = torch.relu(_mm32(xk, p["wk"])).square()
+    return torch.sigmoid(_mm32(xr, p["wr"])) * _mm32(k, p["wv"])

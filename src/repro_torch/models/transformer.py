@@ -1,5 +1,6 @@
-"""Model assembly for the dense attention path: init / forward / prefill /
-decode, driven by `ModelConfig`, ported from `repro.models.transformer`.
+"""Model assembly for the dense attention path and RWKV6: init / forward /
+prefill / decode, driven by `ModelConfig`, ported from
+`repro.models.transformer`.
 
 The parameter tree is the reference's: a nested dict of tensors,
 `{"embed", "lm_head", "final_norm", "blocks"}`, where `blocks` holds one
@@ -9,14 +10,17 @@ dict per pattern position whose leaves are stacked over periods
 not ported, nor is the sharding `hint`, which is the identity on one
 device.
 
-Caches: attention -> (k, v) buffers [n_periods, B, T_cache, K, hd] per
-pattern position, allocated once at the serving length and written IN
-PLACE by `prefill` and by each `decode_step` (the reference returns new
-arrays; the values are equal slot for slot).
+Caches, per pattern position, stacked over periods:
+  attention -> (k, v) buffers [n_periods, B, T_cache, K, hd]
+  rwkv      -> {"shift": [n_periods, B, D], "wkv": [n_periods, B, H, N, N]
+               (f32), "cmix_shift": [n_periods, B, D]}
+allocated once per request (at the serving length for attention) and
+written IN PLACE by `prefill` and by each `decode_step` (the reference
+returns new arrays; the values are equal slot for slot).
 
-Patterns with Mamba, RWKV, MoE, cross-attention or an encoder, and
-M-RoPE, raise NotImplementedError: they are not ported yet (ROADMAP
-queue 1 item 7).
+Patterns with Mamba, MoE, cross-attention or an encoder, and M-RoPE,
+raise NotImplementedError: they are not ported yet (ROADMAP queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels.config import resolve_device
 from . import layers as L
@@ -43,9 +48,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     why = []
     for spec in cfg.pattern:
-        if spec.mixer != "attn":
+        if spec.mixer not in ("attn", "rwkv"):
             why.append(f"{spec.mixer} mixer")
-        if spec.mlp != "dense":
+        if spec.mlp not in ("dense", "rwkv_cmix"):
             why.append(f"{spec.mlp} mlp")
         if spec.cross_attn:
             why.append("cross-attention")
@@ -85,11 +90,17 @@ def _index(tree, i: int):
 # ------------------------------------------------------------------ block init
 def _block_init(spec: LayerSpec, cfg: ModelConfig, dtype, generator,
                 device) -> Params:
-    p: Params = {"norm1": L.norm_init(cfg.d_model, cfg.norm, dtype, device),
-                 "mixer": L.attn_init(cfg, dtype, generator, device)}
+    p: Params = {"norm1": L.norm_init(cfg.d_model, cfg.norm, dtype, device)}
+    if spec.mixer == "attn":
+        p["mixer"] = L.attn_init(cfg, dtype, generator, device)
+    else:
+        p["mixer"] = L.rwkv_init(cfg, dtype, generator, device)
     p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, dtype, device)
-    p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
-                          generator, device)
+    if spec.mlp == "dense":
+        p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
+                              generator, device)
+    else:
+        p["mlp"] = L.rwkv_cmix_init(cfg, dtype, generator, device)
     return p
 
 
@@ -117,20 +128,42 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 # ----------------------------------------------------------------- block apply
-def _apply_mlp(pp: Params, cfg: ModelConfig, x: torch.Tensor) \
-        -> torch.Tensor:
+def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
+               x: torch.Tensor, cmix_shift: Optional[torch.Tensor] = None,
+               decode: bool = False) -> torch.Tensor:
+    """x + mlp(norm2(x)).  RWKV's channel-mix token-shifts norm2(x): the
+    token before x[:, 0] is zero, or in `decode` the cache's
+    `cmix_shift` [B,D]; when `cmix_shift` is given, norm2(x)[:, -1] is
+    written into it IN PLACE (the reference's prefill and decode store
+    that value)."""
     h = L.norm_apply(pp["norm2"], x, cfg.norm)
-    y = L.mlp_apply(pp["mlp"], h, cfg.mlp_act)
+    if spec.mlp == "dense":
+        y = L.mlp_apply(pp["mlp"], h, cfg.mlp_act)
+    else:
+        h_prev = cmix_shift[:, None] if decode else \
+            F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
+        y = L.rwkv_cmix_apply(pp["mlp"], h, h_prev)
+        if cmix_shift is not None:
+            cmix_shift.copy_(h[:, -1])
     return x + y.to(x.dtype)
 
 
 def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
                 x: torch.Tensor, positions) -> torch.Tensor:
     h = L.norm_apply(pp["norm1"], x, cfg.norm)
-    y = L.attention(pp["mixer"], h, cfg, positions=positions,
-                    causal=spec.causal)
+    if spec.mixer == "attn":
+        y = L.attention(pp["mixer"], h, cfg, positions=positions,
+                        causal=spec.causal)
+    else:
+        y, _ = L.rwkv_apply(pp["mixer"], h, cfg)
     x = x + y.to(x.dtype)
-    return _apply_mlp(pp, cfg, x)
+    return _apply_mlp(pp, spec, cfg, x)
+
+
+def _cmix_shift(spec: LayerSpec, ce: dict, i: int):
+    """Period i's channel-mix shift in a cache entry (None for a dense
+    MLP)."""
+    return ce["cmix_shift"][i] if spec.mlp == "rwkv_cmix" else None
 
 
 def _layers(params: Params, cfg: ModelConfig):
@@ -167,16 +200,28 @@ def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 # --------------------------------------------------------------------- serving
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
-    """Cache layout for a serving session: per pattern position,
-    {"k", "v": (shape, dtype)}.  For SWA archs the attention cache is
-    the rolling window; for full attention it holds `seq_len` entries."""
+    """Cache layout for a serving session: per pattern position, a dict
+    of name -> (shape, dtype): "k", "v" for attention (for SWA archs the
+    rolling window, for full attention `seq_len` entries); "shift",
+    "wkv" (f32) for RWKV's time-mix, "cmix_shift" for its channel-mix."""
     check_supported(cfg)
-    hd, nkv = cfg.head_dim, cfg.n_kv_heads
+    d, hd, nkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
     T = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
     cdt = torch_dtype(cfg.compute_dtype)
-    shape = (cfg.n_periods, batch, T, nkv, hd)
-    return {"blocks": tuple({"k": (shape, cdt), "v": (shape, cdt)}
-                            for _ in cfg.pattern)}
+    np_, N = cfg.n_periods, cfg.rwkv_head_dim
+    per_pos = []
+    for spec in cfg.pattern:
+        entry = {}
+        if spec.mixer == "attn":
+            entry["k"] = ((np_, batch, T, nkv, hd), cdt)
+            entry["v"] = ((np_, batch, T, nkv, hd), cdt)
+        else:
+            entry["shift"] = ((np_, batch, d), cdt)
+            entry["wkv"] = ((np_, batch, d // N, N, N), torch.float32)
+        if spec.mlp == "rwkv_cmix":
+            entry["cmix_shift"] = ((np_, batch, d), cdt)
+        per_pos.append(entry)
+    return {"blocks": tuple(per_pos)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
@@ -195,9 +240,9 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
     """Process the prompt; returns (last-token logits [B,V], cache).
 
     cache_len: capacity of the per-layer attention cache (>= prompt len
-    for full attention; the SWA window for sliding-window archs).  The
-    cache is allocated here, on the embedding's device, and filled in
-    place."""
+    for full attention; the SWA window for sliding-window archs; RWKV's
+    state does not grow with it).  The cache is allocated here, on the
+    embedding's device, and filled in place."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
@@ -206,10 +251,14 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
     for i, j, spec, pp in _layers(params, cfg):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
-        y = L.attention_prefill(pp["mixer"], h, cfg, positions=positions,
-                                kv_cache=(ce["k"][i], ce["v"][i]))
+        if spec.mixer == "attn":
+            y = L.attention_prefill(pp["mixer"], h, cfg, positions=positions,
+                                    kv_cache=(ce["k"][i], ce["v"][i]))
+        else:
+            y, _ = L.rwkv_apply(pp["mixer"], h, cfg, state={
+                "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
         x = x + y.to(x.dtype)
-        x = _apply_mlp(pp, cfg, x)
+        x = _apply_mlp(pp, spec, cfg, x, _cmix_shift(spec, ce, i))
     x = L.norm_apply(params["final_norm"], x[:, -1:], cfg.norm)
     logits = x @ params["lm_head"]
     return logits[:, 0], cache
@@ -226,9 +275,15 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     for i, j, spec, pp in _layers(params, cfg):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
-        y = L.attention_decode(pp["mixer"], h, cfg, (ce["k"][i], ce["v"][i]),
-                               pos=cache_len, cache_len=cache_len)
+        if spec.mixer == "attn":
+            y = L.attention_decode(pp["mixer"], h, cfg,
+                                   (ce["k"][i], ce["v"][i]),
+                                   pos=cache_len, cache_len=cache_len)
+        else:
+            y, _ = L.rwkv_decode(pp["mixer"], h, cfg, {
+                "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
         x = x + y.to(x.dtype)
-        x = _apply_mlp(pp, cfg, x)
+        x = _apply_mlp(pp, spec, cfg, x, _cmix_shift(spec, ce, i),
+                       decode=True)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return (x @ params["lm_head"])[:, 0], cache

@@ -88,3 +88,52 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 2 and out.stdout == ""
+
+
+def test_rwkv_serve_phase_on_cpu(smoke, capsys):
+    """RWKV6-3B's smoke variant (bf16) through the same serve phase: the
+    writer under the pin, checks (a), (b) and (d) with the layers' WKV
+    swapped for the plain version; no kernel launches off the card."""
+    import numpy as np
+
+    launches = smoke.serve_phase(torch, np, device="cpu", arch="rwkv6-3b")
+    assert launches == {"wkv_scan": 0}
+    out = capsys.readouterr().out
+    assert "serve request 2 (rwkv6-3b-smoke)" in out
+    assert "serve checks: (a) rwkv6-3b-smoke" in out
+
+
+def test_plain_wkv_swaps_the_layers_and_restores_them(smoke):
+    from repro_torch.models import layers
+
+    before = layers.wkv
+    with smoke.plain_wkv():
+        assert layers.wkv is smoke._wkv_plain
+    assert layers.wkv is before
+
+
+def test_wkv_plain_and_cost(smoke):
+    """The chip script's plain WKV in the model's layout equals the op on
+    CPU tensors (which takes the plain version), state written in place;
+    the bound's bytes and operations at the serve prefill shape."""
+    import numpy as np
+
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    rng = np.random.default_rng(0)
+    r, k, v, w_log = (torch.from_numpy(rng.standard_normal((2, 5, 3, 32))
+                                       .astype(np.float32)) for _ in range(4))
+    u = torch.from_numpy(rng.standard_normal((3, 32)).astype(np.float32))
+    state = torch.zeros((2, 3, 32, 32))
+    o, S = smoke._wkv_plain(r, k, v, -w_log.exp(), u, state,
+                            state_out=state)
+    want_o, want_S = wkv(r, k, v, -w_log.exp(), u)
+    assert S is state and torch.equal(o, want_o) and torch.equal(S, want_S)
+    nbytes, flops = smoke._wkv_cost(8, 1024, 40, 64, 4, False)
+    assert nbytes == 5 * 8 * 1024 * 40 * 64 * 4 + 40 * 64 * 4 \
+        + 8 * 40 * 64 * 64 * 4
+    assert abs(nbytes / 1e9 - 0.425) < 1e-3 and flops == 5 * 320 * 1024 * 4096
+    t, by = smoke._bound(nbytes, flops, "float32")
+    assert by == "bytes" and abs(t - 0.1268) < 1e-3
+    t, by = smoke._bound(*smoke._wkv_cost(8, 1, 40, 64, 4, True), "float32")
+    assert by == "bytes" and abs(t - 0.0033) < 2e-4

@@ -423,3 +423,159 @@ def test_qwen_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
     want = run()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 3e-2 * want.abs().max()
+
+
+# --------------------------------------------------------------- wkv_scan
+# kernel vs plain on the card: both widen the inputs to f32 and run the
+# recurrence in f32, in other summation orders; the reference's own
+# tolerance for its kernel (tests/test_kernels.py)
+WKV_TOL = 1e-4
+
+
+def _wkv_inputs(dev, B, T, H, N, dtype, seed):
+    """r, k, v, w_log [B,T,H,N] in `dtype` and u [H,N] f32 on `dev`, at
+    the reference test's scales, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+
+    def put(a):
+        return torch.from_numpy(a.astype(np.float32)).to(dev, tdt)
+    r, k = (put(0.5 * rng.standard_normal((B, T, H, N))) for _ in range(2))
+    v = put(rng.standard_normal((B, T, H, N)))
+    w_log = put(-np.exp(rng.standard_normal((B, T, H, N)) - 2))
+    u = put(0.1 * rng.standard_normal((H, N))).float()
+    return r, k, v, w_log, u
+
+
+def _wkv_plain(r, k, v, w_log, u, s0=None):
+    """The plain version on the card, in the model's layout."""
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_plain
+
+    B, T, H, N = r.shape
+    o, S = wkv_scan_plain(*(x.transpose(1, 2) for x in (r, k, v, w_log)),
+                          u[None].expand(B, H, N), s0)
+    return o.transpose(1, 2), S
+
+
+def _wkv_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=WKV_TOL, atol=WKV_TOL)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("N", [32, 64])
+@pytest.mark.parametrize("T", [1, 16, 37, 200])
+def test_wkv_kernel_equals_plain(no_tf32, dtype, N, T):
+    """Ragged T (not a multiple of the 16-step chunk), T = 1, both head
+    sizes, every input dtype, from a zero state and from a given s0."""
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    dev = no_tf32
+    r, k, v, w_log, u = _wkv_inputs(dev, 3, T, 5, N, dtype, T + N)
+    _wkv_close(wkv(r, k, v, w_log, u), _wkv_plain(r, k, v, w_log, u))
+    s0 = torch.randn((3, 5, N, N), generator=torch.Generator(
+        device=dev).manual_seed(T), device=dev)
+    _wkv_close(wkv(r, k, v, w_log, u, s0), _wkv_plain(r, k, v, w_log, u, s0))
+
+
+def test_wkv_kernel_reads_strided_views_and_updates_state_in_place(no_tf32):
+    """Slices of a wider head axis and a state that is both s0 and
+    state_out: three one-token steps and a 40-step scan from it equal
+    the plain version's sequence; the buffer is the one written."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    dev = no_tf32
+    r, k, v, w_log, u = _wkv_inputs(dev, 2, 43, 9, 64, "float32", 1)
+    r, k, v, w_log = (x[:, :, 2:7] for x in (r, k, v, w_log))
+    u = u[2:7]
+    assert not r.is_contiguous()
+    state = torch.zeros((2, 5, 64, 64), device=dev)
+    want_S = state.clone()
+    WK.reset_launches()
+    for t in range(3):
+        sl = [x[:, t:t + 1] for x in (r, k, v, w_log)]
+        o, S = wkv(*sl, u, state, state_out=state)
+        want_o, want_S = _wkv_plain(*sl, u, want_S)
+        assert S is state
+        _wkv_close((o, state), (want_o, want_S))
+    sl = [x[:, 3:] for x in (r, k, v, w_log)]
+    o, _ = wkv(*sl, u, state, state_out=state)
+    _wkv_close((o, state), _wkv_plain(*sl, u, want_S))
+    assert WK.wkv_scan.launches == 4
+
+
+def test_wkv_wrapper_rejects_bad_inputs_and_counts_launches(dev):
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    r, k, v, w_log, u = (x.transpose(1, 2) if x.dim() == 4 else x
+                         for x in _wkv_inputs(dev, 2, 8, 3, 64, "float32", 0))
+    ub = u[None].expand(2, 3, 64)
+    WK.reset_launches()
+    WK.wkv_scan(r, k, v, w_log, ub)
+    assert WK.wkv_scan.launches == 1
+    for n in (16, 48, 128):                      # head size not 32 or 64
+        x = torch.zeros((2, 3, 8, n), device=dev)
+        with pytest.raises(ValueError, match="head size"):
+            WK.wkv_scan(x, x, x, x, torch.zeros((2, 3, n), device=dev))
+    with pytest.raises(TypeError):               # no float64 kernel
+        WK.wkv_scan(*(x.double() for x in (r, k, v, w_log)), ub)
+    with pytest.raises(TypeError):               # dtypes differ
+        WK.wkv_scan(r, k.bfloat16(), v, w_log, ub)
+    with pytest.raises(ValueError):              # shapes differ
+        WK.wkv_scan(r, k[:, :, :4], v, w_log, ub)
+    with pytest.raises(ValueError):              # N not contiguous
+        WK.wkv_scan(r.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                    w_log, ub)
+    with pytest.raises(ValueError):              # T = 0
+        WK.wkv_scan(*(x[:, :, :0] for x in (r, k, v, w_log)), ub)
+    with pytest.raises(ValueError):              # s0 not f32
+        WK.wkv_scan(r, k, v, w_log, ub,
+                    torch.zeros((2, 3, 64, 64), device=dev).bfloat16())
+    with pytest.raises(ValueError):              # state_out on the CPU
+        WK.wkv_scan(r, k, v, w_log, ub, state_out=torch.zeros((2, 3, 64, 64)))
+    assert WK.wkv_scan.launches == 1
+
+
+def test_rwkv_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
+    """RWKV6-3B's smoke variant (bf16) on the card: prefill and decode
+    through `wkv_scan` against the same run with the layers' WKV on the
+    plain version; logits within 3e-2 of their max-abs; one launch per
+    layer per prefill and per decode step."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.models import decode_step, init_params, layers, prefill
+
+    dev = no_tf32
+    cfg = smoke_variant(get_config("rwkv6-3b"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 100))).to(dev)
+
+    def run():
+        out = []
+        logits, cache = prefill(params, cfg, {"tokens": toks[:, :90]},
+                                cache_len=100)
+        out.append(logits)
+        for n in range(90, 99):
+            logits, cache = decode_step(params, cfg, toks[:, n:n + 1],
+                                        cache, n)
+            out.append(logits)
+        return torch.stack(out).float()
+
+    WK.reset_launches()
+    got = run()
+    assert WK.wkv_scan.launches == cfg.n_layers * 10
+    monkeypatch.setattr(layers, "wkv", _wkv_plain_op)
+    want = run()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()
+
+
+def _wkv_plain_op(r, k, v, w_log, u, s0=None, *, state_out=None):
+    """`ops.wkv` on the plain version (for swapping into the layers)."""
+    o, S = _wkv_plain(r, k, v, w_log, u, s0)
+    return o, S if state_out is None else state_out.copy_(S)

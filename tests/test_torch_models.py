@@ -83,9 +83,8 @@ def test_cells_and_shapes_equal_the_reference():
         {k: dataclasses.asdict(v) for k, v in JC.SHAPES.items()}
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "rwkv6-3b",
-                                  "jamba-1.5-large-398b", "whisper-tiny",
-                                  "qwen2-vl-72b"])
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "jamba-1.5-large-398b",
+                                  "whisper-tiny", "qwen2-vl-72b"])
 def test_unported_layers_are_refused(arch):
     cfg = TC.smoke_variant(TC.get_config(arch))
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
@@ -111,6 +110,32 @@ def test_param_tree_matches_eval_shape(smoke):
     assert _shapes(got) == _shapes(want)
     n = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(want))
     assert n == j.param_count()
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_rwkv_param_tree_and_cache_spec_match_the_reference(smoke):
+    """RWKV6's tree (bf16 matrices beside the f32 decay, bonus, ddlerp
+    bases, groupnorm affine and channel-mix lerps) and its cache layout
+    (bf16 shifts, f32 state) equal the reference's `eval_shape` tree and
+    `cache_spec`."""
+    j = JC.get_config("rwkv6-3b")
+    j = JC.smoke_variant(j) if smoke else j
+    want = jax.eval_shape(lambda k: JM.init_params(k, j),
+                          jax.random.PRNGKey(0))
+    got = TM.init_params(_port_cfg(j), None, "meta")
+    assert _shapes(got) == _shapes(want)
+    f32 = {k for k, v in got["blocks"][0]["mixer"].items()
+           if v.dtype == torch.float32}
+    assert f32 == {"w_base", "u", "mix_base", "ln_w", "ln_b"}
+    for batch, seq in ((2, 12), (8, 1088)):
+        want = JM.cache_spec(j, batch, seq)
+        got = TM.cache_spec(_port_cfg(j), batch, seq)
+        name = lambda dt: str(dt).replace("torch.", "") \
+            if isinstance(dt, torch.dtype) else np.dtype(dt).name
+        norm = lambda spec: tuple(
+            {k: (tuple(shape), name(dt)) for k, (shape, dt) in e.items()}
+            for e in spec["blocks"])
+        assert norm(got) == norm(want)
 
 
 def test_init_params_draws_from_the_generator():
