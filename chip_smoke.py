@@ -41,12 +41,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    launched in phases 6 and 7;
 8. attention kernel phase: `flash_attention` at the serve path's prefill
    shape (bf16, B = 8, S = T = 1,024, H = K = 16, hd = 64, causal), at a
-   GQA + window shape (H = 32, K = 8, hd = 128, window 256), at ragged
-   S = T = 1,000 (bf16, and f32 with TF32 off), and `decode_attention`
-   at B = 8, T = 1,088, valid_len in {1, 600, 1,088}, G = 1 (hd 64) and
-   G = 4 (hd 128), each against its plain PyTorch version on the card
-   (bf16 rtol = atol = 3e-2, f32 2e-5); prints kernel, plain, bound and
-   `scaled_dot_product_attention` (library) times;
+   GQA + window shape (H = 32, K = 8, hd = 128, window 256), at Jamba's
+   prefill shape (H = 64, K = 8, hd = 128), at ragged S = T = 1,000
+   (bf16, and f32 with TF32 off), and `decode_attention` at B = 8,
+   T = 1,088, valid_len in {1, 600, 1,088}, G = 1 (hd 64), G = 4 and
+   G = 8 (hd 128, Jamba's), each against its plain PyTorch version on
+   the card (bf16 rtol = atol = 3e-2, f32 2e-5); prints kernel, plain,
+   bound and `scaled_dot_product_attention` (library) times;
 9. WKV kernel phase: `wkv_scan` in the model's [B,T,H,N] layout at the
    RWKV serve path's prefill shape (f32, B = 8, T = 1,024, H = 40,
    N = 64) and decode shape (T = 1, the state as s0 and output, in
@@ -56,27 +57,45 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    RWKV6-3B's own decay scale (w_base = -6, unit r/k/v) f32 sums of
    64 terms of size ~|o| cancel, so there the check holds |d| to 1e-4
    of the output's max-abs; prints kernel, plain and bound times;
-10. serve phase, once per architecture: Qwen1.5-0.5B, then RWKV6-3B
-   (`repro_torch.configs`, full width and depth, bf16, random weights
-   from torch.Generator seed 0) published into a `VersionedParamStore`
-   and served by `ServingEngine`: request 1 (8 prompts of 1,024 tokens,
-   64 decode steps, refresh between steps) while a writer publishes v2
-   (embedding rows and lm_head columns perturbed) under request 1's pin,
-   then request 2 on v2.  Checks: (a) request 1's prefill and decode
-   logits against the plain path on the card (the layers' attention and
-   WKV on their plain versions); (b) prefill + decode against `forward`
-   over the whole 1,088 tokens; both within 3e-2 of the logits' max-abs
-   for Qwen.  RWKV6-3B's 32 bf16 layers amplify a 1e-6 relative change
-   of the WKV output to ~8% of the logits (the phase prints this noise
-   floor), so there (a) holds every `wkv_scan` launch of request 1's
-   replay against the plain version on the same inputs (1e-4), and (a)
-   and (b) run end to end on the same weights in f32 (1e-3); the bf16
-   ratios are printed; (c) each kernel's launches per request:
-   Qwen 24 flash in prefill and 24 x 64 decode attention, RWKV 32
-   `wkv_scan` in prefill and 32 x 64 in decode; (d) request 2's snapshot
-   LSN above request 1's, and request 1 served from v1 alone; then one
-   more request under torch.profiler for the device's busy time, idle
-   share and time by kernel kind.
+10. SSM kernel phase: `ssm_scan` at Jamba's prefill shape (f32, Bb = 8,
+   T = 1,024, Di = 16,384, N = 16, Jamba's own scales) and decode shape
+   (T = 1, the state as h0 and output, in place), and at edge shapes
+   (ragged T = 37, Di = 1,000, N = 8, bf16 u, h0 given at T > 1, the
+   reference test's shapes and scales), against its plain version on the
+   card at rtol = atol = 2e-4 (the reference's tolerance for its kernel);
+   prints kernel, plain and bound times;
+11. serve phase, once per architecture: Qwen1.5-0.5B, RWKV6-3B, then
+   Jamba-1.5-Large (`repro_torch.configs`, bf16, random weights from
+   torch.Generator seed 0; Qwen and RWKV at full width and depth, Jamba
+   at full width, one period deep (8 of 72 layers), each MoE layer
+   holding experts 0-7 of 16: one card's share of an expert-parallel
+   deployment, ~54 GB) published into a `VersionedParamStore` and served
+   by `ServingEngine`: request 1 (8 prompts of 1,024 tokens, 64 decode
+   steps, refresh between steps) while a writer publishes v2 (embedding
+   rows and lm_head columns perturbed) under request 1's pin, then
+   request 2 on v2.  Checks: (a) request 1's prefill and decode logits
+   against the plain path on the card (the layers' attention, WKV and
+   selective scan on their plain versions; Jamba's MoE routing recorded
+   in request 1 and replayed, so a near tie that rounds the other way
+   does not move the comparison by a whole expert); (b) prefill + decode
+   against `forward` over the whole 1,088 tokens (Jamba's at capacity
+   factor 8.0, drop-free, with routing replayed: at 1.25 the capacity
+   depends on the length, so prefill + decode drops choices the forward
+   keeps, in the reference too); both within 3e-2 of the logits'
+   max-abs for Qwen and Jamba.  RWKV6-3B's 32 bf16 layers amplify a
+   1e-6 relative change of the WKV output to ~8% of the logits (the
+   phase prints this noise floor), so there (a) holds every `wkv_scan`
+   launch of request 1's replay against the plain version on the same
+   inputs (1e-4), and (a) and (b) run end to end on the same weights in
+   f32 (1e-3); the bf16 ratios are printed.  Jamba adds the same
+   per-launch check of `ssm_scan` (1e-4), its noise floor, and one
+   full-width Mamba block in f32 (1e-3); (c) each kernel's launches per
+   request: Qwen 24 flash in prefill and 24 x 64 decode attention, RWKV
+   32 `wkv_scan` in prefill and 32 x 64 in decode, Jamba 7 `ssm_scan` in
+   prefill and 7 x 64 in decode, 1 flash and 64 decode attention; (d)
+   request 2's snapshot LSN above request 1's, and request 1 served from
+   v1 alone; then one more request under torch.profiler for the device's
+   busy time, idle share, peak memory and time by kernel kind.
 
 It prints one `{"kernels": [...]}` JSON line, the card line, and last
 `{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
@@ -108,9 +127,14 @@ ATTN_TPU = {
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:62"}
 WKV_SRC = "src/repro_torch/csrc/wkv.cu"
 WKV_TPU = {"wkv_scan": "src/repro/kernels/wkv_scan/kernel.py:64"}
+SSM_SRC = "src/repro_torch/csrc/ssm.cu"
+SSM_TPU = {"ssm_scan": "src/repro/kernels/ssm_scan/kernel.py:63"}
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory rate
 # H100 SXM dense peaks: bf16/f16 on the tensor cores, f32 outside them
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# H100 SXM special-function units: 16 exp2 results per clock per SM, 132
+# SMs, 1.98 GHz boost clock
+SFU_PER_S = 16 * 132 * 1.98e9
 SLEEP_CYCLES = 20_000_000          # lets the host enqueue ahead of a timing
 ROUNDS = 150                       # driver rounds at TPC-C scale
 PATH_TXNS = 3000                   # OLTP transactions before the read
@@ -123,16 +147,31 @@ TPCC = dict(warehouses=4, districts=10, customers=3000, items=100_000,
 # vocabulary 151,936 rows of d_model 1,024, here with K = 2 versions
 EMBED_P, EMBED_K, EMBED_E = 151_936, 2, 1024
 # serve phase, per architecture: the kernels its path launches, each with
-# its launches per layer in a prefill and per layer in a decode step
+# its launches per layer of the kernel's mixer (KERNEL_MIXER) in a prefill
+# and per such layer in a decode step
 SERVE_KERNELS = {
     "qwen1.5-0.5b": {"flash_attention": (1, 0), "decode_attention": (0, 1)},
-    "rwkv6-3b": {"wkv_scan": (1, 1)}}
+    "rwkv6-3b": {"wkv_scan": (1, 1)},
+    "jamba-1.5-large-398b": {"ssm_scan": (1, 1), "flash_attention": (1, 0),
+                             "decode_attention": (0, 1)}}
+KERNEL_MIXER = {"flash_attention": "attn", "decode_attention": "attn",
+                "wkv_scan": "rwkv", "ssm_scan": "mamba"}
 # checks (a) and (b) on the served bf16 logits: max |d| within this share
 # of the logits' max-abs (the CPU tests' bf16 tolerance).  None for
 # RWKV6-3B: its 32 bf16 layers move the logits by ~8% of their max-abs
 # for a 1e-6 relative change of the WKV output (PERF.md), so there the
 # kernel is held per launch and in f32 instead (`_wkv_checks`)
-SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None}
+SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
+                  "jamba-1.5-large-398b": 3e-2}
+# Jamba-1.5-Large does not fit one card (one period at full width is
+# 45.2 B parameters, 90.5 GB in bf16).  The card holds its share of a
+# deployment that places each MoE layer's 16 experts on 2 cards by expert
+# and the other 8 periods on further pipeline stages: one period (8 of
+# 72 layers) at the published widths, experts 0-7 of each MoE layer (the
+# router keeps all 16 outputs and top-2).  The CPU rehearsal cuts the
+# smoke variant the same way.
+SERVE_DEPTH = {"jamba-1.5-large-398b": 8}
+SERVE_EXPERT_CARDS = {"jamba-1.5-large-398b": 2}
 SERVE_SMOKE = False
 # 8 prompts of 1,024 tokens, 64 decode steps (cache of 1,088); the writer
 # publishes v2 after this decode step
@@ -777,6 +816,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         ("prefill", "bfloat16", 8, 1024, 1024, 16, 16, 64, True, 0, True),
         ("gqa+window", "bfloat16", 2, 2048, 2048, 32, 8, 128, True, 256,
          True),
+        ("jamba prefill", "bfloat16", 8, 1024, 1024, 64, 8, 128, True, 0,
+         True),
         ("ragged", "bfloat16", 2, 1000, 1000, 16, 16, 64, True, 0, False),
         ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False)]
     for (label, dt, B, S, T, H, K, hd, causal, window, timed) in flash_cases:
@@ -802,7 +843,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
 
     # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies
     for label, B, T, H, K, hd in (("G=1", 8, 1088, 16, 16, 64),
-                                  ("G=4", 8, 1088, 32, 8, 128)):
+                                  ("G=4", 8, 1088, 32, 8, 128),
+                                  ("G=8 jamba", 8, 1088, 64, 8, 128)):
         q = randn((B, H, hd), "bfloat16")
         kc, vc = (randn((B, T, K, hd), "bfloat16") for _ in range(2))
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)
@@ -947,6 +989,125 @@ def wkv_kernel_phase(torch, np, flush) -> dict:
     return res
 
 
+# -------------------------------------------------------------- SSM kernel
+def _ssm_cost(Bb: int, T: int, Di: int, N: int, u_size: int, h0: bool):
+    """Bytes the scan must move (u and dt read once, y written once, B
+    and C read once, A and D, h0 when given, the final state written) and
+    its f32 operations: 8 per (b, t, d, n) (dt·A, the exponential, the
+    decay's product and the input's product and sum, C's product and
+    sum) and 3 per (b, t, d) (dt·u, D·u and its sum)."""
+    nbytes = (Bb * T * Di * (u_size + 4 + 4) + 2 * Bb * T * N * 4
+              + Di * N * 4 + Di * 4 + (2 if h0 else 1) * Bb * Di * N * 4)
+    return nbytes, 8 * Bb * T * Di * N + 3 * Bb * T * Di
+
+
+def ssm_kernel_phase(torch, np, flush) -> dict:
+    """ssm_scan against its plain version on the card, in the model's
+    layout as the Mamba layers hand it (u, dt [Bb,T,Di]; B, C [Bb,T,N]),
+    timed beside its bound; `library_ms` is None: no one PyTorch call
+    computes the selective scan.  Element-wise rtol = atol = 2e-4, the
+    reference's tolerance for its kernel.  Returns {"max_abs_err",
+    "times": (ms, plain, bound, None, by)} of the prefill shape."""
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    res = {"max_abs_err": 0.0}
+    tol = 2e-4
+    F = torch.nn.functional
+
+    def inputs(Bb, T, Di, N, u_dtype, scale):
+        """"jamba": Jamba's own scales (dt = softplus(z) of its zero
+        dt_bias, A = -(1..N) as A_log is initialised, D = 1, unit u, B,
+        C); "reference": the reference kernel test's (dt = softplus(z -
+        1), A = -exp(z), D = z)."""
+        z = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        u, B, C = z(Bb, T, Di), z(Bb, T, N), z(Bb, T, N)
+        if scale == "jamba":
+            dt = F.softplus(z(Bb, T, Di))
+            A = -torch.arange(1, N + 1, device=dev,
+                              dtype=torch.float32).expand(Di, N).contiguous()
+            D = torch.ones(Di, device=dev)
+        else:
+            dt = F.softplus(z(Bb, T, Di) - 1)
+            A, D = -torch.exp(z(Di, N)), z(Di)
+        return u.to(getattr(torch, u_dtype)), dt, B, C, A, D
+
+    def check(label, got, want):
+        torch.cuda.synchronize()
+        seen = []
+        for what, a, b in zip(("y", "h"), got, want):
+            err = (a - b).abs()
+            if not torch.isfinite(a).all() or \
+                    (err > tol * (1 + b.abs())).any():
+                raise AssertionError(f"ssm_scan {label} {what}: kernel != "
+                                     f"plain (max |d| {err.max().item()})")
+            res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+            seen.append(f"{what} max |d| {err.max().item():.4g} (max "
+                        f"|{what}| {b.abs().max().item():.4g})")
+        print(f"kernel ssm_scan {label}: {', '.join(seen)}", flush=True)
+
+    def report(label, fn, plain, cost, n_exp):
+        ms = time_ms(torch, fn, flush)
+        plain_ms = time_ms(torch, plain, flush, reps=5)
+        nbytes, flops = cost
+        bound_ms, by = _bound(nbytes, flops, "float32")
+        print(f"kernel ssm_scan {label}: kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({by}; "
+              f"ops at the f32 peak {flops / PEAK_FLOPS['float32'] * 1e3:.4f}"
+              f" ms; {n_exp / 1e9:.3f} G exponentials on the SFU "
+              f"{n_exp / SFU_PER_S * 1e3:.4f} ms) library_ms=null (no "
+              f"PyTorch call computes the selective scan) ({nbytes / 1e6:.1f}"
+              f" MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        return ms, plain_ms, bound_ms, None, by
+
+    # (label, u dtype, Bb, T, Di, N, h0 given, scale, timed)
+    cases = [("prefill", "float32", 8, 1024, 16384, 16, False, "jamba", True),
+             ("ragged T", "float32", 2, 37, 4096, 16, False, "jamba", False),
+             ("ragged Di", "float32", 2, 100, 1000, 16, False, "reference",
+              False),
+             ("N=8", "float32", 2, 200, 2048, 8, False, "reference", False),
+             ("bf16 u", "bfloat16", 2, 256, 4096, 16, False, "jamba", False),
+             ("h0", "float32", 2, 50, 4096, 16, True, "reference", False),
+             ("reference test", "float32", 2, 64, 128, 8, False, "reference",
+              False),
+             ("reference test", "float32", 1, 128, 256, 16, False,
+              "reference", False)]
+    for label, dt_, Bb, T, Di, N, with_h0, scale, timed in cases:
+        u, dt, B, C, A, D = inputs(Bb, T, Di, N, dt_, scale)
+        h0 = torch.randn((Bb, Di, N), generator=g, device=dev) \
+            if with_h0 else None
+        shape = (f"{dt_} u, Bb={Bb} T={T} Di={Di} N={N} h0={with_h0} "
+                 f"scale={scale}")
+        got = selective_scan(u, dt, B, C, A, D, h0)
+        check(f"{label} {shape}", got, ssm_scan_ref(u, dt, B, C, A, D, h0))
+        if timed:
+            res["times"] = report(
+                f"{label} {shape}",
+                lambda: selective_scan(u, dt, B, C, A, D),
+                lambda: ssm_scan_ref(u, dt, B, C, A, D),
+                _ssm_cost(Bb, T, Di, N, u.element_size(), False),
+                Bb * T * Di * N)
+            state = got[1]            # decode from the prompt's state
+    # decode: one token from that state, read and written in place
+    u, dt, B, C, A, D = inputs(8, 1, 16384, 16, "float32", "jamba")
+    want = ssm_scan_ref(u, dt, B, C, A, D, state)
+    got = selective_scan(u, dt, B, C, A, D, state, state_out=state)
+    if got[1] is not state:
+        raise AssertionError("ssm_scan decode: the state was not written "
+                             "in place")
+    check("decode f32 Bb=8 T=1 Di=16384 N=16 h0=state_out", got, want)
+    report("decode f32 Bb=8 T=1 Di=16384 N=16 h0=state_out (in place)",
+           lambda: selective_scan(u, dt, B, C, A, D, state, state_out=state),
+           lambda: ssm_scan_ref(u, dt, B, C, A, D, state, state_out=state),
+           _ssm_cost(8, 1, 16384, 16, 4, True), 8 * 16384 * 16)
+    print(f"kernel ssm_scan: {len(cases) + 1} shapes within {tol} of "
+          f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
+    return res
+
+
 # ------------------------------------------------------------------ serving
 @contextlib.contextmanager
 def plain_attention():
@@ -982,6 +1143,82 @@ def plain_wkv():
         layers.wkv = saved
 
 
+@contextlib.contextmanager
+def plain_ssm():
+    """Inside the block, the layers' selective scan runs on the plain
+    version (`ssm_scan_ref`) on the tensors' own device: with
+    `plain_attention` and `plain_wkv`, the plain path of check (a)."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import layers
+
+    saved = layers.selective_scan
+    layers.selective_scan = ssm_scan_ref
+    try:
+        yield
+    finally:
+        layers.selective_scan = saved
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Inside the block, the experts every `layers.moe_route` call
+    chooses (gate_idx [B,S,K]) are appended, in call order, to the
+    yielded list."""
+    from repro_torch.models import layers
+
+    route, calls = layers.moe_route, []
+
+    def recorded(p, x, cfg, **kw):
+        out = route(p, x, cfg, **kw)
+        calls.append(out[1])
+        return out
+
+    layers.moe_route = recorded
+    try:
+        yield calls
+    finally:
+        layers.moe_route = route
+
+
+@contextlib.contextmanager
+def replay_routing(torch, calls):
+    """Inside the block, the i-th `layers.moe_route` call takes the
+    experts calls[i] instead of its own top-k: its own router's softmax
+    at those experts, renormalised, and its own slots for them.  A
+    routing decision on a near tie can flip between two paths that round
+    differently, and then moves the rest of the model by a whole expert;
+    the replay keeps the comparison on the kernels.  Yields a dict whose
+    "differ" (read after the block) counts the choices where a call's own
+    top-k differed from the replayed one.  `calls` None: no replay."""
+    from repro_torch.models import layers
+
+    stats = {"calls": 0, "differ": 0}
+    if calls is None:
+        yield stats
+        return
+    route = layers.moe_route
+
+    def replayed(p, x, cfg, *, capacity_factor=0.0):
+        _, own, _ = route(p, x, cfg, capacity_factor=capacity_factor)
+        idx = calls[stats["calls"]]
+        stats["calls"] += 1
+        stats["differ"] = stats["differ"] + (own != idx).sum()
+        vals = torch.softmax(x.float() @ p["router"], -1).gather(-1, idx)
+        vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+        C = layers.moe_capacity(cfg, x.shape[1], capacity_factor)
+        return vals, idx, layers.moe_slots(idx, cfg.n_experts, C)
+
+    layers.moe_route = replayed
+    try:
+        yield stats
+    finally:
+        layers.moe_route = route
+    if stats["calls"] != len(calls):
+        raise AssertionError(f"replayed {stats['calls']} of {len(calls)} "
+                             "MoE calls")
+    stats["differ"] = int(stats["differ"])
+
+
 def _logits_close(torch, what: str, got, want, rel) -> float:
     """max |got - want| <= rel * max |want| (no bound when `rel` is None);
     raises on non-finite logits.  Returns the ratio."""
@@ -1010,30 +1247,73 @@ def _teacher_forced(cfg, params, prompts, toks, S: int, N: int) -> list:
     return out
 
 
-def _check_a(torch, cfg, params, prompts, toks, logits, S, N, rel) -> float:
+def _check_a(torch, cfg, params, prompts, toks, logits, S, N, rel,
+             routing=None) -> tuple[float, int]:
     """(a): a request's logits against the plain path's on the same
-    params, teacher-forced with the request's tokens."""
-    with plain_attention(), plain_wkv():
+    params, teacher-forced with the request's tokens (and, for a MoE
+    model, the request's recorded `routing` replayed).  Returns the worst
+    ratio and the routing decisions the plain path would have flipped."""
+    with plain_attention(), plain_wkv(), plain_ssm(), \
+            replay_routing(torch, routing) as st:
         want = _teacher_forced(cfg, params, prompts, toks, S, N)
     return max(_logits_close(torch, f"(a) step {k}", got, w, rel)
-               for k, (got, w) in enumerate(zip(logits, want)))
+               for k, (got, w) in enumerate(zip(logits, want))), \
+        st["differ"]
 
 
-def _check_b(torch, cfg, params, prompts, toks, logits, S, N, rel) \
-        -> float:
+def _check_b(torch, cfg, params, prompts, toks, logits, S, N, rel,
+             routing=None) -> tuple[float, int]:
     """(b): prefill + decode logits against `forward` over the whole
     sequence, one prompt at a time, so [B, S + N, V] logits are never
-    held at once."""
+    held at once.  For a MoE model, `routing` holds each MoE layer's
+    recorded choices over the whole sequence ([B, S + N, K]), replayed
+    into the forward.  Returns the worst ratio and the routing decisions
+    the forward would have flipped."""
     from repro_torch.models import forward
 
     full = torch.cat([prompts, toks], dim=1)
     got = torch.stack(logits, dim=1)                   # [B, N + 1, V]
-    worst = 0.0
+    worst, differ = 0.0, 0
     for b in range(full.shape[0]):
-        fwd = forward(params, cfg, {"tokens": full[b:b + 1]})[0, S - 1:S + N]
+        calls = None if routing is None else [c[b:b + 1] for c in routing]
+        with replay_routing(torch, calls) as st:
+            fwd = forward(params, cfg, {"tokens": full[b:b + 1]})[
+                0, S - 1:S + N]
+        differ += st["differ"]
         worst = max(worst, _logits_close(torch, f"(b) prompt {b}", got[b],
                                          fwd, rel))
-    return worst
+    return worst, differ
+
+
+def _n_layers(cfg, **spec) -> int:
+    """Layers whose LayerSpec has the given fields (e.g. mixer="attn")."""
+    return cfg.n_periods * sum(all(getattr(s, k) == v
+                                   for k, v in spec.items())
+                               for s in cfg.pattern)
+
+
+def _check_b_dropfree(torch, cfg, params, prompts, toks, S, N, rel):
+    """(b) for a MoE model.  Its capacity depends on the sequence length
+    (at 1.25: 160 slots per expert for the 1,024-token prefill, 170 for
+    the 1,088-token forward, 1 in a decode step), so at the configured
+    factor prefill + decode drops choices the forward keeps, in the
+    reference as here.  So (b) runs both at capacity factor 8.0, where
+    nothing is dropped (the reference's smoke configs' "decode/prefill ==
+    forward" setting): a teacher-forced replay of the request on the
+    kernel path records its routing, and the forward replays it."""
+    cfg8 = dataclasses.replace(cfg, moe_capacity_factor=8.0)
+    with record_routing() as calls:
+        logits = _teacher_forced(cfg8, params, prompts, toks, S, N)
+    n_moe = _n_layers(cfg, mlp="moe")
+    if len(calls) != n_moe * (N + 1):
+        raise AssertionError(f"{len(calls)} MoE calls, expected "
+                             f"{n_moe * (N + 1)}")
+    per_layer = [torch.cat([calls[layer]] + [calls[n_moe * (1 + k) + layer]
+                                             for k in range(N)], dim=1)
+                 for layer in range(n_moe)]
+    del calls
+    return _check_b(torch, cfg8, params, prompts, toks, logits, S, N, rel,
+                    per_layer)
 
 
 def _tree_float(tree):
@@ -1079,8 +1359,8 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
                                 compute_dtype="float32")
     p32 = _tree_float(params)
     got = _teacher_forced(cfg32, p32, prompts, toks, S, N)
-    a32 = _check_a(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)
-    b32 = _check_b(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)
+    a32 = _check_a(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)[0]
+    b32 = _check_b(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)[0]
     del p32, got
     g = torch.Generator(device=prompts.device)
     g.manual_seed(5)
@@ -1101,6 +1381,97 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
             f"(b) {b32:.3g} (<= 1e-3)")
 
 
+def _ssm_checks(torch, cfg, params, prompts, toks, S: int, N: int,
+                routing) -> str:
+    """Jamba's further checks of the kernel in its path: (a) per launch:
+    every `ssm_scan` launch of a teacher-forced replay of request 1 (its
+    routing replayed) against the plain version on the same inputs, y
+    and h within 1e-4 of their max-abs; the bf16 model's own noise
+    floor: its plain prefill against itself with every SSM output times
+    (1 + 1e-6 z); and one full-width Mamba block in f32 (the layer of
+    period 0, position 0, on the prompts' embeddings: a prefill and 4
+    decode steps) through the kernel and the plain path, within 1e-3 of
+    the output's max-abs.  A whole f32 copy of the period (104 GB) does
+    not fit the card.  Returns the report."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import layers
+
+    kernel_scan, worst, n = layers.selective_scan, 0.0, 0
+
+    def checked(u, dt, B, C, A, D, h0=None, *, state_out=None):
+        nonlocal worst, n
+        want = ssm_scan_ref(u, dt, B, C, A, D, h0)   # before h0 is written
+        got = kernel_scan(u, dt, B, C, A, D, h0, state_out=state_out)
+        for what, a, b in zip(("y", "h"), got, want):
+            ratio = ((a - b).abs().max() / b.abs().max()).item()
+            if not ratio <= 1e-4:
+                raise AssertionError(f"(a) ssm_scan launch {n}, {what}: max "
+                                     f"|d| / max = {ratio:.4g} > 1e-4")
+            worst = max(worst, ratio)
+        n += 1
+        return got
+
+    layers.selective_scan = checked
+    try:
+        with replay_routing(torch, routing):
+            _teacher_forced(cfg, params, prompts, toks, S, N)
+    finally:
+        layers.selective_scan = kernel_scan
+    g = torch.Generator(device=prompts.device)
+    g.manual_seed(5)
+
+    def noisy(u, dt, B, C, A, D, h0=None, *, state_out=None):
+        y, h = ssm_scan_ref(u, dt, B, C, A, D, h0, state_out=state_out)
+        z = torch.randn(y.shape, generator=g, device=y.device)
+        return y * (1 + 1e-6 * z), h
+
+    n_pre = _n_layers(cfg, mlp="moe")            # the prefill's MoE calls
+    with plain_attention(), plain_ssm():
+        with replay_routing(torch, routing[:n_pre]):
+            plain = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+        layers.selective_scan = noisy
+        with replay_routing(torch, routing[:n_pre]):
+            perturbed = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+    floor = _logits_close(torch, "noise floor", perturbed, plain, None)
+    del plain, perturbed
+    block = f"{_mamba_block_f32(torch, cfg, params, prompts, toks):.3g}"
+    return (f"bf16 noise floor (plain prefill vs itself with its SSM output "
+            f"x (1 + 1e-6 z)) {floor:.3g}; (a) {n} ssm_scan launches, max "
+            f"|d| / max {worst:.3g} (<= 1e-4); f32 Mamba block kernel vs "
+            f"plain {block} (<= 1e-3)")
+
+
+def _mamba_block_f32(torch, cfg, params, prompts, toks) -> float:
+    """One full-width Mamba block in f32 (norm1 and the mixer of period 0,
+    position 0, weights widened): prefill on the prompts' embeddings and
+    4 decode steps, kernel against plain.  Returns the worst ratio."""
+    from repro_torch.models import layers
+
+    pos = next(j for j, s in enumerate(cfg.pattern) if s.mixer == "mamba")
+    blk = {k: {n: t[0].float() for n, t in v.items()}
+           for k, v in params["blocks"][pos].items() if k != "mlp"}
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+
+    def run():
+        h = layers.norm_apply(blk["norm1"], params["embed"][prompts].float(),
+                              cfg.norm)
+        y, st = layers.mamba_apply(blk["mixer"], h, cfg32)
+        out = [y]
+        for k in range(4):
+            h = layers.norm_apply(blk["norm1"],
+                                  params["embed"][toks[:, k:k + 1]].float(),
+                                  cfg.norm)
+            out.append(layers.mamba_decode(blk["mixer"], h, cfg32, st)[0])
+        return out
+
+    got = run()
+    with plain_ssm():
+        want = run()
+    return max(_logits_close(torch, f"f32 Mamba block, call {k}", a, b, 1e-3)
+               for k, (a, b) in enumerate(zip(got, want)))
+
+
 def _numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(_numel(v) for v in tree.values())
@@ -1113,11 +1484,12 @@ def _kernel_wrappers() -> dict:
     """name -> the kernel wrapper whose `launches` counts its launches."""
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.wkv_scan import kernel as WK
 
     return {"flash_attention": FK.flash_attention,
             "decode_attention": DK.decode_attention,
-            "wkv_scan": WK.wkv_scan}
+            "wkv_scan": WK.wkv_scan, "ssm_scan": SK.ssm_scan}
 
 
 def serve_phase(torch, np, device: str = "cuda",
@@ -1134,6 +1506,17 @@ def serve_phase(torch, np, device: str = "cuda",
 
     cfg = get_config(arch)
     cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
+    if arch in SERVE_DEPTH:
+        cfg = cfg.with_overrides(n_layers=SERVE_DEPTH[arch])
+    experts = None
+    cut = f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
+    if arch in SERVE_EXPERT_CARDS:
+        cards = SERVE_EXPERT_CARDS[arch]
+        experts = range(cfg.n_experts // cards)
+        cut += (f", experts 0-{len(experts) - 1} of {cfg.n_experts} in "
+                f"each MoE layer (the experts on {cards} cards by expert, "
+                f"the other periods on further pipeline stages)")
+    moe = any(s.mlp == "moe" for s in cfg.pattern)
     wrappers = {name: _kernel_wrappers()[name] for name in SERVE_KERNELS[arch]}
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -1142,7 +1525,7 @@ def serve_phase(torch, np, device: str = "cuda",
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    v1 = init_params(cfg, g, dev)
+    v1 = init_params(cfg, g, dev, experts=experts)
     # the writer's v2: the embedding tuner of examples/htap_train_serve.py
     rows, d = cfg.vocab_size // 4, cfg.d_model
     g.manual_seed(1)
@@ -1158,9 +1541,11 @@ def serve_phase(torch, np, device: str = "cuda",
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, S))).to(dev)
     sync()
+    mem = (f", {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
+           if on_card else "")
     print(f"serve: {cfg.name} {_numel(v1) / 1e9:.3f} B params "
-          f"({cfg.param_dtype}, {cfg.n_layers} layers), init + publish in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"({cfg.param_dtype}, {cut}), init + publish in "
+          f"{time.perf_counter() - t0:.1f} s{mem}", flush=True)
 
     # observe the engine's calls (the pinned params, logits, the prefill's
     # end) and let the writer publish v2 during request 1
@@ -1194,13 +1579,18 @@ def serve_phase(torch, np, device: str = "cuda",
     eng._prefill, eng._decode = rec_prefill, rec_decode
 
     def request(writer: bool):
-        """One request; its launches per kernel as (prefill, decode)."""
+        """One request; its launches per kernel as (prefill, decode).
+        The writer's request records its MoE routing (check (a) replays
+        it)."""
         log.update(params=[], logits=[], writer=writer)
         sync()
         c0 = counts()
         t = time.perf_counter()
-        res = eng.generate({"tokens": prompts}, N,
-                           refresh_between_steps=True)
+        with record_routing() if writer and moe else \
+                contextlib.nullcontext() as calls:
+            res = eng.generate({"tokens": prompts}, N,
+                               refresh_between_steps=True)
+        log["routing"] = calls
         sync()
         t_end = time.perf_counter()
         prefill_s, decode_s = log["t_prefill"] - t, t_end - log["t_prefill"]
@@ -1213,6 +1603,7 @@ def serve_phase(torch, np, device: str = "cuda",
     for fn in wrappers.values():
         fn.launches = 0
     res1, per1, logits1, pinned1, t1 = request(writer=True)
+    routing1 = log["routing"]
     visible_after_1 = store.visible_lsn()
     eng.refresh()
     res2, per2, _, pinned2, t2 = request(writer=False)
@@ -1224,10 +1615,12 @@ def serve_phase(torch, np, device: str = "cuda",
               f"{dec_s / N * 1e3:.2f} ms per step, {B * N / dec_s:.1f} "
               f"tokens/s ({B}x{N})", flush=True)
 
-    # (c) launches: each kernel's per-layer launches in the prefill and in
-    # every decode step, in each request
-    want = {name: (pre * cfg.n_layers, dec * cfg.n_layers * N)
-            for name, (pre, dec) in SERVE_KERNELS[arch].items()}
+    # (c) launches: each kernel's launches per layer of its mixer in the
+    # prefill and in every decode step, in each request
+    want = {}
+    for name, (pre, dec) in SERVE_KERNELS[arch].items():
+        n_layers = _n_layers(cfg, mixer=KERNEL_MIXER[name])
+        want[name] = (pre * n_layers, dec * n_layers * N)
     if on_card and not per1 == per2 == want:
         raise AssertionError(f"launches per request {per1}, {per2} != "
                              f"{want}")
@@ -1247,15 +1640,31 @@ def serve_phase(torch, np, device: str = "cuda",
             raise AssertionError(f"tokens {tuple(res.tokens.shape)}")
 
     # (a) request 1's logits against the plain path on v1, teacher-forced
-    # with request 1's tokens; (b) prefill + decode against forward.  On
-    # the served bf16 model, bounded where its rounding noise allows
+    # with request 1's tokens (and its MoE routing); (b) prefill + decode
+    # against forward (for MoE drop-free, `_check_b_dropfree`).  On the
+    # served bf16 model, bounded where its rounding noise allows
     # (SERVE_BF16_TOL); for RWKV6 the kernel is held by `_wkv_checks`
     tok1, rel = res1.tokens, SERVE_BF16_TOL[arch]
-    worst_a = _check_a(torch, cfg, v1, prompts, tok1, logits1, S, N, rel)
-    worst_b = _check_b(torch, cfg, v1, prompts, tok1, logits1, S, N, rel)
+    worst_a, flips_a = _check_a(torch, cfg, v1, prompts, tok1, logits1, S,
+                                N, rel, routing1)
+    if moe:
+        worst_b, flips_b = _check_b_dropfree(torch, cfg, v1, prompts, tok1,
+                                             S, N, rel)
+    else:
+        worst_b, flips_b = _check_b(torch, cfg, v1, prompts, tok1, logits1,
+                                    S, N, rel)
     bound = f"<= {rel}" if rel is not None else "not bounded"
     extra = f"; {_wkv_checks(torch, cfg, v1, prompts, tok1, S, N)}" \
         if "wkv_scan" in wrappers else ""
+    if "ssm_scan" in wrappers:
+        extra += "; " + _ssm_checks(torch, cfg, v1, prompts, tok1, S, N,
+                                    routing1)
+    if moe:
+        n_dec = B * (S + N) * cfg.top_k * _n_layers(cfg, mlp="moe")
+        extra += (f"; MoE routing replayed: of {n_dec} routing decisions "
+                  f"per path, the plain path would have flipped {flips_a}, "
+                  f"the drop-free forward {flips_b} (capacity factor 8.0 in "
+                  f"(b), {cfg.moe_capacity_factor} served)")
     differ = int((res1.tokens != res2.tokens).sum())
     per_txt = ", ".join(f"{name} {pre} in prefill + {dec} in decode"
                         for name, (pre, dec) in per1.items())
@@ -1277,7 +1686,7 @@ def serve_phase(torch, np, device: str = "cuda",
 def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
     """One more request (as request 2) under torch.profiler (CUDA
     activity): device busy time, and device time by kind — the two
-    attention kernels, the WKV kernel, matrix products (cuBLAS), the
+    attention kernels, the WKV and SSM kernels, matrix products (cuBLAS), the
     rest (PyTorch's elementwise, copy and reduction kernels).  The
     profiler's callbacks slow the host several times over, so the idle
     share is taken against request 2's unprofiled wall (the device work
@@ -1301,6 +1710,7 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
         kind = ("flash_attention" if "flash_kernel" in name else
                 "decode_attention" if "decode_kernel" in name else
                 "wkv_scan" if "wkv_kernel" in name else
+                "ssm_scan" if "ssm_kernel" in name else
                 "matmul" if any(w in low for w in ("gemm", "gemv", "xmma",
                                                    "cutlass", "splitk",
                                                    "nvjet"))
@@ -1359,6 +1769,7 @@ def main() -> int:
     results = kernel_phase(torch, np, K_mod, flush)
     results.update(attention_kernel_phase(torch, np, flush))
     results["wkv_scan"] = wkv_kernel_phase(torch, np, flush)
+    results["ssm_scan"] = ssm_kernel_phase(torch, np, flush)
     del flush
     torch.cuda.empty_cache()
     small_driver_phase()
@@ -1380,14 +1791,17 @@ def main() -> int:
           f"rss_gather {launches['rss_gather']}", flush=True)
     torch.cuda.empty_cache()
     # the serve paths, one per architecture: each counts its kernels'
-    # launches from 0 over its two requests
+    # launches from 0 over its two requests (summed over the paths that
+    # share a kernel); each frees its model before the next
     for arch in SERVE_KERNELS:
         t0 = time.perf_counter()
-        launches.update(serve_phase(torch, np, arch=arch))
+        for name, n in serve_phase(torch, np, arch=arch).items():
+            launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()
-        print(f"serve phase {arch}: {time.perf_counter() - t0:.1f} s",
-              flush=True)
-    for name in (*ATTN_TPU, *WKV_TPU):
+        print(f"serve phase {arch}: {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+              "allocated", flush=True)
+    for name in (*ATTN_TPU, *WKV_TPU, *SSM_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")
 
@@ -1404,10 +1818,13 @@ def main() -> int:
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
-    for name, where in {**ATTN_TPU, **WKV_TPU}.items():
+    sources = {**{n: ATTN_SRC for n in ATTN_TPU},
+               **{n: WKV_SRC for n in WKV_TPU},
+               **{n: SSM_SRC for n in SSM_TPU}}
+    for name, where in {**ATTN_TPU, **WKV_TPU, **SSM_TPU}.items():
         ms, plain_ms, bound_ms, library_ms, by = results[name]["times"]
         rows.append({"name": name, "route": "cuda",
-                     "source": ATTN_SRC if name in ATTN_TPU else WKV_SRC,
+                     "source": sources[name],
                      "replaces": where, "launches": launches[name],
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

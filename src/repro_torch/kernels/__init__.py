@@ -12,6 +12,8 @@ flash_attention  — causal / sliding-window GQA attention over a whole
 decode_attention — one-token GQA attention over a KV cache (decode)
 wkv_scan       — the RWKV6 WKV recurrence (data-dependent per-channel
                  decay), from a zero or a given state
+ssm_scan       — the Mamba selective scan (input-dependent decay
+                 exp(dt A), D·u fused), from a zero or a given state
 
 A wrapper launches its CUDA kernel for CUDA tensors and takes the plain
 version for CPU tensors; nothing else picks between them.  The device of

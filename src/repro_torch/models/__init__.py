@@ -1,5 +1,6 @@
 """Model zoo of the port: config-driven decoder stacks (the dense
-attention path and RWKV6; the other mixers wait for later slices)."""
+attention path, MoE, Mamba and Jamba's hybrid period, RWKV6; M-RoPE,
+cross-attention and the encoder wait for later slices)."""
 
 from .config import LayerSpec, ModelConfig, SHAPES, ShapeConfig
 from .convert import params_from_numpy

@@ -1,7 +1,8 @@
-"""Layer math of the dense attention path and of RWKV6: norms, RoPE,
-attention (whole-sequence and one-token decode), the dense MLPs, and
-RWKV6's time-mix (ddlerp token shift, WKV recurrence, per-head
-groupnorm) and channel-mix.  Pure functions over parameter dicts of
+"""Layer math of the dense attention path, RWKV6, Mamba and MoE: norms,
+RoPE, attention (whole-sequence and one-token decode), the dense MLPs,
+the MoE MLP, the Mamba mixer (causal conv, selective scan), and RWKV6's
+time-mix (ddlerp token shift, WKV recurrence, per-head groupnorm) and
+channel-mix.  Pure functions over parameter dicts of
 tensors, ported from `repro.models.layers` with the same names and the
 same arithmetic.
 
@@ -21,7 +22,24 @@ place, in decode), the sequential `wkv_scan_ref` for CPU tensors.  The
 reference's `f32 @ bf16` products (the f32 ddlerp streams against bf16
 weights) are computed in f32 as JAX computes them (`_mm32`).
 
-MoE, Mamba and M-RoPE are not ported yet (ROADMAP queue 1 item 7).
+Mamba: where the reference computes its XLA twin `_mamba_scan_chunked`
+(an associative scan) and then adds D·u, or the one-step einsums of
+`mamba_decode`, the port calls `kernels.ssm_scan.ops.selective_scan`,
+which adds D·u itself: the Hopper kernel for CUDA tensors (the whole
+prompt in prefill; one step from the layer's state, updated in place, in
+decode), the sequential `ssm_scan_ref` for CPU tensors.
+
+MoE: the reference's GShard-style top-k dispatch with per-sequence
+capacity, its routing factored out (`moe_route`: router, softmax, top-k,
+renormalised gates and each choice's slot in its expert's queue).  A
+layer may hold a share of the experts (`expert_ids`, the global ids of
+the experts whose weights it holds): it computes only their part of the
+combine, while the softmax and the capacity keep the router's width
+`cfg.n_experts`.  Dispatch and combine are index gathers over the
+capacity slots; the expert products are `torch.bmm` (the reference's
+XLA einsums).
+
+M-RoPE is not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -35,6 +53,7 @@ import torch.nn.functional as F
 from ..kernels.cuda_build import on_cuda
 from ..kernels.decode_attention.ops import decode_gqa
 from ..kernels.flash_attention.ops import attention_bshd
+from ..kernels.ssm_scan.ops import selective_scan
 from ..kernels.wkv_scan.ops import wkv
 
 Params = dict
@@ -53,7 +72,7 @@ def _normal(shape, scale: float, dtype, generator, device) -> torch.Tensor:
     reference's `(normal(key, shape) * s).astype(dtype)`)."""
     x = torch.randn(shape, generator=generator, device=device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 # ---------------------------------------------------------------------- norms
@@ -316,6 +335,194 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(up, approximate="tanh")
     return h @ p["w_down"]
+
+
+# ------------------------------------------------------------------------ MoE
+def moe_init(cfg, dtype, generator, device, experts=None) -> Params:
+    """The MoE MLP: the router over all `cfg.n_experts` experts (f32) and
+    the weights of the experts this layer holds, `experts` (global ids,
+    ascending; None: all), recorded in the int32 leaf `expert_ids`.  Each
+    expert's matrices are drawn one expert at a time, so a full-width
+    layer never holds its f32 draws at once."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    held = list(range(E)) if experts is None else [int(e) for e in experts]
+    if not held or held != sorted(set(held)) or held[0] < 0 \
+            or held[-1] >= E:
+        raise ValueError(f"experts {held} must be ascending ids in "
+                         f"[0, {E})")
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+
+    def per_expert(shape, scale):
+        w = torch.empty((len(held), *shape), dtype=dtype, device=device)
+        for i in range(len(held)):
+            w[i] = _normal(shape, scale, dtype, generator, device)
+        return w
+
+    p = {"router": _normal((d, E), s_in, torch.float32, generator, device),
+         "w_up": per_expert((d, f), s_in),
+         "w_down": per_expert((f, d), s_out)}
+    if cfg.mlp_act in ("swiglu", "geglu"):
+        p["w_gate"] = per_expert((d, f), s_in)
+    p["expert_ids"] = torch.tensor(held, dtype=torch.int32, device=device)
+    return p
+
+
+def moe_capacity(cfg, S: int, capacity_factor: float = 0.0) -> int:
+    """Slots per expert and sequence of S tokens, as the reference sizes
+    them: C = min(max(int(cf * S * K / E), 4), S), with E the router's
+    width (never the number of experts a layer holds)."""
+    cf = capacity_factor or cfg.moe_capacity_factor
+    return min(max(int(cf * S * cfg.top_k / cfg.n_experts), 4), S)
+
+
+def moe_slots(gate_idx: torch.Tensor, n_experts: int, capacity: int) \
+        -> torch.Tensor:
+    """Each choice's position in its expert's queue: gate_idx [B,S,K] ->
+    slot [B,S,K], counted per sequence in (s, k) order; -1 where the
+    queue already holds `capacity` choices (the choice is dropped)."""
+    B, S, K = gate_idx.shape
+    onehot = F.one_hot(gate_idx.reshape(B, S * K), n_experts)  # [B,SK,E]
+    pos = ((onehot.cumsum(1) - onehot) * onehot).sum(-1).view(B, S, K)
+    return torch.where(pos < capacity, pos, -1)
+
+
+def moe_route(p: Params, x: torch.Tensor, cfg, *,
+              capacity_factor: float = 0.0):
+    """The routing of x [B,S,D]: the router in f32, softmax over all
+    `cfg.n_experts`, top-k (descending), the k gate values renormalised
+    to sum 1, and each choice's slot (`moe_slots` at `moe_capacity`).
+    Returns (gate_vals [B,S,K] f32, gate_idx [B,S,K] int64, slot
+    [B,S,K] int64, -1 for a dropped choice)."""
+    logits = x.float() @ p["router"]                        # [B,S,E]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    C = moe_capacity(cfg, x.shape[1], capacity_factor)
+    return gate_vals, gate_idx, moe_slots(gate_idx, cfg.n_experts, C)
+
+
+def moe_apply(p: Params, x: torch.Tensor, cfg, *,
+              capacity_factor: float = 0.0) -> torch.Tensor:
+    """GShard-style top-k MoE with per-sequence expert capacity, as the
+    reference's `moe_apply`; x [B,S,D] -> [B,S,D].  Each held expert's
+    C slots per sequence are filled by an index gather of x (empty slots
+    read a zero row), its SwiGLU/GeGLU/... MLP runs on all of its slots
+    at once (`torch.bmm` over the held experts), and each token sums its
+    kept choices' outputs weighted by the gate values rounded to x's
+    dtype (the reference's combine), in f32, rounded once.  Choices of
+    experts this layer does not hold add nothing."""
+    B, S, D = x.shape
+    dev = x.device
+    gate_vals, gate_idx, slot = moe_route(p, x, cfg,
+                                          capacity_factor=capacity_factor)
+    C = moe_capacity(cfg, S, capacity_factor)
+    held = p["expert_ids"].long()
+    Eh = held.numel()
+    local = torch.full((cfg.n_experts,), -1, dtype=torch.long, device=dev)
+    local[held] = torch.arange(Eh, device=dev)
+    le = local[gate_idx]                                    # -1: not held
+    use = (slot >= 0) & (le >= 0)
+    # slot rows in (held expert, b, c) order: the products' [Eh, B*C]
+    n_rows = Eh * B * C
+    b = torch.arange(B, device=dev).view(B, 1, 1)
+    row = torch.where(use, (le * B + b) * C + slot, n_rows)   # [B,S,K]
+    token = torch.full((n_rows + 1,), B * S, dtype=torch.long, device=dev)
+    token.scatter_(0, row.reshape(-1), (b * S + torch.arange(
+        S, device=dev).view(1, S, 1)).expand(B, S, cfg.top_k).reshape(-1))
+    xs = torch.cat([x.reshape(B * S, D), x.new_zeros((1, D))])
+    xe = xs[token[:n_rows]].view(Eh, B * C, D)
+    up = torch.bmm(xe, p["w_up"])
+    if "w_gate" in p:                   # in place: one [Eh, B*C, F] less
+        h = torch.bmm(xe, p["w_gate"])
+        h = (F.silu(h, inplace=True) if cfg.mlp_act == "swiglu"
+             else F.gelu(h, approximate="tanh")).mul_(up)
+    else:
+        h = torch.relu(up).square() if cfg.mlp_act == "relu2" \
+            else F.gelu(up, approximate="tanh")
+    del up
+    ye = torch.bmm(h, p["w_down"]).view(n_rows, D)
+    ye = torch.cat([ye, ye.new_zeros((1, D))])
+    w = torch.where(use, gate_vals, 0.0).to(x.dtype)       # the combine
+    out = (ye[row].float() * w.float()[..., None]).sum(2)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------- Mamba
+def mamba_init(cfg, dtype, generator, device) -> Params:
+    d, di = cfg.d_model, cfg.mamba_d_inner
+    ds, dc, dtr = cfg.mamba_d_state, cfg.mamba_d_conv, cfg.mamba_dt_rank
+    s, si = 1.0 / math.sqrt(d), 1.0 / math.sqrt(di)
+    n = lambda shape, scale: _normal(shape, scale, dtype, generator, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "in_proj": n((d, 2 * di), s),
+        "conv_w": n((dc, di), 0.1),
+        "conv_b": torch.zeros((di,), dtype=dtype, device=device),
+        "x_proj": n((di, dtr + 2 * ds), si),
+        "dt_proj": n((dtr, di), 1.0 / math.sqrt(dtr)),
+        "dt_bias": torch.zeros((di,), **f32),
+        "A_log": torch.log(torch.arange(1, ds + 1, **f32)).expand(
+            di, ds).contiguous(),
+        "D": torch.ones((di,), **f32),
+        "out_proj": n((di, d), si),
+    }
+
+
+def _mamba_streams(p: Params, xc: torch.Tensor, cfg):
+    """From the conv output xc [..., Di]: SiLU(xc), and the scan's f32
+    dt (softplus of dt_r @ dt_proj widened, + dt_bias), B and C (slices
+    of the x_proj output, read through their strides) and A = -exp(A_log),
+    as the reference computes them."""
+    ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
+    xc = F.silu(xc)
+    proj = (xc @ p["x_proj"]).float()
+    dt_r, B_, C_ = proj.split([dtr, ds, ds], dim=-1)
+    dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_bias"])
+    return xc, dt, B_, C_, -torch.exp(p["A_log"])
+
+
+def mamba_apply(p: Params, x: torch.Tensor, cfg,
+                state: Optional[Params] = None):
+    """Mamba block over a sequence from a zero state.  x [B,T,D] -> (y
+    [B,T,D], {"ssm": [B,Di,N] f32, "conv": [B,d_conv-1,Di]}: the final
+    state and the last d_conv-1 conv inputs).  With `state` (a layer's
+    cache entries), both are written into it in place and returned."""
+    T = x.shape[1]
+    xin, z = (x @ p["in_proj"]).chunk(2, dim=-1)            # [B,T,Di] each
+    # depthwise causal conv: the reference's sum of rounded products, in
+    # its order (x's dtype throughout)
+    dc = p["conv_w"].shape[0]
+    xp = F.pad(xin, (0, 0, dc - 1, 0))
+    xc = xp[:, :T] * p["conv_w"][0]
+    for i in range(1, dc):
+        xc = xc + xp[:, i:i + T] * p["conv_w"][i]
+    xc, dt, B_, C_, A = _mamba_streams(p, xc + p["conv_b"], cfg)
+    y, h = selective_scan(xc, dt, B_, C_, A, p["D"],
+                          state_out=None if state is None else state["ssm"])
+    y = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    conv = xp[:, T:T + dc - 1]
+    if state is None:
+        return y, {"ssm": h, "conv": conv.clone()}
+    state["conv"].copy_(conv)
+    return y, state
+
+
+def mamba_decode(p: Params, x: torch.Tensor, cfg, state: Params):
+    """One-token Mamba step.  x [B,1,D]; state {'ssm': [B,Di,N] f32,
+    'conv': [B,d_conv-1,Di]} (the layer's cache entries), read and then
+    updated IN PLACE: the scan runs one step through `selective_scan`
+    with the state as both h0 and output.  Returns (y [B,1,D], state)."""
+    xin, z = (x[:, 0] @ p["in_proj"]).chunk(2, dim=-1)      # [B,Di] each
+    conv = torch.cat([state["conv"], xin[:, None]], dim=1)  # [B,k,Di]
+    # the reference's einsum over the k taps: an f32 sum, rounded once
+    xc = (conv.float() * p["conv_w"].float()).sum(1).to(x.dtype)
+    xc, dt, B_, C_, A = _mamba_streams(p, xc + p["conv_b"], cfg)
+    y, _ = selective_scan(xc[:, None], dt[:, None], B_[:, None],
+                          C_[:, None], A, p["D"], state["ssm"],
+                          state_out=state["ssm"])
+    y = (y[:, 0].to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    state["conv"].copy_(conv[:, 1:])
+    return y[:, None], state
 
 
 # ---------------------------------------------------------------------- RWKV6

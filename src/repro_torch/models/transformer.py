@@ -1,26 +1,30 @@
-"""Model assembly for the dense attention path and RWKV6: init / forward /
-prefill / decode, driven by `ModelConfig`, ported from
-`repro.models.transformer`.
+"""Model assembly for the dense attention path, MoE, Mamba (and so
+Jamba's hybrid period) and RWKV6: init / forward / prefill / decode,
+driven by `ModelConfig`, ported from `repro.models.transformer`.
 
 The parameter tree is the reference's: a nested dict of tensors,
 `{"embed", "lm_head", "final_norm", "blocks"}`, where `blocks` holds one
 dict per pattern position whose leaves are stacked over periods
-(leading dim `cfg.n_periods`).  The reference applies the stack with
+(leading dim `cfg.n_periods`).  A MoE layer may hold a share of the
+experts (`init_params(..., experts=)`): its expert leaves hold those
+experts only, and its int32 leaf `expert_ids` names them (the one leaf
+the reference's tree lacks).  The reference applies the stack with
 `lax.scan`; here a Python loop runs over periods.  Remat (training) is
 not ported, nor is the sharding `hint`, which is the identity on one
 device.
 
 Caches, per pattern position, stacked over periods:
   attention -> (k, v) buffers [n_periods, B, T_cache, K, hd]
+  mamba     -> {"ssm": [n_periods, B, Di, N] (f32),
+               "conv": [n_periods, B, d_conv-1, Di]}
   rwkv      -> {"shift": [n_periods, B, D], "wkv": [n_periods, B, H, N, N]
                (f32), "cmix_shift": [n_periods, B, D]}
 allocated once per request (at the serving length for attention) and
 written IN PLACE by `prefill` and by each `decode_step` (the reference
 returns new arrays; the values are equal slot for slot).
 
-Patterns with Mamba, MoE, cross-attention or an encoder, and M-RoPE,
-raise NotImplementedError: they are not ported yet (ROADMAP queue 1
-item 7).
+Patterns with cross-attention or an encoder, and M-RoPE, raise
+NotImplementedError: they are not ported yet (ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -48,9 +52,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     why = []
     for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "rwkv"):
+        if spec.mixer not in ("attn", "mamba", "rwkv"):
             why.append(f"{spec.mixer} mixer")
-        if spec.mlp not in ("dense", "rwkv_cmix"):
+        if spec.mlp not in ("dense", "moe", "rwkv_cmix"):
             why.append(f"{spec.mlp} mlp")
         if spec.cross_attn:
             why.append("cross-attention")
@@ -73,11 +77,12 @@ def _device(device) -> torch.device:
 
 
 def _stack(trees: list) -> Params:
-    """Stack a list of same-shaped nested dicts leaf by leaf (dim 0)."""
+    """Stack a list of same-shaped nested dicts leaf by leaf (dim 0); one
+    tree becomes views with a leading dim of 1 (no copy)."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
-    return torch.stack(trees)
+    return first[None] if len(trees) == 1 else torch.stack(trees)
 
 
 def _index(tree, i: int):
@@ -89,27 +94,34 @@ def _index(tree, i: int):
 
 # ------------------------------------------------------------------ block init
 def _block_init(spec: LayerSpec, cfg: ModelConfig, dtype, generator,
-                device) -> Params:
+                device, experts) -> Params:
     p: Params = {"norm1": L.norm_init(cfg.d_model, cfg.norm, dtype, device)}
     if spec.mixer == "attn":
         p["mixer"] = L.attn_init(cfg, dtype, generator, device)
+    elif spec.mixer == "mamba":
+        p["mixer"] = L.mamba_init(cfg, dtype, generator, device)
     else:
         p["mixer"] = L.rwkv_init(cfg, dtype, generator, device)
     p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, dtype, device)
     if spec.mlp == "dense":
         p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
                               generator, device)
+    elif spec.mlp == "moe":
+        p["mlp"] = L.moe_init(cfg, dtype, generator, device, experts)
     else:
         p["mlp"] = L.rwkv_cmix_init(cfg, dtype, generator, device)
     return p
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device=None) -> Params:
+                device=None, *, experts=None) -> Params:
     """Random parameters at the reference's scales, drawn from
     `generator` (a torch.Generator on `device`).  `device=None` means
     "cuda" and raises without a GPU; "meta" gives the tree's shapes
-    and dtypes without storage (pass generator=None)."""
+    and dtypes without storage (pass generator=None).  `experts`: the
+    global ids of the experts every MoE layer holds (None: all of
+    `cfg.n_experts`), e.g. this card's share of an expert-parallel
+    deployment."""
     check_supported(cfg)
     dev = _device(device)
     dtype = torch_dtype(cfg.param_dtype)
@@ -121,7 +133,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
         "final_norm": L.norm_init(d, cfg.norm, dtype, dev),
     }
     params["blocks"] = tuple(
-        _stack([_block_init(spec, cfg, dtype, generator, dev)
+        _stack([_block_init(spec, cfg, dtype, generator, dev, experts)
                 for _ in range(cfg.n_periods)])
         for spec in cfg.pattern)
     return params
@@ -131,7 +143,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
                x: torch.Tensor, cmix_shift: Optional[torch.Tensor] = None,
                decode: bool = False) -> torch.Tensor:
-    """x + mlp(norm2(x)).  RWKV's channel-mix token-shifts norm2(x): the
+    """x + mlp(norm2(x)) (dense, MoE or RWKV's channel-mix).  RWKV's
+    channel-mix token-shifts norm2(x): the
     token before x[:, 0] is zero, or in `decode` the cache's
     `cmix_shift` [B,D]; when `cmix_shift` is given, norm2(x)[:, -1] is
     written into it IN PLACE (the reference's prefill and decode store
@@ -139,6 +152,8 @@ def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
     h = L.norm_apply(pp["norm2"], x, cfg.norm)
     if spec.mlp == "dense":
         y = L.mlp_apply(pp["mlp"], h, cfg.mlp_act)
+    elif spec.mlp == "moe":
+        y = L.moe_apply(pp["mlp"], h, cfg)
     else:
         h_prev = cmix_shift[:, None] if decode else \
             F.pad(h, (0, 0, 1, 0))[:, :h.shape[1]]
@@ -154,6 +169,8 @@ def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
     if spec.mixer == "attn":
         y = L.attention(pp["mixer"], h, cfg, positions=positions,
                         causal=spec.causal)
+    elif spec.mixer == "mamba":
+        y, _ = L.mamba_apply(pp["mixer"], h, cfg)
     else:
         y, _ = L.rwkv_apply(pp["mixer"], h, cfg)
     x = x + y.to(x.dtype)
@@ -202,8 +219,9 @@ def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     """Cache layout for a serving session: per pattern position, a dict
     of name -> (shape, dtype): "k", "v" for attention (for SWA archs the
-    rolling window, for full attention `seq_len` entries); "shift",
-    "wkv" (f32) for RWKV's time-mix, "cmix_shift" for its channel-mix."""
+    rolling window, for full attention `seq_len` entries); "ssm" (f32)
+    and "conv" for Mamba; "shift", "wkv" (f32) for RWKV's time-mix,
+    "cmix_shift" for its channel-mix."""
     check_supported(cfg)
     d, hd, nkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
     T = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
@@ -215,6 +233,11 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
         if spec.mixer == "attn":
             entry["k"] = ((np_, batch, T, nkv, hd), cdt)
             entry["v"] = ((np_, batch, T, nkv, hd), cdt)
+        elif spec.mixer == "mamba":
+            di = cfg.mamba_d_inner
+            entry["ssm"] = ((np_, batch, di, cfg.mamba_d_state),
+                            torch.float32)
+            entry["conv"] = ((np_, batch, cfg.mamba_d_conv - 1, di), cdt)
         else:
             entry["shift"] = ((np_, batch, d), cdt)
             entry["wkv"] = ((np_, batch, d // N, N, N), torch.float32)
@@ -241,8 +264,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
 
     cache_len: capacity of the per-layer attention cache (>= prompt len
     for full attention; the SWA window for sliding-window archs; RWKV's
-    state does not grow with it).  The cache is allocated here, on the
-    embedding's device, and filled in place."""
+    and Mamba's states do not grow with it).  The cache is allocated
+    here, on the embedding's device, and filled in place."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
@@ -254,6 +277,9 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
         if spec.mixer == "attn":
             y = L.attention_prefill(pp["mixer"], h, cfg, positions=positions,
                                     kv_cache=(ce["k"][i], ce["v"][i]))
+        elif spec.mixer == "mamba":
+            y, _ = L.mamba_apply(pp["mixer"], h, cfg, state={
+                "ssm": ce["ssm"][i], "conv": ce["conv"][i]})
         else:
             y, _ = L.rwkv_apply(pp["mixer"], h, cfg, state={
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
@@ -279,6 +305,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             y = L.attention_decode(pp["mixer"], h, cfg,
                                    (ce["k"][i], ce["v"][i]),
                                    pos=cache_len, cache_len=cache_len)
+        elif spec.mixer == "mamba":
+            y, _ = L.mamba_decode(pp["mixer"], h, cfg, {
+                "ssm": ce["ssm"][i], "conv": ce["conv"][i]})
         else:
             y, _ = L.rwkv_decode(pp["mixer"], h, cfg, {
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})

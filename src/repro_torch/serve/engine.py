@@ -8,12 +8,14 @@ the engine refreshes the RSS watermark by replaying the shipped WAL
 architecture).
 
 Ported from `repro.serve.engine`.  The reference jit-compiles prefill and
-decode; here they run eagerly, with the attention (dense models) or the
-WKV recurrence (RWKV6) in the Hopper kernels on "cuda".  The request's
+decode; here they run eagerly, with the attention (dense models, Jamba's
+attention layers), the WKV recurrence (RWKV6) and the selective scan
+(Jamba's Mamba layers) in the Hopper kernels on "cuda".  The request's
 cache is allocated once and written in place: for attention a KV cache
-of `max_seq` slots, for RWKV6 the recurrent state — per layer a
-[B, H, N, N] f32 WKV state and the two token shifts, a fixed size
-whatever the length.  The cache length stays a Python int, so the decode
+of `max_seq` slots; for RWKV6 the recurrent state — per layer a
+[B, H, N, N] f32 WKV state and the two token shifts; for Mamba per layer
+a [B, Di, N] f32 scan state and the last d_conv-1 conv inputs — the
+recurrent states a fixed size whatever the length.  The cache length stays a Python int, so the decode
 loop makes no host-device sync (the argmax it feeds back stays on the
 device).  The reference's page-versioned KV cache option is not carried
 over (it has no code in the reference engine either).

@@ -137,3 +137,100 @@ def test_wkv_plain_and_cost(smoke):
     assert by == "bytes" and abs(t - 0.1268) < 1e-3
     t, by = smoke._bound(*smoke._wkv_cost(8, 1, 40, 64, 4, True), "float32")
     assert by == "bytes" and abs(t - 0.0033) < 2e-4
+
+
+def test_jamba_serve_phase_on_cpu(smoke, capsys, monkeypatch):
+    """Jamba-1.5-Large's smoke variant, cut as on the card (bf16, one
+    period of 8 layers, holding experts 0-1 of 4 in each MoE layer),
+    through the serve phase: the writer under
+    the pin, check (a) with request 1's routing replayed, the drop-free
+    (b), the per-launch SSM check, noise floor and f32 Mamba block, (d);
+    no kernel launches off the card.  The smoke variant's 128-wide bf16
+    layers put prefill + decode and the forward 3e-2 to 5e-2 of the
+    logits' max-abs apart in the reference itself (ROADMAP §3), so
+    the rehearsal prints the bf16 ratios unbounded; the card holds them
+    at 3e-2."""
+    import numpy as np
+
+    monkeypatch.setitem(smoke.SERVE_BF16_TOL, "jamba-1.5-large-398b", None)
+    launches = smoke.serve_phase(torch, np, device="cpu",
+                                 arch="jamba-1.5-large-398b")
+    assert launches == {"ssm_scan": 0, "flash_attention": 0,
+                        "decode_attention": 0}
+    out = capsys.readouterr().out
+    assert "experts 0-1 of 4 in each MoE layer" in out
+    assert "serve checks: (a) jamba-1.5-large-398b-smoke" in out
+    assert "f32 Mamba block kernel vs plain" in out
+    assert "MoE routing replayed" in out
+
+
+def test_plain_ssm_swaps_the_layers_and_restores_them(smoke):
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import layers
+
+    before = layers.selective_scan
+    with smoke.plain_ssm():
+        assert layers.selective_scan is ssm_scan_ref
+    assert layers.selective_scan is before
+
+
+def test_routing_is_recorded_and_replayed(smoke):
+    """A MoE layer's routing recorded on one input replays onto another:
+    the replayed call takes the recorded experts (with its own gate
+    values and slots), counts where its own top-k differed, and the
+    layer's output then equals the recorded input's routing applied to
+    the new input; both wrappers restore `moe_route`."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.models import init_params, layers
+
+    cfg = smoke_variant(get_config("mixtral-8x7b")).with_overrides(
+        param_dtype="float32", compute_dtype="float32")
+    p = {k: v[0] for k, v in init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")["blocks"][0]
+        ["mlp"].items()}
+    rng = np.random.default_rng(0)
+    x1, x2 = (torch.from_numpy(rng.standard_normal((2, 9, cfg.d_model))
+                               .astype(np.float32)) for _ in range(2))
+    route = layers.moe_route
+    with smoke.record_routing() as calls:
+        y1 = layers.moe_apply(p, x1, cfg)
+    assert layers.moe_route is route and len(calls) == 1
+    own = route(p, x2, cfg)[1]
+    with smoke.replay_routing(torch, calls) as st:
+        y2 = layers.moe_apply(p, x2, cfg)
+    assert layers.moe_route is route
+    assert st["differ"] == int((own != calls[0]).sum()) > 0
+    assert not torch.equal(y2, layers.moe_apply(p, x2, cfg))
+    with smoke.replay_routing(torch, calls):
+        assert torch.equal(layers.moe_apply(p, x1, cfg), y1)
+    with pytest.raises(AssertionError, match="replayed 0 of 1"):
+        with smoke.replay_routing(torch, calls):
+            pass
+
+
+def test_ssm_cost_and_bound(smoke):
+    """The bound's bytes and operations at Jamba's prefill and decode
+    shapes (PERF.md row 10)."""
+    nbytes, flops = smoke._ssm_cost(8, 1024, 16384, 16, 4, False)
+    assert nbytes == 8 * 1024 * 16384 * 12 + 2 * 8 * 1024 * 16 * 4 \
+        + 16384 * 16 * 4 + 16384 * 4 + 8 * 16384 * 16 * 4
+    assert abs(nbytes / 1e9 - 1.622) < 1e-3
+    assert flops == 8 * 8 * 1024 * 16384 * 16 + 3 * 8 * 1024 * 16384
+    t, by = smoke._bound(nbytes, flops, "float32")
+    assert by == "bytes" and abs(t - 0.4842) < 1e-3
+    t, by = smoke._bound(*smoke._ssm_cost(8, 1, 16384, 16, 4, True),
+                         "float32")
+    assert by == "bytes" and abs(t - 0.0058) < 2e-4
+
+
+def test_n_layers_counts_by_kind(smoke):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("jamba-1.5-large-398b").with_overrides(n_layers=8)
+    assert smoke._n_layers(cfg, mixer="mamba") == 7
+    assert smoke._n_layers(cfg, mixer="attn") == 1
+    assert smoke._n_layers(cfg, mlp="moe") == 4
+    assert smoke._n_layers(get_config("jamba-1.5-large-398b"),
+                           mlp="moe") == 36

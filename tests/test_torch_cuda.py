@@ -579,3 +579,170 @@ def _wkv_plain_op(r, k, v, w_log, u, s0=None, *, state_out=None):
     """`ops.wkv` on the plain version (for swapping into the layers)."""
     o, S = _wkv_plain(r, k, v, w_log, u, s0)
     return o, S if state_out is None else state_out.copy_(S)
+
+
+# --------------------------------------------------------------- ssm_scan
+# kernel vs plain on the card: both run the recurrence in f32, the kernel
+# with exp2f and fused multiply-adds; the reference's own tolerance for
+# its kernel (tests/test_kernels.py)
+SSM_TOL = 2e-4
+
+
+def _ssm_inputs(dev, Bb, T, Di, N, u_dtype, seed):
+    """u (in `u_dtype`), dt, B, C, A, D on `dev` at the reference test's
+    scales, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    z = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev)
+    u = z(Bb, T, Di).to(getattr(torch, u_dtype))
+    dt = torch.nn.functional.softplus(z(Bb, T, Di) - 1)
+    return u, dt, z(Bb, T, N), z(Bb, T, N), -torch.exp(z(Di, N)), z(Di)
+
+
+def _ssm_close(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=SSM_TOL, atol=SSM_TOL)
+
+
+@pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("T,Di", [(1, 256), (16, 128), (37, 1000),
+                                  (200, 384)])
+def test_ssm_kernel_equals_plain(dev, u_dtype, N, T, Di):
+    """Ragged T (not a multiple of the 16-step chunk), T = 1, Di not a
+    multiple of the 128-channel block, both state sizes, f32 and bf16 u,
+    from a zero state and from a given h0."""
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    x = _ssm_inputs(dev, 3, T, Di, N, u_dtype, T + Di + N)
+    _ssm_close(selective_scan(*x), ssm_scan_ref(*x))
+    h0 = torch.randn((3, Di, N), generator=torch.Generator(
+        device=dev).manual_seed(T), device=dev)
+    _ssm_close(selective_scan(*x, h0), ssm_scan_ref(*x, h0))
+
+
+def test_ssm_kernel_at_jambas_prefill_and_decode_shapes(dev):
+    """Jamba's own shapes (Bb = 8, Di = 16,384, N = 16): the 1,024-token
+    prefill from a zero state with bf16 u, then one decode step from its
+    state, in place."""
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    x = _ssm_inputs(dev, 8, 1024, 16384, 16, "bfloat16", 7)
+    got = selective_scan(*x)
+    _ssm_close(got, ssm_scan_ref(*x))
+    state = got[1]
+    step = _ssm_inputs(dev, 8, 1, 16384, 16, "bfloat16", 8)
+    want = ssm_scan_ref(*step, state)
+    y, h = selective_scan(*step, state, state_out=state)
+    assert h is state
+    _ssm_close((y, state), want)
+
+
+def test_ssm_kernel_reads_strided_views_and_updates_state_in_place(dev):
+    """B and C as slices of one wider buffer (the model's x_proj output)
+    and a state that is both h0 and state_out: three one-token steps and
+    a 40-step scan from it equal the plain version's sequence; the
+    buffer is the one written."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    u, dt, B, C, A, D = _ssm_inputs(dev, 2, 43, 300, 16, "bfloat16", 1)
+    wide = torch.cat([torch.zeros((2, 43, 5), device=dev), B, C], dim=-1)
+    B, C = wide[..., 5:21], wide[..., 21:]
+    assert not B.is_contiguous()
+    state = torch.zeros((2, 300, 16), device=dev)
+    want_h = state.clone()
+    SK.reset_launches()
+    for t in range(3):
+        sl = [x[:, t:t + 1] for x in (u, dt, B, C)]
+        y, h = selective_scan(*sl, A, D, state, state_out=state)
+        want_y, want_h = ssm_scan_ref(*sl, A, D, want_h)
+        assert h is state
+        _ssm_close((y, state), (want_y, want_h))
+    sl = [x[:, 3:] for x in (u, dt, B, C)]
+    y, _ = selective_scan(*sl, A, D, state, state_out=state)
+    _ssm_close((y, state), ssm_scan_ref(*sl, A, D, want_h))
+    assert SK.ssm_scan.launches == 4
+
+
+def test_ssm_wrapper_rejects_bad_inputs_and_counts_launches(dev):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    u, dt, B, C, A, D = _ssm_inputs(dev, 2, 8, 64, 16, "float32", 0)
+    SK.reset_launches()
+    SK.ssm_scan(u, dt, B, C, A, D)
+    assert SK.ssm_scan.launches == 1
+    for n in (4, 32):                            # state size not 8 or 16
+        with pytest.raises(ValueError, match="state size"):
+            SK.ssm_scan(u, dt, B[..., :1].expand(2, 8, n).contiguous(),
+                        C[..., :1].expand(2, 8, n).contiguous(),
+                        A[:, :1].expand(64, n).contiguous(), D)
+    with pytest.raises(TypeError):               # no float64 kernel
+        SK.ssm_scan(u.double(), dt, B, C, A, D)
+    with pytest.raises(TypeError):               # dt must be f32
+        SK.ssm_scan(u, dt.bfloat16(), B, C, A, D)
+    with pytest.raises(ValueError):              # shapes differ
+        SK.ssm_scan(u, dt[:, :4], B, C, A, D)
+    with pytest.raises(ValueError):              # Di not contiguous
+        SK.ssm_scan(u.transpose(1, 2).contiguous().transpose(1, 2), dt, B,
+                    C, A, D)
+    with pytest.raises(ValueError):              # T = 0
+        SK.ssm_scan(u[:, :0], dt[:, :0], B[:, :0], C[:, :0], A, D)
+    with pytest.raises(TypeError):               # h0 not f32
+        SK.ssm_scan(u, dt, B, C, A, D,
+                    torch.zeros((2, 64, 16), device=dev).bfloat16())
+    with pytest.raises(ValueError):              # state_out on the CPU
+        SK.ssm_scan(u, dt, B, C, A, D, state_out=torch.zeros((2, 64, 16)))
+    assert SK.ssm_scan.launches == 1
+
+
+def test_jamba_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
+    """Jamba-1.5-Large's smoke variant in f32 on the card: prefill and
+    decode through `ssm_scan` and the attention kernels against the same
+    run with the layers' selective scan and attention on their plain
+    versions (the MoE routing is the same code on both paths); logits
+    within 1e-3 of their max-abs; one `ssm_scan` launch per Mamba layer
+    per prefill and per decode step."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import decode_step, init_params, layers, prefill
+
+    dev = no_tf32
+    cfg = smoke_variant(get_config("jamba-1.5-large-398b")).with_overrides(
+        param_dtype="float32", compute_dtype="float32")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev, experts=[0, 1])
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 100))).to(dev)
+
+    def run():
+        out = []
+        logits, cache = prefill(params, cfg, {"tokens": toks[:, :90]},
+                                cache_len=100)
+        out.append(logits)
+        for n in range(90, 99):
+            logits, cache = decode_step(params, cfg, toks[:, n:n + 1],
+                                        cache, n)
+            out.append(logits)
+        return torch.stack(out)
+
+    SK.reset_launches()
+    got = run()
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_periods
+    assert SK.ssm_scan.launches == n_mamba * 10
+    monkeypatch.setattr(layers, "selective_scan", ssm_scan_ref)
+    monkeypatch.setattr(layers, "attention_bshd",
+                        lambda q, k, v, *, causal, window:
+                        layers.flash_attention_chunked(q, k, v, causal=causal,
+                                                       window=window))
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    monkeypatch.setattr(layers, "decode_gqa", decode_attention_ref)
+    want = run()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-3 * want.abs().max()
