@@ -45,9 +45,14 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    prefill shape (H = 64, K = 8, hd = 128), at ragged S = T = 1,000
    (bf16, and f32 with TF32 off), and `decode_attention` at B = 8,
    T = 1,088, valid_len in {1, 600, 1,088}, G = 1 (hd 64), G = 4 and
-   G = 8 (hd 128, Jamba's), each against its plain PyTorch version on
-   the card (bf16 rtol = atol = 3e-2, f32 2e-5); prints kernel, plain,
-   bound and `scaled_dot_product_attention` (library) times;
+   G = 8 (hd 128, Jamba's), and at the long-context run's B = 1,
+   T = 8,256 (G = 1), each against its plain PyTorch version on the card
+   (bf16 rtol = atol = 3e-2, f32 2e-5); prints the kernel each flash
+   call ran and the split each decode call took (as the wrappers report
+   them), kernel, plain, bound and `scaled_dot_product_attention`
+   (library) times, decode's kernel and library times again after a
+   flush that leaves L2 clean, and decode at every split of the bf16
+   route at each timed shape (each held against plain);
 9. WKV kernel phase: `wkv_scan` in the model's [B,T,H,N] layout at the
    RWKV serve path's prefill shape (f32, B = 8, T = 1,024, H = 40,
    N = 64) and decode shape (T = 1, the state as s0 and output, in
@@ -65,7 +70,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    card at rtol = atol = 2e-4 (the reference's tolerance for its kernel);
    prints kernel, plain and bound times;
 11. serve phase, once per architecture: Qwen1.5-0.5B, RWKV6-3B, then
-   Jamba-1.5-Large (`repro_torch.configs`, bf16, random weights from
+   Jamba-1.5-Large, then Qwen1.5-0.5B again at one long conversation
+   (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
+   launch splits the cache, which (c) checks) (`repro_torch.configs`, bf16, random weights from
    torch.Generator seed 0; Qwen and RWKV at full width and depth, Jamba
    at full width, one period deep (8 of 72 layers), each MoE layer
    holding experts 0-7 of 16: one card's share of an expert-parallel
@@ -92,7 +99,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    full-width Mamba block in f32 (1e-3); (c) each kernel's launches per
    request: Qwen 24 flash in prefill and 24 x 64 decode attention, RWKV
    32 `wkv_scan` in prefill and 32 x 64 in decode, Jamba 7 `ssm_scan` in
-   prefill and 7 x 64 in decode, 1 flash and 64 decode attention; (d)
+   prefill and 7 x 64 in decode, 1 flash and 64 decode attention; the
+   decode attention launches that split: all 24 x 64 in the long run,
+   none in the others; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
    v1 alone; then one more request under torch.profiler for the device's
    busy time, idle share, peak memory and time by kernel kind.
@@ -176,6 +185,11 @@ SERVE_SMOKE = False
 # 8 prompts of 1,024 tokens, 64 decode steps (cache of 1,088); the writer
 # publishes v2 after this decode step
 SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
+# a second Qwen run: one long conversation (B = 1, a prompt of 8,192 of
+# the model's 32,768 positions, 64 decode steps), served as the others.
+# Its decode grid is 16 blocks, so every decode_attention launch splits
+# the cache over a cluster; the batch-8 runs never split
+SERVE_LONG = {"qwen1.5-0.5b": (1, 8192, 64)}
 
 
 def card_line() -> str:
@@ -187,14 +201,19 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------------ timing
-def time_ms(torch, fn, flush, reps: int = 15) -> float:
+def time_ms(torch, fn, flush, reps: int = 15, clean=None) -> float:
     """Median device time of one `fn()` call in ms: each rep flushes L2
     (writes a buffer larger than it), parks the stream in a sleep so the
     host enqueues the call behind it, and brackets the call with CUDA
-    events — so host launch overhead stays out of the reading."""
+    events — so host launch overhead stays out of the reading.  The write
+    leaves L2 full of dirty lines that the call's own reads must write
+    back; with `clean` (a second buffer larger than L2) the flush then
+    reads it, so the call starts on clean lines."""
     pairs = []
     for _ in range(reps + 2):
         flush.zero_()
+        if clean is not None:
+            clean.sum()
         torch.cuda._sleep(SLEEP_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
@@ -755,8 +774,10 @@ def attention_kernel_phase(torch, np, flush) -> dict:
     {name: {"max_abs_err", "times": (ms, plain, bound, library, by)}}."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.decode_attention.ops import decode_gqa
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ops import attention_bshd
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -827,9 +848,11 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         plain = lambda: attention_ref(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             causal=causal, window=window).transpose(1, 2)
+        got = fn()
         shape = (f"{dt} B={B} S={S} T={T} H={H} K={K} hd={hd} "
-                 f"causal={causal} window={window}")
-        check("flash_attention", shape, fn(), plain(), dt)
+                 f"causal={causal} window={window} "
+                 f"route={FK.flash_attention.last_route}")
+        check("flash_attention", shape, got, plain(), dt)
         if timed:
             esz = q.element_size()
             nbytes = esz * (2 * B * S * H * hd + 2 * B * T * K * hd)
@@ -841,18 +864,24 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                 results["flash_attention"]["times"] = t
         del q, k, v
 
-    # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies
+    # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies; the
+    # last is the long-context serve run's (one sequence, 8,256 slots)
+    clean = torch.empty_like(flush)
     for label, B, T, H, K, hd in (("G=1", 8, 1088, 16, 16, 64),
                                   ("G=4", 8, 1088, 32, 8, 128),
-                                  ("G=8 jamba", 8, 1088, 64, 8, 128)):
+                                  ("G=8 jamba", 8, 1088, 64, 8, 128),
+                                  ("G=1 long", 1, 8256, 16, 16, 64)):
         q = randn((B, H, hd), "bfloat16")
         kc, vc = (randn((B, T, K, hd), "bfloat16") for _ in range(2))
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)
         for vl in (1, 600, T):
             fn = lambda: decode_gqa(q, k, v, vl)
             plain = lambda: decode_attention_ref(q, k, v, vl)
-            shape = f"bf16 B={B} T={T} H={H} K={K} hd={hd} valid_len={vl}"
-            check("decode_attention", shape, fn(), plain(), "bfloat16")
+            got = fn()
+            chosen = DK.decode_attention.last_split
+            shape = (f"bf16 B={B} T={T} H={H} K={K} hd={hd} valid_len={vl} "
+                     f"n_split={chosen}")
+            check("decode_attention", shape, got, plain(), "bfloat16")
             if vl != T:
                 continue
             kx, vx = (x[:, :, :vl].repeat_interleave(H // K, 1).contiguous()
@@ -862,9 +891,27 @@ def attention_kernel_phase(torch, np, flush) -> dict:
             nbytes = 2 * (2 * B * H * hd + 2 * B * vl * K * hd)
             t = report("decode_attention", f"{label} {shape}", fn, plain,
                        library, nbytes, 4 * B * H * hd * vl, "bfloat16")
+            print(f"kernel decode_attention {label} after a clean-L2 flush: "
+                  f"kernel_ms={time_ms(torch, fn, flush, clean=clean):.4f} "
+                  f"library_ms="
+                  f"{time_ms(torch, library, flush, clean=clean):.4f}",
+                  flush=True)
             if label == "G=1":
                 results["decode_attention"]["times"] = t
+            # every split of the bf16 route on this shape, each held
+            # against plain (launches outside the main path)
+            want, ms = plain(), {}
+            for n in DK.SPLITS:
+                check("decode_attention", f"{shape} forced n_split={n}",
+                      DK.run_decode(q, k, v, vl, n), want, "bfloat16")
+                ms[n] = time_ms(torch, lambda: DK.run_decode(q, k, v, vl, n),
+                                flush)
+            print(f"decode split sweep {label} B={B} valid_len={vl}: "
+                  + " ".join(f"n_split={n} {t:.4f} ms" for n, t in
+                             ms.items())
+                  + f"; chosen {chosen}", flush=True)
         del q, kc, vc, k, v
+    del clean
     return results
 
 
@@ -1493,12 +1540,14 @@ def _kernel_wrappers() -> dict:
 
 
 def serve_phase(torch, np, device: str = "cuda",
-                arch: str = "qwen1.5-0.5b") -> dict:
+                arch: str = "qwen1.5-0.5b", long: bool = False) -> dict:
     """`arch` served from RSS-pinned parameter snapshots, with checks
-    (a)-(d) (see the module docstring).  Returns the launches of the
-    architecture's kernels over both requests, counted from 0 just
-    before request 1.  (`device="cpu"` runs the plain versions, where no
-    kernel launches: a rehearsal off the card.)"""
+    (a)-(d) (see the module docstring), at the batch shape (SERVE_B x
+    SERVE_S, SERVE_STEPS steps) or, with `long`, at its SERVE_LONG
+    shape.  Returns the launches of the architecture's kernels over both
+    requests, counted from 0 just before request 1.  (`device="cpu"`
+    runs the plain versions, where no kernel launches: a rehearsal off
+    the card.)"""
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.models import init_params
     from repro_torch.serve import ServingEngine
@@ -1521,7 +1570,8 @@ def serve_phase(torch, np, device: str = "cuda",
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    B, S, N = SERVE_B, SERVE_S, SERVE_STEPS
+    B, S, N = SERVE_LONG[arch] if long else (SERVE_B, SERVE_S, SERVE_STEPS)
+    run = cfg.name + (" long context" if long else "")
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -1543,7 +1593,7 @@ def serve_phase(torch, np, device: str = "cuda",
     sync()
     mem = (f", {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
            if on_card else "")
-    print(f"serve: {cfg.name} {_numel(v1) / 1e9:.3f} B params "
+    print(f"serve: {run} {_numel(v1) / 1e9:.3f} B params "
           f"({cfg.param_dtype}, {cut}), init + publish in "
           f"{time.perf_counter() - t0:.1f} s{mem}", flush=True)
 
@@ -1552,6 +1602,8 @@ def serve_phase(torch, np, device: str = "cuda",
     log: dict = {}
     prefill_fn, decode_fn = eng._prefill, eng._decode
     counts = lambda: {name: fn.launches for name, fn in wrappers.items()}
+    dattn = wrappers.get("decode_attention")
+    splits = lambda: dattn.split_launches if dattn else 0
 
     def rec_prefill(p, b):
         out = prefill_fn(p, b)
@@ -1584,7 +1636,7 @@ def serve_phase(torch, np, device: str = "cuda",
         it)."""
         log.update(params=[], logits=[], writer=writer)
         sync()
-        c0 = counts()
+        c0, s0 = counts(), splits()
         t = time.perf_counter()
         with record_routing() if writer and moe else \
                 contextlib.nullcontext() as calls:
@@ -1597,19 +1649,23 @@ def serve_phase(torch, np, device: str = "cuda",
         c1, c2 = log["c_prefill"], counts()
         per = {name: (c1[name] - c0[name], c2[name] - c1[name])
                for name in wrappers}
+        log["split"] = splits() - s0
         return res, per, list(log["logits"]), list(log["params"]), \
             (prefill_s, decode_s)
 
     for fn in wrappers.values():
         fn.launches = 0
+    if dattn:
+        dattn.split_launches = 0
     res1, per1, logits1, pinned1, t1 = request(writer=True)
-    routing1 = log["routing"]
+    routing1, split1 = log["routing"], log["split"]
     visible_after_1 = store.visible_lsn()
     eng.refresh()
     res2, per2, _, pinned2, t2 = request(writer=False)
+    split2 = log["split"]
     launches = counts()
     for i, (res, (pre_s, dec_s)) in enumerate(((res1, t1), (res2, t2)), 1):
-        print(f"serve request {i} ({cfg.name}): snapshot lsn "
+        print(f"serve request {i} ({run}): snapshot lsn "
               f"{res.snapshot_lsn} lag {res.freshness_lag}; prefill "
               f"{pre_s * 1e3:.1f} ms ({B}x{S} tokens), decode "
               f"{dec_s / N * 1e3:.2f} ms per step, {B * N / dec_s:.1f} "
@@ -1624,6 +1680,12 @@ def serve_phase(torch, np, device: str = "cuda",
     if on_card and not per1 == per2 == want:
         raise AssertionError(f"launches per request {per1}, {per2} != "
                              f"{want}")
+    # ... and the decode launches that split the cache: all of them in the
+    # long run, none at the batch shape
+    want_split = want["decode_attention"][1] if long and dattn else 0
+    if on_card and not split1 == split2 == want_split:
+        raise AssertionError(f"split decode launches {split1}, {split2} "
+                             f"!= {want_split}")
     # (d) snapshots: request 1 served from v1 alone while v2 was published
     # and became visible; request 2 pinned v2
     if "v2_txn" not in log or not all(p is v1 for p in pinned1) \
@@ -1668,7 +1730,9 @@ def serve_phase(torch, np, device: str = "cuda",
     differ = int((res1.tokens != res2.tokens).sum())
     per_txt = ", ".join(f"{name} {pre} in prefill + {dec} in decode"
                         for name, (pre, dec) in per1.items())
-    print(f"serve checks: (a) {cfg.name} kernel vs plain path max |d| / "
+    if dattn:
+        per_txt += f" ({split1} of them split)"
+    print(f"serve checks: (a) {run} kernel vs plain path max |d| / "
           f"max |logit| {worst_a:.3g}; (b) prefill + decode vs forward "
           f"{worst_b:.3g} (bf16, {bound}){extra}; (c) launches per "
           f"request {per_txt}; (d) v2 "
@@ -1679,7 +1743,7 @@ def serve_phase(torch, np, device: str = "cuda",
     eng._prefill, eng._decode = prefill_fn, decode_fn
     if on_card:
         serve_profile(torch, lambda: eng.generate({"tokens": prompts}, N),
-                      sum(t2), cfg.name)
+                      sum(t2), run)
     return launches
 
 
@@ -1790,15 +1854,18 @@ def main() -> int:
     print(f"path launches: version_gather {launches['version_gather']} "
           f"rss_gather {launches['rss_gather']}", flush=True)
     torch.cuda.empty_cache()
-    # the serve paths, one per architecture: each counts its kernels'
-    # launches from 0 over its two requests (summed over the paths that
-    # share a kernel); each frees its model before the next
-    for arch in SERVE_KERNELS:
+    # the serve paths, one per architecture and one per long-context
+    # shape: each counts its kernels' launches from 0 over its two
+    # requests (summed over the paths that share a kernel); each frees its
+    # model before the next
+    for arch, long in [*((a, False) for a in SERVE_KERNELS),
+                       *((a, True) for a in SERVE_LONG)]:
         t0 = time.perf_counter()
-        for name, n in serve_phase(torch, np, arch=arch).items():
+        for name, n in serve_phase(torch, np, arch=arch, long=long).items():
             launches[name] = launches.get(name, 0) + n
         torch.cuda.empty_cache()
-        print(f"serve phase {arch}: {time.perf_counter() - t0:.1f} s, "
+        print(f"serve phase {arch}{' long context' if long else ''}: "
+              f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
     for name in (*ATTN_TPU, *WKV_TPU, *SSM_TPU):

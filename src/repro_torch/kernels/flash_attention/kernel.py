@@ -11,17 +11,22 @@ contract:
 
 causal or not, a sliding `window` > 0 or none, any G, hd in {32, 64,
 128}, f32 / bf16 / f16 with f32 accumulation and the output in q's
-dtype.  Query i and key j sit at positions i and j.  Unlike the Pallas
-kernel, S and T need not be multiples of a block: ragged tiles are
-masked.  The kernel reads every tensor through its strides (only the
-head dimension must be contiguous), so `ops.attention_bshd` hands it the
-model's [B, S, H, hd] tensors as transposed views, without a copy; the
-output is allocated in q's memory layout, so it comes back in the
-model's layout too.
+dtype.  bf16 and f16 run on the tensor cores (wgmma; P rounded once to
+the input type before the PV product), f32 on f32 FMA.  Query i and key j
+sit at positions i and j.  Unlike the Pallas kernel, S and T need not be
+multiples of a block: ragged tiles are masked.  The kernel reads every
+tensor through its strides (only the head dimension must be
+contiguous), so `ops.attention_bshd` hands it the model's [B, S, H, hd]
+tensors as transposed views, without a copy; the output is allocated in
+q's memory layout, so it comes back in the model's layout too.  The
+tensor-core route moves rows in 16-byte pieces: a bf16 / f16 q, k, v or
+output whose start or (b, s, h) strides are not multiples of 16 bytes
+raises ValueError.
 
 Device choice: CUDA tensors launch the kernel (or raise); CPU tensors
 return the plain version, `ref.attention_ref`.  `flash_attention.launches`
-counts real kernel launches only.
+counts real kernel launches only; `flash_attention.last_route` names the
+kernel the last one ran, as the C dispatch reports it.
 """
 
 from __future__ import annotations
@@ -34,14 +39,18 @@ import torch
 from ..cuda_build import check, i32, load, on_cuda, reset_counts, stream
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the kernels `fa_flash` launches, by the route code it returns
+ROUTES = ("flash_kernel (f32 FMA)", "flash_kernel_wgmma (wgmma)")
 HEAD_DIMS = (32, 64, 128)
 _GRID_MAX = 65535                   # grid y / z limit (heads, batch)
+_I32_MAX = 2 ** 31 - 1              # grid x limit (blocks)
 
 
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fa_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f, p]
-    lib.fa_decode.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, p]
+    lib.fa_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
+                             ctypes.POINTER(i), p]
+    lib.fa_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
     lib.fa_flash.restype = ctypes.c_int
     lib.fa_decode.restype = ctypes.c_int
 
@@ -85,6 +94,18 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, H, K, T, hd
 
 
+def check_rows_16b(*named: tuple[str, torch.Tensor]) -> None:
+    """Raise ValueError unless each tensor starts on 16 bytes and its
+    strides over dims 0-2 (those of size > 1) are multiples of 16 bytes:
+    the kernels move its rows in 16-byte pieces."""
+    for name, t in named:
+        vec = 16 // t.element_size()
+        if t.data_ptr() % 16 or any(t.size(d) > 1 and t.stride(d) % vec
+                                    for d in (0, 1, 2)):
+            raise ValueError(f"{name} must start on 16 bytes with strides "
+                             "that are multiples of 16 bytes")
+
+
 def strides(*pairs: tuple[torch.Tensor, tuple[int, ...]]):
     """The element strides of each (tensor, dims) pair over its dims, in
     order, as the int64 array the C entries read."""
@@ -109,18 +130,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     if T == 0:
         raise ValueError("T = 0: no key to attend to")
+    if q.dtype != torch.float32:
+        check_rows_16b(("q", q), ("k", k), ("v", v), ("out", out))
+        if -(-S // 64) * B * H > _I32_MAX:      # blocks of 64 query rows
+            raise ValueError(f"B·H·S = {B}·{H}·{S}: too many blocks")
     bsh = (0, 2, 1)                 # [B, H, S, hd] -> (b, s, h)
     st = strides((q, bsh), (k, bsh), (v, bsh), (out, bsh))
+    route = ctypes.c_int(-1)
     check(attention_lib().fa_flash(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
         B, H, K, i32(S, "S"), i32(T, "T"), hd, DTYPE_CODES[q.dtype],
-        int(bool(causal)), window, 1.0 / math.sqrt(hd), stream()),
-        "flash_attention")
+        int(bool(causal)), window, 1.0 / math.sqrt(hd), ctypes.byref(route),
+        stream()), "flash_attention")
     flash_attention.launches += 1
+    flash_attention.last_route = ROUTES[route.value]
     return out
 
 
 flash_attention.launches = 0
+flash_attention.last_route = None   # ROUTES entry of the last launch
 KERNELS = (flash_attention,)
 
 

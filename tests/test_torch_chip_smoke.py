@@ -56,6 +56,20 @@ def test_serve_phase_on_cpu(smoke, capsys):
     assert "serve request 2" in out and "serve checks: (a)" in out
 
 
+def test_long_context_serve_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The long-context Qwen run (one prompt) through the same serve
+    phase at a tiny size: its own shape, checks (a), (b) and (d), the
+    split count printed."""
+    import numpy as np
+
+    monkeypatch.setitem(smoke.SERVE_LONG, "qwen1.5-0.5b", (1, 40, 6))
+    launches = smoke.serve_phase(torch, np, device="cpu", long=True)
+    assert launches == {"flash_attention": 0, "decode_attention": 0}
+    out = capsys.readouterr().out
+    assert "serve request 2 (qwen1.5-0.5b-smoke long context)" in out
+    assert "(1x40 tokens)" in out and "(0 of them split)" in out
+
+
 def test_plain_attention_swaps_the_layers_and_restores_them(smoke):
     from repro_torch.models import layers
 

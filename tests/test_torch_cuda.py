@@ -379,6 +379,140 @@ def test_attention_wrappers_reject_bad_inputs_and_count_launches(dev):
     assert FK.flash_attention.launches == DK.decode_attention.launches == 1
 
 
+@pytest.mark.parametrize("H,K,hd", [(16, 16, 64), (64, 8, 128)],
+                         ids=["qwen", "jamba"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_kernel_at_serve_shapes(no_tf32, H, K, hd, dtype):
+    """The tensor-core route at the serve paths' prefill heads (Qwen
+    H = K = 16, hd 64; Jamba H 64, K 8, hd 128), S = T = 1,024, causal,
+    in the model's layout, against `attention_ref`."""
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.flash_attention.ops import attention_bshd
+
+    dev = no_tf32
+    q = _randn(dev, (2, 1024, H, hd), dtype, H)
+    k = _randn(dev, (2, 1024, K, hd), dtype, H + 1)
+    v = _randn(dev, (2, 1024, K, hd), dtype, H + 2)
+    got = attention_bshd(q, k, v, causal=True)
+    want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2)).transpose(1, 2)
+    _attn_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("window", [20, 40, 100])
+def test_flash_kernel_tiles_across_diagonal_and_window_edge(no_tf32, hd,
+                                                            window):
+    """Windows narrower than, near and wider than a 64-row tile: query
+    tiles whose KV tiles cross the diagonal and a window edge at once,
+    tiles a warp sees nothing of, ragged S = T = 300; causal and not."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    dev = no_tf32
+    q = _randn(dev, (2, 4, 300, hd), "bfloat16", window)
+    k = _randn(dev, (2, 2, 300, hd), "bfloat16", window + 1)
+    v = _randn(dev, (2, 2, 300, hd), "bfloat16", window + 2)
+    for causal in (True, False):
+        _attn_close(FK.flash_attention(q, k, v, causal=causal, window=window),
+                    FR.attention_ref(q, k, v, causal=causal, window=window),
+                    "bfloat16")
+
+
+def test_flash_kernel_refuses_rows_off_16_bytes(dev):
+    """bf16 / f16 rows move in 16-byte pieces: a q whose row stride (68
+    elements, 136 bytes) or start is off 16 bytes raises, as does k; f32
+    takes any strides."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    k = _randn(dev, (1, 2, 64, 64), "bfloat16", 1)
+    wide = _randn(dev, (1, 2, 64, 68), "bfloat16", 0)
+    FK.reset_launches()
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_attention(wide[..., :64], k, k)
+    flat = _randn(dev, (2 * 64 * 64 + 1,), "bfloat16", 2)
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_attention(flat[1:].view(1, 2, 64, 64), k, k)
+    with pytest.raises(ValueError, match="16 bytes"):
+        FK.flash_attention(k, flat[1:].view(1, 2, 64, 64), k)
+    assert FK.flash_attention.launches == 0
+    FK.flash_attention(wide.float()[..., :64], k.float(), k.float())
+    assert FK.flash_attention.launches == 1
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 4, 8])
+def test_decode_kernel_at_each_split(no_tf32, n_split):
+    """Every split, forced, at valid_len on a range boundary (a multiple
+    of the split) and one either side, below the split (empty ranges)
+    and at T; one launch per call; two calls bitwise equal (the merge
+    order is fixed)."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+
+    dev = no_tf32
+    for G, hd in ((1, 64), (8, 128)):
+        q = _randn(dev, (2, 2 * G, hd), "bfloat16", G)
+        kc, vc = (_randn(dev, (2, 1088, 2, hd), "bfloat16", G + s)
+                  for s in (1, 2))
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        for vl in (1, 7, 8 * 68 - 1, 8 * 68, 8 * 68 + 1, 1088):
+            DK.reset_launches()
+            got = DK.run_decode(q, k, v, vl, n_split)
+            again = DK.run_decode(q, k, v, vl, n_split)
+            assert DK.decode_attention.launches == 2
+            assert DK.decode_attention.split_launches == 2 * (n_split > 1)
+            assert DK.decode_attention.last_split == n_split
+            assert torch.equal(got, again)
+            _attn_close(got, DR.decode_attention_ref(q, k, v, vl),
+                        "bfloat16")
+
+
+def test_decode_kernel_f32_never_splits(no_tf32):
+    """f32 runs unsplit whatever the grid (one sequence of 8,192 slots,
+    which splits in bf16) and refuses a forced split before launching."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+
+    dev = no_tf32
+    q = _randn(dev, (1, 16, 64), "float32", 0)
+    kc, vc = (_randn(dev, (1, 8192, 16, 64), "float32", s) for s in (1, 2))
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    DK.reset_launches()
+    _attn_close(DK.decode_attention(q, k, v, 8192),
+                DR.decode_attention_ref(q, k, v, 8192), "float32")
+    assert DK.decode_attention.last_split == 1
+    assert DK.decode_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                               8192) is not None
+    assert DK.decode_attention.last_split > 1
+    with pytest.raises(ValueError, match="n_split"):
+        DK.run_decode(q, k, v, 8192, 2)
+    assert DK.decode_attention.launches == 2
+
+
+def test_decode_kernel_where_the_split_changes(no_tf32):
+    """valid_len either side of each threshold of `decode_splits` (M =
+    SPLIT_MIN_ROWS) at one sequence of the serve shapes (B 1: Qwen's 16
+    blocks, Jamba's 8), unforced, over a cache of 8·M slots."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+
+    dev, M = no_tf32, DK.SPLIT_MIN_ROWS
+    for K, G, hd, splits in ((16, 1, 64, {2 * M - 1: 1, 2 * M: 2,
+                                          4 * M - 1: 2, 4 * M: 4,
+                                          8 * M - 1: 4, 8 * M: 8}),
+                             (8, 8, 128, {2 * M - 1: 1, 2 * M: 2,
+                                          4 * M: 4, 8 * M - 1: 4,
+                                          8 * M: 8})):
+        q = _randn(dev, (1, K * G, hd), "bfloat16", K)
+        kc, vc = (_randn(dev, (1, 8 * M, K, hd), "bfloat16", K + s)
+                  for s in (1, 2))
+        k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+        for vl, n in splits.items():
+            assert DK.decode_splits(vl, K) == n
+            _attn_close(DK.decode_attention(q, k, v, vl),
+                        DR.decode_attention_ref(q, k, v, vl), "bfloat16")
+
+
 def test_qwen_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
     """The Qwen1.5-0.5B smoke variant (bf16) on the card: prefill and
     decode through the kernels against the same run with the layers'
