@@ -61,14 +61,21 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    rtol = atol = 1e-4 (the reference's tolerance for its kernel); at
    RWKV6-3B's own decay scale (w_base = -6, unit r/k/v) f32 sums of
    64 terms of size ~|o| cancel, so there the check holds |d| to 1e-4
-   of the output's max-abs; prints kernel, plain and bound times;
+   of the output's max-abs; prints each call's route (chunked for T > 1,
+   step for T = 1) and launch shape as the wrapper reports it, and
+   kernel, plain and bound times of the prefill and of the decode, the
+   decode also on the chunked route (forced), beside the step route;
 10. SSM kernel phase: `ssm_scan` at Jamba's prefill shape (f32, Bb = 8,
    T = 1,024, Di = 16,384, N = 16, Jamba's own scales) and decode shape
    (T = 1, the state as h0 and output, in place), and at edge shapes
    (ragged T = 37, Di = 1,000, N = 8, bf16 u, h0 given at T > 1, the
    reference test's shapes and scales), against its plain version on the
    card at rtol = atol = 2e-4 (the reference's tolerance for its kernel);
-   prints kernel, plain and bound times;
+   prints each call's route and launch shape, and kernel, plain and
+   bound times of the
+   prefill at Jamba's scales and at the reference test's (A = -exp(z)),
+   and of the decode with f32 u and with bf16 u (the served case), the
+   served decode also on the chunked route (forced);
 11. serve phase, once per architecture: Qwen1.5-0.5B, RWKV6-3B, then
    Jamba-1.5-Large, then Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
@@ -101,12 +108,16 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    32 `wkv_scan` in prefill and 32 x 64 in decode, Jamba 7 `ssm_scan` in
    prefill and 7 x 64 in decode, 1 flash and 64 decode attention; the
    decode attention launches that split: all 24 x 64 in the long run,
-   none in the others; (d)
+   none in the others; the scans' launches by route: every prefill
+   launch chunked, every decode launch a step; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
    v1 alone; then one more request under torch.profiler for the device's
    busy time, idle share, peak memory and time by kernel kind.
 
-It prints one `{"kernels": [...]}` JSON line, the card line, and last
+It prints one `{"kernels": [...]}` JSON line (a row per kernel: the
+scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
+chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
+each with its route's launches), the card line, and last
 `{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
 package `repro`.
 """
@@ -118,6 +129,8 @@ import contextlib
 import dataclasses
 import json
 import random
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -916,6 +929,26 @@ def attention_kernel_phase(torch, np, flush) -> dict:
 
 
 # -------------------------------------------------------------- WKV kernel
+def _clean_l2_time(torch, label, fn, flush) -> None:
+    """Print `fn`'s time after a flush that leaves L2 clean (a decode
+    step's state is cold but L2 holds few dirty lines in the serve path;
+    the usual flush leaves it full of them, which the step's reads must
+    write back first)."""
+    clean = torch.empty_like(flush)
+    print(f"kernel {label} after a clean-L2 flush: kernel_ms="
+          f"{time_ms(torch, fn, flush, clean=clean):.4f}", flush=True)
+    del clean
+
+
+def _launch_txt(launch) -> str:
+    """A scan wrapper's `last_route` as printed: route, grid x block, and
+    how its operands move."""
+    grid = " x ".join(str(g) for g in launch.grid)
+    return (f"route {launch.route}, grid {grid} of {launch.block} threads, "
+            f"{'16-byte' if launch.vector else 'element'} "
+            f"{'staging' if launch.route == 'chunked' else 'state access'}")
+
+
 def _wkv_plain(r, k, v, w_log, u, s0=None, *, state_out=None):
     """`ops.wkv` on the plain version, on the tensors' own device: the
     model's [B,T,H,N] layout in and out, as the kernel path."""
@@ -940,8 +973,13 @@ def wkv_kernel_phase(torch, np, flush) -> dict:
     """wkv_scan against its plain version on the card, in the model's
     layout as the RWKV serve path hands it (r/k/v/w_log [B,T,H,N], u
     [H,N]), timed beside its bound; `library_ms` is None: no one PyTorch
-    call computes the WKV6 recurrence.  Returns {"max_abs_err", "times":
-    (ms, plain, bound, None, by)} of the prefill shape."""
+    call computes the WKV6 recurrence.  Prints the route and launch shape
+    of every call (`wkv_scan.last_route`).  Returns {"max_abs_err",
+    "times": (ms, plain, bound, None, by)} of the prefill shape (the
+    chunked route) and "times_step", the same of the decode shape (the
+    step route); the decode is also timed on the chunked route, forced,
+    and printed beside it."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
     from repro_torch.kernels.wkv_scan.ops import wkv
 
     dev = torch.device("cuda")
@@ -1010,6 +1048,7 @@ def wkv_kernel_phase(torch, np, flush) -> dict:
         shape = (f"{dt} B={B} T={T} H={H} N={N} s0={with_s0} "
                  f"decay={scale}")
         got = wkv(r, k, v, w_log, u, s0)
+        shape += f" [{_launch_txt(WK.wkv_scan.last_route)}]"
         check(f"{label} {shape}", got, _wkv_plain(r, k, v, w_log, u, s0),
               normwise=scale == "rwkv6")
         if timed:
@@ -1026,12 +1065,32 @@ def wkv_kernel_phase(torch, np, flush) -> dict:
     if got[1] is not state:
         raise AssertionError("wkv_scan decode: the state was not written "
                              "in place")
-    check("decode", got, want, normwise=True)
-    report("decode f32 B=8 T=1 H=40 N=64 s0=state_out (in place)",
-           lambda: wkv(r, k, v, w_log, u, state, state_out=state),
-           lambda: _wkv_plain(r, k, v, w_log, u, state, state_out=state),
-           _wkv_cost(8, 1, 40, 64, 4, True))
-    print(f"kernel wkv_scan: {len(cases) + 1} shapes within {tol} of "
+    route = _launch_txt(WK.wkv_scan.last_route)
+    check(f"decode [{route}]", got, want, normwise=True)
+    step = lambda: wkv(r, k, v, w_log, u, state, state_out=state)
+    res["times_step"] = report(
+        f"decode f32 B=8 T=1 H=40 N=64 s0=state_out (in place) [{route}]",
+        step, lambda: _wkv_plain(r, k, v, w_log, u, state, state_out=state),
+        _wkv_cost(8, 1, 40, 64, 4, True))
+    _clean_l2_time(torch, "wkv_scan decode", step, flush)
+    # the same step on the chunked route (forced), which takes any T >= 1:
+    # the step route must be the faster to be worth its kernel
+    bhtn = [x.transpose(1, 2) for x in (r, k, v, w_log)] + \
+        [u[None].expand(8, 40, 64)]
+    chunked = lambda: WK.wkv_scan(*bhtn, state, state_out=state,
+                                  route="chunked")
+    want = _wkv_plain(r, k, v, w_log, u, state)
+    o, S = chunked()
+    route = _launch_txt(WK.wkv_scan.last_route)
+    check(f"decode [{route}]", (o.transpose(1, 2), S), want, normwise=True)
+    ms = report(f"decode f32 B=8 T=1 H=40 N=64 s0=state_out (in place) "
+                f"[{route}]", chunked,
+                lambda: _wkv_plain(r, k, v, w_log, u, state,
+                                   state_out=state),
+                _wkv_cost(8, 1, 40, 64, 4, True))[0]
+    print(f"kernel wkv_scan decode: step route {res['times_step'][0]:.4f} "
+          f"ms, chunked route {ms:.4f} ms", flush=True)
+    print(f"kernel wkv_scan: {len(cases) + 2} shapes within {tol} of "
           f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
     return res
 
@@ -1053,8 +1112,16 @@ def ssm_kernel_phase(torch, np, flush) -> dict:
     layout as the Mamba layers hand it (u, dt [Bb,T,Di]; B, C [Bb,T,N]),
     timed beside its bound; `library_ms` is None: no one PyTorch call
     computes the selective scan.  Element-wise rtol = atol = 2e-4, the
-    reference's tolerance for its kernel.  Returns {"max_abs_err",
-    "times": (ms, plain, bound, None, by)} of the prefill shape."""
+    reference's tolerance for its kernel.  Prints the route and launch
+    shape of every call (`ssm_scan.last_route`).  Times the prefill at
+    Jamba's scales and at the reference test's (A = -exp(z): the time
+    must not rest on A's initial values) and the decode with f32 and
+    bf16 u (bf16 is what Jamba's serve path passes).  Returns
+    {"max_abs_err", "times": (ms, plain, bound, None, by)} of the prefill
+    at Jamba's scales (the chunked route) and "times_step", the same of
+    the bf16-u decode (the step route); that decode is also timed on the
+    chunked route, forced, and printed beside it."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
@@ -1112,6 +1179,8 @@ def ssm_kernel_phase(torch, np, flush) -> dict:
 
     # (label, u dtype, Bb, T, Di, N, h0 given, scale, timed)
     cases = [("prefill", "float32", 8, 1024, 16384, 16, False, "jamba", True),
+             ("prefill", "float32", 8, 1024, 16384, 16, False, "reference",
+              True),
              ("ragged T", "float32", 2, 37, 4096, 16, False, "jamba", False),
              ("ragged Di", "float32", 2, 100, 1000, 16, False, "reference",
               False),
@@ -1129,28 +1198,56 @@ def ssm_kernel_phase(torch, np, flush) -> dict:
         shape = (f"{dt_} u, Bb={Bb} T={T} Di={Di} N={N} h0={with_h0} "
                  f"scale={scale}")
         got = selective_scan(u, dt, B, C, A, D, h0)
+        shape += f" [{_launch_txt(SK.ssm_scan.last_route)}]"
         check(f"{label} {shape}", got, ssm_scan_ref(u, dt, B, C, A, D, h0))
         if timed:
-            res["times"] = report(
+            times = report(
                 f"{label} {shape}",
                 lambda: selective_scan(u, dt, B, C, A, D),
                 lambda: ssm_scan_ref(u, dt, B, C, A, D),
                 _ssm_cost(Bb, T, Di, N, u.element_size(), False),
                 Bb * T * Di * N)
-            state = got[1]            # decode from the prompt's state
-    # decode: one token from that state, read and written in place
-    u, dt, B, C, A, D = inputs(8, 1, 16384, 16, "float32", "jamba")
+            if scale == "jamba":
+                res["times"] = times
+                state = got[1]        # decode from the prompt's state
+    # decode: one token from that state, read and written in place, with
+    # f32 u and then bf16 u (the served case)
+    for u_dtype in ("float32", "bfloat16"):
+        u, dt, B, C, A, D = inputs(8, 1, 16384, 16, u_dtype, "jamba")
+        want = ssm_scan_ref(u, dt, B, C, A, D, state)
+        got = selective_scan(u, dt, B, C, A, D, state, state_out=state)
+        if got[1] is not state:
+            raise AssertionError("ssm_scan decode: the state was not "
+                                 "written in place")
+        label = (f"decode {u_dtype} u, Bb=8 T=1 Di=16384 N=16 h0=state_out "
+                 f"(in place) [{_launch_txt(SK.ssm_scan.last_route)}]")
+        check(label, got, want)
+        step = lambda: selective_scan(u, dt, B, C, A, D, state,
+                                      state_out=state)
+        res["times_step"] = report(
+            label, step,
+            lambda: ssm_scan_ref(u, dt, B, C, A, D, state, state_out=state),
+            _ssm_cost(8, 1, 16384, 16, u.element_size(), True),
+            8 * 16384 * 16)
+        _clean_l2_time(torch, f"ssm_scan decode {u_dtype} u", step, flush)
+    # the served step on the chunked route (forced), which takes any
+    # T >= 1: the step route must be the faster to be worth its kernel
+    chunked = lambda: SK.ssm_scan(u, dt, B, C, A, D, state, state_out=state,
+                                  route="chunked")
     want = ssm_scan_ref(u, dt, B, C, A, D, state)
-    got = selective_scan(u, dt, B, C, A, D, state, state_out=state)
-    if got[1] is not state:
-        raise AssertionError("ssm_scan decode: the state was not written "
-                             "in place")
-    check("decode f32 Bb=8 T=1 Di=16384 N=16 h0=state_out", got, want)
-    report("decode f32 Bb=8 T=1 Di=16384 N=16 h0=state_out (in place)",
-           lambda: selective_scan(u, dt, B, C, A, D, state, state_out=state),
-           lambda: ssm_scan_ref(u, dt, B, C, A, D, state, state_out=state),
-           _ssm_cost(8, 1, 16384, 16, 4, True), 8 * 16384 * 16)
-    print(f"kernel ssm_scan: {len(cases) + 1} shapes within {tol} of "
+    got = chunked()
+    label = (f"decode {u_dtype} u, Bb=8 T=1 Di=16384 N=16 h0=state_out "
+             f"(in place) [{_launch_txt(SK.ssm_scan.last_route)}]")
+    check(label, got, want)
+    ms = report(label, chunked,
+                lambda: ssm_scan_ref(u, dt, B, C, A, D, state,
+                                     state_out=state),
+                _ssm_cost(8, 1, 16384, 16, u.element_size(), True),
+                8 * 16384 * 16)[0]
+    print(f"kernel ssm_scan decode {u_dtype} u: step route "
+          f"{res['times_step'][0]:.4f} ms, chunked route {ms:.4f} ms",
+          flush=True)
+    print(f"kernel ssm_scan: {len(cases) + 3} shapes within {tol} of "
           f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
     return res
 
@@ -1528,7 +1625,8 @@ def _numel(tree) -> int:
 
 
 def _kernel_wrappers() -> dict:
-    """name -> the kernel wrapper whose `launches` counts its launches."""
+    """name -> the kernel wrapper whose count (`launches`, or
+    `route_launches` for the scans) counts its launches."""
     from repro_torch.kernels.decode_attention import kernel as DK
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.ssm_scan import kernel as SK
@@ -1549,6 +1647,7 @@ def serve_phase(torch, np, device: str = "cuda",
     runs the plain versions, where no kernel launches: a rehearsal off
     the card.)"""
     from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.cuda_build import launch_count, reset_counts
     from repro_torch.models import init_params
     from repro_torch.serve import ServingEngine
     from repro_torch.tensorstore import VersionedParamStore
@@ -1601,7 +1700,8 @@ def serve_phase(torch, np, device: str = "cuda",
     # end) and let the writer publish v2 during request 1
     log: dict = {}
     prefill_fn, decode_fn = eng._prefill, eng._decode
-    counts = lambda: {name: fn.launches for name, fn in wrappers.items()}
+    counts = lambda: {name: launch_count(fn)
+                      for name, fn in wrappers.items()}
     dattn = wrappers.get("decode_attention")
     splits = lambda: dattn.split_launches if dattn else 0
 
@@ -1653,8 +1753,7 @@ def serve_phase(torch, np, device: str = "cuda",
         return res, per, list(log["logits"]), list(log["params"]), \
             (prefill_s, decode_s)
 
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_counts(wrappers.values())
     if dattn:
         dattn.split_launches = 0
     res1, per1, logits1, pinned1, t1 = request(writer=True)
@@ -1664,6 +1763,10 @@ def serve_phase(torch, np, device: str = "cuda",
     res2, per2, _, pinned2, t2 = request(writer=False)
     split2 = log["split"]
     launches = counts()
+    routes = {name: dict(fn.route_launches) for name, fn in wrappers.items()
+              if hasattr(fn, "route_launches")}
+    for name, by_route in routes.items():
+        launches.update({f"{name} {r}": n for r, n in by_route.items()})
     for i, (res, (pre_s, dec_s)) in enumerate(((res1, t1), (res2, t2)), 1):
         print(f"serve request {i} ({run}): snapshot lsn "
               f"{res.snapshot_lsn} lag {res.freshness_lag}; prefill "
@@ -1680,6 +1783,13 @@ def serve_phase(torch, np, device: str = "cuda",
     if on_card and not per1 == per2 == want:
         raise AssertionError(f"launches per request {per1}, {per2} != "
                              f"{want}")
+    # ... the scans by route: every prefill launch chunked, every decode
+    # launch one step
+    for name, by_route in routes.items():
+        pre, dec = (per1[name][i] + per2[name][i] for i in (0, 1))
+        if on_card and by_route != {"chunked": pre, "step": dec}:
+            raise AssertionError(f"{name} launches by route {by_route} != "
+                                 f"chunked {pre}, step {dec}")
     # ... and the decode launches that split the cache: all of them in the
     # long run, none at the batch shape
     want_split = want["decode_attention"][1] if long and dattn else 0
@@ -1794,6 +1904,31 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
               f"{name[:80]}", flush=True)
 
 
+def _ptxas_report(log: str) -> list:
+    """nvcc's `-Xptxas -v` output as one line per kernel: its name
+    (demangled by c++filt where the machine has it), registers, shared
+    memory and spills; and any line that reports an error."""
+    out, kernel, spill = [], "", ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            kernel, spill = entry.group(1), ""
+            if shutil.which("c++filt"):
+                kernel = subprocess.run(
+                    ["c++filt", kernel], capture_output=True,
+                    text=True).stdout.strip() or kernel
+                kernel = re.sub(r"^void |\([^()]*\)$", "", kernel.replace(
+                    "(anonymous namespace)::", ""))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line:
+            used = line.split(":", 1)[1].strip()
+            out.append(f"{kernel}: {used}; {spill}")
+        elif "error" in line:
+            out.append(line.strip())
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -1825,9 +1960,8 @@ def main() -> int:
     names = ", ".join(str(p.relative_to(ROOT)) for p in libs.values())
     print(f"build: {names} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in cuda_build.BUILD_LOGS.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        for line in _ptxas_report(log):
+            print(f"ptxas {name}: {line}", flush=True)
 
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     results = kernel_phase(torch, np, K_mod, flush)
@@ -1868,9 +2002,16 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
+    scan_rows = [(f"{name}{suffix}", name, key, launches[f"{name} {route}"])
+                 for name in (*WKV_TPU, *SSM_TPU)
+                 for suffix, key, route in (("", "times", "chunked"),
+                                            (" step", "times_step", "step"))]
     for name in (*ATTN_TPU, *WKV_TPU, *SSM_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")
+    for row, _, _, n in scan_rows:
+        if n == 0:
+            raise AssertionError(f"{row} never launched")
 
     replaces = {"rss_scan_agg": f"{TPU_SRC}:189",
                 "rss_scan_agg_grouped": f"{TPU_SRC}:260",
@@ -1888,11 +2029,15 @@ def main() -> int:
     sources = {**{n: ATTN_SRC for n in ATTN_TPU},
                **{n: WKV_SRC for n in WKV_TPU},
                **{n: SSM_SRC for n in SSM_TPU}}
-    for name, where in {**ATTN_TPU, **WKV_TPU, **SSM_TPU}.items():
-        ms, plain_ms, bound_ms, library_ms, by = results[name]["times"]
-        rows.append({"name": name, "route": "cuda",
+    # the scans have two kernels each: a row per kernel, with the
+    # launches of its route
+    rows_of = [(name, name, "times", launches[name]) for name in ATTN_TPU]
+    for row, name, key, n in rows_of + scan_rows:
+        ms, plain_ms, bound_ms, library_ms, by = results[name][key]
+        rows.append({"name": row, "route": "cuda",
                      "source": sources[name],
-                     "replaces": where, "launches": launches[name],
+                     "replaces": {**ATTN_TPU, **WKV_TPU, **SSM_TPU}[name],
+                     "launches": n,
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": by, "library_ms": library_ms})

@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Iterable
+from typing import Callable, Iterable, NamedTuple
 
 import torch
 
@@ -127,14 +127,45 @@ def i32(v, name: str) -> int:
     return v
 
 
+class Launch(NamedTuple):
+    """A wrapper's launch: the route (which kernel), its grid (blocks per
+    axis) and block (threads), and whether its operands move as 16-byte
+    vectors (cp.async pieces, float4) or element by element."""
+    route: str
+    grid: tuple[int, ...]
+    block: int
+    vector: bool
+
+
+def on_16b(t: torch.Tensor, dims: Iterable[int]) -> bool:
+    """True when `t` starts on 16 bytes and its strides over `dims` are
+    multiples of 16 bytes: each row along its last dim can then move in
+    16-byte pieces."""
+    size = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        t.stride(d) * size % 16 == 0 for d in dims)
+
+
 def stream() -> int:
     """PyTorch's current CUDA stream, as the pointer the C entries take."""
     return torch.cuda.current_stream().cuda_stream
 
 
+def launch_count(fn) -> int:
+    """A wrapper's kernel launches: its `launches` count or, for a
+    wrapper with a kernel per route, the sum of its `route_launches`."""
+    by_route = getattr(fn, "route_launches", None)
+    return fn.launches if by_route is None else sum(by_route.values())
+
+
 def reset_counts(kernels) -> dict:
-    """Zero each wrapper's `launches` count; returns the counts before."""
-    before = {fn.__name__: fn.launches for fn in kernels}
+    """Zero each wrapper's count (`launches`, or `route_launches` where
+    it counts by route); returns the launches before."""
+    before = {fn.__name__: launch_count(fn) for fn in kernels}
     for fn in kernels:
-        fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            for route in fn.route_launches:
+                fn.route_launches[route] = 0
+        else:
+            fn.launches = 0
     return before

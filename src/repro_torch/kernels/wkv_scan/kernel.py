@@ -23,10 +23,25 @@ strides with a contiguous last dim), which may be `s0` itself: the
 kernel reads each state column before it writes it, so a decode step
 updates the layer's state in place.
 
+Routes (`pick_route`, then `plan`; one launch per call either way):
+- "chunked" (T > 1), `wkv_kernel_chunked`: B x H blocks of 2N threads,
+  one (b, h) each; a lane holds 4 columns of the state over N / 8 rows,
+  8 lanes share a column group; chunks of 16 steps staged in a
+  two-stage shared-memory ring by cp.async when r, k, v and w_log start
+  on 16 bytes with strides of 16 bytes (`vector`), else by element
+  loads.
+- "step" (T = 1), `wkv_kernel_step`: B x H blocks of N^2 / 8 threads,
+  the state elementwise in float4s (`vector`: s0 and the output state
+  start on 16 bytes with strides of 16 bytes) or element by element.
+  The chunked route takes T = 1 too (`route="chunked"` forces it); the
+  step route is the faster there (the H100 figures are in PERF.md).
+
 Device choice: CUDA tensors launch the kernel (or raise); CPU tensors
 take the plain version, `ref.wkv_scan_plain` (`wkv_scan_ref` at this
-contract).  `wkv_scan.launches` counts
-real kernel launches only.
+contract).  `wkv_scan.route_launches` counts real kernel launches
+only, by route (`cuda_build.launch_count` sums them), and
+`wkv_scan.last_route` is the last launch's `Launch` (route, grid, block,
+vector).
 """
 
 from __future__ import annotations
@@ -36,20 +51,52 @@ from typing import Optional
 
 import torch
 
-from ..cuda_build import check, i32, load, on_cuda, reset_counts, stream
+from ..cuda_build import (Launch, check, i32, load, on_16b, on_cuda,
+                          reset_counts, stream)
 from ..flash_attention.kernel import DTYPE_CODES, strides
 
 HEAD_SIZES = (32, 64)
+ROUTES = ("chunked", "step")        # the routes `plan` chooses from
+COLS_PER_LANE = 4                   # chunked route: columns of S a lane
+STEP_FLOAT4S = 2                    # step route: float4s of S a thread
 
 
 def _bind(lib) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wkv_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i, p]
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.wkv_forward.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                i, ll, i, i, p]
     lib.wkv_forward.restype = ctypes.c_int
+
+
+def pick_route(T: int, route: Optional[str] = None) -> str:
+    """The route of a call: `route` when given ("step" only at T = 1),
+    else the step route for one token and the chunked route otherwise."""
+    if route is None:
+        return "step" if T == 1 else "chunked"
+    if route not in ROUTES or (route == "step" and T != 1):
+        raise ValueError(f"route {route!r} at T = {T}: the routes are "
+                         f"{ROUTES}, the step route only at T = 1")
+    return route
+
+
+def plan(B: int, H: int, N: int, route: str, vector: bool) -> Launch:
+    """The launch of `route` (see `pick_route`); `vector` says whether
+    the operands the route moves (chunked: r, k, v, w_log; step: s0 and
+    the output state) sit on 16 bytes (see the module docstring).  The C
+    entry rejects any other grid or block."""
+    if route == "step":
+        return Launch("step", (B * H,), N * N // (4 * STEP_FLOAT4S), vector)
+    return Launch("chunked", (B * H,), N // COLS_PER_LANE * 8, vector)
 
 
 def wkv_lib():
     return load("wkv", _bind)
+
+
+def _route_code(launch: Launch) -> int:
+    """The C entry's route code: 0 chunked by cp.async, 1 chunked by
+    element loads, 2 step."""
+    return 2 if launch.route == "step" else 0 if launch.vector else 1
 
 
 def _check(r, k, v, w_log, u, s0, state_out) -> tuple[int, int, int, int]:
@@ -91,15 +138,18 @@ def _check(r, k, v, w_log, u, s0, state_out) -> tuple[int, int, int, int]:
 def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              w_log: torch.Tensor, u: torch.Tensor,
              s0: Optional[torch.Tensor] = None, *,
-             state_out: Optional[torch.Tensor] = None):
+             state_out: Optional[torch.Tensor] = None,
+             route: Optional[str] = None):
     """r/k/v/w_log [B,H,T,N]; u [B,H,N]; s0 [B,H,N,N] f32 or None ->
     (o [B,H,T,N] f32, S [B,H,N,N] f32; S is `state_out` when given).
-    Replaces the TPU `wkv_scan`."""
+    Replaces the TPU `wkv_scan`.  `route` forces a route on the card (to
+    compare the two at T = 1); None takes `pick_route`'s."""
     if not on_cuda(r):
         from .ref import wkv_scan_plain
         return wkv_scan_plain(r, k, v, w_log, u, s0, state_out=state_out)
     u = u.float()
     B, H, T, N = _check(r, k, v, w_log, u, s0, state_out)
+    route = pick_route(T, route)
     o = torch.empty((B, T, H, N), dtype=torch.float32,
                     device=r.device).transpose(1, 2)
     S = state_out if state_out is not None else torch.empty(
@@ -107,21 +157,32 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H == 0:
         return o, S
     bht = (0, 1, 2)                 # (b, h, t) or, for a state, (b, h, i)
+    state_in = S if s0 is None else s0
+    if route == "step":
+        vector = on_16b(state_in, bht) and on_16b(S, bht)
+    else:
+        vector = all(on_16b(x, bht) for x in (r, k, v, w_log))
+    launch = plan(B, H, N, route, vector)
     st = strides((r, bht), (k, bht), (v, bht), (w_log, bht), (u, (0, 1)),
-                 (S if s0 is None else s0, bht), (o, bht), (S, bht))
+                 (state_in, bht), (o, bht), (S, bht))
     check(wkv_lib().wkv_forward(
         r.data_ptr(), k.data_ptr(), v.data_ptr(), w_log.data_ptr(),
         u.data_ptr(), None if s0 is None else s0.data_ptr(),
         o.data_ptr(), S.data_ptr(), st, B, H, T, N, DTYPE_CODES[r.dtype],
-        stream()), "wkv_scan")
-    wkv_scan.launches += 1
+        _route_code(launch), launch.grid[0], launch.block, int(vector),
+        stream()),
+        "wkv_scan")
+    wkv_scan.route_launches[launch.route] += 1
+    wkv_scan.last_route = launch
     return o, S
 
 
-wkv_scan.launches = 0
+wkv_scan.last_route = None          # `Launch` of the last launch
+# kernel launches by route: the wrapper's one count (`launch_count`)
+wkv_scan.route_launches = dict.fromkeys(ROUTES, 0)
 KERNELS = (wkv_scan,)
 
 
 def reset_launches() -> dict:
-    """Zero `wkv_scan.launches`; returns the count before."""
+    """Zero `wkv_scan.route_launches`; returns the launches before."""
     return reset_counts(KERNELS)

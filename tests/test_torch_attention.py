@@ -66,33 +66,59 @@ def _qkv(B, H, K, S, T, hd, seed, dtype="float32"):
             _np((B, K, T, hd), seed + 2, dtype))
 
 
+def _assert_parity(what, got, want, port_again, jax_again, tol):
+    """assert_allclose(got, want, **tol).  On a mismatch, before failing,
+    compute both sides once more from fresh copies of the inputs and put
+    into the message how far each moved from its first result: a side
+    that moves is not deterministic, and names itself.  A mismatch fails
+    whatever the second results are."""
+    try:
+        np.testing.assert_allclose(got, want, **tol, err_msg=what)
+    except AssertionError as err:
+        port = np.abs(_f32(port_again()) - got).max()
+        ref = np.abs(np.asarray(jax_again(), np.float32) - want).max()
+        raise AssertionError(
+            f"{err}\n{what}: computed once more from fresh copies of the "
+            f"inputs, the port's result moved by max |d| {port:.3g}, the "
+            f"JAX side's by {ref:.3g}") from None
+
+
 @pytest.mark.parametrize("B,H,K,S,hd", SHAPES)
 @pytest.mark.parametrize("causal,window", MASKS)
 def test_plain_flash_matches_jax_refs(B, H, K, S, hd, causal, window):
-    """Kernel layout and model layout, both plain paths, f32."""
+    """Kernel layout and model layout, both plain paths, f32; each of the
+    port's functions asserted on its own, by name."""
     q, k, v = _qkv(B, H, K, S, S, hd, seed=B * S + hd)
-    want = np.asarray(attention_ref(q, k, v, causal=causal, window=window))
-    got = FK.flash_attention(_t(q), _t(k), _t(v), causal=causal,
-                             window=window)
-    np.testing.assert_allclose(_f32(got), want, **TOL["float32"])
+    ref = lambda: np.asarray(attention_ref(q.copy(), k.copy(), v.copy(),
+                                           causal=causal, window=window))
+    kern = lambda: FK.flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                                      window=window)
+    _assert_parity("kernels.flash_attention against attention_ref",
+                   _f32(kern()), ref(), kern, ref, TOL["float32"])
     bshd = lambda x: np.ascontiguousarray(x.transpose(0, 2, 1, 3))
     # several chunks without a window; with one, a single chunk (as the
     # layers' default of 1024 gives here): the reference's chunked path
     # returns NaN once a window leaves a whole chunk unseen (see below)
     chunk = S if window else 64
-    xla = np.asarray(flash_attention_xla(bshd(q), bshd(k), bshd(v),
-                                         causal=causal, window=window,
-                                         chunk=chunk))
-    for fn in (lambda a, b, c: attention_bshd(a, b, c, causal=causal,
-                                              window=window),
+    xla = lambda: np.asarray(flash_attention_xla(
+        bshd(q), bshd(k), bshd(v), causal=causal, window=window,
+        chunk=chunk))
+    want = xla()
+    fns = {"ops.attention_bshd": lambda a, b, c: attention_bshd(
+               a, b, c, causal=causal, window=window),
+           f"layers.flash_attention_chunked(chunk={chunk})":
                lambda a, b, c: L.flash_attention_chunked(
                    a, b, c, causal=causal, window=window, chunk=chunk),
+           "layers.flash_attention_chunked(chunk=48)":
                lambda a, b, c: L.flash_attention_chunked(
                    a, b, c, causal=causal, window=window, chunk=48),
+           "layers.flash_attention(chunk=64)":
                lambda a, b, c: L.flash_attention(
-                   a, b, c, causal=causal, window=window, chunk=64)):
-        got = fn(_t(bshd(q)), _t(bshd(k)), _t(bshd(v)))
-        np.testing.assert_allclose(_f32(got), xla, **TOL["float32"])
+                   a, b, c, causal=causal, window=window, chunk=64)}
+    for name, fn in fns.items():
+        port = lambda: fn(_t(bshd(q)), _t(bshd(k)), _t(bshd(v)))
+        _assert_parity(f"{name} against flash_attention_xla", _f32(port()),
+                       want, port, xla, TOL["float32"])
 
 
 @pytest.mark.parametrize("B,H,K,S,hd,causal,window", [

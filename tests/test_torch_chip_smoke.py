@@ -111,7 +111,8 @@ def test_rwkv_serve_phase_on_cpu(smoke, capsys):
     import numpy as np
 
     launches = smoke.serve_phase(torch, np, device="cpu", arch="rwkv6-3b")
-    assert launches == {"wkv_scan": 0}
+    assert launches == {"wkv_scan": 0, "wkv_scan chunked": 0,
+                        "wkv_scan step": 0}
     out = capsys.readouterr().out
     assert "serve request 2 (rwkv6-3b-smoke)" in out
     assert "serve checks: (a) rwkv6-3b-smoke" in out
@@ -170,7 +171,8 @@ def test_jamba_serve_phase_on_cpu(smoke, capsys, monkeypatch):
     launches = smoke.serve_phase(torch, np, device="cpu",
                                  arch="jamba-1.5-large-398b")
     assert launches == {"ssm_scan": 0, "flash_attention": 0,
-                        "decode_attention": 0}
+                        "decode_attention": 0, "ssm_scan chunked": 0,
+                        "ssm_scan step": 0}
     out = capsys.readouterr().out
     assert "experts 0-1 of 4 in each MoE layer" in out
     assert "serve checks: (a) jamba-1.5-large-398b-smoke" in out
@@ -248,3 +250,21 @@ def test_n_layers_counts_by_kind(smoke):
     assert smoke._n_layers(cfg, mlp="moe") == 4
     assert smoke._n_layers(get_config("jamba-1.5-large-398b"),
                            mlp="moe") == 36
+
+
+def test_ptxas_report_names_each_kernel(smoke, monkeypatch):
+    """nvcc's -Xptxas -v output becomes one line per kernel: its name
+    (mangled when no c++filt is found), registers and spills; an error
+    line is kept."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_Z6k_stepv' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z6k_stepv",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers, 4100 bytes smem",
+        "ptxas error   : Entry function uses too much shared data"])
+    monkeypatch.setattr(smoke.shutil, "which", lambda name: None)
+    assert smoke._ptxas_report(log) == [
+        "_Z6k_stepv: Used 40 registers, used 1 barriers, 4100 bytes smem; "
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas error   : Entry function uses too much shared data"]

@@ -12,6 +12,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels.cuda_build import launch_count  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 
@@ -613,6 +615,60 @@ def test_wkv_kernel_equals_plain(no_tf32, dtype, N, T):
     _wkv_close(wkv(r, k, v, w_log, u, s0), _wkv_plain(r, k, v, w_log, u, s0))
 
 
+def _off_16b(x):
+    """The same values one element into a fresh buffer: a tensor that
+    does not start on 16 bytes."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def test_wkv_routes_at_the_serve_shapes(no_tf32):
+    """RWKV6-3B's prefill (B 8, T 1,024, H 40, N 64, f32) takes the
+    chunked route, a block of 128 threads a head, staged by cp.async; one
+    decode token from its state, in place, the step route (a block of
+    512 a head, the state in float4s); both equal the plain version."""
+    from repro_torch.kernels.cuda_build import Launch
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    dev = no_tf32
+    x = _wkv_inputs(dev, 8, 1024, 40, 64, "float32", 11)
+    got = wkv(*x)
+    assert WK.wkv_scan.last_route == Launch("chunked", (320,), 128, True)
+    _wkv_close(got, _wkv_plain(*x))
+    state = got[1]
+    step = _wkv_inputs(dev, 8, 1, 40, 64, "float32", 12)
+    want = _wkv_plain(*step, state.clone())
+    o, S = wkv(*step, state, state_out=state)
+    assert S is state
+    assert WK.wkv_scan.last_route == Launch("step", (320,), 512, True)
+    _wkv_close((o, state), want)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("T", [1, 20])
+def test_wkv_kernel_on_operands_off_16_bytes(no_tf32, dtype, T):
+    """r, k, v, w_log and a state (s0 is state_out) that do not start on
+    16 bytes: the chunked route stages by element loads, the step route
+    moves the state element by element; both equal the plain version."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    dev = no_tf32
+    r, k, v, w_log, u = _wkv_inputs(dev, 2, T, 3, 64, dtype, 5 + T)
+    state = _off_16b(torch.randn((2, 3, 64, 64), generator=torch.Generator(
+        device=dev).manual_seed(T), device=dev))
+    want = _wkv_plain(r, k, v, w_log, u, state.clone())
+    o, S = wkv(*(_off_16b(x) for x in (r, k, v, w_log)), u, state,
+               state_out=state)
+    assert S is state
+    assert WK.wkv_scan.last_route.route == ("step" if T == 1 else "chunked")
+    assert WK.wkv_scan.last_route.vector is False
+    _wkv_close((o, state), want)
+
+
 def test_wkv_kernel_reads_strided_views_and_updates_state_in_place(no_tf32):
     """Slices of a wider head axis and a state that is both s0 and
     state_out: three one-token steps and a 40-step scan from it equal
@@ -637,7 +693,72 @@ def test_wkv_kernel_reads_strided_views_and_updates_state_in_place(no_tf32):
     sl = [x[:, 3:] for x in (r, k, v, w_log)]
     o, _ = wkv(*sl, u, state, state_out=state)
     _wkv_close((o, state), _wkv_plain(*sl, u, want_S))
-    assert WK.wkv_scan.launches == 4
+    assert WK.wkv_scan.route_launches == {"chunked": 1, "step": 3}
+
+
+@pytest.mark.parametrize("N", [32, 64])
+def test_wkv_chunked_route_takes_one_token_in_place(no_tf32, N):
+    """The chunked route forced at T = 1 (the comparison chip_smoke.py
+    times against the step route), s0 is state_out: equals the plain
+    version and counts as a chunked launch."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    dev = no_tf32
+    r, k, v, w_log, u = (x.transpose(1, 2) if x.dim() == 4 else x
+                         for x in _wkv_inputs(dev, 8, 1, 5, N, "float32", 3))
+    ub = u[None].expand(8, 5, N)
+    state = torch.randn((8, 5, N, N), generator=torch.Generator(
+        device=dev).manual_seed(N), device=dev)
+    want = _wkv_plain(*(x.transpose(1, 2) for x in (r, k, v, w_log)), u,
+                      state.clone())
+    WK.reset_launches()
+    o, S = WK.wkv_scan(r, k, v, w_log, ub, state, state_out=state,
+                       route="chunked")
+    assert S is state and WK.wkv_scan.last_route.route == "chunked"
+    assert WK.wkv_scan.route_launches == {"chunked": 1, "step": 0}
+    _wkv_close((o.transpose(1, 2), state), want)
+    with pytest.raises(ValueError, match="route"):
+        WK.wkv_scan(*(torch.cat([x, x], 2) for x in (r, k, v, w_log)), ub,
+                    route="step")
+
+
+@pytest.mark.parametrize("scan", ["wkv", "ssm"])
+@pytest.mark.parametrize("route", ["chunked", "step"])
+def test_scan_entry_rejects_a_launch_not_its_routes(dev, monkeypatch, scan,
+                                                    route):
+    """A grid or block that is not the route's never launches: the C
+    entry checks both and the wrapper raises."""
+    from repro_torch.kernels.cuda_build import Launch
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    T = 1 if route == "step" else 8
+    if scan == "wkv":
+        mod = WK
+        x = [t.transpose(1, 2) if t.dim() == 4 else t
+             for t in _wkv_inputs(dev, 2, T, 3, 64, "float32", 0)]
+        args = (*x[:4], x[4][None].expand(2, 3, 64))
+        call = lambda: WK.wkv_scan(*args)
+    else:
+        mod = SK
+        args = _ssm_inputs(dev, 2, T, 300, 16, "float32", 0)
+        call = lambda: SK.ssm_scan(*args)
+    good = mod.plan
+
+    def wider(*a) -> Launch:
+        launch = good(*a)
+        return launch._replace(grid=(launch.grid[0] + 1, *launch.grid[1:]))
+
+    def bigger(*a) -> Launch:
+        launch = good(*a)
+        return launch._replace(block=launch.block * 2)
+
+    for bad in (wider, bigger):
+        monkeypatch.setattr(mod, "plan", bad)
+        mod.reset_launches()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            call()
+        assert launch_count(getattr(mod, f"{scan}_scan")) == 0
 
 
 def test_wkv_wrapper_rejects_bad_inputs_and_counts_launches(dev):
@@ -648,7 +769,7 @@ def test_wkv_wrapper_rejects_bad_inputs_and_counts_launches(dev):
     ub = u[None].expand(2, 3, 64)
     WK.reset_launches()
     WK.wkv_scan(r, k, v, w_log, ub)
-    assert WK.wkv_scan.launches == 1
+    assert launch_count(WK.wkv_scan) == 1
     for n in (16, 48, 128):                      # head size not 32 or 64
         x = torch.zeros((2, 3, 8, n), device=dev)
         with pytest.raises(ValueError, match="head size"):
@@ -669,7 +790,7 @@ def test_wkv_wrapper_rejects_bad_inputs_and_counts_launches(dev):
                     torch.zeros((2, 3, 64, 64), device=dev).bfloat16())
     with pytest.raises(ValueError):              # state_out on the CPU
         WK.wkv_scan(r, k, v, w_log, ub, state_out=torch.zeros((2, 3, 64, 64)))
-    assert WK.wkv_scan.launches == 1
+    assert launch_count(WK.wkv_scan) == 1
 
 
 def test_rwkv_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
@@ -702,7 +823,7 @@ def test_rwkv_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
 
     WK.reset_launches()
     got = run()
-    assert WK.wkv_scan.launches == cfg.n_layers * 10
+    assert launch_count(WK.wkv_scan) == cfg.n_layers * 10
     monkeypatch.setattr(layers, "wkv", _wkv_plain_op)
     want = run()
     assert torch.isfinite(got).all()
@@ -744,8 +865,8 @@ def _ssm_close(got, want):
 @pytest.mark.parametrize("T,Di", [(1, 256), (16, 128), (37, 1000),
                                   (200, 384)])
 def test_ssm_kernel_equals_plain(dev, u_dtype, N, T, Di):
-    """Ragged T (not a multiple of the 16-step chunk), T = 1, Di not a
-    multiple of the 128-channel block, both state sizes, f32 and bf16 u,
+    """Ragged T (not a multiple of the 8-step chunk), T = 1, Di not a
+    multiple of the 256-channel block, both state sizes, f32 and bf16 u,
     from a zero state and from a given h0."""
     from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -759,19 +880,49 @@ def test_ssm_kernel_equals_plain(dev, u_dtype, N, T, Di):
 
 def test_ssm_kernel_at_jambas_prefill_and_decode_shapes(dev):
     """Jamba's own shapes (Bb = 8, Di = 16,384, N = 16): the 1,024-token
-    prefill from a zero state with bf16 u, then one decode step from its
-    state, in place."""
+    prefill from a zero state with bf16 u (the chunked route, 64 x 8
+    blocks of 256 staged by cp.async), then one decode step from its
+    state, in place (the step route, 2,048 blocks of 256, float4 state)."""
+    from repro_torch.kernels.cuda_build import Launch
+    from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
 
     x = _ssm_inputs(dev, 8, 1024, 16384, 16, "bfloat16", 7)
     got = selective_scan(*x)
+    assert SK.ssm_scan.last_route == Launch("chunked", (64, 8), 256, True)
     _ssm_close(got, ssm_scan_ref(*x))
     state = got[1]
     step = _ssm_inputs(dev, 8, 1, 16384, 16, "bfloat16", 8)
     want = ssm_scan_ref(*step, state)
     y, h = selective_scan(*step, state, state_out=state)
     assert h is state
+    assert SK.ssm_scan.last_route == Launch("step", (2048,), 256, True)
+    _ssm_close((y, state), want)
+
+
+@pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("N", [8, 16])
+@pytest.mark.parametrize("T", [1, 20])
+def test_ssm_kernel_on_operands_off_16_bytes(dev, u_dtype, N, T):
+    """u, dt, B, C, A and a state (h0 is state_out) that do not start on
+    16 bytes, at Di = 1,001 (a partial last block on both routes, rows of
+    u and dt off 16 bytes): the chunked route stages by element loads,
+    the step route moves h0, A, B, C and h element by element; both equal
+    the plain version."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    u, dt, B, C, A, D = _ssm_inputs(dev, 2, T, 1001, N, u_dtype, T + N)
+    state = _off_16b(torch.randn((2, 1001, N), generator=torch.Generator(
+        device=dev).manual_seed(T), device=dev))
+    want = ssm_scan_ref(u, dt, B, C, A, D, state.clone())
+    y, h = selective_scan(*(_off_16b(x) for x in (u, dt, B, C, A)), D, state,
+                          state_out=state)
+    assert h is state
+    assert SK.ssm_scan.last_route.route == ("step" if T == 1 else "chunked")
+    assert SK.ssm_scan.last_route.vector is False
     _ssm_close((y, state), want)
 
 
@@ -800,7 +951,27 @@ def test_ssm_kernel_reads_strided_views_and_updates_state_in_place(dev):
     sl = [x[:, 3:] for x in (u, dt, B, C)]
     y, _ = selective_scan(*sl, A, D, state, state_out=state)
     _ssm_close((y, state), ssm_scan_ref(*sl, A, D, want_h))
-    assert SK.ssm_scan.launches == 4
+    assert SK.ssm_scan.route_launches == {"chunked": 1, "step": 3}
+
+
+@pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
+def test_ssm_chunked_route_takes_one_token_in_place(dev, u_dtype):
+    """The chunked route forced at T = 1 (the comparison chip_smoke.py
+    times against the step route), h0 is state_out, a ragged Di: equals
+    the plain version and counts as a chunked launch."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+
+    u, dt, B, C, A, D = _ssm_inputs(dev, 8, 1, 1000, 16, u_dtype, 4)
+    state = torch.randn((8, 1000, 16), generator=torch.Generator(
+        device=dev).manual_seed(4), device=dev)
+    want = ssm_scan_ref(u, dt, B, C, A, D, state.clone())
+    SK.reset_launches()
+    y, h = SK.ssm_scan(u, dt, B, C, A, D, state, state_out=state,
+                       route="chunked")
+    assert h is state and SK.ssm_scan.last_route.route == "chunked"
+    assert SK.ssm_scan.route_launches == {"chunked": 1, "step": 0}
+    _ssm_close((y, state), want)
 
 
 def test_ssm_wrapper_rejects_bad_inputs_and_counts_launches(dev):
@@ -809,7 +980,7 @@ def test_ssm_wrapper_rejects_bad_inputs_and_counts_launches(dev):
     u, dt, B, C, A, D = _ssm_inputs(dev, 2, 8, 64, 16, "float32", 0)
     SK.reset_launches()
     SK.ssm_scan(u, dt, B, C, A, D)
-    assert SK.ssm_scan.launches == 1
+    assert launch_count(SK.ssm_scan) == 1
     for n in (4, 32):                            # state size not 8 or 16
         with pytest.raises(ValueError, match="state size"):
             SK.ssm_scan(u, dt, B[..., :1].expand(2, 8, n).contiguous(),
@@ -831,7 +1002,7 @@ def test_ssm_wrapper_rejects_bad_inputs_and_counts_launches(dev):
                     torch.zeros((2, 64, 16), device=dev).bfloat16())
     with pytest.raises(ValueError):              # state_out on the CPU
         SK.ssm_scan(u, dt, B, C, A, D, state_out=torch.zeros((2, 64, 16)))
-    assert SK.ssm_scan.launches == 1
+    assert launch_count(SK.ssm_scan) == 1
 
 
 def test_jamba_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
@@ -869,7 +1040,7 @@ def test_jamba_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
     SK.reset_launches()
     got = run()
     n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern) * cfg.n_periods
-    assert SK.ssm_scan.launches == n_mamba * 10
+    assert launch_count(SK.ssm_scan) == n_mamba * 10
     monkeypatch.setattr(layers, "selective_scan", ssm_scan_ref)
     monkeypatch.setattr(layers, "attention_bshd",
                         lambda q, k, v, *, causal, window:

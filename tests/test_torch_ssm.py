@@ -27,6 +27,7 @@ from repro.kernels.ssm_scan.kernel import ssm_scan as j_ssm_scan  # noqa
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as j_ssm_ref  # noqa
 from repro.models.layers import _mamba_scan_chunked  # noqa: E402
 
+from repro_torch.kernels.cuda_build import launch_count  # noqa: E402
 from repro_torch.kernels.ssm_scan import kernel as SK  # noqa: E402
 from repro_torch.kernels.ssm_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref  # noqa: E402
@@ -123,7 +124,7 @@ def test_state_out_is_written_in_place_and_may_be_h0():
     SK.reset_launches()
     y, h = selective_scan(u[:, 2:], dt[:, 2:], B[:, 2:], C[:, 2:], A, D,
                           state, state_out=state)
-    assert h is state and SK.ssm_scan.launches == 0
+    assert h is state and launch_count(SK.ssm_scan) == 0
     torch.testing.assert_close(y, want_y, rtol=0, atol=0)
     torch.testing.assert_close(state, want_h, rtol=0, atol=0)
     fresh = torch.full((2, 24, 8), 7.0)
