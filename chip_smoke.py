@@ -16,9 +16,16 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    P = 400,000, K = 8, E = 32, M in {0, 64, 4096}), at an embedding-row
    param store (bf16, P = 151,936, K = 2, E = 1,024: Qwen1.5-0.5B's
    vocabulary and width) and at edge shapes (K in {1, 3, 33}, E in
-   {1, 3, 640}, unaligned rows) must be `torch.equal` to their plain
-   PyTorch versions on the card; prints kernel, plain and bound times
-   (CUDA events, median, L2 flushed before each launch);
+   {1, 3, 32, 640}, unaligned rows; E = 32 at a P that gives each warp of
+   the tile route several tiles) and with member sets that drive each
+   staging of the members in shared memory (bitmap, array, global) must
+   be `torch.equal` to their plain PyTorch versions on the card, on the
+   route each wrapper chose and on each route forced where more than one
+   takes the store; prints each gather call's route and launch shape (as
+   the wrappers report them), kernel, plain and bound times (CUDA events,
+   median, L2 flushed before each launch), the gathers' time on each
+   route and `copy_only_ms` (the chosen rows copied by indexing, slots
+   precomputed);
 4. small-driver phase: a small `run_single_node` on "cuda" and on "cpu"
    with one seed must give equal metrics and OLAP outputs;
 5. driver phase: `run_single_node` at TPC-C's cardinalities (4
@@ -369,44 +376,137 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
         lambda: R.rss_delta_fold_ref(acc_t, delta_t),
         dp * 32 + 2 * lp * 128 * 4)
 
-    gather_kernels(torch, np, check, report, results, data, ts, members,
-                   floor)
+    gather_kernels(torch, np, check, results, data, ts, members, floor,
+                   flush)
     return results
 
 
-def gather_kernels(torch, np, check, report, results, data, ts, members,
-                   floor):
-    """version_gather and rss_gather against their plain versions: at the
-    mirror's shape (the scan phase's store), at the bf16 embedding store,
-    and at edge shapes.  Bound: per page K*4 bytes of ts, one row read and
-    one row written, plus M*4 bytes of members."""
+def _gather_launch_txt(launch) -> str:
+    """A gather wrapper's `last_route` as printed: route, grid x block,
+    and the pages a warp takes at a time."""
+    return (f"route {launch.route}, grid {launch.grid[0]} of {launch.block} "
+            f"threads, {launch.pages_per_warp} pages a warp")
+
+
+def gather_kernels(torch, np, check, results, data, ts, members, floor,
+                   flush):
+    """version_gather and rss_gather against their plain versions on the
+    wrappers' own route and, where more than one takes the store
+    (`routes_for`), on each forced: at the mirror's shape (the scan phase's store)
+    with M in {0, 64, 4096} and with member sets that drive each staging
+    of the members (`member_staging`), at the bf16 embedding store, and
+    at edge shapes.  Timed at the mirror and embedding shapes, every
+    route, beside the plain version, the bound and `copy_only_ms`: the
+    chosen rows copied by `data[rows, slot]` with the row index and the
+    int64 slots built before the timed call, a yardstick of the copy half
+    (the port never calls it).
+    `library_ms` is None: no PyTorch call computes the visibility
+    resolve.  Bound: per page K*4 bytes of ts, one row read and one row
+    written, plus M*4 bytes of members."""
     from repro_torch.kernels.rss_gather import kernel as RG
     from repro_torch.kernels.rss_gather import ref as RGR
     from repro_torch.kernels.version_gather import kernel as VG
     from repro_torch.kernels.version_gather import ref as VGR
 
-    def both(name, shape, d, t, mem, fl, wm, timed):
+    def routes(d):
+        """The routes that take `d` (outputs from torch.empty start on 16
+        bytes, so the data's start decides)."""
+        return RG.routes_for(d.shape[1], d.shape[2] * d.element_size(),
+                             d.data_ptr() % 16 == 0)
+
+    def both(shape, d, t, mem, fl, wm, timed, say=True):
+        """Each kernel on its own route choice and on every route forced,
+        each == plain; when `timed`, each route timed.  Returns the times
+        (ms, plain, bound) of the routes `plan` chose.  `say`: print the
+        untimed checks too."""
         nbytes = d.shape[0] * (d.shape[1] * 4 + 2 * d.shape[2]
                                * d.element_size())
-        rss = lambda: RG.rss_gather(d, t, mem, fl)
-        rss_p = lambda: RGR.rss_gather_ref(d, t, mem, fl)
-        vg = lambda: VG.version_gather(d, t, wm)
-        vg_p = lambda: VGR.version_gather_ref(d, t, wm)
-        check("rss_gather", rss(), rss_p())
-        check("version_gather", vg(), vg_p())
-        if not timed:
-            return None
-        return (report("rss_gather", f"{shape} M={mem.numel()}", rss, rss_p,
-                       nbytes + mem.numel() * 4),
-                report("version_gather", shape, vg, vg_p, nbytes))
+        no_mem = mem[:0]
+        cases = (("rss_gather", RG.rss_gather, (d, t, mem, fl),
+                  lambda: RGR.rss_gather_ref(d, t, mem, fl),
+                  RGR.rss_visible_slots_ref(t, mem, fl),
+                  f"{shape} M={mem.numel()}", nbytes + mem.numel() * 4),
+                 ("version_gather", VG.version_gather, (d, t, wm),
+                  lambda: VGR.version_gather_ref(d, t, wm),
+                  RGR.rss_visible_slots_ref(t, no_mem, wm), shape, nbytes))
+        times = {}
+        forced = routes(d) if len(routes(d)) > 1 else ()
+        for name, fn, args, plain, slot, label, nb in cases:
+            want = plain()
+            for route in (None, *forced):
+                check(name, fn(*args, route=route), want)
+                launch = fn.last_route
+                if route is None:
+                    chosen = launch
+                if not timed:
+                    continue
+                ms = time_ms(torch, lambda: fn(*args, route=route), flush)
+                if route is not None:
+                    print(f"kernel {name} {label} [{_gather_launch_txt(launch)}"
+                          f", forced]: kernel_ms={ms:.4f}", flush=True)
+                    continue
+                plain_ms = time_ms(torch, plain, flush, reps=5)
+                rows = torch.arange(d.shape[0], device=d.device)
+                slot64 = slot.long()
+                copy_ms = time_ms(torch, lambda: d[rows, slot64], flush)
+                bound_ms = nb / HBM_BYTES_PER_S * 1e3
+                print(f"kernel {name} {label} [{_gather_launch_txt(launch)}]:"
+                      f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"copy_only_ms={copy_ms:.4f} bound_ms={bound_ms:.4f} "
+                      f"library_ms=null (no PyTorch call computes the "
+                      f"visibility resolve) ({nb / 1e6:.1f} MB)", flush=True)
+                times[name] = (ms, plain_ms, bound_ms)
+            if say and not timed:
+                print(f"kernel {name} {label}: routes {routes(d)} == plain; "
+                      f"chosen [{_gather_launch_txt(chosen)}]", flush=True)
+        return times
 
     P, K, E = data.shape
+    mirror = f"mirror int32 P={P} K={K} E={E}"
     for m, mem in members.items():
-        t = both("mirror", f"int32 P={P} K={K} E={E}", data, ts, mem, floor,
-                 floor, timed=True)
+        t = both(mirror, data, ts, mem, floor, floor, timed=True)
         if m == 64:               # the mirror's concurrent window
-            results["rss_gather"]["times"] = t[0]
-            results["version_gather"]["times"] = t[1]
+            results["rss_gather"]["times"] = t["rss_gather"]
+            results["version_gather"]["times"] = t["version_gather"]
+            _clean_l2_time(torch, f"rss_gather {mirror} M=64",
+                           lambda: RG.rss_gather(data, ts, mem, floor), flush)
+            _clean_l2_time(torch, f"version_gather {mirror}",
+                           lambda: VG.version_gather(data, ts, floor), flush)
+
+    # member sets for each staging of the members in shared memory on the
+    # tile route: the bitmap with duplicates and members at or below the
+    # floor; a span over the bitmap's cap (the shared array); a span that
+    # overflows int32; an M over the array's cap (binary search in device
+    # memory, as the warp route does for every set).  The staging is what
+    # gather.cu's rule reports (`member_staging`).
+    _, array_cap = RG.staging_caps()
+    rng = np.random.default_rng(3)
+    above = np.arange(floor + 1, 12_000, dtype=np.int64)
+    sets = {
+        "dups+below": np.concatenate([[0, 5, floor], rng.choice(above, 300),
+                                      rng.choice(above, 300)]),
+        "span>cap": np.concatenate([rng.choice(above, 4096, replace=False),
+                                    [10**7]]),
+        "int32 span": np.concatenate([[-2**31, -5, 0, floor],
+                                      rng.choice(above, 2000),
+                                      [2**31 - 1, 2**31 - 1]]),
+        "M>cap": np.concatenate([rng.choice(above, 5000, replace=False),
+                                 rng.choice(np.arange(10**6, 2 * 10**6),
+                                            array_cap, replace=False)]),
+    }
+    seen = set()
+    for label, arr in sets.items():
+        arr = np.sort(arr).astype(np.int32)
+        how = RG.member_staging(arr.size, int(arr[0]), int(arr[-1]))
+        seen.add(how)
+        mem = torch.from_numpy(arr).to(data.device)
+        print(f"kernel rss_gather members {label}: M={arr.size} span "
+              f"{int(arr[-1]) - int(arr[0]) + 1} staged as {how} on the "
+              f"tile route", flush=True)
+        both(f"{mirror} {label}", data, ts, mem, floor, floor, timed=False)
+    if seen != {"bitmap", "array", "global"}:
+        raise AssertionError(f"member sets staged as {seen}: not every "
+                             "staging driven")
 
     dev = data.device
     g = torch.Generator(device=dev)
@@ -419,16 +519,23 @@ def gather_kernels(torch, np, check, report, results, data, ts, members,
     mem = torch.from_numpy(np.sort(rng.choice(np.arange(251, 1000), 64,
                                               replace=False)).astype(
         np.int32)).to(dev)
-    both("embedding", f"bf16 P={EMBED_P} K={EMBED_K} E={EMBED_E}", emb,
-         emb_ts, mem, 250, 500, timed=True)
+    t = both(f"embedding bf16 P={EMBED_P} K={EMBED_K} E={EMBED_E}", emb,
+             emb_ts, mem, 250, 500, timed=True)
+    results["rss_gather"]["times_embedding"] = t["rss_gather"]
+    results["version_gather"]["times_embedding"] = t["version_gather"]
     del emb, emb_ts
 
+    # E 32 (64- and 128-byte rows) takes the tile route where the rows are
+    # aligned and K <= 8, at a P over two rounds of its persistent grid
+    # (several tiles a warp, the last one part way)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p_tiles = 2 * RG.TILE_BLOCKS_PER_SM * sms * (RG.THREADS // 32) * 32 + 17
     n_edge = 0
     for dtype in (torch.bfloat16, torch.int32):
         for k in (1, 3, 33):
-            for e in (1, 3, 640):
+            for e in (1, 3, 32, 640):
                 for offset in (0, 1):           # 1: rows not 16-B aligned
-                    p = 10_007
+                    p = p_tiles if e == 32 else 10_007
                     flat = torch.randint(-2**31, 2**31 - 1,
                                          (p * k * e + offset,), generator=g,
                                          device=dev, dtype=torch.int32)
@@ -438,10 +545,12 @@ def gather_kernels(torch, np, check, report, results, data, ts, members,
                                       device=dev, dtype=torch.int32)
                     mem = torch.arange(31, 60, 3, dtype=torch.int32,
                                        device=dev)
-                    both("edge", "", d, t, mem, 20, 40, timed=False)
+                    both(f"edge {dtype} K={k} E={e} offset={offset}", d, t,
+                         mem, 20, 40, timed=False, say=False)
                     n_edge += 1
-    print(f"kernel gathers: {n_edge} edge shapes (K 1/3/33, E 1/3/640, "
-          "bf16/int32, aligned/unaligned rows) equal to plain", flush=True)
+    print(f"kernel gathers: {n_edge} edge shapes (K 1/3/33, E 1/3/32/640, "
+          f"bf16/int32, aligned/unaligned rows; P {p_tiles} at E 32) equal "
+          "to plain on each route that takes them", flush=True)
 
 
 # ------------------------------------------------------------ driver phases
@@ -1975,16 +2084,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # the snapshot-read paths: gather launches counted from 0 in each
-    for phase in (lambda: path_phase(torch, PATH_TXNS),
-                  lambda: param_store_phase(torch)):
+    for label, phase in (("path", lambda: path_phase(torch, PATH_TXNS)),
+                         ("param store",
+                          lambda: param_store_phase(torch))):
         RG.reset_launches()
         VG.reset_launches()
         phase()
         for fn in (VG.version_gather, RG.rss_gather):
-            if fn.launches == 0:
+            n = cuda_build.launch_count(fn)
+            if n == 0:
                 raise AssertionError(f"{fn.__name__} never launched")
-            launches[fn.__name__] = launches.get(fn.__name__, 0) \
-                + fn.launches
+            launches[fn.__name__] = launches.get(fn.__name__, 0) + n
+            print(f"{label} phase launches: {fn.__name__} {n} by route "
+                  f"{fn.route_launches} (last: "
+                  f"{_gather_launch_txt(fn.last_route)})", flush=True)
     print(f"path launches: version_gather {launches['version_gather']} "
           f"rss_gather {launches['rss_gather']}", flush=True)
     torch.cuda.empty_cache()

@@ -211,7 +211,8 @@ def test_gather_kernels_copy_bits_and_empty_shapes(dev):
     assert RK.rss_gather(data[:0], ts[:0], empty).shape == (0, 17)
     assert VK.version_gather(data[:, :, :0].contiguous(), ts, 5).shape \
         == (64, 0)
-    assert RK.rss_gather.launches == VK.version_gather.launches == 0
+    assert launch_count(RK.rss_gather) == \
+        launch_count(VK.version_gather) == 0
 
 
 def test_gather_wrappers_reject_bad_inputs_and_count_launches(dev):
@@ -223,7 +224,8 @@ def test_gather_wrappers_reject_bad_inputs_and_count_launches(dev):
     RK.reset_launches(), VK.reset_launches()
     RK.rss_gather(data, ts, mem, 0)
     VK.version_gather(data, ts, 100)
-    assert RK.rss_gather.launches == VK.version_gather.launches == 1
+    assert launch_count(RK.rss_gather) == \
+        launch_count(VK.version_gather) == 1
     with pytest.raises(ValueError):          # sliced, non-contiguous
         RK.rss_gather(data[:, :, ::2], ts, mem, 0)
     with pytest.raises(ValueError):
@@ -236,7 +238,185 @@ def test_gather_wrappers_reject_bad_inputs_and_count_launches(dev):
         VK.version_gather(data, ts[:-1], 0)
     with pytest.raises(OverflowError):
         VK.version_gather(data, ts, 2**31)
-    assert RK.rss_gather.launches == VK.version_gather.launches == 1
+    assert launch_count(RK.rss_gather) == \
+        launch_count(VK.version_gather) == 1
+
+
+@pytest.mark.parametrize("route", ["tile", "warp"])
+@pytest.mark.parametrize("dtype", GATHER_DTYPES)
+@pytest.mark.parametrize("K, E", [(1, 8), (3, 64), (8, 32), (8, 128),
+                                  (4, 256), (2, 1024), (8, 512)])
+def test_gather_every_route_equals_plain(dev, route, dtype, K, E):
+    """Each route, forced, == plain bitwise wherever it takes the store
+    (P = 1,003 pages: a last tile that ends part way, at most one tile a
+    warp; `test_gather_routes_over_several_tiles_a_warp` takes the walk
+    further), and refused where it does not (the tile route above
+    512-byte rows)."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.rss_gather import ref as RR
+    from repro_torch.kernels.version_gather import kernel as VK
+    from repro_torch.kernels.version_gather import ref as VR
+
+    data, ts, rng = _gather_inputs(dev, 1003, K, E, dtype, seed=K + E)
+    mem = torch.from_numpy(np.sort(rng.choice(
+        np.arange(4001, 9000), 64, replace=False)).astype(np.int32)).to(dev)
+    RK.reset_launches(), VK.reset_launches()
+    if route not in RK.routes_for(K, E * data.element_size(), True):
+        assert E * data.element_size() > 512
+        with pytest.raises(ValueError):
+            RK.rss_gather(data, ts, mem, 0, route=route)
+        with pytest.raises(ValueError):
+            VK.version_gather(data, ts, 0, route=route)
+        assert launch_count(RK.rss_gather) == \
+            launch_count(VK.version_gather) == 0
+        return
+    for floor in (0, 4000):
+        assert torch.equal(RK.rss_gather(data, ts, mem, floor, route=route),
+                           RR.rss_gather_ref(data, ts, mem, floor))
+        assert RK.rss_gather.last_route.route == route
+    for wm in (0, 4000, 9000):
+        assert torch.equal(VK.version_gather(data, ts, wm, route=route),
+                           VR.version_gather_ref(data, ts, wm))
+        assert VK.version_gather.last_route.route == route
+    assert RK.rss_gather.route_launches[route] == 2
+    assert VK.version_gather.route_launches[route] == 3
+
+
+@pytest.mark.parametrize("route", ["tile", "warp"])
+@pytest.mark.parametrize("K, E", [(3, 32), (8, 32), (3, 128), (8, 128)])
+def test_gather_routes_over_several_tiles_a_warp(dev, route, K, E):
+    """Over two rounds of the tile route's persistent grid and 17 pages
+    more (int32 rows of 128 and 512 bytes: 32 and 8 pages a tile), so
+    each warp walks three tiles or more, the next tile's timestamps
+    loaded under the copy; K 3 loads them one by one, K 8 as vectors;
+    the last tile ends part way.  Each route, forced, == plain."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.rss_gather import ref as RR
+    from repro_torch.kernels.version_gather import kernel as VK
+    from repro_torch.kernels.version_gather import ref as VR
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    P = 2 * RK.TILE_BLOCKS_PER_SM * sms * (RK.THREADS // 32) * 32 + 17
+    g = torch.Generator(device=dev)
+    g.manual_seed(K * E)
+    data = torch.randint(-2**31, 2**31 - 1, (P, K, E), generator=g,
+                         device=dev, dtype=torch.int32)
+    ts = torch.randint(0, 9000, (P, K), generator=g, device=dev,
+                       dtype=torch.int32)
+    mem = torch.arange(4001, 9000, 7, dtype=torch.int32, device=dev)
+    launch = RK.plan(P, K, E * 4, True, route=route, sms=sms)
+    if route == "tile":
+        tiles = -(-P // launch.pages_per_warp)
+        assert tiles > 2 * launch.grid[0] * launch.block // 32
+    RK.reset_launches(), VK.reset_launches()
+    for floor in (0, 4000):
+        assert torch.equal(RK.rss_gather(data, ts, mem, floor, route=route),
+                           RR.rss_gather_ref(data, ts, mem, floor))
+        assert RK.rss_gather.last_route == launch
+    for wm in (0, 4000):
+        assert torch.equal(VK.version_gather(data, ts, wm, route=route),
+                           VR.version_gather_ref(data, ts, wm))
+        assert VK.version_gather.last_route == launch
+    assert RK.rss_gather.route_launches[route] == 2
+    assert VK.version_gather.route_launches[route] == 2
+
+
+# member sets for each staging: (label, members, the tile route's staging;
+# the warp route searches device memory for every set)
+_DUPS = [0, 5, 4000, 4001, 4001, 4500, 4500, 8999]
+
+
+@pytest.mark.parametrize("route", ["tile", "warp"])
+@pytest.mark.parametrize("label, members, staging", [
+    ("bitmap, duplicates, at or below the floor", _DUPS, "bitmap"),
+    ("span over the bitmap", _DUPS + [10**7], "array"),
+    ("span overflows int32", [-2**31, -7] + _DUPS + [2**31 - 1] * 3,
+     "array"),
+    ("M over the array", list(range(4001, 9000, 2))
+     + list(range(10**6, 10**6 + 9000)), "global"),
+])
+def test_gather_member_stagings_equal_plain(dev, route, label, members,
+                                            staging):
+    """The staging is the one gather.cu's rule reports
+    (`member_staging`)."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+    from repro_torch.kernels.rss_gather import ref as RR
+
+    mem_np = np.sort(np.array(members, np.int64)).astype(np.int32)
+    assert RK.member_staging(mem_np.size, int(mem_np[0]),
+                             int(mem_np[-1])) == staging
+    data, ts, _ = _gather_inputs(dev, 2000, 4, 32, "int32", seed=5)
+    mem = torch.from_numpy(mem_np).to(dev)
+    for floor in (0, 4000):
+        assert torch.equal(RK.rss_gather(data, ts, mem, floor, route=route),
+                           RR.rss_gather_ref(data, ts, mem, floor)), label
+
+
+@pytest.mark.parametrize("m, lo, hi, want", [
+    (0, 0, 0, "none"),
+    (64, 6001, 11_999, "bitmap"),
+    (3, 5, 5, "bitmap"),                        # duplicates: span 1
+    (2, 0, lambda bits, cap: bits - 1, "bitmap"),   # span at the cap
+    (2, 0, lambda bits, cap: bits, "array"),        # one over it
+    (lambda bits, cap: cap, 0, 10**7, "array"),
+    (lambda bits, cap: cap + 1, 0, 10**7, "global"),
+    (5, -2**31, 2**31 - 1, "array"),            # span overflows int32
+    (10**5, -2**31, 2**31 - 1, "global"),
+])
+def test_member_staging_rule(dev, m, lo, hi, want):
+    """gather.cu's staging rule, as its host export reports it, at and
+    across its caps (which it reports too)."""
+    from repro_torch.kernels.rss_gather import kernel as RK
+
+    bits, cap = RK.staging_caps()
+    assert (bits, cap) == (1 << 18, 1 << 13)
+    m, hi = (x(bits, cap) if callable(x) else x for x in (m, hi))
+    assert RK.member_staging(m, lo, hi) == want
+
+
+def test_gather_entries_refuse_a_launch_plan_did_not_give(dev):
+    """The C entries check the grid, block and pages a warp against their
+    own copy of `plan`, and a route against the store: 9 is
+    cudaErrorInvalidConfiguration, 1 cudaErrorInvalidValue."""
+    from repro_torch.kernels.cuda_build import stream
+    from repro_torch.kernels.rss_gather import kernel as RK
+
+    data, ts, _ = _gather_inputs(dev, 5000, 8, 32, "int32")
+    out = torch.empty((5000, 32), dtype=torch.int32, device=dev)
+    mem = torch.tensor([5, 9], dtype=torch.int32, device=dev)
+    lib = RK.gather_lib()
+
+    def vg(route, grid, block, ppw):
+        return lib.vg_version_gather(data.data_ptr(), ts.data_ptr(), 5000,
+                                     8, 128, 100, out.data_ptr(),
+                                     RK.ROUTE_CODES[route], grid, block,
+                                     ppw, stream())
+
+    def rss(route, grid, block, ppw):
+        return lib.vg_rss_gather(data.data_ptr(), ts.data_ptr(),
+                                 mem.data_ptr(), 2, 5000, 8, 128, 0,
+                                 out.data_ptr(), RK.ROUTE_CODES[route],
+                                 grid, block, ppw, stream())
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for entry in (vg, rss):
+        for route in RK.ROUTES:
+            launch = RK.plan(5000, 8, 128, True, route=route, sms=sms)
+            g, b, p = launch.grid[0], launch.block, launch.pages_per_warp
+            assert entry(route, g, b, p) == 0
+            assert entry(route, g + 1, b, p) == 9
+            assert entry(route, g, b * 2, p) == 9
+            assert entry(route, g, b, p + 1) == 9
+        torch.cuda.synchronize()
+        # the warp route's shape, asked of the tile route, and a store the
+        # tile route does not take (rows off 16 bytes)
+        warp = RK.plan(5000, 8, 128, True, route="warp", sms=sms)
+        assert entry("tile", warp.grid[0], warp.block, 1) == 9
+        data_off = data.view(-1)[1:]
+        assert lib.vg_version_gather(
+            data_off.data_ptr(), ts.data_ptr(), 4999, 8, 128, 100,
+            out.data_ptr(), 0, 1, 256, 32, stream()) == 1
+    torch.cuda.synchronize()
 
 
 # --------------------------------------------------------- attention kernels
