@@ -11,7 +11,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 3. kernel phase: each of the four `rss_scan_agg` kernels on numpy-seeded
    inputs at the main path's shapes (P = 400,000 pages, K = 8 slots,
    E = 32 elements; M in {0, 64, 4096} members; G in {1, 16, 40, 256}
-   groups; a 256-row delta into a 64-lane tile), and the two gather
+   groups; a 256-row delta into a 64-lane tile), `rss_scan_agg` and
+   `rss_scan_agg_chunked` on the route `plan` chose and on the other
+   route forced (each call's route and launch shape printed, both routes
+   timed, the chosen one also after a clean-L2 flush), the chunked call
+   at a G over the cluster route's shared-memory cap (global route; group
+   ids over 48 groups and spread over all G, both timed), and
+   K in {9, 33} with BP 3 and 8, and the two gather
    kernels (`version_gather`, `rss_gather`) at the mirror's shape (int32,
    P = 400,000, K = 8, E = 32, M in {0, 64, 4096}), at an embedding-row
    param store (bf16, P = 151,936, K = 2, E = 1,024: Qwen1.5-0.5B's
@@ -33,6 +39,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    3,000 orders per district) with `check_scans` (every plan result
    asserted equal to the per-key engine oracle), batched plans and
    materialized views; every `rss_scan_agg` kernel must have launched;
+   prints how many launches each made at which (P, G, M, BP) and route;
 6. snapshot-read path phase: a `SingleNodeHTAP` paged mirror at the same
    cardinalities (640,044 pages) after OLTP traffic that leaves writers
    in flight; the whole mirror read through `torch_store()` +
@@ -126,7 +133,8 @@ scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
 chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches), the card line, and last
 `{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
-package `repro`.
+package `repro`.  Without a card, or outside a checkout (no
+`src/repro_torch` beside it), it exits 2 and prints nothing on stdout.
 """
 
 from __future__ import annotations
@@ -261,6 +269,7 @@ def make_store(np, P, K, E, rng):
 
 
 def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
+    from repro_torch.kernels.rss_gather import ref as RGR
     from repro_torch.kernels.rss_scan_agg import ref as R
 
     dev = torch.device("cuda")
@@ -301,32 +310,81 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
 
     # per page: K*4 bytes of ts + one 32-byte sector of the chosen slot
     page_bytes = K * 4 + 32
+
+    def other_route(fn, args, kw, plain, timed):
+        """`fn` on each route that takes the call beside the one `plan`
+        chose, forced, == plain; printed, and timed when `timed`."""
+        name, chosen = fn.__name__, fn.last_route
+        members = args[2 if fn is K_mod.rss_scan_agg else 3].numel()
+        label = (f"P={args[0].shape[0]} K={args[0].shape[1]} M={members} "
+                 + (f"BP={kw['block_pages']}" if "block_pages" in kw
+                    else f"G={kw['n_groups']}"))
+        for route in K_mod.routes_for(name, members=members,
+                                      block_pages=kw.get("block_pages", 8),
+                                      n_groups=kw.get("n_groups", 1)):
+            if route == chosen.route:
+                continue
+            check(name, fn(*args, route=route, **kw), plain)
+            txt = _scan_launch_txt(fn.last_route)
+            if timed:
+                ms = time_ms(torch, lambda: fn(*args, route=route, **kw),
+                             flush)
+                print(f"kernel {name} {label} [{txt}, forced]: "
+                      f"kernel_ms={ms:.4f}", flush=True)
+            else:
+                print(f"kernel {name} {label} [{txt}, forced] == plain",
+                      flush=True)
+
     # rss_scan_agg: every M, timed at the main path's block size (BP=8)
     for m, mem in members.items():
         args = (data, ts, mem, floor, 1, 0, 50)
         got = K_mod.rss_scan_agg(*args, block_pages=8)
-        check("rss_scan_agg", got, R.rss_scan_agg_ref(*args, block_pages=8))
+        want = R.rss_scan_agg_ref(*args, block_pages=8)
+        check("rss_scan_agg", got, want)
         nbytes = P * page_bytes + m * 4 + got.numel() * 4
-        t = report("rss_scan_agg", f"P={P} M={m} BP=8",
+        t = report("rss_scan_agg", f"P={P} M={m} BP=8 "
+                   f"[{_scan_launch_txt(K_mod.rss_scan_agg.last_route)}]",
                    lambda: K_mod.rss_scan_agg(*args, block_pages=8),
                    lambda: R.rss_scan_agg_ref(*args, block_pages=8), nbytes)
+        other_route(K_mod.rss_scan_agg, args,
+                    dict(block_pages=8), want, timed=True)
+        # a yardstick of the scattered half: PyTorch's generic indexing
+        # reading the chosen slots' tag and field alone (slots and row
+        # index built first); no lower bound on those reads
+        slot64 = RGR.rss_visible_slots_ref(ts, mem, floor).long()
+        rows, tag_x = torch.arange(P, device=dev), data[:, :, :2]
+        print(f"kernel rss_scan_agg P={P} M={m}: sector_only_ms="
+              f"{time_ms(torch, lambda: tag_x[rows, slot64], flush):.4f} "
+              "(tag and field of the chosen slots by indexing)", flush=True)
         if m == 64:
             results["rss_scan_agg"]["times"] = t
+            _clean_l2_time(torch, f"rss_scan_agg P={P} M={m} BP=8",
+                           lambda: K_mod.rss_scan_agg(*args, block_pages=8),
+                           flush)
     for bp in (1, 2, 4):          # the shrink ladder's block sizes
         args = (data, ts, members[64], floor, 1, 0, 50)
+        want = R.rss_scan_agg_ref(*args, block_pages=bp)
         check("rss_scan_agg", K_mod.rss_scan_agg(*args, block_pages=bp),
-              R.rss_scan_agg_ref(*args, block_pages=bp))
+              want)
+        print(f"kernel rss_scan_agg P={P} M=64 BP={bp} [" +
+              _scan_launch_txt(K_mod.rss_scan_agg.last_route) + "] == plain",
+              flush=True)
+        other_route(K_mod.rss_scan_agg, args,
+                    dict(block_pages=bp), want, timed=False)
 
     # grouped (flat) and chunked: every G with M = 64, plus every M at G=40
     gid_full = rng.integers(-1, 48, (P, 1), dtype=np.int32)
-    for g in (1, 16, 40, 256):
+
+    def group_inputs(g, r=rng):
         gid_np = np.where(gid_full >= 0, gid_full % g, -1).astype(np.int32)
-        gid = torch.from_numpy(gid_np).to(dev)
         prm = torch.from_numpy(np.stack([
-            rng.choice(np.array([1, 3], np.int32), g),
-            rng.choice(np.array([0, -2], np.int32), g),
-            rng.integers(-500, 500, g, dtype=np.int32)], 1)).to(dev)
-        n_active = int((gid_np >= 0).sum())
+            r.choice(np.array([1, 3], np.int32), g),
+            r.choice(np.array([0, -2], np.int32), g),
+            r.integers(-500, 500, g, dtype=np.int32)], 1)).to(dev)
+        return torch.from_numpy(gid_np).to(dev), prm, int((gid_np >= 0).sum())
+
+    for g in (1, 16, 40, 256):
+        gid, prm, n_active = group_inputs(g)
         for m in ((0, 64, 4096) if g == 40 else (64,)):
             mem = members[m]
             kw = dict(n_groups=g, group_params=prm)
@@ -335,24 +393,66 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
             check("rss_scan_agg_grouped", got,
                   R.rss_scan_agg_grouped_ref(*gargs, block_pages=8, **kw))
             got_c = K_mod.rss_scan_agg_chunked(*gargs, **kw)
-            check("rss_scan_agg_chunked", got_c,
-                  R.rss_scan_agg_chunked_ref(*gargs, **kw))
-            if m != 64:
-                continue
+            want_c = R.rss_scan_agg_chunked_ref(*gargs, **kw)
+            check("rss_scan_agg_chunked", got_c, want_c)
+            chosen = _scan_launch_txt(K_mod.rss_scan_agg_chunked.last_route)
             base = P * 4 + n_active * page_bytes + m * 4 + g * 12
-            t = report("rss_scan_agg_grouped", f"P={P} G={g} M={m} BP=8",
-                       lambda: K_mod.rss_scan_agg_grouped(
-                           *gargs, block_pages=8, **kw),
-                       lambda: R.rss_scan_agg_grouped_ref(
-                           *gargs, block_pages=8, **kw),
-                       base + got.numel() * 4)
-            tc = report("rss_scan_agg_chunked", f"P={P} G={g} M={m}",
+            if m == 64:
+                t = report("rss_scan_agg_grouped", f"P={P} G={g} M={m} BP=8",
+                           lambda: K_mod.rss_scan_agg_grouped(
+                               *gargs, block_pages=8, **kw),
+                           lambda: R.rss_scan_agg_grouped_ref(
+                               *gargs, block_pages=8, **kw),
+                           base + got.numel() * 4)
+            tc = report("rss_scan_agg_chunked", f"P={P} G={g} M={m} "
+                        f"[{chosen}]",
                         lambda: K_mod.rss_scan_agg_chunked(*gargs, **kw),
                         lambda: R.rss_scan_agg_chunked_ref(*gargs, **kw),
                         base + got_c.numel() * 4)
-            if g == 40:
+            other_route(K_mod.rss_scan_agg_chunked,
+                        gargs, kw, want_c, timed=True)
+            if g == 40 and m == 64:
                 results["rss_scan_agg_grouped"]["times"] = t
                 results["rss_scan_agg_chunked"]["times"] = tc
+                _clean_l2_time(torch, f"rss_scan_agg_chunked P={P} G={g} "
+                               f"M={m}", lambda: K_mod.rss_scan_agg_chunked(
+                                   *gargs, **kw), flush)
+
+    # the chunked call over the cluster route's shared-memory cap: the
+    # global-atomic route, as `plan` chooses it
+    chunked_groups(torch, np, K_mod, flush, data, ts, members[64], floor,
+                   (K_mod.MAX_SMEM - K_mod.STAGE_BYTES) //
+                   (K_mod.LANES * 4) + 1, check)
+
+    # its own seed, so the delta fold below keeps its inputs
+    erng = np.random.default_rng(4)
+    # K over the 8 timestamps a lane holds (walked 8 at a time), an odd E
+    # (tag and field loaded one by one) and BP 3 (segment route only), at
+    # a P over two rounds of the persistent grids
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_round = K_mod.WARP_BLOCKS_PER_SM * sms * K_mod.WARP_THREADS
+    p_edge = -(-(2 * per_round + 17) // 24) * 24
+    for k, e in ((9, 3), (33, 2)):
+        d_np, t_np = make_store(np, p_edge, k, e, erng)
+        d, t = torch.from_numpy(d_np).to(dev), torch.from_numpy(t_np).to(dev)
+        gid, prm, _ = group_inputs(40, erng)
+        gid = gid[:p_edge].contiguous()
+        for bp in (3, 8):
+            args = (d, t, members[64], floor, 1, 0, 50)
+            want = R.rss_scan_agg_ref(*args, block_pages=bp)
+            check("rss_scan_agg", K_mod.rss_scan_agg(*args, block_pages=bp),
+                  want)
+            other_route(K_mod.rss_scan_agg, args,
+                        dict(block_pages=bp), want, timed=False)
+        gargs = (d, t, gid, members[64], floor)
+        kw = dict(n_groups=40, group_params=prm)
+        want = R.rss_scan_agg_chunked_ref(*gargs, **kw)
+        check("rss_scan_agg_chunked", K_mod.rss_scan_agg_chunked(*gargs,
+                                                                 **kw), want)
+        other_route(K_mod.rss_scan_agg_chunked,
+                    gargs, kw, want, timed=False)
+        print(f"kernel rss_scan_agg family P={p_edge} K={k} E={e}: BP 3 and "
+              "8, and G 40 chunked, == plain on every route", flush=True)
 
     # delta fold: a full flush buffer (FLUSH_ROWS = 256) into 64 lanes
     lp, dp = 64, 256
@@ -379,6 +479,50 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
     gather_kernels(torch, np, check, results, data, ts, members, floor,
                    flush)
     return results
+
+
+def chunked_groups(torch, np, K_mod, flush, data, ts, mem, floor, g,
+                   check) -> None:
+    """`rss_scan_agg_chunked` at `g` groups, its group ids over 48 groups,
+    as the smaller-G calls draw them, and spread over all `g`: each ==
+    plain, its route printed where the wrapper reports one, timed beside
+    its bound.  Only the wrappers' common contract is used, so
+    `scripts/kernel_phase.py --groups G` runs it on an earlier tree's
+    wrapper too."""
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    rng = np.random.default_rng(5)
+    P, K = ts.shape
+    prm = torch.from_numpy(np.stack([
+        rng.choice(np.array([1, 3], np.int32), g),
+        rng.choice(np.array([0, -2], np.int32), g),
+        rng.integers(-500, 500, g, dtype=np.int32)], 1)).to(data.device)
+    fn = K_mod.rss_scan_agg_chunked
+    for spread, hi in (("48 groups", 48), ("spread", g)):
+        gid_np = rng.integers(-1, hi, (P, 1), dtype=np.int32)
+        gid = torch.from_numpy(gid_np).to(data.device)
+        gargs, kw = (data, ts, gid, mem, floor), dict(n_groups=g,
+                                                      group_params=prm)
+        got = fn(*gargs, **kw)
+        check("rss_scan_agg_chunked", got,
+              R.rss_scan_agg_chunked_ref(*gargs, **kw))
+        launch = getattr(fn, "last_route", None)
+        nbytes = (P * 4 + int((gid_np >= 0).sum()) * (K * 4 + 32)
+                  + mem.numel() * 4 + g * 12 + got.numel() * 4)
+        ms = time_ms(torch, lambda: fn(*gargs, **kw), flush)
+        print(f"kernel rss_scan_agg_chunked P={P} G={g} M={mem.numel()} "
+              f"gid {spread} ["
+              f"{_scan_launch_txt(launch) if launch else 'one route'}]: "
+              f"kernel_ms={ms:.4f} "
+              f"bound_ms={nbytes / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
+
+
+def _scan_launch_txt(launch) -> str:
+    """A scan+aggregate wrapper's `last_route` as printed: route, grid x
+    block, cluster and dynamic shared memory."""
+    grid = " x ".join(str(g) for g in launch.grid)
+    return (f"route {launch.route}, grid {grid} of {launch.block} threads, "
+            f"cluster {launch.cluster}, {launch.smem} B shared")
 
 
 def _gather_launch_txt(launch) -> str:
@@ -631,8 +775,65 @@ def _profiled(torch, fn, out_dir: Path):
     return result
 
 
+@contextlib.contextmanager
+def record_scan_shapes(K_mod):
+    """Count the calls of each `rss_scan_agg` kernel that the ops layer
+    makes, by shape: (P, M, BP) for `rss_scan_agg`, (P, G, M, BP) for
+    `rss_scan_agg_grouped`, (P, G, M) for `rss_scan_agg_chunked` (each
+    with the route it took), (Lp, Dp) for `rss_delta_fold`.  Wraps the
+    names `kernels.rss_scan_agg.ops` calls; yields the Counter."""
+    from collections import Counter
+
+    from repro_torch.kernels.rss_scan_agg import ops
+
+    shapes = Counter()
+
+    def route_of(fn):
+        return f" route={fn.last_route.route}" if fn.last_route else ""
+
+    def scan(fn):
+        def call(data, ts, member_ts, *a, block_pages=8, **kw):
+            out = fn(data, ts, member_ts, *a, block_pages=block_pages, **kw)
+            P = data.shape[0]
+            shapes[(fn.__name__, f"P={P} M={member_ts.numel()} "
+                    f"BP={min(block_pages, P)}{route_of(fn)}")] += 1
+            return out
+        return call
+
+    def grouped(fn):
+        def call(data, ts, gid, member_ts, *a, n_groups=1, **kw):
+            out = fn(data, ts, gid, member_ts, *a, n_groups=n_groups, **kw)
+            bp = min(kw.get("block_pages", 8), data.shape[0])
+            tail = (f" BP={bp}" if fn is K_mod.rss_scan_agg_grouped
+                    else route_of(fn))
+            shapes[(fn.__name__, f"P={data.shape[0]} G={n_groups} "
+                    f"M={member_ts.numel()}{tail}")] += 1
+            return out
+        return call
+
+    def fold(fn):
+        def call(acc, delta):
+            out = fn(acc, delta)
+            shapes[(fn.__name__, f"Lp={acc.shape[0]} Dp={delta.shape[0]}")] \
+                += 1
+            return out
+        return call
+
+    wraps = {"rss_scan_agg": scan, "rss_scan_agg_grouped": grouped,
+             "rss_scan_agg_chunked": grouped, "rss_delta_fold": fold}
+    saved = {name: getattr(ops, name) for name in wraps}
+    for name, wrap in wraps.items():
+        setattr(ops, name, wrap(getattr(K_mod, name)))
+    try:
+        yield shapes
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
 def driver_phase(torch, K_mod, rounds: int,
                  profile_dir: Path | None = None) -> dict:
+    from repro_torch.kernels.cuda_build import launch_count
     from repro_torch.mvcc import Scale, run_single_node
 
     scale = Scale(**TPCC)
@@ -642,10 +843,12 @@ def driver_phase(torch, K_mod, rounds: int,
         batch_plans=True, materialize=True, check_scans=True, device="cuda")
     K_mod.reset_launches()
     t0 = time.perf_counter()
-    m = run() if profile_dir is None else _profiled(torch, run, profile_dir)
+    with record_scan_shapes(K_mod) as shapes:
+        m = run() if profile_dir is None else _profiled(torch, run,
+                                                         profile_dir)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {fn.__name__: fn.launches for fn in K_mod.KERNELS}
+    launches = {fn.__name__: launch_count(fn) for fn in K_mod.KERNELS}
     print(f"driver: {rounds} rounds in {wall:.1f} s: oltp commits "
           f"{m.oltp_commits} aborts {m.oltp_aborts}, olap commits "
           f"{m.olap_commits} aborts {m.olap_aborts}; modes flat "
@@ -657,6 +860,14 @@ def driver_phase(torch, K_mod, rounds: int,
         print(f"driver stage {stage}: n={s['count']} p50_us={s['p50_us']} "
               f"p99_us={s['p99_us']}", flush=True)
     print(f"driver launches: {json.dumps(launches)}", flush=True)
+    for (name, shape), n in sorted(shapes.items()):
+        print(f"driver launch shape: {name} {shape}: {n}", flush=True)
+    for name in ("rss_scan_agg", "rss_scan_agg_chunked"):
+        print(f"driver launches by route: {name} "
+              f"{getattr(K_mod, name).route_launches}", flush=True)
+    if sum(shapes.values()) != sum(launches.values()):
+        raise AssertionError(f"shapes {sum(shapes.values())} != launches "
+                             f"{sum(launches.values())}")
     if m.olap_aborts or m.olap_commits == 0:
         raise AssertionError("RSS readers must commit and never abort")
     if min(launches.values()) == 0:
@@ -2049,6 +2260,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {ROOT / 'chip_smoke.py'}"
+              ": run it from the root of a checkout", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np

@@ -1,0 +1,99 @@
+#!/usr/bin/env python3
+"""Run only the kernel phase of a tree's `chip_smoke.py` on one GPU.
+
+    python3 scripts/kernel_phase.py [TREE]     # TREE: a checkout (default .)
+    python3 scripts/kernel_phase.py TREE --groups G
+
+Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
+`build/repro_torch/`), prints their ptxas lines, then runs the tree's
+`chip_smoke.kernel_phase` (the `rss_scan_agg` family and the gathers held
+against their plain versions and timed) and prints its results.  Pointed
+at an unpacked earlier commit, it times that commit's kernels in the same
+call as this one's, which is how two versions are compared on one card.
+
+With `--groups G` it runs only this checkout's `chip_smoke.chunked_groups`
+on the tree's `rss_scan_agg_chunked`: the kernel phase's store (P 400,000,
+K 8, E 32, M 64) at G groups, group ids over 48 groups and spread over all
+G, each held against plain and timed.  So an earlier tree's kernel is
+timed at a G its own kernel phase does not time (the one over the
+cluster route's cap that `chip_smoke.py` prints, for one).
+"""
+
+import importlib.util
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def groups_phase(torch, np, tree: Path, g: int) -> None:
+    """This checkout's `chunked_groups` on the tree's wrapper at G = g."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", HERE / "chip_smoke.py")
+    here = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(here)
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.rss_scan_agg import kernel as K_mod
+
+    print(f"tree {tree}, G={g}: {here.card_line()}", flush=True)
+    cuda_build.build(["rss_scan_agg"])
+    rng = np.random.default_rng(0)
+    data_np, ts_np = here.make_store(np, 400_000, 8, 32, rng)
+    dev = torch.device("cuda")
+    data, ts = (torch.from_numpy(data_np).to(dev),
+                torch.from_numpy(ts_np).to(dev))
+    floor = 6_000
+    mem = torch.from_numpy(np.sort(rng.choice(
+        np.arange(floor + 1, 12_000, dtype=np.int32), 64,
+        replace=False))).to(dev)
+
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel != plain")
+
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    here.chunked_groups(torch, np, K_mod, flush, data, ts, mem, floor, g,
+                        check)
+
+
+def main() -> int:
+    args = sys.argv[1:]
+    groups = None
+    if "--groups" in args:
+        i = args.index("--groups")
+        groups = int(args[i + 1])
+        del args[i:i + 2]
+    tree = Path(args[0] if args else ".").resolve()
+    sys.path[:0] = [str(tree), str(tree / "src")]
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phase: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 2
+    if groups is not None:
+        groups_phase(torch, np, tree, groups)
+        return 0
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.rss_scan_agg import kernel as K_mod
+
+    print(f"tree {tree}: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["rss_scan_agg", "gather"])
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in chip_smoke._ptxas_report(log):
+            print(f"ptxas {name}: {line}", flush=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    t0 = time.perf_counter()
+    results = chip_smoke.kernel_phase(torch, np, K_mod, flush)
+    print(f"kernel phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, res in results.items():
+        print(f"result {name}: {res}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

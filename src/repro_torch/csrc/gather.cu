@@ -56,6 +56,8 @@
 //   (computed in 64 bits) is at most kBitmapBits, else the sorted array
 //   when M is at most kArrayCap, else they stay in device memory and are
 //   binary-searched there.  The kernel reads mem[0] and mem[M-1] itself.
+//   That resolve machinery lives in rss_resolve.cuh, shared with the
+//   scan+aggregate kernels (rss_scan_agg.cu).
 // - warp (everything else: wide rows such as the param store's 2 KB, rows
 //   off 16 bytes or of odd length, K > 8): one warp a page, lanes over
 //   slots, a shuffle reduction, then the row in 16-byte units where both
@@ -72,6 +74,8 @@
 #include <climits>
 #include <cstdint>
 
+#include "rss_resolve.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
@@ -86,134 +90,7 @@ constexpr int kWarpThreads = 256;
 constexpr long long kWarpMaxGrid = 1LL << 20;   // grid-stride beyond ~8M
 constexpr long long kTileBytes = 4096;     // rows a warp's tile
 constexpr long long kTileMaxRow = 512;     // one warp-wide 16-byte access
-constexpr int kTileMaxK = 8;               // ts a lane holds
 constexpr int kUnits = 8;                  // 16-byte loads a lane batches
-
-// member staging: a bitmap of up to 256 K bits (32 KB), or the array
-constexpr long long kBitmapBits = 1LL << 18;
-constexpr int kStageBytes = static_cast<int>(kBitmapBits / 8);
-constexpr int kArrayCap = kStageBytes / 4;
-
-// ------------------------------------------------------------- members
-enum Staging { kNone = 0, kBitmap = 1, kArray = 2, kGlobal = 3 };
-
-// Where a tile-route block keeps M members whose first and last are lo
-// and hi: the one rule, run by the kernel and exported to the wrappers
-// (`vg_member_staging`).
-__host__ __device__ constexpr int staging_mode(int m, int lo, int hi) {
-  return m <= 0 ? kNone
-         : static_cast<long long>(hi) - lo + 1 >= 1 &&
-                   static_cast<long long>(hi) - lo + 1 <= kBitmapBits
-             ? kBitmap
-         : m <= kArrayCap ? kArray
-                          : kGlobal;
-}
-
-struct Members {
-  int mode;                  // a Staging
-  int lo, hi, m;
-  const unsigned* bits;      // bitmap, or the staged array (as int)
-  const int* mem;            // global members
-};
-
-__device__ __forceinline__ bool lower_bound_has(const int* a, int m, int t,
-                                                bool global) {
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    int v = global ? __ldg(a + mid) : a[mid];
-    if (v < t) lo = mid + 1; else hi = mid;
-  }
-  return lo < m && (global ? __ldg(a + lo) : a[lo]) == t;
-}
-
-// Every thread of the block calls this once, before any other use of
-// `stage` (kStageBytes of shared memory; unused when m == 0).
-__device__ Members stage_members(const int* __restrict__ mem, int m,
-                                 unsigned* stage) {
-  Members ms{kNone, 0, 0, m, stage, mem};
-  if (m == 0) return ms;
-  ms.lo = __ldg(mem);
-  ms.hi = __ldg(mem + m - 1);
-  ms.mode = staging_mode(m, ms.lo, ms.hi);
-  if (ms.mode == kBitmap) {
-    const long long span = static_cast<long long>(ms.hi) - ms.lo + 1;
-    const int words = static_cast<int>((span + 31) >> 5);
-    for (int w = threadIdx.x; w < words; w += blockDim.x) stage[w] = 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < m; i += blockDim.x) {
-      const unsigned off = static_cast<unsigned>(__ldg(mem + i)) -
-                           static_cast<unsigned>(ms.lo);
-      atomicOr(stage + (off >> 5), 1u << (off & 31));
-    }
-  } else if (ms.mode == kArray) {
-    for (int i = threadIdx.x; i < m; i += blockDim.x)
-      stage[i] = static_cast<unsigned>(__ldg(mem + i));
-  }
-  __syncthreads();
-  return ms;
-}
-
-__device__ __forceinline__ bool is_member(int t, const Members& ms) {
-  switch (ms.mode) {
-    case kBitmap: {
-      if (t < ms.lo || t > ms.hi) return false;
-      const unsigned off = static_cast<unsigned>(t) -
-                           static_cast<unsigned>(ms.lo);
-      return (ms.bits[off >> 5] >> (off & 31)) & 1u;
-    }
-    case kArray:
-      return lower_bound_has(reinterpret_cast<const int*>(ms.bits), ms.m,
-                             t, false);
-    case kGlobal:
-      return lower_bound_has(ms.mem, ms.m, t, true);
-    default:
-      return false;
-  }
-}
-
-template <bool kMembers>
-__device__ __forceinline__ bool visible(int t, int floor,
-                                        const Members& ms) {
-  return t <= floor || (kMembers && is_member(t, ms));
-}
-
-// ------------------------------------------------- one lane, one page
-// The page's K <= kTileMaxK timestamps into t[] (16-byte vectors when
-// `vec`: K % 4 == 0 and ts on 16 bytes).
-__device__ __forceinline__ void load_ts(int (&t)[kTileMaxK],
-                                        const int* __restrict__ row, int k,
-                                        bool vec) {
-  if (vec) {
-#pragma unroll
-    for (int q = 0; q < kTileMaxK / 4; ++q) {
-      if (4 * q < k) {
-        const int4 x = __ldcs(reinterpret_cast<const int4*>(row) + q);
-        t[4 * q] = x.x; t[4 * q + 1] = x.y;
-        t[4 * q + 2] = x.z; t[4 * q + 3] = x.w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kTileMaxK; ++j)
-      if (j < k) t[j] = __ldcs(row + j);
-  }
-}
-
-// The slot of the first strict maximum of the masked timestamps.
-template <bool kMembers>
-__device__ __forceinline__ int resolve(const int (&t)[kTileMaxK], int k,
-                                       int floor, const Members& ms) {
-  int best = 0, slot = 0;
-#pragma unroll
-  for (int j = 0; j < kTileMaxK; ++j) {
-    if (j < k) {
-      const int masked = visible<kMembers>(t[j], floor, ms) ? t[j] : -1;
-      if (j == 0 || masked > best) { best = masked; slot = j; }
-    }
-  }
-  return slot;
-}
 
 // ---------------------------------------------------------- tile route
 template <bool kMembers>
@@ -438,6 +315,8 @@ extern "C" int vg_rss_gather(const void* data, const int* ts, const int* mem,
 // How a tile-route block keeps M members whose first and last are lo and
 // hi (a Staging: 0 none, 1 bitmap, 2 shared array, 3 device memory), and
 // the caps of that rule; the warp route always searches device memory.
+// The scan+aggregate kernels (rss_scan_agg.cu) stage by the same rule
+// (rss_resolve.cuh).
 extern "C" int vg_member_staging(int m, int lo, int hi) {
   return staging_mode(m, lo, hi);
 }

@@ -2,7 +2,8 @@
 
 Every source `src/repro_torch/csrc/<name>.cu` has a plain C interface and
 is compiled by nvcc for sm_90a into its own shared library under
-`build/repro_torch/`, named by the hash of the source (an edit rebuilds),
+`build/repro_torch/`, named by the hash of the source and of the headers
+it may include from `csrc/` (an edit of either rebuilds),
 then loaded with ctypes.  `build()` starts one nvcc per missing library,
 all at once, and waits for them together.  Nothing is compiled when a
 module is imported: the first launch (or an explicit `build()`) does it.
@@ -43,10 +44,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library of `csrc/<name>.cu` lives (source hash in the
-    name)."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """Where the library of `csrc/<name>.cu` lives: the hash of the
+    source and of every header in `csrc/` (`*.cuh`) is in the name."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> dict[str, Path]:

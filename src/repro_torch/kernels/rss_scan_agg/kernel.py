@@ -14,21 +14,39 @@ it returns, bitwise:
 Contract (as the reference's): data [P, K, E] int32 page payloads
 (element 0 the codec tag, element 1 the aggregable field), ts [P, K]
 int32 commit timestamps, member_ts [M] int32 member timestamps above
-`floor`, sorted ascending (the kernels binary-search it).  Visibility:
+`floor`, sorted ascending.  Visibility:
 ts <= floor or ts in member_ts, newest wins, ties toward the lowest slot.
 The seven lanes are sum, count, count_below, min (INT32_MAX when nothing
 matched), max (INT32_MIN), count_above, sum_below; additive lanes wrap
 like int32.
 
+Routes (`plan`, the one owner of the launch shape; the C entries refuse
+any other):
+- `rss_scan_agg`: "warp" where BP divides 32 (the main path's 8 and its
+  shrink ladder): a persistent grid whose warps walk tiles of 32 pages,
+  one lane a page, each BP-lane segment reduced in the warp; "segment"
+  for any BP up to 1,024: whole segments a block, folded in shared
+  memory.
+- `rss_scan_agg_chunked`: "cluster" where the [G, 7] tile and the
+  member stage fit a block's shared memory: a thread-block cluster a
+  chunk, folded over distributed shared memory, one launch; "global"
+  for any G: an identity fill, then device-memory atomics.
+Both resolve one lane a page with the members staged once a block in
+shared memory, by the gathers' rule (`rss_gather.kernel.member_staging`
+reports it); `route=` forces a route on the card.
+
 Device choice: a wrapper given CUDA tensors launches its kernel (and
 raises when it cannot); given CPU tensors it returns its plain version
-from `ref.py`.  Nothing else picks between them.  `launches` on each
-wrapper counts real kernel launches only.
+from `ref.py`.  Nothing else picks between them.  The wrappers count
+real kernel launches only: `rss_scan_agg` and `rss_scan_agg_chunked` by
+route (`route_launches`, summed by `cuda_build.launch_count`; the last
+launch's `ScanAggLaunch` in `last_route`), the other two in `launches`.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -45,14 +63,114 @@ _I32_MAX = 2 ** 31 - 1
 # chunk geometry unit of the reference's select stage: 64 pages per row
 SELECT_BLOCK = 64
 
+# launch plan (rss_scan_agg.cu holds the same numbers)
+ROUTES = {"rss_scan_agg": ("segment", "warp"),
+          "rss_scan_agg_chunked": ("global", "cluster")}
+ROUTE_CODES = {"warp": 0, "segment": 1, "cluster": 0, "global": 1}
+H100_SMS = 132
+TILE = 32                        # pages a warp's tile, one a lane
+WARP_THREADS, WARP_BLOCKS_PER_SM = 512, 2
+SEGMENT_THREADS, SEGMENT_THREADS_PER_SM = 256, 2048
+MAX_BLOCK_PAGES = 1024
+CLUSTER_BLOCKS, CLUSTER_THREADS = 8, 1024
+GLOBAL_THREADS, GLOBAL_BLOCKS_PER_SM = 256, 4
+MAX_SMEM = 232_448               # opt-in shared memory a block (H100)
+STAGE_BYTES = 32_768             # the members' stage (rss_resolve.cuh)
+LANES = 7
+
+
+class ScanAggLaunch(NamedTuple):
+    """A scan+aggregate launch: the route (which kernel), its grid
+    (blocks along x, and y: the chunks of a chunked call, else 1), block
+    (threads), blocks a cluster (1: none) and dynamic shared memory."""
+    route: str
+    grid: tuple[int, int]
+    block: int
+    cluster: int
+    smem: int
+
+
+def routes_for(kernel: str, *, block_pages: int = 8, n_groups: int = 1,
+               members: int = 0) -> tuple[str, ...]:
+    """The routes that take a call of `kernel` ("rss_scan_agg" or
+    "rss_scan_agg_chunked"), the one `plan` prefers last: the warp route
+    where BP divides 32, the cluster route where [G, 7] and the members'
+    stage fit a block's shared memory."""
+    fallback, preferred = ROUTES[kernel]
+    stage = STAGE_BYTES if members > 0 else 0
+    fits = (32 % block_pages == 0 if kernel == "rss_scan_agg"
+            else n_groups * LANES * 4 + stage <= MAX_SMEM)
+    return (fallback, preferred) if fits else (fallback,)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan(kernel: str, P: int, K: int, *, members: int = 0,
+         block_pages: int = 8, n_groups: int = 1, rows_per_step: int = 8,
+         fold_chunks: int = 8, route: Optional[str] = None,
+         sms: int = H100_SMS) -> ScanAggLaunch:
+    """The launch of `kernel` over P pages of K slots with `members`
+    member timestamps: `route` when given (it must take the call), else
+    the last of `routes_for`.  `block_pages` is the effective BP of an
+    `rss_scan_agg` call; `n_groups`, `rows_per_step` and `fold_chunks`
+    those of an `rss_scan_agg_chunked` call (chunk geometry by
+    `_chunk_shape`).  Grids are persistent, at most a few blocks an SM
+    of `sms`; the cluster route runs one cluster of `CLUSTER_BLOCKS` a
+    chunk.  K changes no launch: more than 8 slots are walked 8 at a
+    time in the same kernels."""
+    if K < 1 or members < 0:
+        raise ValueError(f"no route takes K={K} members={members}")
+    stage = STAGE_BYTES if members > 0 else 0
+    if kernel == "rss_scan_agg":
+        bp = block_pages
+        if P < 1 or not 1 <= bp <= MAX_BLOCK_PAGES or P % bp:
+            raise ValueError(f"no route takes P={P} block_pages={bp}")
+    elif kernel == "rss_scan_agg_chunked":
+        if P < 0 or n_groups < 1:
+            raise ValueError(f"no route takes P={P} n_groups={n_groups}")
+    else:
+        raise ValueError(f"no plan for {kernel!r}")
+    admissible = routes_for(kernel, block_pages=block_pages,
+                            n_groups=n_groups, members=members)
+    if route is None:
+        route = admissible[-1]
+    elif route not in admissible:
+        raise ValueError(f"route {route!r} does not take {kernel} with "
+                         f"block_pages={block_pages} n_groups={n_groups} "
+                         f"members={members}; these do: {admissible}")
+    if route == "warp":
+        warps = WARP_THREADS // 32
+        grid = min(_cdiv(_cdiv(P, TILE), warps), WARP_BLOCKS_PER_SM * sms)
+        return ScanAggLaunch(route, (grid, 1), WARP_THREADS, 1,
+                             stage + warps * LANES * TILE * 4)
+    if route == "segment":
+        block = bp * max(1, SEGMENT_THREADS // bp)
+        per_sm = max(1, SEGMENT_THREADS_PER_SM // block)
+        return ScanAggLaunch(route, (min(_cdiv(P, block), per_sm * sms), 1),
+                             block, 1, stage + block * 5)
+    _rows, _r, nc, Pp = _chunk_shape(P, rows_per_step, fold_chunks)
+    if route == "cluster":
+        return ScanAggLaunch(route, (CLUSTER_BLOCKS, nc), CLUSTER_THREADS,
+                             CLUSTER_BLOCKS, stage + n_groups * LANES * 4)
+    per_chunk = max(1, GLOBAL_BLOCKS_PER_SM * sms // nc)
+    grid = min(_cdiv(_cdiv(Pp // nc, TILE), GLOBAL_THREADS // 32), per_chunk)
+    return ScanAggLaunch(route, (max(1, grid), nc), GLOBAL_THREADS, 1, stage)
+
+
+def _sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
 
 def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.rsa_scan_agg.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i, p, p]
+    lib.rsa_scan_agg.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i, p, i,
+                                 ll, i, p]
     lib.rsa_scan_agg_grouped.argtypes = [p, p, p, p, i, ll, i, i, i, p, i,
                                          i, p, p]
     lib.rsa_scan_agg_chunked.argtypes = [p, p, p, p, i, ll, i, i, i, p, i,
-                                         ll, i, p, p]
+                                         ll, i, p, i, ll, i, i, p]
     lib.rsa_delta_fold.argtypes = [p, p, i, ll, p, p]
     for fn in (lib.rsa_scan_agg, lib.rsa_scan_agg_grouped,
                lib.rsa_scan_agg_chunked, lib.rsa_delta_fold):
@@ -105,27 +223,31 @@ def _group_params(n_groups, tag_main, tag_alt, threshold, group_params,
 
 def rss_scan_agg(data: torch.Tensor, ts: torch.Tensor,
                  member_ts: torch.Tensor, floor=0, tag_main=1, tag_alt=-2,
-                 threshold=_I32_MAX, *, block_pages: int = 8) -> torch.Tensor:
+                 threshold=_I32_MAX, *, block_pages: int = 8,
+                 route: Optional[str] = None) -> torch.Tensor:
     """Fused RSS membership scan + aggregate; returns [P/BP, 7] int32
     per-block partials of [sum, count, count_below, min, max,
     count_above, sum_below] over member-visible payloads whose tag is
     tag_main or tag_alt (fold the block axis: lanes 0-2 and 5-6 add, 3
-    min, 4 max).  Replaces the TPU `rss_scan_agg`."""
+    min, 4 max).  Replaces the TPU `rss_scan_agg`.  `route` forces a
+    route on the card (see `plan`); None takes `plan`'s."""
     bp = _block(data.shape[0], block_pages)
     if not _on_cuda(data):
         from .ref import rss_scan_agg_ref
         return rss_scan_agg_ref(data, ts, member_ts, floor, tag_main,
                                 tag_alt, threshold, block_pages=bp)
-    if not 1 <= bp <= 1024:
-        raise ValueError(f"block_pages {bp} outside [1, 1024]")
     (dp, tp, mp), P, K, E = _store_args(data, ts, member_ts)
+    launch = plan("rss_scan_agg", P, K, members=member_ts.numel(),
+                  block_pages=bp, route=route, sms=_sms(data.device))
     out = torch.empty((P // bp, 7), dtype=torch.int32, device=data.device)
     _check(_lib().rsa_scan_agg(
         dp, tp, mp, member_ts.numel(), P, K, E, _i32(floor, "floor"),
         _i32(tag_main, "tag_main"), _i32(tag_alt, "tag_alt"),
-        _i32(threshold, "threshold"), bp, out.data_ptr(), _stream()),
+        _i32(threshold, "threshold"), bp, out.data_ptr(),
+        ROUTE_CODES[launch.route], launch.grid[0], launch.block, _stream()),
         "rss_scan_agg")
-    rss_scan_agg.launches += 1
+    rss_scan_agg.route_launches[launch.route] += 1
+    rss_scan_agg.last_route = launch
     return out
 
 
@@ -183,7 +305,8 @@ def rss_scan_agg_chunked(data: torch.Tensor, ts: torch.Tensor,
                          *, n_groups: int = 1,
                          group_params: torch.Tensor | None = None,
                          group_tile: int = 8, rows_per_step: int = 8,
-                         fold_chunks: int = 8) -> torch.Tensor:
+                         fold_chunks: int = 8,
+                         route: Optional[str] = None) -> torch.Tensor:
     """Chunked grouped scan+agg: returns [chunks, n_groups, 7] int32
     per-chunk per-group partials over the `_chunk_shape` chunk boundaries
     (fold with `tree_fold_partials`).  Same lane semantics and
@@ -191,7 +314,8 @@ def rss_scan_agg_chunked(data: torch.Tensor, ts: torch.Tensor,
     whole-scan sum fits int32 (`ops` enforces the bound).  `group_tile`
     is the reference's VMEM tiling knob: checked, and without effect on
     the result.  Replaces the TPU `rss_scan_agg_chunked` (select +
-    chunk-reduce)."""
+    chunk-reduce).  `route` forces a route on the card (see `plan`);
+    None takes `plan`'s."""
     P = data.shape[0]
     _require(gid.shape == (P, 1) and n_groups >= 1,
              f"gid {tuple(gid.shape)} / n_groups {n_groups}")
@@ -208,12 +332,18 @@ def rss_scan_agg_chunked(data: torch.Tensor, ts: torch.Tensor,
     dev = data.device
     prm = _group_params(n_groups, tag_main, tag_alt, threshold,
                         group_params, dev)
+    launch = plan("rss_scan_agg_chunked", P, K, members=member_ts.numel(),
+                  n_groups=n_groups, rows_per_step=rows_per_step,
+                  fold_chunks=fold_chunks, route=route, sms=_sms(dev))
     out = torch.empty((nc, n_groups, 7), dtype=torch.int32, device=dev)
     _check(_lib().rsa_scan_agg_chunked(
         dp, tp, _arg(gid, "gid", dev, 2), mp, member_ts.numel(), P, K, E,
         _i32(floor, "floor"), _arg(prm, "group_params", dev, 2), n_groups,
-        Pp // nc, nc, out.data_ptr(), _stream()), "rss_scan_agg_chunked")
-    rss_scan_agg_chunked.launches += 1
+        Pp // nc, nc, out.data_ptr(), ROUTE_CODES[launch.route],
+        launch.grid[0], launch.block, launch.cluster, _stream()),
+        "rss_scan_agg_chunked")
+    rss_scan_agg_chunked.route_launches[launch.route] += 1
+    rss_scan_agg_chunked.last_route = launch
     return out
 
 
@@ -242,12 +372,18 @@ def rss_delta_fold(acc: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
 
 KERNELS = (rss_scan_agg, rss_scan_agg_grouped, rss_scan_agg_chunked,
            rss_delta_fold)
+# kernel launches: by route where a wrapper has more than one
 for _fn in KERNELS:
-    _fn.launches = 0
+    if _fn.__name__ in ROUTES:
+        _fn.route_launches = dict.fromkeys(ROUTES[_fn.__name__], 0)
+        _fn.last_route = None        # `ScanAggLaunch` of the last launch
+    else:
+        _fn.launches = 0
 
 
 def reset_launches() -> dict:
-    """Zero every wrapper's `launches` count; returns the counts before."""
+    """Zero every wrapper's count (`launches`, or `route_launches`);
+    returns the launches before."""
     return reset_counts(KERNELS)
 
 

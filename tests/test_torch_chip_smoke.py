@@ -104,6 +104,66 @@ def test_chip_smoke_refuses_without_cuda(monkeypatch):
     assert out.returncode == 2 and out.stdout == ""
 
 
+def test_chip_smoke_refuses_outside_a_checkout(tmp_path):
+    """Copied alone into an empty directory, the script exits 2 with
+    nothing on stdout even where a card is present: it finds no
+    src/repro_torch beside it and says so on stderr."""
+    import shutil
+    import subprocess
+
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path)
+    code = ("import sys, torch; torch.cuda.is_available = lambda: True; "
+            f"sys.argv = ['chip_smoke.py']; sys.path.insert(0, "
+            f"{str(tmp_path)!r}); import chip_smoke; "
+            "sys.exit(chip_smoke.main())")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=tmp_path)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no src/repro_torch" in out.stderr
+
+
+def test_kernel_phase_script_refuses_without_cuda():
+    """scripts/kernel_phase.py (the kernel phase of a tree, alone) needs
+    a card: without one it exits 2 and prints nothing on stdout."""
+    import subprocess
+
+    code = ("import runpy, sys, torch; "
+            "torch.cuda.is_available = lambda: False; "
+            f"sys.argv = ['kernel_phase.py', {str(ROOT)!r}]; "
+            f"runpy.run_path({str(ROOT / 'scripts' / 'kernel_phase.py')!r}, "
+            "run_name='__main__')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 2 and out.stdout == ""
+
+
+def test_record_scan_shapes_counts_the_ops_calls_by_shape(smoke):
+    """A small driver run on the CPU under the recorder: every one of the
+    four kernels is called through `ops`, each call counted by its shape;
+    the ops layer gets its own names back afterwards."""
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ops
+    from repro_torch.mvcc import Scale, run_single_node
+
+    names = ("rss_scan_agg", "rss_scan_agg_grouped", "rss_scan_agg_chunked",
+             "rss_delta_fold")
+    before = {n: getattr(ops, n) for n in names}
+    with smoke.record_scan_shapes(K) as shapes:
+        run_single_node(
+            olap_mode="ssi+rss", oltp_clients=4, olap_clients=3, rounds=120,
+            seed=7, olap_scan=True, paged_olap=True, check_scans=True,
+            batch_plans=True, materialize=True, device="cpu",
+            scale=Scale(warehouses=2, districts=20, customers=10, items=200,
+                        order_capacity=10))
+    assert {n for n, _ in shapes} == set(names)
+    assert all(n > 0 for n in shapes.values())
+    assert any(n == "rss_scan_agg" and "BP=8" in shape and "M=" in shape
+               for n, shape in shapes)
+    assert any(n == "rss_scan_agg_chunked" and "G=" in shape
+               for n, shape in shapes)
+    assert {n: getattr(ops, n) for n in names} == before
+
+
 def test_rwkv_serve_phase_on_cpu(smoke, capsys):
     """RWKV6-3B's smoke variant (bf16) through the same serve phase: the
     writer under the pin, checks (a), (b) and (d) with the layers' WKV

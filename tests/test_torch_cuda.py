@@ -53,8 +53,10 @@ def test_scan_agg_kernel_equals_plain(dev, P, bp, M):
 
 @pytest.mark.parametrize("G", [1, 5, 40, 2000])
 def test_grouped_and_chunked_kernels_equal_plain(dev, G):
-    """G = 2000 does not fit the chunked kernel's shared-memory tile, so
-    it takes the global-atomic path."""
+    """Every G here, 2000 included, fits the chunked kernel's [G, 7]
+    shared-memory tile, so the chunked call takes the cluster route;
+    `test_chunked_every_route_equals_plain` forces the global-atomic
+    route and passes the cap."""
     from repro_torch.kernels.rss_scan_agg import kernel as K
     from repro_torch.kernels.rss_scan_agg import ref as R
 
@@ -97,7 +99,7 @@ def test_wrappers_reject_bad_inputs_and_count_launches(dev):
     data, ts, mem, gid, _ = _inputs(dev, 64)
     K.reset_launches()
     K.rss_scan_agg(data, ts, mem, 0)
-    assert K.rss_scan_agg.launches == 1
+    assert launch_count(K.rss_scan_agg) == 1
     with pytest.raises(TypeError):
         K.rss_scan_agg(data.long(), ts, mem, 0)
     with pytest.raises(ValueError):
@@ -107,7 +109,210 @@ def test_wrappers_reject_bad_inputs_and_count_launches(dev):
                                mem, 0, n_groups=5)      # strided gid
     with pytest.raises(OverflowError):
         K.rss_scan_agg(data, ts, mem, 2**31)
-    assert K.rss_scan_agg.launches == 1
+    assert launch_count(K.rss_scan_agg) == 1
+
+
+# ------------------------------------------- scan+aggregate launch routes
+def _round_pages(dev, K):
+    """The card's SMs, and the pages a round of the larger persistent
+    grid takes: the warp route's (32 pages a warp) or the segment
+    route's at BP 3 (a page a thread)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    warp = K.WARP_BLOCKS_PER_SM * sms * (K.WARP_THREADS // 32) * K.TILE
+    seg = (K.SEGMENT_THREADS_PER_SM // 255) * sms * 255
+    return sms, max(warp, seg)
+
+
+# member sets of each staging (rss_gather.kernel.member_staging): none,
+# a bitmap (with duplicates and members at or below the floor), the
+# sorted array (span over the bitmap), device memory (M over the array)
+SCAN_MEMBERS = {
+    "none": [],
+    "bitmap": [0, 5, 100, 101, 101, 150, 150, 299],
+    "array": [0, 5, 100, 101, 101, 150, 150, 299, 10**7],
+    "global": list(range(101, 300, 2)) + list(range(10**6, 10**6 + 9000)),
+}
+
+
+@pytest.mark.parametrize("bp", [1, 2, 3, 4, 8, 32, 64])
+@pytest.mark.parametrize("k", [1, 3, 8, 9, 33])
+def test_scan_agg_every_route_equals_plain(dev, k, bp):
+    """Each route that takes the call (warp where BP divides 32, segment
+    always), forced, == plain bitwise over P pages of two rounds of the
+    larger persistent grid plus 17 (rounded up to BP), fields at the
+    int32 extremes: K 1 and 3 load timestamps one by one, K 8 as 16-byte
+    vectors, K 9 and 33 walk them 8 at a time with a running best."""
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    sms, per_round = _round_pages(dev, K)
+    P = -(-(2 * per_round + 17) // bp) * bp
+    data, ts, mem, _, _ = _inputs(dev, P, K=k, E=2 + k % 3, M=40,
+                                  seed=k * 100 + bp)
+    K.reset_launches()
+    routes = K.routes_for("rss_scan_agg", block_pages=bp)
+    assert routes == (("segment", "warp") if 32 % bp == 0 else ("segment",))
+    for route in routes:
+        launch = K.plan("rss_scan_agg", P, k, members=40, block_pages=bp,
+                        route=route, sms=sms)
+        if route == "warp":
+            assert -(-P // 32) > 2 * launch.grid[0] * launch.block // 32
+        for floor, args in ((100, (1, 0, 12345)), (0, (3, -2, -7))):
+            got = K.rss_scan_agg(data, ts, mem, floor, *args, block_pages=bp,
+                                 route=route)
+            want = R.rss_scan_agg_ref(data, ts, mem, floor, *args,
+                                      block_pages=bp)
+            assert torch.equal(got, want), (route, floor)
+            assert K.rss_scan_agg.last_route == launch
+        assert K.rss_scan_agg.route_launches[route] == 2
+    assert launch_count(K.rss_scan_agg) == 2 * len(routes)
+
+
+@pytest.mark.parametrize("route", ["warp", "segment"])
+@pytest.mark.parametrize("staging", list(SCAN_MEMBERS))
+def test_scan_agg_member_stagings_equal_plain(dev, staging, route):
+    """Both scan kernels on each staging of the members, as gather.cu's
+    rule reports it for the set; every route of each kernel."""
+    from repro_torch.kernels.rss_gather import kernel as RG
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    mem_np = np.sort(np.array(SCAN_MEMBERS[staging], np.int64)) \
+        .astype(np.int32)
+    lo, hi = (int(mem_np[0]), int(mem_np[-1])) if mem_np.size else (0, 0)
+    assert RG.member_staging(mem_np.size, lo, hi) == staging
+    data, ts, _, gid, prm = _inputs(dev, 40_000, G=40, seed=len(staging))
+    mem = torch.from_numpy(mem_np).to(dev)
+    chunked_route = {"warp": "cluster", "segment": "global"}[route]
+    for floor in (0, 100):
+        a = (data, ts, mem, floor, 1, 0, 5)
+        assert torch.equal(K.rss_scan_agg(*a, route=route),
+                           R.rss_scan_agg_ref(*a)), (staging, floor)
+        g = (data, ts, gid, mem, floor)
+        kw = dict(n_groups=40, group_params=prm)
+        assert torch.equal(
+            K.rss_scan_agg_chunked(*g, route=chunked_route, **kw),
+            R.rss_scan_agg_chunked_ref(*g, **kw)), (staging, floor)
+
+
+@pytest.mark.parametrize("k", [3, 8, 33])
+@pytest.mark.parametrize("G", [1, 40, 256, 2000, "cap+1"])
+def test_chunked_every_route_equals_plain(dev, G, k):
+    """Each chunked route that takes the call, forced, == plain bitwise,
+    at P over two rounds of the persistent grids plus 17 and fields at
+    the int32 extremes; "cap+1" is one group over what the cluster
+    route's shared memory holds (with members staged), so only the
+    global-atomic route takes it."""
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    if G == "cap+1":
+        G = (K.MAX_SMEM - K.STAGE_BYTES) // (K.LANES * 4) + 1
+    sms, per_round = _round_pages(dev, K)
+    P = 2 * per_round + 17
+    data, ts, mem, gid, prm = _inputs(dev, P, K=k, M=40, G=G, seed=G + k)
+    routes = K.routes_for("rss_scan_agg_chunked", n_groups=G, members=40)
+    assert routes == (("global", "cluster") if G < 7132 else ("global",))
+    K.reset_launches()
+    a = (data, ts, gid, mem, 100)
+    kw = dict(n_groups=G, group_params=prm)
+    want = R.rss_scan_agg_chunked_ref(*a, **kw)
+    for route in routes:
+        got = K.rss_scan_agg_chunked(*a, route=route, **kw)
+        assert torch.equal(got, want), route
+        launch = K.rss_scan_agg_chunked.last_route
+        assert launch == K.plan("rss_scan_agg_chunked", P, k, members=40,
+                                n_groups=G, route=route, sms=sms)
+        if route == "global":      # two rounds of a chunk's warps and more
+            _rows, _r, nc, Pp = K._chunk_shape(P, 8, 8)
+            assert -(-(Pp // nc) // 32) > 2 * launch.grid[0] * 8
+    assert K.rss_scan_agg_chunked.route_launches == \
+        dict.fromkeys(routes, 1) | ({"cluster": 0} if len(routes) == 1
+                                    else {})
+
+
+def test_scan_agg_entries_refuse_a_launch_plan_did_not_give(dev):
+    """The C entries hold their own copy of `plan`: another grid, block
+    or cluster is cudaErrorInvalidConfiguration (9), a route that does
+    not take the call (or arguments no route takes)
+    cudaErrorInvalidValue (1)."""
+    from repro_torch.kernels.cuda_build import stream
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+
+    P = 4096
+    data, ts, mem, gid, prm = _inputs(dev, P, M=40, G=40)
+    out = torch.empty((P, 40, 7), dtype=torch.int32, device=dev)
+    lib = K._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def scan(bp, route, grid, block):
+        return lib.rsa_scan_agg(data.data_ptr(), ts.data_ptr(),
+                                mem.data_ptr(), 40, P, 8, 6, 100, 1, 0, 5,
+                                bp, out.data_ptr(), K.ROUTE_CODES[route],
+                                grid, block, stream())
+
+    for bp in (8, 4, 1):
+        for route in ("warp", "segment"):
+            L = K.plan("rss_scan_agg", P, 8, members=40, block_pages=bp,
+                       route=route, sms=sms)
+            assert scan(bp, route, L.grid[0], L.block) == 0
+            assert scan(bp, route, L.grid[0] + 1, L.block) == 9
+            assert scan(bp, route, L.grid[0], L.block * 2) == 9
+    seg = K.plan("rss_scan_agg", 4095, 8, members=40, block_pages=3,
+                 route="segment", sms=sms)
+    assert lib.rsa_scan_agg(data.data_ptr(), ts.data_ptr(), mem.data_ptr(),
+                            40, 4095, 8, 6, 100, 1, 0, 5, 3, out.data_ptr(),
+                            K.ROUTE_CODES["warp"], seg.grid[0], seg.block,
+                            stream()) == 1           # BP 3 on the warp route
+    assert scan(3, "segment", seg.grid[0], seg.block) == 1   # P % BP
+    assert scan(2048, "segment", 1, 2048) == 1               # BP > 1,024
+
+    _rows, _r, nc, Pp = K._chunk_shape(P, 8, 8)
+
+    def chunked(G, route, grid, block, cluster):
+        return lib.rsa_scan_agg_chunked(
+            data.data_ptr(), ts.data_ptr(), gid.data_ptr(), mem.data_ptr(),
+            40, P, 8, 6, 100, prm.data_ptr(), G, Pp // nc, nc,
+            out.data_ptr(), K.ROUTE_CODES[route], grid, block, cluster,
+            stream())
+
+    for route in ("cluster", "global"):
+        L = K.plan("rss_scan_agg_chunked", P, 8, members=40, n_groups=40,
+                   route=route, sms=sms)
+        g, b, c = L.grid[0], L.block, L.cluster
+        assert chunked(40, route, g, b, c) == 0
+        assert chunked(40, route, g + 8, b, c) == 9
+        assert chunked(40, route, g, b // 2, c) == 9
+        assert chunked(40, route, g, b, c * 2) == 9
+    big = (K.MAX_SMEM - K.STAGE_BYTES) // 28 + 1
+    assert chunked(big, "cluster", 8, 1024, 8) == 1
+    torch.cuda.synchronize()
+
+
+def test_plan_copies_match_the_library(dev):
+    """`plan` runs on the CPU too, so it keeps copies of numbers the
+    library owns: the members' stage (rss_resolve.cuh's bitmap) and the
+    cluster route's shared-memory cap, which the C entry takes at the
+    last G it fits and refuses one over."""
+    from repro_torch.kernels.cuda_build import stream
+    from repro_torch.kernels.rss_gather.kernel import staging_caps
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+
+    assert K.STAGE_BYTES == staging_caps()[0] // 8
+    P = 4096
+    _rows, _r, nc, Pp = K._chunk_shape(P, 8, 8)
+    cap = (K.MAX_SMEM - K.STAGE_BYTES) // (K.LANES * 4)
+    data, ts, mem, gid, prm = _inputs(dev, P, M=40, G=cap + 1)
+    out = torch.empty((nc, cap + 1, 7), dtype=torch.int32, device=dev)
+    for G, want in ((cap, 0), (cap + 1, 1)):
+        assert K.routes_for("rss_scan_agg_chunked", n_groups=G,
+                            members=40)[-1] == ("cluster", "global")[want]
+        assert K._lib().rsa_scan_agg_chunked(
+            data.data_ptr(), ts.data_ptr(), gid.data_ptr(), mem.data_ptr(),
+            40, P, 8, 6, 100, prm.data_ptr(), G, Pp // nc, nc,
+            out.data_ptr(), K.ROUTE_CODES["cluster"], K.CLUSTER_BLOCKS,
+            K.CLUSTER_THREADS, K.CLUSTER_BLOCKS, stream()) == want
+    torch.cuda.synchronize()
 
 
 def test_small_driver_cuda_equals_cpu(dev):
