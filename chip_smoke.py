@@ -11,10 +11,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 3. kernel phase: each of the four `rss_scan_agg` kernels on numpy-seeded
    inputs at the main path's shapes (P = 400,000 pages, K = 8 slots,
    E = 32 elements; M in {0, 64, 4096} members; G in {1, 16, 40, 256}
-   groups; a 256-row delta into a 64-lane tile), `rss_scan_agg` and
-   `rss_scan_agg_chunked` on the route `plan` chose and on the other
-   route forced (each call's route and launch shape printed, both routes
-   timed, the chosen one also after a clean-L2 flush), the chunked call
+   groups), `rss_scan_agg` and `rss_scan_agg_chunked` on the route `plan`
+   chose and on the other route forced (each call's route and launch
+   shape printed, both routes timed, the chosen one also after a
+   clean-L2 flush); `rss_scan_agg_grouped` (BP 8) at the same G and M
+   and at the driver phase's largest shapes (P 920,008 at G 43, P
+   120,016 at G 2, M 0) and `rss_delta_fold` at the flush buffer's 256
+   rows into 64 lanes and at the driver's 1,048,576 rows into 8, each on
+   every route, timed beside `fill_only_ms` or `sector_only_ms`, and
+   counted as one device operation a call in a profiler trace; the chunked call
    at a G over the cluster route's shared-memory cap (global route; group
    ids over 48 groups and spread over all G, both timed), and
    K in {9, 33} with BP 3 and 8, and the two gather
@@ -268,10 +273,10 @@ def make_store(np, P, K, E, rng):
     return data, ts
 
 
-def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
-    from repro_torch.kernels.rss_gather import ref as RGR
-    from repro_torch.kernels.rss_scan_agg import ref as R
-
+def scan_store(torch, np, P=400_000, K=8, E=32):
+    """The kernel phase's store on the card (`make_store`, seed 0), its
+    floor (6,000) and member sets of M 0, 64 and 4,096 above it; and the
+    generator, for the draws after them."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     data_np, ts_np = make_store(np, P, K, E, rng)
@@ -281,6 +286,15 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
     members = {m: torch.from_numpy(np.sort(rng.choice(
         np.arange(floor + 1, 12_000, dtype=np.int32), m, replace=False)))
         .to(dev) for m in (0, 64, 4096)}
+    return data, ts, members, floor, rng
+
+
+def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
+    from repro_torch.kernels.rss_gather import ref as RGR
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    dev = torch.device("cuda")
+    data, ts, members, floor, rng = scan_store(torch, np, P, K, E)
     results = {}
 
     def check(name, got, want):
@@ -372,7 +386,7 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
         other_route(K_mod.rss_scan_agg, args,
                     dict(block_pages=bp), want, timed=False)
 
-    # grouped (flat) and chunked: every G with M = 64, plus every M at G=40
+    # chunked: every G with M = 64, plus every M at G=40
     gid_full = rng.integers(-1, 48, (P, 1), dtype=np.int32)
 
     def group_inputs(g, r=rng):
@@ -389,21 +403,11 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
             mem = members[m]
             kw = dict(n_groups=g, group_params=prm)
             gargs = (data, ts, gid, mem, floor)
-            got = K_mod.rss_scan_agg_grouped(*gargs, block_pages=8, **kw)
-            check("rss_scan_agg_grouped", got,
-                  R.rss_scan_agg_grouped_ref(*gargs, block_pages=8, **kw))
             got_c = K_mod.rss_scan_agg_chunked(*gargs, **kw)
             want_c = R.rss_scan_agg_chunked_ref(*gargs, **kw)
             check("rss_scan_agg_chunked", got_c, want_c)
             chosen = _scan_launch_txt(K_mod.rss_scan_agg_chunked.last_route)
             base = P * 4 + n_active * page_bytes + m * 4 + g * 12
-            if m == 64:
-                t = report("rss_scan_agg_grouped", f"P={P} G={g} M={m} BP=8",
-                           lambda: K_mod.rss_scan_agg_grouped(
-                               *gargs, block_pages=8, **kw),
-                           lambda: R.rss_scan_agg_grouped_ref(
-                               *gargs, block_pages=8, **kw),
-                           base + got.numel() * 4)
             tc = report("rss_scan_agg_chunked", f"P={P} G={g} M={m} "
                         f"[{chosen}]",
                         lambda: K_mod.rss_scan_agg_chunked(*gargs, **kw),
@@ -412,11 +416,15 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
             other_route(K_mod.rss_scan_agg_chunked,
                         gargs, kw, want_c, timed=True)
             if g == 40 and m == 64:
-                results["rss_scan_agg_grouped"]["times"] = t
                 results["rss_scan_agg_chunked"]["times"] = tc
                 _clean_l2_time(torch, f"rss_scan_agg_chunked P={P} G={g} "
                                f"M={m}", lambda: K_mod.rss_scan_agg_chunked(
                                    *gargs, **kw), flush)
+
+    # grouped and the delta fold: every route at every timed shape
+    for name, t in grouped_and_fold(torch, np, K_mod, flush, check, data,
+                                    ts, members, floor).items():
+        results[name]["times"] = t
 
     # the chunked call over the cluster route's shared-memory cap: the
     # global-atomic route, as `plan` chooses it
@@ -424,7 +432,7 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
                    (K_mod.MAX_SMEM - K_mod.STAGE_BYTES) //
                    (K_mod.LANES * 4) + 1, check)
 
-    # its own seed, so the delta fold below keeps its inputs
+    # its own seed
     erng = np.random.default_rng(4)
     # K over the 8 timestamps a lane holds (walked 8 at a time), an odd E
     # (tag and field loaded one by one) and BP 3 (segment route only), at
@@ -453,28 +461,6 @@ def kernel_phase(torch, np, K_mod, flush, P=400_000, K=8, E=32):
                     gargs, kw, want, timed=False)
         print(f"kernel rss_scan_agg family P={p_edge} K={k} E={e}: BP 3 and "
               "8, and G 40 chunked, == plain on every route", flush=True)
-
-    # delta fold: a full flush buffer (FLUSH_ROWS = 256) into 64 lanes
-    lp, dp = 64, 256
-    acc = rng.integers(-2**20, 2**20, (lp, 128), dtype=np.int32)
-    acc[:, 3] = rng.integers(-100, 100, lp)
-    acc[:, 4] = rng.integers(-100, 100, lp)
-    delta = np.zeros((dp, 128), np.int32)
-    delta[:, 0] = rng.integers(-1, lp, dp)
-    delta[:, 1] = rng.integers(-2**20, 2**20, dp)
-    delta[:, 2] = rng.integers(0, 2, dp)
-    delta[:, 3] = rng.integers(-2**20, 2**20, dp)
-    delta[:, 4] = rng.integers(0, 2, dp)
-    delta[:, 5] = rng.integers(-1000, 1000, dp)
-    acc_t, delta_t = (torch.from_numpy(acc).to(dev),
-                      torch.from_numpy(delta).to(dev))
-    check("rss_delta_fold", K_mod.rss_delta_fold(acc_t, delta_t),
-          R.rss_delta_fold_ref(acc_t, delta_t))
-    results["rss_delta_fold"]["times"] = report(
-        "rss_delta_fold", f"Lp={lp} Dp={dp}",
-        lambda: K_mod.rss_delta_fold(acc_t, delta_t),
-        lambda: R.rss_delta_fold_ref(acc_t, delta_t),
-        dp * 32 + 2 * lp * 128 * 4)
 
     gather_kernels(torch, np, check, results, data, ts, members, floor,
                    flush)
@@ -515,6 +501,157 @@ def chunked_groups(torch, np, K_mod, flush, data, ts, mem, floor, g,
               f"{_scan_launch_txt(launch) if launch else 'one route'}]: "
               f"kernel_ms={ms:.4f} "
               f"bound_ms={nbytes / HBM_BYTES_PER_S * 1e3:.4f}", flush=True)
+
+
+# rss_scan_agg_grouped (P, G, M, BP): the kernel phase's store at every G
+# (M 64) and every M (G 40) at BP 8, at BP 3 (P cut to a multiple of 3;
+# a warp tile of 10 segments) and at BP 64 (the segment route's), then
+# every shape of the driver phase (a store of their own, made at the
+# first and largest; M 0); rss_delta_fold (Lp, Dp): the flush buffer's
+# shapes, Lp 8 on both sides of the sliced and grid routes' switch and at
+# every larger Dp of the driver phase, Lp 64 and 2,048 at 131,072 rows
+# (the grid route's cap on partials), and Lp over a block's shared memory
+GROUPED_SHAPES = ((400_000, 1, 64, 8), (400_000, 16, 64, 8),
+                  (400_000, 40, 64, 8), (400_000, 256, 64, 8),
+                  (400_000, 40, 0, 8), (400_000, 40, 4096, 8),
+                  (399_999, 40, 64, 3), (400_000, 40, 64, 64),
+                  (920_008, 43, 0, 8), (800_016, 3, 0, 8),
+                  (400_016, 2, 0, 8), (120_016, 2, 0, 8))
+FOLD_SHAPES = ((64, 256), (8, 256), (8, 1024), (8, 2048), (8, 4096),
+               (8, 8192), (8, 32_768), (8, 131_072), (8, 262_144),
+               (8, 524_288), (8, 1_048_576), (64, 131_072), (2048, 131_072),
+               (16_384, 256))
+
+
+def _device_ops(torch, fn) -> int:
+    """Device operations (kernels, copies, fills) of one `fn()` call in a
+    torch.profiler trace: the most of three traces, since a trace may
+    drop an event (a two-operation call once showed one) but never adds
+    one."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        seen.append(sum(e.device_type == DeviceType.CUDA
+                        for e in prof.events()))
+    return max(seen)
+
+
+def grouped_and_fold(torch, np, K_mod, flush, check, data, ts, members,
+                     floor) -> dict:
+    """`rss_scan_agg_grouped` at GROUPED_SHAPES and `rss_delta_fold` at
+    FOLD_SHAPES, each on every route that takes the call where the
+    wrapper plans routes (else the one it has): == plain, timed beside
+    its byte bound and a yardstick (`fill_only_ms`: PyTorch's `fill_` of
+    a tensor the size of the grouped output, the floor for writing it
+    once; `sector_only_ms`: `delta[:, :8].sum()`, PyTorch reading the
+    first sector of every delta row), and its device operations a call
+    counted in a profiler trace (one, where it plans routes).  Only the
+    wrappers' common contract is used, so `scripts/kernel_phase.py TREE
+    --shapes` runs it on an earlier tree's wrappers.  Returns {name: (ms,
+    plain_ms, bound_ms)} at P 400,000 G 40 M 64 and at Lp 64 Dp 256, on
+    the route `plan` gives."""
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    dev = data.device
+    rng = np.random.default_rng(6)
+    planned = getattr(K_mod, "ROUTES", {})
+    times = {}
+
+    def routes(name, **kw):
+        return K_mod.routes_for(name, **kw) if name in planned else (None,)
+
+    def timed(name, label, fn, plain, nbytes, want, kw, extra):
+        """fn on each route == plain, each timed (the route `plan` takes
+        last); plain timed once.  Returns the times on `plan`'s route."""
+        plain_ms = time_ms(torch, plain, flush, reps=5)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        note = extra()
+        for route in routes(name, **kw):
+            call = (fn if route is None else
+                    lambda route=route: fn(route=route))
+            check(name, call(), want)
+            launch = getattr(getattr(K_mod, name), "last_route", None)
+            ops = _device_ops(torch, call)
+            if route is not None and ops != 1:
+                raise AssertionError(f"{name} {label} route {route}: "
+                                     f"{ops} device operations a call")
+            ms = time_ms(torch, call, flush)
+            txt = _scan_launch_txt(launch) if launch else "one route"
+            print(f"kernel {name} {label} [{txt}]: kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} {note} bound_ms="
+                  f"{bound_ms:.4f} ({nbytes / 1e6:.1f} MB), {ops} device "
+                  "operation(s) a call", flush=True)
+        return ms, plain_ms, bound_ms
+
+    big = None
+    for P, g, m, bp in GROUPED_SHAPES:
+        if P > data.shape[0] and big is None:
+            d_np, t_np = make_store(np, P, 8, 32, np.random.default_rng(7))
+            big = torch.from_numpy(d_np).to(dev), torch.from_numpy(t_np).to(
+                dev)
+            del d_np, t_np
+        d, t = ((data[:P], ts[:P]) if P <= data.shape[0]
+                else (big[0][:P], big[1][:P]))
+        k = t.shape[1]
+        gid_np = rng.integers(-1, g, (P, 1), dtype=np.int32)
+        gid = torch.from_numpy(gid_np).to(dev)
+        prm = torch.from_numpy(np.stack([
+            rng.choice(np.array([1, 3], np.int32), g),
+            rng.choice(np.array([0, -2], np.int32), g),
+            rng.integers(-500, 500, g, dtype=np.int32)], 1)).to(dev)
+        a = (d, t, gid, members[m], floor)
+        kw = dict(n_groups=g, group_params=prm, block_pages=bp)
+        want = R.rss_scan_agg_grouped_ref(*a, **kw)
+        shell = torch.empty_like(want)
+        nbytes = (P * 4 + int((gid_np >= 0).sum()) * (k * 4 + 32) + m * 4
+                  + g * 12 + want.numel() * 4)
+        t_ = timed("rss_scan_agg_grouped", f"P={P} G={g} M={m} BP={bp}",
+                   lambda route=None, a=a, kw=kw:
+                   K_mod.rss_scan_agg_grouped(
+                       *a, **kw, **({} if route is None else
+                                    {"route": route})),
+                   lambda a=a, kw=kw: R.rss_scan_agg_grouped_ref(*a, **kw),
+                   nbytes, want, dict(block_pages=bp, n_groups=g, members=m),
+                   lambda: "fill_only_ms="
+                   f"{time_ms(torch, lambda: shell.fill_(0), flush)}")
+        if (P, g, m, bp) == (400_000, 40, 64, 8):
+            times["rss_scan_agg_grouped"] = t_
+    del big
+    for lp, dp in FOLD_SHAPES:
+        acc = torch.from_numpy(np.concatenate([
+            rng.integers(-2**20, 2**20, (lp, 3), dtype=np.int32),
+            rng.integers(-100, 100, (lp, 2), dtype=np.int32),
+            rng.integers(-2**20, 2**20, (lp, 123), dtype=np.int32)],
+            1)).to(dev)
+        cols = np.stack([rng.integers(-1, lp, dp),
+                         rng.integers(-2**20, 2**20, dp),
+                         rng.integers(0, 2, dp),
+                         rng.integers(-2**20, 2**20, dp),
+                         rng.integers(0, 2, dp),
+                         rng.integers(-1000, 1000, dp)], 1).astype(np.int32)
+        delta = torch.zeros((dp, 128), dtype=torch.int32, device=dev)
+        delta[:, :6] = torch.from_numpy(cols).to(dev)
+        want = R.rss_delta_fold_ref(acc, delta)
+        t_ = timed("rss_delta_fold", f"Lp={lp} Dp={dp}",
+                   lambda route=None, acc=acc, delta=delta:
+                   K_mod.rss_delta_fold(acc, delta, **(
+                       {} if route is None else {"route": route})),
+                   lambda acc=acc, delta=delta:
+                   R.rss_delta_fold_ref(acc, delta),
+                   dp * 32 + 2 * lp * 128 * 4, want,
+                   dict(lanes=lp, rows=dp),
+                   lambda delta=delta: "sector_only_ms=" + (
+                       f"{time_ms(torch, lambda: delta[:, :8].sum(), flush)}"
+                       if dp > 4096 else "-"))
+        if (lp, dp) == (64, 256):
+            times["rss_delta_fold"] = t_
+    return times
 
 
 def _scan_launch_txt(launch) -> str:
@@ -779,8 +916,8 @@ def _profiled(torch, fn, out_dir: Path):
 def record_scan_shapes(K_mod):
     """Count the calls of each `rss_scan_agg` kernel that the ops layer
     makes, by shape: (P, M, BP) for `rss_scan_agg`, (P, G, M, BP) for
-    `rss_scan_agg_grouped`, (P, G, M) for `rss_scan_agg_chunked` (each
-    with the route it took), (Lp, Dp) for `rss_delta_fold`.  Wraps the
+    `rss_scan_agg_grouped`, (P, G, M) for `rss_scan_agg_chunked`, (Lp,
+    Dp) for `rss_delta_fold`, each with the route it took.  Wraps the
     names `kernels.rss_scan_agg.ops` calls; yields the Counter."""
     from collections import Counter
 
@@ -805,7 +942,7 @@ def record_scan_shapes(K_mod):
             out = fn(data, ts, gid, member_ts, *a, n_groups=n_groups, **kw)
             bp = min(kw.get("block_pages", 8), data.shape[0])
             tail = (f" BP={bp}" if fn is K_mod.rss_scan_agg_grouped
-                    else route_of(fn))
+                    else "") + route_of(fn)
             shapes[(fn.__name__, f"P={data.shape[0]} G={n_groups} "
                     f"M={member_ts.numel()}{tail}")] += 1
             return out
@@ -814,8 +951,8 @@ def record_scan_shapes(K_mod):
     def fold(fn):
         def call(acc, delta):
             out = fn(acc, delta)
-            shapes[(fn.__name__, f"Lp={acc.shape[0]} Dp={delta.shape[0]}")] \
-                += 1
+            shapes[(fn.__name__, f"Lp={acc.shape[0]} Dp={delta.shape[0]}"
+                    f"{route_of(fn)}")] += 1
             return out
         return call
 
@@ -862,7 +999,8 @@ def driver_phase(torch, K_mod, rounds: int,
     print(f"driver launches: {json.dumps(launches)}", flush=True)
     for (name, shape), n in sorted(shapes.items()):
         print(f"driver launch shape: {name} {shape}: {n}", flush=True)
-    for name in ("rss_scan_agg", "rss_scan_agg_chunked"):
+    for name in ("rss_scan_agg", "rss_scan_agg_grouped",
+                 "rss_scan_agg_chunked", "rss_delta_fold"):
         print(f"driver launches by route: {name} "
               f"{getattr(K_mod, name).route_launches}", flush=True)
     if sum(shapes.values()) != sum(launches.values()):

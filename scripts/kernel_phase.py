@@ -3,6 +3,7 @@
 
     python3 scripts/kernel_phase.py [TREE]     # TREE: a checkout (default .)
     python3 scripts/kernel_phase.py TREE --groups G
+    python3 scripts/kernel_phase.py TREE --shapes
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -17,6 +18,13 @@ K 8, E 32, M 64) at G groups, group ids over 48 groups and spread over all
 G, each held against plain and timed.  So an earlier tree's kernel is
 timed at a G its own kernel phase does not time (the one over the
 cluster route's cap that `chip_smoke.py` prints, for one).
+
+With `--shapes` it runs only this checkout's `chip_smoke.grouped_and_fold`
+on the tree's `rss_scan_agg_grouped` and `rss_delta_fold`: the grouped
+scan at every shape of `chip_smoke.GROUPED_SHAPES` (the kernel phase's
+store at each G and M, and the driver phase's largest shapes) and the
+delta fold at `chip_smoke.FOLD_SHAPES`, each held against plain and
+timed, on every route where the tree's wrappers plan routes.
 """
 
 import importlib.util
@@ -27,12 +35,26 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 
 
-def groups_phase(torch, np, tree: Path, g: int) -> None:
-    """This checkout's `chunked_groups` on the tree's wrapper at G = g."""
+def _here():
+    """This checkout's chip_smoke.py, whatever tree is on sys.path."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke_here", HERE / "chip_smoke.py")
     here = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(here)
+    return here
+
+
+def _check(torch):
+    def check(name, got, want):
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: kernel != plain")
+    return check
+
+
+def groups_phase(torch, np, tree: Path, g: int) -> None:
+    """This checkout's `chunked_groups` on the tree's wrapper at G = g."""
+    here = _here()
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.rss_scan_agg import kernel as K_mod
 
@@ -47,15 +69,28 @@ def groups_phase(torch, np, tree: Path, g: int) -> None:
     mem = torch.from_numpy(np.sort(rng.choice(
         np.arange(floor + 1, 12_000, dtype=np.int32), 64,
         replace=False))).to(dev)
-
-    def check(name, got, want):
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name}: kernel != plain")
-
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     here.chunked_groups(torch, np, K_mod, flush, data, ts, mem, floor, g,
-                        check)
+                        _check(torch))
+
+
+def shapes_phase(torch, np, tree: Path) -> None:
+    """This checkout's `grouped_and_fold` on the tree's wrappers."""
+    here = _here()
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.rss_scan_agg import kernel as K_mod
+
+    print(f"tree {tree}, shapes: {here.card_line()}", flush=True)
+    cuda_build.build(["rss_scan_agg"])
+    for line in here._ptxas_report(cuda_build.BUILD_LOGS.get(
+            "rss_scan_agg", "")):
+        print(f"ptxas rss_scan_agg: {line}", flush=True)
+    data, ts, members, floor, _rng = here.scan_store(torch, np)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    for name, t in here.grouped_and_fold(torch, np, K_mod, flush,
+                                         _check(torch), data, ts, members,
+                                         floor).items():
+        print(f"result {name}: {t}", flush=True)
 
 
 def main() -> int:
@@ -65,6 +100,9 @@ def main() -> int:
         i = args.index("--groups")
         groups = int(args[i + 1])
         del args[i:i + 2]
+    shapes = "--shapes" in args
+    if shapes:
+        args.remove("--shapes")
     tree = Path(args[0] if args else ".").resolve()
     sys.path[:0] = [str(tree), str(tree / "src")]
     import numpy as np
@@ -76,6 +114,9 @@ def main() -> int:
         return 2
     if groups is not None:
         groups_phase(torch, np, tree, groups)
+        return 0
+    if shapes:
+        shapes_phase(torch, np, tree)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

@@ -22,25 +22,34 @@ like int32.
 
 Routes (`plan`, the one owner of the launch shape; the C entries refuse
 any other):
-- `rss_scan_agg`: "warp" where BP divides 32 (the main path's 8 and its
-  shrink ladder): a persistent grid whose warps walk tiles of 32 pages,
-  one lane a page, each BP-lane segment reduced in the warp; "segment"
-  for any BP up to 1,024: whole segments a block, folded in shared
-  memory.
+- `rss_scan_agg` and `rss_scan_agg_grouped`: "warp" where BP divides 32
+  (the main path's 8 and its shrink ladder; for the grouped scan any BP
+  up to 32, preferred over GROUPED_SEGMENT_GROUPS groups): a persistent
+  grid whose warps walk tiles of whole segments, one lane a page, each
+  BP-lane segment reduced in the warp; "segment" for any BP up to
+  1,024: whole segments a block, folded in shared memory.  The grouped
+  kernels store each segment's G rows themselves, with plain stores: no
+  fill, no atomics.
 - `rss_scan_agg_chunked`: "cluster" where the [G, 7] tile and the
   member stage fit a block's shared memory: a thread-block cluster a
   chunk, folded over distributed shared memory, one launch; "global"
   for any G: an identity fill, then device-memory atomics.
-Both resolve one lane a page with the members staged once a block in
-shared memory, by the gathers' rule (`rss_gather.kernel.member_staging`
+- `rss_delta_fold`: "sliced" for few delta rows and for any Lp (a block
+  an SM, each a slice of the lane rows, reading every delta row);
+  "grid" for many delta rows while the [Lp, 7] tile fits a block's
+  shared memory (a cooperative launch, a block for each FOLD_BLOCK_ROWS
+  rows, at most one an SM; after a grid barrier every block folds a
+  slice of the blocks' partials).  One launch writes all of out.
+The scans resolve one lane a page with the members staged once a block
+in shared memory, by the gathers' rule (`rss_gather.kernel.member_staging`
 reports it); `route=` forces a route on the card.
 
 Device choice: a wrapper given CUDA tensors launches its kernel (and
 raises when it cannot); given CPU tensors it returns its plain version
 from `ref.py`.  Nothing else picks between them.  The wrappers count
-real kernel launches only: `rss_scan_agg` and `rss_scan_agg_chunked` by
-route (`route_launches`, summed by `cuda_build.launch_count`; the last
-launch's `ScanAggLaunch` in `last_route`), the other two in `launches`.
+real kernel launches only, by route (`route_launches`, summed by
+`cuda_build.launch_count`; the last launch's `ScanAggLaunch` in
+`last_route`).
 """
 
 from __future__ import annotations
@@ -65,8 +74,13 @@ SELECT_BLOCK = 64
 
 # launch plan (rss_scan_agg.cu holds the same numbers)
 ROUTES = {"rss_scan_agg": ("segment", "warp"),
-          "rss_scan_agg_chunked": ("global", "cluster")}
-ROUTE_CODES = {"warp": 0, "segment": 1, "cluster": 0, "global": 1}
+          "rss_scan_agg_grouped": ("segment", "warp"),
+          "rss_scan_agg_chunked": ("global", "cluster"),
+          "rss_delta_fold": ("sliced", "grid")}
+ROUTE_CODES = {"rss_scan_agg": {"warp": 0, "segment": 1},
+               "rss_scan_agg_grouped": {"warp": 0, "segment": 1},
+               "rss_scan_agg_chunked": {"cluster": 0, "global": 1},
+               "rss_delta_fold": {"sliced": 0, "grid": 1}}
 H100_SMS = 132
 TILE = 32                        # pages a warp's tile, one a lane
 WARP_THREADS, WARP_BLOCKS_PER_SM = 512, 2
@@ -74,7 +88,12 @@ SEGMENT_THREADS, SEGMENT_THREADS_PER_SM = 256, 2048
 MAX_BLOCK_PAGES = 1024
 CLUSTER_BLOCKS, CLUSTER_THREADS = 8, 1024
 GLOBAL_THREADS, GLOBAL_BLOCKS_PER_SM = 256, 4
+FOLD_THREADS = 1024
+FOLD_BLOCK_ROWS = 1024           # delta rows a fold grid-route block takes
+GROUPED_SEGMENT_GROUPS = 16      # grouped calls the segment route takes
+FOLD_SLICED_ROWS = 2048          # delta rows the fold's sliced route takes
 MAX_SMEM = 232_448               # opt-in shared memory a block (H100)
+FOLD_TILE_ROWS = MAX_SMEM // 28  # lane rows a block's [rows, 7] tile holds
 STAGE_BYTES = 32_768             # the members' stage (rss_resolve.cuh)
 LANES = 7
 
@@ -91,20 +110,48 @@ class ScanAggLaunch(NamedTuple):
 
 
 def routes_for(kernel: str, *, block_pages: int = 8, n_groups: int = 1,
-               members: int = 0) -> tuple[str, ...]:
-    """The routes that take a call of `kernel` ("rss_scan_agg" or
-    "rss_scan_agg_chunked"), the one `plan` prefers last: the warp route
-    where BP divides 32, the cluster route where [G, 7] and the members'
-    stage fit a block's shared memory."""
+               members: int = 0, lanes: int = 8,
+               rows: int = 8) -> tuple[str, ...]:
+    """The routes that take a call of `kernel`, the one `plan` prefers
+    last: for "rss_scan_agg" the warp route where BP divides 32, for
+    "rss_scan_agg_grouped" where BP is at most 32, preferred over
+    GROUPED_SEGMENT_GROUPS groups (the segment route was faster at G 1 to
+    16, the warp route from G 40); for "rss_scan_agg_chunked" the cluster
+    route where [G, 7] and the members' stage fit a block's shared
+    memory; for
+    "rss_delta_fold" (`lanes` Lp, `rows` Dp) the grid route where [Lp, 7]
+    fits it (FOLD_TILE_ROWS), preferred over more than FOLD_SLICED_ROWS
+    delta rows; the sliced route takes every call."""
+    if kernel == "rss_delta_fold":
+        if lanes > FOLD_TILE_ROWS:
+            return ("sliced",)
+        return ("grid", "sliced") if rows <= FOLD_SLICED_ROWS else \
+            ("sliced", "grid")
     fallback, preferred = ROUTES[kernel]
+    if kernel == "rss_scan_agg_grouped":
+        if block_pages > TILE:
+            return (fallback,)
+        return ((preferred, fallback) if n_groups <= GROUPED_SEGMENT_GROUPS
+                else (fallback, preferred))
     stage = STAGE_BYTES if members > 0 else 0
-    fits = (32 % block_pages == 0 if kernel == "rss_scan_agg"
-            else n_groups * LANES * 4 + stage <= MAX_SMEM)
+    fits = (n_groups * LANES * 4 + stage <= MAX_SMEM
+            if kernel == "rss_scan_agg_chunked" else
+            32 % block_pages == 0)
     return (fallback, preferred) if fits else (fallback,)
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _pick(kernel: str, route: Optional[str], **kw) -> str:
+    admissible = routes_for(kernel, **kw)
+    if route is None:
+        return admissible[-1]
+    if route not in admissible:
+        raise ValueError(f"route {route!r} does not take {kernel} with "
+                         f"{kw}; these do: {admissible}")
+    return route
 
 
 def plan(kernel: str, P: int, K: int, *, members: int = 0,
@@ -114,42 +161,58 @@ def plan(kernel: str, P: int, K: int, *, members: int = 0,
     """The launch of `kernel` over P pages of K slots with `members`
     member timestamps: `route` when given (it must take the call), else
     the last of `routes_for`.  `block_pages` is the effective BP of an
-    `rss_scan_agg` call; `n_groups`, `rows_per_step` and `fold_chunks`
-    those of an `rss_scan_agg_chunked` call (chunk geometry by
-    `_chunk_shape`).  Grids are persistent, at most a few blocks an SM
-    of `sms`; the cluster route runs one cluster of `CLUSTER_BLOCKS` a
-    chunk.  K changes no launch: more than 8 slots are walked 8 at a
-    time in the same kernels."""
+    `rss_scan_agg` or `rss_scan_agg_grouped` call, `n_groups` G of a
+    grouped or chunked call; `rows_per_step` and `fold_chunks` those of
+    an `rss_scan_agg_chunked` call (chunk geometry by `_chunk_shape`).
+    For "rss_delta_fold", P is Lp (accumulator lanes) and K is Dp (delta
+    rows).  Grids are persistent, at most a few blocks an SM of `sms`;
+    the cluster route runs one cluster of `CLUSTER_BLOCKS` a chunk.  K
+    changes no scan launch: more than 8 slots are walked 8 at a time in
+    the same kernels."""
+    if kernel == "rss_delta_fold":
+        lp, dp = P, K
+        if lp < 1 or dp < 0:
+            raise ValueError(f"no route takes Lp={lp} Dp={dp}")
+        route = _pick(kernel, route, lanes=lp, rows=dp)
+        if route == "sliced":
+            grid, tile = sms, min(_cdiv(lp, sms), FOLD_TILE_ROWS)
+        else:
+            grid, tile = min(max(1, _cdiv(dp, FOLD_BLOCK_ROWS)), sms), lp
+        return ScanAggLaunch(route, (grid, 1), FOLD_THREADS, 1,
+                             tile * LANES * 4)
     if K < 1 or members < 0:
         raise ValueError(f"no route takes K={K} members={members}")
     stage = STAGE_BYTES if members > 0 else 0
-    if kernel == "rss_scan_agg":
+    if kernel in ("rss_scan_agg", "rss_scan_agg_grouped"):
         bp = block_pages
         if P < 1 or not 1 <= bp <= MAX_BLOCK_PAGES or P % bp:
             raise ValueError(f"no route takes P={P} block_pages={bp}")
+        if n_groups < 1:
+            raise ValueError(f"no route takes n_groups={n_groups}")
     elif kernel == "rss_scan_agg_chunked":
         if P < 0 or n_groups < 1:
             raise ValueError(f"no route takes P={P} n_groups={n_groups}")
     else:
         raise ValueError(f"no plan for {kernel!r}")
-    admissible = routes_for(kernel, block_pages=block_pages,
-                            n_groups=n_groups, members=members)
-    if route is None:
-        route = admissible[-1]
-    elif route not in admissible:
-        raise ValueError(f"route {route!r} does not take {kernel} with "
-                         f"block_pages={block_pages} n_groups={n_groups} "
-                         f"members={members}; these do: {admissible}")
+    route = _pick(kernel, route, block_pages=block_pages,
+                  n_groups=n_groups, members=members)
+    # rows a block stages beside the members: the scan's warp route its
+    # warps' partial rows (the grouped one none), the segment routes 5
+    # (scan) or 8 (grouped) bytes a page
+    grouped = kernel == "rss_scan_agg_grouped"
     if route == "warp":
         warps = WARP_THREADS // 32
-        grid = min(_cdiv(_cdiv(P, TILE), warps), WARP_BLOCKS_PER_SM * sms)
+        # a grouped tile: 32 // BP whole segments
+        tile = (TILE // bp) * bp if grouped else TILE
+        grid = min(_cdiv(_cdiv(P, tile), warps), WARP_BLOCKS_PER_SM * sms)
         return ScanAggLaunch(route, (grid, 1), WARP_THREADS, 1,
-                             stage + warps * LANES * TILE * 4)
+                             stage + (0 if grouped
+                                      else warps * LANES * TILE * 4))
     if route == "segment":
         block = bp * max(1, SEGMENT_THREADS // bp)
         per_sm = max(1, SEGMENT_THREADS_PER_SM // block)
         return ScanAggLaunch(route, (min(_cdiv(P, block), per_sm * sms), 1),
-                             block, 1, stage + block * 5)
+                             block, 1, stage + block * (8 if grouped else 5))
     _rows, _r, nc, Pp = _chunk_shape(P, rows_per_step, fold_chunks)
     if route == "cluster":
         return ScanAggLaunch(route, (CLUSTER_BLOCKS, nc), CLUSTER_THREADS,
@@ -168,10 +231,10 @@ def _bind(lib) -> None:
     lib.rsa_scan_agg.argtypes = [p, p, p, i, ll, i, i, i, i, i, i, i, p, i,
                                  ll, i, p]
     lib.rsa_scan_agg_grouped.argtypes = [p, p, p, p, i, ll, i, i, i, p, i,
-                                         i, p, p]
+                                         i, p, i, ll, i, p]
     lib.rsa_scan_agg_chunked.argtypes = [p, p, p, p, i, ll, i, i, i, p, i,
                                          ll, i, p, i, ll, i, i, p]
-    lib.rsa_delta_fold.argtypes = [p, p, i, ll, p, p]
+    lib.rsa_delta_fold.argtypes = [p, p, i, ll, p, p, i, ll, i, p]
     for fn in (lib.rsa_scan_agg, lib.rsa_scan_agg_grouped,
                lib.rsa_scan_agg_chunked, lib.rsa_delta_fold):
         fn.restype = ctypes.c_int
@@ -244,8 +307,8 @@ def rss_scan_agg(data: torch.Tensor, ts: torch.Tensor,
         dp, tp, mp, member_ts.numel(), P, K, E, _i32(floor, "floor"),
         _i32(tag_main, "tag_main"), _i32(tag_alt, "tag_alt"),
         _i32(threshold, "threshold"), bp, out.data_ptr(),
-        ROUTE_CODES[launch.route], launch.grid[0], launch.block, _stream()),
-        "rss_scan_agg")
+        ROUTE_CODES["rss_scan_agg"][launch.route], launch.grid[0],
+        launch.block, _stream()), "rss_scan_agg")
     rss_scan_agg.route_launches[launch.route] += 1
     rss_scan_agg.last_route = launch
     return out
@@ -255,14 +318,15 @@ def rss_scan_agg_grouped(data: torch.Tensor, ts: torch.Tensor,
                          gid: torch.Tensor, member_ts: torch.Tensor,
                          floor=0, tag_main=1, tag_alt=-2, threshold=_I32_MAX,
                          *, n_groups: int = 1, block_pages: int = 8,
-                         group_params: torch.Tensor | None = None) \
-        -> torch.Tensor:
+                         group_params: torch.Tensor | None = None,
+                         route: Optional[str] = None) -> torch.Tensor:
     """Fused RSS membership scan + GROUPED aggregate (flat-lane): `gid`
     [P, 1] int32 group id per page (0..n_groups-1; -1 = no group).
     Returns [P/BP, n_groups, 7] int32 per-block per-group partials;
     group_params [n_groups, 3] int32 (tag_main, tag_alt, threshold per
     lane) overrides the scalar args per group.  Replaces the TPU
-    `rss_scan_agg_grouped`."""
+    `rss_scan_agg_grouped`.  `route` forces a route on the card (see
+    `plan`); None takes `plan`'s."""
     P = data.shape[0]
     _require(gid.shape == (P, 1) and n_groups >= 1,
              f"gid {tuple(gid.shape)} / n_groups {n_groups}")
@@ -276,12 +340,18 @@ def rss_scan_agg_grouped(data: torch.Tensor, ts: torch.Tensor,
     dev = data.device
     prm = _group_params(n_groups, tag_main, tag_alt, threshold,
                         group_params, dev)
+    launch = plan("rss_scan_agg_grouped", P, K, members=member_ts.numel(),
+                  block_pages=bp, n_groups=n_groups, route=route,
+                  sms=_sms(dev))
     out = torch.empty((P // bp, n_groups, 7), dtype=torch.int32, device=dev)
     _check(_lib().rsa_scan_agg_grouped(
         dp, tp, _arg(gid, "gid", dev, 2), mp, member_ts.numel(), P, K, E,
         _i32(floor, "floor"), _arg(prm, "group_params", dev, 2), n_groups,
-        bp, out.data_ptr(), _stream()), "rss_scan_agg_grouped")
-    rss_scan_agg_grouped.launches += 1
+        bp, out.data_ptr(),
+        ROUTE_CODES["rss_scan_agg_grouped"][launch.route], launch.grid[0],
+        launch.block, _stream()), "rss_scan_agg_grouped")
+    rss_scan_agg_grouped.route_launches[launch.route] += 1
+    rss_scan_agg_grouped.last_route = launch
     return out
 
 
@@ -339,7 +409,8 @@ def rss_scan_agg_chunked(data: torch.Tensor, ts: torch.Tensor,
     _check(_lib().rsa_scan_agg_chunked(
         dp, tp, _arg(gid, "gid", dev, 2), mp, member_ts.numel(), P, K, E,
         _i32(floor, "floor"), _arg(prm, "group_params", dev, 2), n_groups,
-        Pp // nc, nc, out.data_ptr(), ROUTE_CODES[launch.route],
+        Pp // nc, nc, out.data_ptr(),
+        ROUTE_CODES["rss_scan_agg_chunked"][launch.route],
         launch.grid[0], launch.block, launch.cluster, _stream()),
         "rss_scan_agg_chunked")
     rss_scan_agg_chunked.route_launches[launch.route] += 1
@@ -347,13 +418,16 @@ def rss_scan_agg_chunked(data: torch.Tensor, ts: torch.Tensor,
     return out
 
 
-def rss_delta_fold(acc: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+def rss_delta_fold(acc: torch.Tensor, delta: torch.Tensor, *,
+                   route: Optional[str] = None) -> torch.Tensor:
     """Advance a materialized-aggregate accumulator tile by a dense delta
     buffer: acc [Lp, 128] int32 lane rows, delta [Dp, 128] int32 change
     rows (col 0 target lane, -1 = padding; 1 old, 2 old-valid, 3 new, 4
     new-valid, 5 threshold).  Returns the advanced [Lp, 128] tile: the
     additive lanes retract old and apply new, min/max only tighten.
-    Replaces the TPU `rss_delta_fold`."""
+    Replaces the TPU `rss_delta_fold`.  On the card acc and delta must
+    start on 16 bytes (any row of a tensor the allocator made does);
+    `route` forces a route (see `plan`), None takes `plan`'s."""
     lp, dp = acc.shape[0], delta.shape[0]
     _require(acc.shape == (lp, 128) and delta.shape == (dp, 128)
              and lp % 8 == 0 and dp % 8 == 0,
@@ -362,28 +436,37 @@ def rss_delta_fold(acc: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
         from .ref import rss_delta_fold_ref
         return rss_delta_fold_ref(acc, delta)
     dev = acc.device
+    a_ptr, d_ptr = _arg(acc, "acc", dev, 2), _arg(delta, "delta", dev, 2)
+    _require(a_ptr % 16 == 0 and d_ptr % 16 == 0,
+             "acc and delta must start on 16 bytes")
+    launch = plan("rss_delta_fold", lp, dp, route=route, sms=_sms(dev))
     out = torch.empty_like(acc)
+    # the grid route's per-block partials (held until the launch is
+    # enqueued, so the allocator hands their memory to nothing else)
+    part = None
+    if launch.route == "grid":
+        part = torch.empty((launch.grid[0], lp, LANES), dtype=torch.int32,
+                           device=dev)
     _check(_lib().rsa_delta_fold(
-        _arg(acc, "acc", dev, 2), _arg(delta, "delta", dev, 2), lp, dp,
-        out.data_ptr(), _stream()), "rss_delta_fold")
-    rss_delta_fold.launches += 1
+        a_ptr, d_ptr, lp, dp, None if part is None else part.data_ptr(),
+        out.data_ptr(), ROUTE_CODES["rss_delta_fold"][launch.route],
+        launch.grid[0], launch.block, _stream()), "rss_delta_fold")
+    rss_delta_fold.route_launches[launch.route] += 1
+    rss_delta_fold.last_route = launch
     return out
 
 
 KERNELS = (rss_scan_agg, rss_scan_agg_grouped, rss_scan_agg_chunked,
            rss_delta_fold)
-# kernel launches: by route where a wrapper has more than one
+# kernel launches, by route
 for _fn in KERNELS:
-    if _fn.__name__ in ROUTES:
-        _fn.route_launches = dict.fromkeys(ROUTES[_fn.__name__], 0)
-        _fn.last_route = None        # `ScanAggLaunch` of the last launch
-    else:
-        _fn.launches = 0
+    _fn.route_launches = dict.fromkeys(ROUTES[_fn.__name__], 0)
+    _fn.last_route = None            # `ScanAggLaunch` of the last launch
 
 
 def reset_launches() -> dict:
-    """Zero every wrapper's count (`launches`, or `route_launches`);
-    returns the launches before."""
+    """Zero every wrapper's `route_launches`; returns the launches
+    before."""
     return reset_counts(KERNELS)
 
 

@@ -9,6 +9,7 @@ card at full size."""
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -328,3 +329,41 @@ def test_ptxas_report_names_each_kernel(smoke, monkeypatch):
         "_Z6k_stepv: Used 40 registers, used 1 barriers, 4100 bytes smem; "
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas error   : Entry function uses too much shared data"]
+
+
+def test_grouped_and_fold_on_cpu(smoke, monkeypatch, capsys):
+    """`grouped_and_fold` at small shapes on the CPU (clock and profiler
+    stubbed): every shape held against plain, a store of its own built
+    for a P over the given one, one line a shape, the times of the two
+    table shapes returned."""
+    monkeypatch.setattr(smoke, "time_ms", lambda *a, **k: 0.0)
+    monkeypatch.setattr(smoke, "_device_ops", lambda torch, fn: 1)
+    monkeypatch.setattr(smoke, "GROUPED_SHAPES",
+                        ((64, 3, 0, 8), (63, 40, 5, 3), (96, 2, 0, 8)))
+    monkeypatch.setattr(smoke, "FOLD_SHAPES",
+                        ((64, 256), (8, 4104), (8304, 8)))
+    rng = np.random.default_rng(0)
+    data_np, ts_np = smoke.make_store(np, 64, 4, 6, rng)
+    members = {m: torch.from_numpy(np.sort(rng.choice(
+        np.arange(6_001, 12_000), m, replace=False)).astype(np.int32))
+        for m in (0, 5)}
+    checked = []
+
+    def check(name, got, want):
+        assert torch.equal(got, want)
+        checked.append(name)
+
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+
+    times = smoke.grouped_and_fold(
+        torch, np, K, None, check, torch.from_numpy(data_np),
+        torch.from_numpy(ts_np), members, 6_000)
+    out = capsys.readouterr().out
+    # every BP here takes both routes; Lp 8,304 is over a block's tile:
+    # sliced only
+    assert checked.count("rss_scan_agg_grouped") == 2 + 2 + 2
+    assert checked.count("rss_delta_fold") == 2 + 2 + 1
+    assert out.count("kernel rss_scan_agg_grouped ") == 6
+    assert "sector_only_ms=0.0" in out and "fill_only_ms=0.0" in out
+    assert list(times) == ["rss_delta_fold"]     # Lp 64, Dp 256
+    assert times["rss_delta_fold"][:2] == (0.0, 0.0)

@@ -7,6 +7,8 @@ Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 On the GPU machine: PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -77,7 +79,9 @@ def test_grouped_and_chunked_kernels_equal_plain(dev, G):
 
 @pytest.mark.parametrize("lp,dp", [(8, 8), (64, 256), (2048, 4096)])
 def test_delta_fold_kernel_equals_plain(dev, lp, dp):
-    """lp = 2048 exceeds the shared-memory tile: global-atomic path."""
+    """On the route `plan` gives: the sliced route up to FOLD_SLICED_ROWS
+    delta rows, the grid route over it (2,048 lanes at 4,096 rows);
+    `test_delta_fold_every_route_equals_plain` forces each route."""
     from repro_torch.kernels.rss_scan_agg import kernel as K
     from repro_torch.kernels.rss_scan_agg import ref as R
 
@@ -91,6 +95,8 @@ def test_delta_fold_kernel_equals_plain(dev, lp, dp):
     delta_t = torch.from_numpy(delta.astype(np.int32)).to(dev)
     assert torch.equal(K.rss_delta_fold(acc_t, delta_t),
                        R.rss_delta_fold_ref(acc_t, delta_t))
+    assert K.rss_delta_fold.last_route.route == (
+        "sliced" if dp <= K.FOLD_SLICED_ROWS else "grid")
 
 
 def test_wrappers_reject_bad_inputs_and_count_launches(dev):
@@ -171,8 +177,9 @@ def test_scan_agg_every_route_equals_plain(dev, k, bp):
 @pytest.mark.parametrize("route", ["warp", "segment"])
 @pytest.mark.parametrize("staging", list(SCAN_MEMBERS))
 def test_scan_agg_member_stagings_equal_plain(dev, staging, route):
-    """Both scan kernels on each staging of the members, as gather.cu's
-    rule reports it for the set; every route of each kernel."""
+    """The three scan kernels on each staging of the members, as
+    gather.cu's rule reports it for the set; every route of each
+    kernel."""
     from repro_torch.kernels.rss_gather import kernel as RG
     from repro_torch.kernels.rss_scan_agg import kernel as K
     from repro_torch.kernels.rss_scan_agg import ref as R
@@ -193,6 +200,9 @@ def test_scan_agg_member_stagings_equal_plain(dev, staging, route):
         assert torch.equal(
             K.rss_scan_agg_chunked(*g, route=chunked_route, **kw),
             R.rss_scan_agg_chunked_ref(*g, **kw)), (staging, floor)
+        assert torch.equal(
+            K.rss_scan_agg_grouped(*g, route=route, **kw),
+            R.rss_scan_agg_grouped_ref(*g, **kw)), (staging, floor)
 
 
 @pytest.mark.parametrize("k", [3, 8, 33])
@@ -248,7 +258,8 @@ def test_scan_agg_entries_refuse_a_launch_plan_did_not_give(dev):
     def scan(bp, route, grid, block):
         return lib.rsa_scan_agg(data.data_ptr(), ts.data_ptr(),
                                 mem.data_ptr(), 40, P, 8, 6, 100, 1, 0, 5,
-                                bp, out.data_ptr(), K.ROUTE_CODES[route],
+                                bp, out.data_ptr(),
+                                K.ROUTE_CODES["rss_scan_agg"][route],
                                 grid, block, stream())
 
     for bp in (8, 4, 1):
@@ -262,7 +273,8 @@ def test_scan_agg_entries_refuse_a_launch_plan_did_not_give(dev):
                  route="segment", sms=sms)
     assert lib.rsa_scan_agg(data.data_ptr(), ts.data_ptr(), mem.data_ptr(),
                             40, 4095, 8, 6, 100, 1, 0, 5, 3, out.data_ptr(),
-                            K.ROUTE_CODES["warp"], seg.grid[0], seg.block,
+                            K.ROUTE_CODES["rss_scan_agg"]["warp"],
+                            seg.grid[0], seg.block,
                             stream()) == 1           # BP 3 on the warp route
     assert scan(3, "segment", seg.grid[0], seg.block) == 1   # P % BP
     assert scan(2048, "segment", 1, 2048) == 1               # BP > 1,024
@@ -273,8 +285,8 @@ def test_scan_agg_entries_refuse_a_launch_plan_did_not_give(dev):
         return lib.rsa_scan_agg_chunked(
             data.data_ptr(), ts.data_ptr(), gid.data_ptr(), mem.data_ptr(),
             40, P, 8, 6, 100, prm.data_ptr(), G, Pp // nc, nc,
-            out.data_ptr(), K.ROUTE_CODES[route], grid, block, cluster,
-            stream())
+            out.data_ptr(), K.ROUTE_CODES["rss_scan_agg_chunked"][route],
+            grid, block, cluster, stream())
 
     for route in ("cluster", "global"):
         L = K.plan("rss_scan_agg_chunked", P, 8, members=40, n_groups=40,
@@ -287,6 +299,234 @@ def test_scan_agg_entries_refuse_a_launch_plan_did_not_give(dev):
     big = (K.MAX_SMEM - K.STAGE_BYTES) // 28 + 1
     assert chunked(big, "cluster", 8, 1024, 8) == 1
     torch.cuda.synchronize()
+
+
+# ------------------------------------ grouped scan and delta fold routes
+def _grouped_store(dev, P, K, E, M, G, seed):
+    """A store with fields at the int32 extremes, timestamps in [0,
+    12,000) around a floor of 6,000, M members above it (a bitmap
+    staging), group ids in [-1, G + 2) and per-group params."""
+    rng = np.random.default_rng(seed)
+    data = rng.integers(-9, 9, (P, K, E)).astype(np.int32)
+    data[:, :, 0] = rng.integers(-1, 4, (P, K))
+    data[:, :, 1] = rng.integers(-2**31, 2**31, (P, K), dtype=np.int64)
+    ts = rng.integers(0, 12_000, (P, K)).astype(np.int32)
+    mem = np.sort(rng.choice(np.arange(6_001, 12_000), M, replace=False))
+    gid = rng.integers(-1, G + 2, (P, 1)).astype(np.int32)
+    prm = np.stack([rng.choice([1, 3], G), rng.choice([0, -2], G),
+                    rng.integers(-2**30, 2**30, G)], 1).astype(np.int32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(
+        a.astype(np.int32))).to(dev)
+    return t(data), t(ts), t(mem), t(gid), t(prm)
+
+
+# (P, G, M, K, E): P 6, 1,000 or two rounds of the larger persistent
+# grid plus 17 ("rounds"), each rounded up to BP; K 9 and 33 walk the
+# timestamps 8 at a time, odd E loads tag and field one by one.  "rounds
+# G 43" at BP 1 (325 MB of output) takes the warp route's writes-first
+# kernel, every other case its interleaved one
+GROUPED_CASES = {
+    "P 6": (6, 43, 64, 8, 6),
+    "P 1000 G 2000 M 4096": (1000, 2000, 4096, 9, 3),
+    "P 1000 G 256 M 0": (1000, 256, 0, 33, 5),
+    "rounds G 1": ("rounds", 1, 64, 8, 32),
+    "rounds G 43": ("rounds", 43, 0, 9, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(GROUPED_CASES))
+@pytest.mark.parametrize("bp", [1, 2, 3, 4, 8])
+def test_grouped_every_route_equals_plain(dev, bp, case):
+    """`rss_scan_agg_grouped` forced on each route that takes the call
+    (warp for BP up to 32, segment always) == plain bitwise, with
+    per-group params and with the scalar args; the launch is `plan`'s.
+    At P 6 a BP of 8 is 6 (a warp tile of 5 segments)."""
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    P, G, M, k, e = GROUPED_CASES[case]
+    sms, per_round = _round_pages(dev, K)
+    if P == "rounds":
+        P = 2 * per_round + 17
+    P = -(-P // min(bp, P)) * min(bp, P)
+    data, ts, mem, gid, prm = _grouped_store(dev, P, k, e, M, G,
+                                             seed=P + bp + G)
+    eff = min(bp, P)
+    routes = K.routes_for("rss_scan_agg_grouped", block_pages=eff,
+                          n_groups=G)
+    assert set(routes) == {"segment", "warp"}    # every BP here is <= 32
+    K.reset_launches()
+    a = (data, ts, gid, mem, 6_000)
+    for route in routes:
+        kw = dict(n_groups=G, block_pages=bp)
+        got = K.rss_scan_agg_grouped(*a, group_params=prm, route=route, **kw)
+        assert torch.equal(got, R.rss_scan_agg_grouped_ref(
+            *a, group_params=prm, **kw)), route
+        assert K.rss_scan_agg_grouped.last_route == K.plan(
+            "rss_scan_agg_grouped", P, k, members=M, block_pages=eff,
+            n_groups=G, route=route, sms=sms)
+        scal = (1, 0, 12345)
+        assert torch.equal(
+            K.rss_scan_agg_grouped(*a, *scal, route=route, **kw),
+            R.rss_scan_agg_grouped_ref(*a, *scal, **kw)), route
+    assert K.rss_scan_agg_grouped.route_launches == \
+        {r: (2 if r in routes else 0) for r in ("segment", "warp")}
+
+
+def _fold_inputs(dev, lp, dp, seed):
+    """acc and delta at the int32 extremes; targets in [-1, Lp + 2)
+    (-1 pads, >= Lp folds nowhere), old- and new-valid in {0, 1, 2}."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    acc = torch.randint(-2**31, 2**31 - 1, (lp, 128), dtype=torch.int32,
+                        device=dev, generator=gen)
+    delta = torch.randint(-2**31, 2**31 - 1, (dp, 128), dtype=torch.int32,
+                          device=dev, generator=gen)
+    cols = np.stack([rng.integers(-1, lp + 2, dp),
+                     rng.integers(0, 3, dp), rng.integers(0, 3, dp)], 1)
+    delta[:, [0, 2, 4]] = torch.from_numpy(cols.astype(np.int32)).to(dev)
+    return acc, delta
+
+
+@pytest.mark.parametrize("dp", [8, 256, 8192, 24_576, 131_072, 1_048_576])
+@pytest.mark.parametrize("lp", [8, 64, 2048, 16_384])
+def test_delta_fold_every_route_equals_plain(dev, lp, dp):
+    """`rss_delta_fold` forced on each route that takes the call == plain
+    bitwise: grid while [Lp, 7] fits a block's shared memory (one block
+    at up to 1,024 rows, else several), sliced always (Lp 16,384 is over
+    the cap: sliced only).  Lp 8 folds in the lanes' registers, the
+    others with shared atomics."""
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    acc, delta = _fold_inputs(dev, lp, dp, seed=lp + dp)
+    want = R.rss_delta_fold_ref(acc, delta)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    routes = K.routes_for("rss_delta_fold", lanes=lp, rows=dp)
+    assert set(routes) == ({"sliced"} if lp == 16_384
+                           else {"sliced", "grid"})
+    assert K.plan("rss_delta_fold", lp, dp, sms=sms).route == (
+        "sliced" if lp == 16_384 or dp <= K.FOLD_SLICED_ROWS else "grid")
+    K.reset_launches()
+    held = []     # each result kept, so no route's out reuses another's
+    for route in routes:
+        held.append(K.rss_delta_fold(acc, delta, route=route))
+        assert torch.equal(held[-1], want), route
+        assert K.rss_delta_fold.last_route == K.plan(
+            "rss_delta_fold", lp, dp, route=route, sms=sms)
+    assert sum(K.rss_delta_fold.route_launches.values()) == len(routes)
+
+
+def test_grouped_and_fold_entries_refuse_a_launch_plan_did_not_give(dev):
+    """The C entries of the grouped scan and the delta fold hold their own
+    copy of `plan`: another grid or block is
+    cudaErrorInvalidConfiguration (9); a route that does not take the
+    call, arguments no route takes or a pointer off 16 bytes (the fold)
+    cudaErrorInvalidValue (1)."""
+    from repro_torch.kernels.cuda_build import stream
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+
+    P = 4096
+    data, ts, mem, gid, prm = _inputs(dev, P, M=40, G=40)
+    out = torch.empty((P, 40, 7), dtype=torch.int32, device=dev)
+    lib = K._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    codes = K.ROUTE_CODES["rss_scan_agg_grouped"]
+
+    def grouped(bp, route, grid, block, n_pages=P, G=40):
+        return lib.rsa_scan_agg_grouped(
+            data.data_ptr(), ts.data_ptr(), gid.data_ptr(), mem.data_ptr(),
+            40, n_pages, 8, 6, 100, prm.data_ptr(), G, bp, out.data_ptr(),
+            codes[route], grid, block, stream())
+
+    for bp, n in ((8, P), (4, P), (3, 4095), (1, P)):
+        for route in ("warp", "segment"):
+            L = K.plan("rss_scan_agg_grouped", n, 8, members=40,
+                       block_pages=bp, n_groups=40, route=route, sms=sms)
+            assert grouped(bp, route, L.grid[0], L.block, n) == 0
+            assert grouped(bp, route, L.grid[0] + 1, L.block, n) == 9
+            assert grouped(bp, route, L.grid[0], L.block * 2, n) == 9
+    seg = K.plan("rss_scan_agg_grouped", 4092, 8, members=40, block_pages=33,
+                 n_groups=40, route="segment", sms=sms)
+    assert grouped(33, "segment", seg.grid[0], seg.block, 4092) == 0
+    assert grouped(33, "warp", 1, 512, 4092) == 1    # BP over 32 on warp
+    assert grouped(3, "segment", seg.grid[0], seg.block) == 1   # P % BP
+    assert grouped(3, "segment", seg.grid[0], seg.block, 4095, 0) == 1
+
+    lp, dp = 64, 256
+    acc, delta = _fold_inputs(dev, lp, dp, seed=1)
+    fout = torch.empty_like(acc)
+    part = torch.empty((sms, lp, 7), dtype=torch.int32, device=dev)
+    fcodes = K.ROUTE_CODES["rss_delta_fold"]
+
+    def fold(route, grid, block, a=acc, p=part, n=lp):
+        return lib.rsa_delta_fold(a.data_ptr(), delta.data_ptr(), n, dp,
+                                  None if p is None else p.data_ptr(),
+                                  fout.data_ptr(), fcodes[route], grid,
+                                  block, stream())
+
+    for route in ("grid", "sliced"):
+        L = K.plan("rss_delta_fold", lp, dp, route=route, sms=sms)
+        assert fold(route, L.grid[0], L.block) == 0
+        assert fold(route, L.grid[0] + 1, L.block) == 9
+        assert fold(route, L.grid[0], L.block // 2) == 9
+    assert fold("sliced", sms, 1024, p=None) == 0   # needs no partials
+    assert fold("grid", 1, 1024, p=None) == 1
+    assert fold("grid", 1, 1024, n=8302) == 1      # [Lp, 7] over the cap
+    off = torch.empty(lp * 128 + 4, dtype=torch.int32,
+                      device=dev)[1:1 + lp * 128].view(lp, 128)
+    assert fold("sliced", sms, 1024, a=off) == 1
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError):
+        K.rss_delta_fold(off, delta)
+
+
+def test_delta_fold_grid_on_two_streams_equals_plain(dev):
+    """Grid-route folds (cooperative launches) on two streams at once,
+    each queued behind a long kernel on its own stream: every result ==
+    plain."""
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+    from repro_torch.kernels.rss_scan_agg import ref as R
+
+    lp, dp = 64, 131_072
+    inputs = [_fold_inputs(dev, lp, dp, seed=s) for s in (3, 4)]
+    wants = [R.rss_delta_fold_ref(a, d) for a, d in inputs]
+    assert K.plan("rss_delta_fold", lp, dp).route == "grid"
+    streams = [torch.cuda.Stream(dev) for _ in inputs]
+    spin = torch.randn(2048, 2048, device=dev)
+    torch.cuda.synchronize()
+    gots = [[] for _ in inputs]
+    for _ in range(4):
+        for s, (a, d), got in zip(streams, inputs, gots):
+            with torch.cuda.stream(s):
+                spin @ spin                   # holds the stream a while
+                got.append(K.rss_delta_fold(a, d, route="grid"))
+    torch.cuda.synchronize()
+    for got, want in zip(gots, wants):
+        assert all(torch.equal(g, want) for g in got)
+
+
+def test_grouped_and_fold_are_one_device_operation(dev, monkeypatch):
+    """Each call of the grouped scan and of the delta fold, on every
+    route (the fold's grid route at one block and at several), is one
+    kernel on the card: no fill, no copy, no memset (counted in a
+    torch.profiler trace by `chip_smoke._device_ops`)."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import _device_ops
+    from repro_torch.kernels.rss_scan_agg import kernel as K
+
+    data, ts, mem, gid, prm = _inputs(dev, 4096, M=40, G=40)
+    acc, delta = _fold_inputs(dev, 64, 256, seed=2)
+    big = _fold_inputs(dev, 64, 3 * 8192, seed=5)[1]
+    calls = {f"grouped {r}": (lambda r=r: K.rss_scan_agg_grouped(
+        data, ts, gid, mem, 100, n_groups=40, group_params=prm, route=r))
+        for r in ("warp", "segment")}
+    calls.update({f"fold {r} Dp {d.shape[0]}": (
+        lambda r=r, d=d: K.rss_delta_fold(acc, d, route=r))
+        for r in ("grid", "sliced") for d in (delta, big)})
+    for name, call in calls.items():
+        call()                                      # built and warm
+        assert _device_ops(torch, call) == 1, name
 
 
 def test_plan_copies_match_the_library(dev):
@@ -310,7 +550,8 @@ def test_plan_copies_match_the_library(dev):
         assert K._lib().rsa_scan_agg_chunked(
             data.data_ptr(), ts.data_ptr(), gid.data_ptr(), mem.data_ptr(),
             40, P, 8, 6, 100, prm.data_ptr(), G, Pp // nc, nc,
-            out.data_ptr(), K.ROUTE_CODES["cluster"], K.CLUSTER_BLOCKS,
+            out.data_ptr(), K.ROUTE_CODES["rss_scan_agg_chunked"]["cluster"],
+            K.CLUSTER_BLOCKS,
             K.CLUSTER_THREADS, K.CLUSTER_BLOCKS, stream()) == want
     torch.cuda.synchronize()
 

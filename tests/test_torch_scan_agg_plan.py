@@ -138,7 +138,16 @@ def test_plan_grid_follows_the_card():
     (CHUNKED, 10, dict(n_groups=CAP_MEMBERS + 1, members=3,
                        route="cluster")),
     (CHUNKED, -1, dict()),
-    ("rss_scan_agg_grouped", 10, dict()),       # planned by no `plan`
+    ("rss_scan_agg_grouped", 10, dict()),       # P % BP
+    ("rss_scan_agg_grouped", 16, dict(n_groups=0)),
+    ("rss_scan_agg_grouped", 66, dict(block_pages=33, route="warp")),
+    ("rss_scan_agg_grouped", 16, dict(route="cluster")),
+    ("rss_delta_fold", 0, dict(K_slots=8)),     # Lp 0
+    ("rss_delta_fold", 8, dict(K_slots=-8)),    # Dp < 0
+    ("rss_delta_fold", 8302, dict(route="grid")),    # [Lp, 7] over the cap
+    ("rss_delta_fold", 64, dict(route="block")),
+    ("rss_delta_fold", 64, dict(route="warp")),
+    ("no_such_kernel", 10, dict()),
 ])
 def test_plan_refuses_what_no_route_takes(kernel, P, kw):
     k = kw.pop("K_slots", 8)
@@ -225,8 +234,7 @@ def _store(rng, P, K_slots, E=3, maxabs=2**31 - 1):
 
 
 def _untouched():
-    return (launch_count(K.rss_scan_agg), launch_count(K.rss_scan_agg_chunked),
-            K.rss_scan_agg.last_route, K.rss_scan_agg_chunked.last_route)
+    return tuple((launch_count(fn), fn.last_route) for fn in K.KERNELS)
 
 
 @pytest.mark.parametrize("K_slots", [1, 3, 8, 9, 33])
@@ -320,3 +328,218 @@ def test_cpu_chunked_store_equals_pallas_interpret(K_slots):
         jnp.asarray(mem), 20, n_groups=G, group_params=jnp.asarray(prm),
         interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------- grouped scan and delta fold
+GROUPED = "rss_scan_agg_grouped"
+
+
+@pytest.mark.parametrize("bp", [1, 2, 3, 4, 8, 32, 64, 1024])
+@pytest.mark.parametrize("G", [1, 16, 17, 43, 2000])
+def test_plan_grouped_route_and_launch_shape(bp, G):
+    """The grouped scan's warp route takes every BP up to 32 (a tile of
+    32 // BP whole segments, 2 blocks of 512 an SM, nothing staged but
+    the members) and is preferred over 16 groups; the segment route
+    takes any BP (the scan's blocks, 8 bytes a page staged); G changes
+    no launch."""
+    P = bp * 1000
+    for members, stage in ((0, 0), (64, 32_768)):
+        launch = K.plan(GROUPED, P, 8, members=members, block_pages=bp,
+                        n_groups=G)
+        assert launch.route == ("warp" if bp <= 32 and G > 16
+                                else "segment")
+        assert K.routes_for(GROUPED, block_pages=bp, n_groups=G) == (
+            ("segment",) if bp > 32 else ("segment", "warp") if G > 16
+            else ("warp", "segment"))
+        if bp <= 32:
+            launch = K.plan(GROUPED, P, 8, members=members, block_pages=bp,
+                            n_groups=G, route="warp")
+            tiles = _cdiv(P, (32 // bp) * bp)
+            assert launch == ("warp", (min(_cdiv(tiles, 16), 264), 1), 512,
+                              1, stage)
+        forced = K.plan(GROUPED, P, 8, members=members, block_pages=bp,
+                        n_groups=G, route="segment")
+        scan = K.plan(SCAN, P, 8, members=members, block_pages=bp,
+                      route="segment")
+        assert forced == ("segment", scan.grid, scan.block, 1,
+                          stage + scan.block * 8)
+
+
+@pytest.mark.parametrize("P, kw, want", [
+    # the kernel phase's shape and the driver's (BP 8)
+    (400_000, dict(members=64, n_groups=40), ("warp", (264, 1), 512, 1,
+                                              32_768)),
+    (920_008, dict(n_groups=43), ("warp", (264, 1), 512, 1, 0)),
+    # the driver's at few groups: the segment route, 8 blocks of 256 an SM
+    (800_016, dict(n_groups=3), ("segment", (1056, 1), 256, 1, 2048)),
+    (400_016, dict(n_groups=2), ("segment", (1056, 1), 256, 1, 2048)),
+    (120_016, dict(n_groups=2), ("segment", (469, 1), 256, 1, 2048)),
+    (120_016, dict(n_groups=2, route="warp"), ("warp", (235, 1), 512, 1,
+                                               0)),
+    # P 6 at BP 6: one tile of 5 segments (30 pages), 6 pages of it
+    (6, dict(block_pages=6, n_groups=43), ("warp", (1, 1), 512, 1, 0)),
+    # BP 3: tiles of 30 pages
+    (399_999, dict(block_pages=3, members=64, n_groups=40),
+     ("warp", (264, 1), 512, 1, 32_768)),
+    (3_000, dict(block_pages=3, n_groups=40), ("warp", (7, 1), 512, 1, 0)),
+    (400_000, dict(block_pages=64, members=64, n_groups=40),
+     ("segment", (1056, 1), 256, 1, 32_768 + 2048)),
+])
+def test_plan_grouped_launch_shapes(P, kw, want):
+    assert tuple(K.plan(GROUPED, P, 8, **kw)) == want
+
+
+def test_plan_grouped_and_fold_grids_follow_the_card():
+    assert K.plan(GROUPED, 400_000, 8, n_groups=40, sms=78).grid == \
+        (2 * 78, 1)
+    assert K.plan("rss_delta_fold", 8, 2**20, sms=78) == \
+        ("grid", (78, 1), 1024, 1, 8 * 28)
+    assert K.plan("rss_delta_fold", 8, 8192, sms=78) == \
+        ("grid", (8, 1), 1024, 1, 8 * 28)
+    assert K.plan("rss_delta_fold", 64, 256, sms=78) == \
+        ("sliced", (78, 1), 1024, 1, 1 * 28)
+    assert K.plan("rss_delta_fold", 16_384, 256, sms=78) == \
+        ("sliced", (78, 1), 1024, 1, 211 * 28)
+
+
+def _grouped_warp_stores(launch, P, G, bp, gid):
+    """The warp route's stores as the kernel makes them: warp w walks
+    tiles w, w + warps, ... of 32 // BP whole segments (lanes past them
+    idle), each owning G * 7 contiguous words of out; its lane l stores
+    identity words l, l + 32, ... of the tile, then the lowest lane of
+    each (segment, group) that a page of the tile reached stores that
+    row's 7 words.  Returns the identity stores a word and the row stores
+    a row of [P/BP, G]."""
+    seg_words, spt = G * 7, 32 // bp
+    tp = spt * bp                              # pages a tile
+    ident = np.zeros(P // bp * seg_words, np.int64)
+    rows = np.zeros((P // bp, G), np.int64)
+    warps = launch.grid[0] * launch.block // 32
+    for w in range(warps):
+        for tile in range(w, _cdiv(P, tp), warps):
+            segs = min(tp, P - tile * tp) // bp
+            base = tile * spt * seg_words
+            # lane l stores words l, l + 32, ...: one store a word
+            np.add.at(ident, base + np.arange(segs * seg_words), 1)
+            lanes = np.arange(segs * bp)
+            pages = tile * tp + lanes
+            g = gid[pages]
+            hit = g >= 0
+            first = {}                  # the lowest lane of each row
+            for lane, s_, g_ in zip(lanes[hit], pages[hit] // bp, g[hit]):
+                first.setdefault((s_, g_), lane)
+            for (s_, g_) in first:
+                rows[s_, g_] += 1
+    return ident, rows
+
+
+@pytest.mark.parametrize("bp", [1, 2, 3, 8, 24, 32])
+@pytest.mark.parametrize("P_of", ["below a tile", "not a multiple of 32",
+                                  "two rounds"])
+def test_grouped_warp_walk_stores_every_word_once(bp, P_of):
+    """Every word of [P/BP, G, 7] gets exactly one identity store from one
+    lane, and every (segment, group) row that a page reached exactly one
+    row store (from one lane, after the identity stores): below one
+    tile, at P not a multiple of 32, and over two rounds of the
+    persistent grid and 24 pages more (rounded up to BP)."""
+    G = 3
+    full = K.plan(GROUPED, bp * 10**6, 8, block_pages=bp, n_groups=G,
+                  route="warp")
+    per_round = full.grid[0] * full.block // 32 * (32 // bp) * bp
+    P = {"below a tile": bp * max(1, 16 // bp),
+         "not a multiple of 32": _cdiv(1000 + 8, bp) * bp,
+         "two rounds": _cdiv(2 * per_round + 24, bp) * bp}[P_of]
+    if P_of == "not a multiple of 32":
+        assert P % 32 or bp == 32
+    launch = K.plan(GROUPED, P, 8, block_pages=bp, n_groups=G,
+                    route="warp")
+    if P_of == "two rounds":
+        assert _cdiv(P, (32 // bp) * bp) > 2 * launch.grid[0] * 16
+    rng = np.random.default_rng(P + bp)
+    gid = rng.integers(-1, G, P)
+    ident, rows = _grouped_warp_stores(launch, P, G, bp, gid)
+    assert (ident == 1).all()
+    reached = np.zeros((P // bp, G), bool)
+    ok = gid >= 0
+    reached[np.arange(P)[ok] // bp, gid[ok]] = True
+    assert (rows == reached).all()
+
+
+@pytest.mark.parametrize("lp, dp, route", [
+    (8, 8, "sliced"), (64, 256, "sliced"), (8, 2048, "sliced"),
+    (8301, 2048, "sliced"), (8, 2056, "grid"), (8, 4096, "grid"),
+    (8301, 4096, "grid"), (8, 4104, "grid"), (2048, 131_072, "grid"),
+    (64, 131_072, "grid"), (128, 131_072, "grid"), (129, 131_072, "grid"),
+    (8, 1_048_576, "grid"), (8301, 4104, "grid"), (8302, 8, "sliced"),
+    (16_384, 1_048_576, "sliced"),
+])
+def test_plan_delta_fold_route_by_rows_and_the_lane_cap(lp, dp, route):
+    """The sliced route for at most 2,048 delta rows, else the grid route
+    while [Lp, 7] fits a block's opt-in shared memory (8,301 lanes); past
+    it the sliced route alone.  Blocks of 1,024 threads: the sliced route
+    a block an SM, the grid route a block for each 1,024 delta rows, at
+    most one an SM (a cooperative launch: every block resident)."""
+    launch = K.plan("rss_delta_fold", lp, dp)
+    routes = K.routes_for("rss_delta_fold", lanes=lp, rows=dp)
+    assert launch.route == route == routes[-1]
+    assert routes == (("sliced",) if lp > 8301 else
+                      ("grid", "sliced") if dp <= 2048 else
+                      ("sliced", "grid"))
+    if route == "sliced":
+        want = ((132, 1), min(_cdiv(lp, 132), 8301) * 28)
+    else:
+        want = ((min(_cdiv(dp, 1024), 132), 1), lp * 28)
+    assert launch == (route, want[0], 1024, 1, want[1])
+    assert launch.smem <= K.MAX_SMEM
+    forced = K.plan("rss_delta_fold", lp, dp, route="sliced")
+    assert forced.smem == min(_cdiv(lp, 132), 8301) * 28
+
+
+@pytest.mark.parametrize("bp", [1, 2, 4, 8])
+@pytest.mark.parametrize("G", [3, 40])
+def test_cpu_grouped_store_equals_pallas_interpret(bp, G):
+    """The grouped call on CPU tensors at the shrink ladder's BP with
+    G > 1: the plain version, equal to the Pallas kernel in interpret
+    mode, with no launch."""
+    rng = np.random.default_rng(bp * 10 + G)
+    P = 8 * bp
+    data, ts = _store(rng, P, 8, maxabs=1000)
+    gid = rng.integers(-1, G + 2, (P, 1)).astype(np.int32)
+    prm = np.stack([rng.choice([1, 3], G), rng.choice([0, -2], G),
+                    rng.integers(-500, 500, G)], 1).astype(np.int32)
+    mem = np.array([21, 25, 33, 47, 59], np.int32)
+    before = _untouched()
+    got = K.rss_scan_agg_grouped(
+        torch.from_numpy(data), torch.from_numpy(ts), torch.from_numpy(gid),
+        torch.from_numpy(mem), 20, n_groups=G, block_pages=bp,
+        group_params=torch.from_numpy(prm), route="warp")
+    want = jk.rss_scan_agg_grouped(
+        jnp.asarray(data), jnp.asarray(ts), jnp.asarray(gid),
+        jnp.asarray(mem), 20, n_groups=G, block_pages=bp,
+        group_params=jnp.asarray(prm), interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.shape == (P // bp, G, 7)
+    assert _untouched() == before
+
+
+@pytest.mark.parametrize("lp, dp", [(8, 64), (64, 256)])
+def test_cpu_delta_fold_equals_pallas_interpret(lp, dp):
+    """The delta fold on CPU tensors (any route asked for): the plain
+    version, equal to the Pallas kernel in interpret mode, targets past
+    Lp and new-valid in {0, 1, 2} included, with no launch."""
+    rng = np.random.default_rng(lp + dp)
+    acc = rng.integers(-2**31, 2**31, (lp, 128), dtype=np.int64) \
+        .astype(np.int32)
+    delta = rng.integers(-2**31, 2**31, (dp, 128), dtype=np.int64) \
+        .astype(np.int32)
+    delta[:, 0] = rng.integers(-1, lp + 2, dp)
+    delta[:, 2] = rng.integers(0, 3, dp)
+    delta[:, 4] = rng.integers(0, 3, dp)
+    before = _untouched()
+    for route in (None, "grid", "sliced"):
+        got = K.rss_delta_fold(torch.from_numpy(acc), torch.from_numpy(delta),
+                               route=route)
+        want = jk.rss_delta_fold(jnp.asarray(acc), jnp.asarray(delta),
+                                 interpret=True)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert _untouched() == before
