@@ -71,7 +71,17 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    them), kernel, plain, bound and `scaled_dot_product_attention`
    (library) times, decode's kernel and library times again after a
    flush that leaves L2 clean, and decode at every split of the bf16
-   route at each timed shape (each held against plain);
+   route at each timed shape (each held against plain); the flash times
+   at Qwen's and Jamba's prefill beside PR 16's (`FLASH_PR16_MS`); then
+   the flash backward, `flash_attention_bwd` (`fa_flash_bwd`), on
+   numpy-seeded inputs at `BWD_CASES` (Qwen's train shape bf16 B = 8,
+   S = T = 1,024, H = K = 16, hd = 64, causal; GQA + window 256 at H 32,
+   K 8, hd 128; MQA at H 48, K 1, hd 128; ragged S = T = 1,000 in bf16
+   and f32), from the forward kernel's o and lse, against
+   `attention_bwd_ref` on the same inputs (bf16 within 3e-2 of each
+   gradient's max-abs, f32 2e-5), two launches bitwise equal, timed
+   beside plain, the bound and SDPA's backward on its flash route
+   (null where that route does not take the mask);
 9. WKV kernel phase: `wkv_scan` in the model's [B,T,H,N] layout at the
    RWKV serve path's prefill shape (f32, B = 8, T = 1,024, H = 40,
    N = 64) and decode shape (T = 1, the state as s0 and output, in
@@ -131,13 +141,33 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    launch chunked, every decode launch a step; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
    v1 alone; then one more request under torch.profiler for the device's
-   busy time, idle share, peak memory and time by kernel kind.
+   busy time, idle share, peak memory and time by kernel kind;
+12. train phase: Qwen1.5-0.5B at full width and depth (bf16, random
+   weights from torch.Generator seed 0, 8 x 1,024 tokens a step, remat
+   "dots" as its config says).  (a) one step's loss and gradients on the
+   kernels against the plain path (`plain_attention`) on the card at
+   batch 2 (`TRAIN_CHECK_B`): in f32 with TF32 off the loss within 1e-5
+   relative and every leaf within 1e-3 of its max-abs; in bf16 on the
+   same weights the loss within 3e-2, each leaf's ratio printed beside
+   the bf16 model's own distance from the f32 one; (b) a `Trainer`
+   publishing every step into a `VersionedParamStore(slots=2)` for 8
+   steps, a reader pinned at v1 before step 1 reading v1 bitwise after
+   step 8, a `ServingEngine` request answered from a pinned snapshot
+   between steps with rising snapshot LSNs, no abort in the WAL; (c)
+   each step launches the flash forward and backward as the remat
+   setting implies (24 each under "dots") and calls no plain attention
+   version; one more step profiled (step ms, tokens/s, device busy time
+   and idle share, peak memory, time by kind and the top kernels); (d)
+   `run(6, inject_failure_at=4)` with a save every 2 steps lands on an
+   uninterrupted `run(6)`'s parameters (rtol 1e-5, atol 1e-6) at 2 of
+   the 24 layers (`TRAIN_CRASH_LAYERS`), full width.
 
 It prints one `{"kernels": [...]}` JSON line (a row per kernel: the
 scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
 chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches), the card line, and last
-`{"ok": true, "device": {...}}`.  It imports neither jax nor the JAX
+`{"ok": true, "device": {...}}`; the flash backward's row counts its
+launches in the train phase's steps.  It imports neither jax nor the JAX
 package `repro`.  Without a card, or outside a checkout (no
 `src/repro_torch` beside it), it exits 2 and prints nothing on stdout.
 """
@@ -148,6 +178,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import random
 import re
 import shutil
@@ -167,6 +198,14 @@ ATTN_SRC = "src/repro_torch/csrc/attention.cu"
 ATTN_TPU = {
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:75",
     "decode_attention": "src/repro/kernels/decode_attention/kernel.py:62"}
+# the backward of that TPU kernel (the JAX package has no backward kernel:
+# its gradients are autodiff of flash_attention_xla, models/layers.py:149)
+ATTN_BWD_TPU = {
+    "flash_attention_bwd": "src/repro/kernels/flash_attention/kernel.py:75"}
+# the forward's times at Qwen's and Jamba's prefill shapes when PR 16
+# redesigned it (CHANGES.md, PR 16 and its follow-up; H100 80GB HBM3,
+# 700 W): the lse output must not slow serving
+FLASH_PR16_MS = {"prefill": 0.0641, "jamba prefill": 0.4108}
 WKV_SRC = "src/repro_torch/csrc/wkv.cu"
 WKV_TPU = {"wkv_scan": "src/repro/kernels/wkv_scan/kernel.py:64"}
 SSM_SRC = "src/repro_torch/csrc/ssm.cu"
@@ -223,6 +262,20 @@ SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
 # Its decode grid is 16 blocks, so every decode_attention launch splits
 # the cache over a cluster; the batch-8 runs never split
 SERVE_LONG = {"qwen1.5-0.5b": (1, 8192, 64)}
+# train phase: Qwen1.5-0.5B at full width and depth, bf16, TRAIN_B x
+# TRAIN_S tokens a step, TRAIN_STEPS steps published while a request of
+# TRAIN_SERVE (batch, prompt, decode steps) is served between steps
+TRAIN_ARCH = "qwen1.5-0.5b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
+TRAIN_SERVE = (1, 64, 8)
+# check (a)'s batch: the plain path's attention keeps [B, H, S, T] f32
+# scores a layer for its backward (B 2: 128 MB a layer)
+TRAIN_CHECK_B = 2
+# check (d)'s depth cut: 2 of 24 layers at full width (336 M parameters,
+# a 3.4 GB state a save, three saves)
+TRAIN_CRASH_LAYERS = 2
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+TRAIN_SMOKE = False
 
 
 def card_line() -> str:
@@ -1331,6 +1384,9 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                                                     window)
             t = report("flash_attention", f"{label} {shape}", fn, plain,
                        sdpa(q, k, v, causal, window), nbytes, flops, dt)
+            if label in FLASH_PR16_MS:
+                print(f"kernel flash_attention {label}: {t[0]:.4f} ms "
+                      f"(PR 16: {FLASH_PR16_MS[label]} ms)", flush=True)
             if label == "prefill":
                 results["flash_attention"]["times"] = t
         del q, k, v
@@ -1384,6 +1440,111 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         del q, kc, vc, k, v
     del clean
     return results
+
+
+# flash backward phase: (label, dtype, B, S, T, H, K, hd, causal, window,
+# timed): Qwen1.5-0.5B's train shape, GQA + window, MQA (granite-34b's
+# 48 heads on one KV head), ragged S = T = 1,000 in bf16 and f32
+BWD_CASES = [
+    ("train", "bfloat16", 8, 1024, 1024, 16, 16, 64, True, 0, True),
+    ("gqa+window", "bfloat16", 2, 2048, 2048, 32, 8, 128, True, 256, True),
+    ("mqa", "bfloat16", 2, 1024, 1024, 48, 1, 128, True, 0, True),
+    ("ragged", "bfloat16", 2, 1000, 1000, 16, 16, 64, True, 0, False),
+    ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False)]
+
+
+def _sdpa_bwd(torch, q, k, v, do, causal: bool, window: int):
+    """The backward alone of `scaled_dot_product_attention` on its flash
+    route (is_causal, enable_gqa) over the same inputs, or None where
+    that route does not take the call (a window needs a mask; f32)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    if window or q.dtype == torch.float32:
+        return None
+    qh, kh, vh = (x.detach().contiguous().requires_grad_() for x in (q, k, v))
+    dh = do.contiguous()
+    try:
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            out = F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal,
+                                                 enable_gqa=True)
+    except RuntimeError:
+        return None
+    return lambda: torch.autograd.grad(out, (qh, kh, vh), dh,
+                                       retain_graph=True)
+
+
+def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
+    """`fa_flash_bwd` (`flash_attention_bwd`) on numpy-seeded inputs at
+    `BWD_CASES`, in the model's layout, from the forward kernel's o and
+    lse: held against `attention_bwd_ref` on the same inputs (bf16 within
+    3e-2 of each gradient's max-abs, f32 within 2e-5), two launches
+    bitwise equal, and the timed shapes timed beside the plain version,
+    the bound (10·pairs·hd·B·H operations against the bytes of q, k, v,
+    o, dO, dq, dk, dv) and SDPA's backward on its flash route.  Returns
+    {"max_abs_err", "times" (the train shape's)}.  Off the card the
+    wrapper is the plain version and nothing is timed."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 checks in f32
+    torch.backends.cudnn.allow_tf32 = False
+    on_card = device == "cuda"
+    rng = np.random.default_rng(21)
+    tol = {"bfloat16": 3e-2, "float32": 2e-5}
+    res = {"max_abs_err": 0.0}
+    for (label, dt, B, S, T, H, K, hd, causal, window, timed) in BWD_CASES:
+        def arr(*shape):
+            x = rng.standard_normal(shape, dtype=np.float32)
+            return torch.from_numpy(x).to(device, getattr(torch, dt))
+        q, do = (arr(B, S, H, hd).transpose(1, 2) for _ in range(2))
+        k, v = (arr(B, T, K, hd).transpose(1, 2) for _ in range(2))
+        o, lse = FK.flash_attention(q, k, v, causal=causal, window=window,
+                                    return_lse=True)
+        fn = lambda: FK.flash_attention_bwd(q, k, v, o, lse, do,
+                                            causal=causal, window=window)
+        plain = lambda: attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                          window=window)
+        got, again = fn(), fn()
+        if on_card:
+            torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"flash_attention_bwd {label} {dt}: two "
+                                 "launches differ")
+        ratios = []
+        for name, a, b in zip("qkv", got, plain()):
+            a, b = a.float(), b.float()
+            err = (a - b).abs().max().item()
+            scale = b.abs().max().item()
+            if not torch.isfinite(a).all() or not err <= tol[dt] * scale:
+                raise AssertionError(
+                    f"flash_attention_bwd {label} {dt} d{name}: kernel != "
+                    f"plain (max |d| {err:.4g}, max-abs {scale:.4g})")
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            ratios.append(f"d{name} {err / scale:.3g}")
+        shape = (f"{dt} B={B} S={S} T={T} H={H} K={K} hd={hd} causal={causal}"
+                 f" window={window} route={FK.flash_attention_bwd.last_route}")
+        print(f"kernel flash_attention_bwd {label} {shape}: within "
+              f"{tol[dt]} of plain (max |d| / max-abs {', '.join(ratios)}), "
+              "two launches bitwise equal", flush=True)
+        if timed and on_card:
+            ms = time_ms(torch, fn, flush)
+            plain_ms = time_ms(torch, plain, flush, reps=5)
+            lib = _sdpa_bwd(torch, q, k, v, do, causal, window)
+            library_ms = None if lib is None else time_ms(torch, lib, flush)
+            nbytes = q.element_size() * 4 * (B * S * H * hd + B * T * K * hd)
+            flops = 10 * B * H * hd * _visible_pairs(np, S, T, causal, window)
+            bound_ms, by = _bound(nbytes, flops, dt)
+            lib_txt = "null (no flash route)" if library_ms is None \
+                else f"{library_ms:.4f}"
+            print(f"kernel flash_attention_bwd {label}: kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({by}) "
+                  f"library_ms={lib_txt} ({nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP)", flush=True)
+            if label == "train":
+                res["times"] = (ms, plain_ms, bound_ms, library_ms, by)
+        del q, k, v, o, lse, do, got, again
+    return res
 
 
 # -------------------------------------------------------------- WKV kernel
@@ -1918,14 +2079,6 @@ def _check_b_dropfree(torch, cfg, params, prompts, toks, S, N, rel):
                     per_layer)
 
 
-def _tree_float(tree):
-    if isinstance(tree, dict):
-        return {k: _tree_float(v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_tree_float(v) for v in tree)
-    return tree.float()
-
-
 def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
     """RWKV6's checks of the kernel in its path, where the bf16 logits
     cannot hold it at 3e-2 (the model's 32 bf16 layers turn f32-level
@@ -1937,6 +2090,7 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
     bf16 model's own noise floor: its plain prefill against itself with
     every layer's WKV output times (1 + 1e-6 z).  Returns the report."""
     from repro_torch.models import layers
+    from repro_torch.tree import tree_map
 
     kernel_wkv, worst = layers.wkv, 0.0
 
@@ -1959,7 +2113,7 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
         layers.wkv = kernel_wkv
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
-    p32 = _tree_float(params)
+    p32 = tree_map(lambda x: x.float(), params)
     got = _teacher_forced(cfg32, p32, prompts, toks, S, N)
     a32 = _check_a(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)[0]
     b32 = _check_b(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)[0]
@@ -2074,14 +2228,6 @@ def _mamba_block_f32(torch, cfg, params, prompts, toks) -> float:
                for k, (a, b) in enumerate(zip(got, want)))
 
 
-def _numel(tree) -> int:
-    if isinstance(tree, dict):
-        return sum(_numel(v) for v in tree.values())
-    if isinstance(tree, (tuple, list)):
-        return sum(_numel(v) for v in tree)
-    return tree.numel()
-
-
 def _kernel_wrappers() -> dict:
     """name -> the kernel wrapper whose count (`launches`, or
     `route_launches` for the scans) counts its launches."""
@@ -2109,6 +2255,7 @@ def serve_phase(torch, np, device: str = "cuda",
     from repro_torch.models import init_params
     from repro_torch.serve import ServingEngine
     from repro_torch.tensorstore import VersionedParamStore
+    from repro_torch.tree import leaves
 
     cfg = get_config(arch)
     cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
@@ -2150,7 +2297,8 @@ def serve_phase(torch, np, device: str = "cuda",
     sync()
     mem = (f", {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
            if on_card else "")
-    print(f"serve: {run} {_numel(v1) / 1e9:.3f} B params "
+    n_params = sum(x.numel() for x in leaves(v1))
+    print(f"serve: {run} {n_params / 1e9:.3f} B params "
           f"({cfg.param_dtype}, {cut}), init + publish in "
           f"{time.perf_counter() - t0:.1f} s{mem}", flush=True)
 
@@ -2362,6 +2510,306 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
               f"{name[:80]}", flush=True)
 
 
+# ------------------------------------------------------------------ training
+@contextlib.contextmanager
+def count_plain_attention():
+    """Inside the block, calls of the plain attention versions (the
+    layers' chunked softmax, `attention_ref`, `attention_bwd_ref`) are
+    counted in the yielded dict; on the card the train path makes none."""
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.models import layers
+
+    calls = {"calls": 0}
+    sites = [(layers, "flash_attention_chunked"), (FR, "attention_ref"),
+             (FO, "attention_bwd_ref")]
+    saved = [getattr(m, n) for m, n in sites]
+
+    def counted(fn):
+        def wrapper(*a, **kw):
+            calls["calls"] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    for (m, n), fn in zip(sites, saved):
+        setattr(m, n, counted(fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(sites, saved):
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def timed_saves():
+    """Inside the block, each checkpoint save's wall seconds are appended
+    to the yielded list."""
+    from repro_torch.checkpoint import manager
+
+    save, times = manager.save, []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = save(*a, **kw)
+        times.append(time.perf_counter() - t0)
+        return out
+
+    manager.save = timed
+    try:
+        yield times
+    finally:
+        manager.save = save
+
+
+def _leaf_ratios(torch, got, want) -> dict:
+    """path -> max |got - want| / max |want| over the float leaves."""
+    from repro_torch.tree import leaves_with_path
+
+    out = {}
+    for (path, a), b in zip(leaves_with_path(got), [
+            x for _, x in leaves_with_path(want)]):
+        if a.is_floating_point():
+            a, b = a.float(), b.float()
+            out["/".join(map(str, path))] = (
+                (a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+    return out
+
+
+def _train_check_a(torch, cfg, device) -> str:
+    """Check (a): one step's loss and gradients on the kernels against
+    the plain path (`plain_attention`) on the card, at TRAIN_CHECK_B x
+    TRAIN_S: in f32 with TF32 off (loss 1e-5 relative, each leaf within
+    1e-3 of its max-abs), and in bf16 on the same weights rounded (loss
+    3e-2 relative; each leaf's ratio printed beside the bf16 model's own
+    distance from the f32 one, the noise floor)."""
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.with_overrides(param_dtype="float32", compute_dtype="float32")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    p32 = init_params(cfg32, gen, device)
+    p16 = tree_map(lambda x: x.to(torch.bfloat16) if x.is_floating_point()
+                   else x, p32)
+    batch = SyntheticPipeline(cfg, batch=TRAIN_CHECK_B, seq_len=TRAIN_S,
+                              device=device).batch_at(0)
+
+    def run(c, p, plain):
+        with plain_attention() if plain else contextlib.nullcontext():
+            loss, grads = _value_and_grad(p, c, batch)
+        return loss.item(), grads
+
+    out = []
+    for label, c, p, tol_loss, tol_leaf in (
+            ("f32", cfg32, p32, 1e-5, 1e-3), ("bf16", cfg, p16, 3e-2, None)):
+        lk, gk = run(c, p, False)
+        lp, gp = run(c, p, True)
+        rel = abs(lk - lp) / abs(lp)
+        if not (math.isfinite(lk) and rel <= tol_loss):
+            raise AssertionError(f"train (a) {label}: loss {lk} != plain "
+                                 f"{lp} ({rel:.3g} > {tol_loss})")
+        ratios = _leaf_ratios(torch, gk, gp)
+        bad = {k: r for k, r in ratios.items()
+               if not (tol_leaf is None or r <= tol_leaf)}
+        if bad or not all(math.isfinite(r) for r in ratios.values()):
+            raise AssertionError(f"train (a) {label}: gradients off plain "
+                                 f"beyond {tol_leaf}: {bad}")
+        if label == "f32":
+            g32 = gp
+        else:
+            floor = _leaf_ratios(torch, gp, g32)
+            for k in ratios:
+                print(f"train (a) bf16 leaf {k}: kernel vs plain "
+                      f"{ratios[k]:.4g}, bf16 vs f32 noise floor "
+                      f"{floor[k]:.4g}", flush=True)
+        worst = max(ratios, key=ratios.get)
+        out.append(f"{label} loss {lk:.6f} vs plain {lp:.6f} ({rel:.3g} <= "
+                   f"{tol_loss}), worst leaf {worst} {ratios[worst]:.3g}"
+                   + (f" (<= {tol_leaf})" if tol_leaf else " (printed)"))
+        del gk, gp
+    del p32, p16, g32
+    return "; ".join(out)
+
+
+def _train_profile(torch, tr) -> None:
+    """One more step (of the trainer's state, on the next batch) timed on
+    the host clock, then again under torch.profiler: step ms, tokens/s,
+    device busy time and idle share (against the unprofiled step), peak
+    memory, device time by kind."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = tr.pipeline.batch_at(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, m = tr.step_fn(tr.state, batch)
+    float(m["loss"])
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, m = tr.step_fn(tr.state, batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+    kinds: dict = {}
+    top = []
+    for e in prof.key_averages():
+        us, name = e.self_device_time_total, e.key
+        if us <= 0:
+            continue
+        top.append((us, e.count, name))
+        low = name.lower()
+        kind = ("flash backward" if "flash_bwd" in name else
+                "flash forward" if "flash_kernel" in name else
+                "matmul" if any(w in low for w in ("gemm", "gemv", "xmma",
+                                                   "cutlass", "splitk",
+                                                   "nvjet"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + us
+    busy = sum(kinds.values()) / 1e6
+    B, S = TRAIN_B, TRAIN_S
+    print(f"train profile: step {step_s * 1e3:.1f} ms, {B * S / step_s:.1f} "
+          f"tokens/s ({B}x{S}); device busy {busy * 1e3:.1f} ms, idle share "
+          f"{1 - busy / step_s:.4f}; peak memory {peak:.2f} GB; by kind: "
+          + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
+                      sorted(kinds.items(), key=lambda kv: -kv[1])),
+          flush=True)
+    flash = {re.search(r"flash_\w+", n).group(0): c
+             for _, c, n in top if "flash_" in n}
+    print("train profile: flash kernels in the step (launches): "
+          + ", ".join(f"{k} x{c}" for k, c in sorted(flash.items())),
+          flush=True)
+    for us, n, name in sorted(top, reverse=True)[:12]:
+        print(f"train profile device: {us / 1e3:9.3f} ms x{n:6d} "
+              f"{name[:90]}", flush=True)
+
+
+def train_phase(torch, np, device: str = "cuda") -> dict:
+    """Qwen1.5-0.5B trained at full width and depth (bf16, random weights
+    from torch.Generator seed 0, TRAIN_B x TRAIN_S tokens a step; remat
+    as its config says), with checks (a)-(d) (see the module docstring)
+    and a profiled step.  Returns the flash kernels' launches over the
+    TRAIN_STEPS steps of (b), counted from 0 before each step and read
+    after it.  (`device="cpu"` is a rehearsal: the plain versions run,
+    nothing launches, nothing is profiled.)"""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.kernels.cuda_build import launch_count, reset_counts
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tensorstore import VersionedParamStore
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves
+
+    on_card = device == "cuda"
+    cfg = get_config(TRAIN_ARCH)
+    cfg = smoke_variant(cfg) if TRAIN_SMOKE else cfg
+    t0 = time.perf_counter()
+    print(f"train (a): {_train_check_a(torch, cfg, device)}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (b) train while serving, (c) launches per step
+    wrappers = (FK.flash_attention, FK.flash_attention_bwd)
+    n_attn = _n_layers(cfg, mixer="attn")
+    want = {"flash_attention": n_attn * (2 if cfg.remat == "full" else 1),
+            "flash_attention_bwd": n_attn}
+    store = VersionedParamStore(slots=2)
+    tr = Trainer(cfg, batch=TRAIN_B, seq_len=TRAIN_S, seed=0, store=store,
+                 publish_every=1, device=device)
+    pin_us, pin_fn = [], store.pin_snapshot
+
+    def timed_pin():                               # every reader's pin
+        t = time.perf_counter()
+        out = pin_fn()
+        pin_us.append((time.perf_counter() - t) * 1e6)
+        return out
+
+    store.pin_snapshot = timed_pin
+    pin, v1 = store.pin_snapshot()                 # a reader pins v1
+    v1_copy = [x.clone() for x in leaves(v1)]
+    Bq, Sq, Nq = TRAIN_SERVE
+    eng = ServingEngine(cfg, store, max_seq=Sq + Nq, device=device)
+    prompts = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (Bq, Sq))).to(device)
+    per_step, lsns = [], []
+
+    def after_step(i, metrics):
+        per_step.append({fn.__name__: launch_count(fn) for fn in wrappers})
+        eng.refresh()
+        lsns.append(eng.generate({"tokens": prompts}, Nq).snapshot_lsn)
+        reset_counts(wrappers)                     # serving is not the step
+
+    reset_counts(wrappers)
+    t0 = time.perf_counter()
+    with count_plain_attention() as plain:
+        log = tr.run(TRAIN_STEPS, after_step=after_step)
+    wall = time.perf_counter() - t0
+    losses = [m["loss"] for m in log]
+    same_v1 = all(torch.equal(a, b) for a, b in zip(leaves(v1), v1_copy))
+    store.release(pin)
+    aborts = sum(r.type == "abort" for r in store.wal.records)
+    if not (same_v1 and all(math.isfinite(x) for x in losses)
+            and all(b > a for a, b in zip(lsns, lsns[1:])) and aborts == 0
+            and store.stats["publishes"] == TRAIN_STEPS + 1):
+        raise AssertionError(
+            f"train (b): v1 unchanged {same_v1}, losses {losses}, snapshot "
+            f"lsns {lsns}, aborts {aborts}, publishes "
+            f"{store.stats['publishes']}")
+    if on_card and (any(c != want for c in per_step) or plain["calls"]):
+        raise AssertionError(f"train (c): launches per step {per_step} != "
+                             f"{want}, plain attention calls "
+                             f"{plain['calls']}")
+    print(f"train (b): {TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_S} in "
+          f"{wall:.1f} s with a {Bq}x{Sq} + {Nq}-step request served between "
+          f"steps; losses {', '.join(f'{x:.4f}' for x in losses)}; reader "
+          f"pinned at v1 reads v1 bitwise after step {TRAIN_STEPS}; snapshot "
+          f"lsns {lsns}; store {store.stats['publishes']} publishes, "
+          f"{store.stats['gc_blocked']} of them grew the ring instead of "
+          f"waiting; {len(pin_us)} reader pins, the longest "
+          f"{max(pin_us):.1f} us (a pin selects a slot: no wait path); "
+          f"{aborts} aborts in the WAL", flush=True)
+    print(f"train (c): launches per step {per_step[0]} (remat "
+          f"{cfg.remat!r}: {want}), plain attention calls {plain['calls']}",
+          flush=True)
+    if on_card:
+        _train_profile(torch, tr)
+    launches = {n: sum(c[n] for c in per_step) for n in want}
+    del tr, store, eng, v1, v1_copy
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) crash and restore at a depth cut, full width
+    cfg_d = cfg.with_overrides(n_layers=TRAIN_CRASH_LAYERS)
+    ckdir = TRAIN_CKPT
+    shutil.rmtree(ckdir, ignore_errors=True)
+    t1 = Trainer(cfg_d, batch=TRAIN_B, seq_len=TRAIN_S, seed=0,
+                 device=device)
+    t1.run(6)
+    t2 = Trainer(cfg_d, batch=TRAIN_B, seq_len=TRAIN_S, seed=0,
+                 ckpt_dir=str(ckdir), ckpt_every=2, device=device)
+    t0 = time.perf_counter()
+    with timed_saves() as saves:
+        t2.run(6, inject_failure_at=4)
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ckdir, ignore_errors=True)
+    for a, b in zip(leaves(t1.state["params"]), leaves(t2.state["params"])):
+        if not torch.allclose(a.float(), b.float(), rtol=1e-5, atol=1e-6):
+            raise AssertionError("train (d): the restored run's parameters "
+                                 "differ from the uninterrupted run's")
+    n_params = sum(x.numel() for x in leaves(t2.state["params"]))
+    print(f"train (d): {TRAIN_CRASH_LAYERS} of {cfg.n_layers} layers at "
+          f"full width ({n_params / 1e6:.1f} M parameters): run(6, "
+          f"inject_failure_at=4) with a save every 2 steps ({len(saves)} "
+          f"saves, {', '.join(f'{s:.1f}' for s in saves)} s) == run(6) "
+          f"(rtol 1e-5, atol 1e-6); {wall:.1f} s", flush=True)
+    return launches
+
+
 def _ptxas_report(log: str) -> list:
     """nvcc's `-Xptxas -v` output as one line per kernel: its name
     (demangled by c++filt where the machine has it), registers, shared
@@ -2428,6 +2876,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     results = kernel_phase(torch, np, K_mod, flush)
     results.update(attention_kernel_phase(torch, np, flush))
+    results["flash_attention_bwd"] = attention_bwd_phase(torch, np, flush)
     results["wkv_scan"] = wkv_kernel_phase(torch, np, flush)
     results["ssm_scan"] = ssm_kernel_phase(torch, np, flush)
     del flush
@@ -2468,11 +2917,17 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
+    # the train path: launches of the flash kernels over its steps
+    t0 = time.perf_counter()
+    for name, n in train_phase(torch, np).items():
+        launches[name] = launches.get(name, 0) + n
+    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.empty_cache()
     scan_rows = [(f"{name}{suffix}", name, key, launches[f"{name} {route}"])
                  for name in (*WKV_TPU, *SSM_TPU)
                  for suffix, key, route in (("", "times", "chunked"),
                                             (" step", "times_step", "step"))]
-    for name in (*ATTN_TPU, *WKV_TPU, *SSM_TPU):
+    for name in (*ATTN_TPU, *ATTN_BWD_TPU, *WKV_TPU, *SSM_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")
     for row, _, _, n in scan_rows:
@@ -2492,17 +2947,19 @@ def main() -> int:
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
-    sources = {**{n: ATTN_SRC for n in ATTN_TPU},
+    sources = {**{n: ATTN_SRC for n in (*ATTN_TPU, *ATTN_BWD_TPU)},
                **{n: WKV_SRC for n in WKV_TPU},
                **{n: SSM_SRC for n in SSM_TPU}}
     # the scans have two kernels each: a row per kernel, with the
     # launches of its route
-    rows_of = [(name, name, "times", launches[name]) for name in ATTN_TPU]
+    rows_of = [(name, name, "times", launches[name])
+               for name in (*ATTN_TPU, *ATTN_BWD_TPU)]
     for row, name, key, n in rows_of + scan_rows:
         ms, plain_ms, bound_ms, library_ms, by = results[name][key]
         rows.append({"name": row, "route": "cuda",
                      "source": sources[name],
-                     "replaces": {**ATTN_TPU, **WKV_TPU, **SSM_TPU}[name],
+                     "replaces": {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU,
+                                  **SSM_TPU}[name],
                      "launches": n,
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

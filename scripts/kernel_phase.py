@@ -4,6 +4,7 @@
     python3 scripts/kernel_phase.py [TREE]     # TREE: a checkout (default .)
     python3 scripts/kernel_phase.py TREE --groups G
     python3 scripts/kernel_phase.py TREE --shapes
+    python3 scripts/kernel_phase.py TREE --attention
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -25,6 +26,12 @@ scan at every shape of `chip_smoke.GROUPED_SHAPES` (the kernel phase's
 store at each G and M, and the driver phase's largest shapes) and the
 delta fold at `chip_smoke.FOLD_SHAPES`, each held against plain and
 timed, on every route where the tree's wrappers plan routes.
+
+With `--attention` it builds the tree's `attention.cu` and runs the
+tree's own `chip_smoke.attention_kernel_phase` (flash and decode attention
+at the serve shapes, held against plain and timed beside SDPA): run on
+an earlier tree and on this one in turns, it shows whether a change to
+the attention source moved the forward kernels' times.
 """
 
 import importlib.util
@@ -93,6 +100,19 @@ def shapes_phase(torch, np, tree: Path) -> None:
         print(f"result {name}: {t}", flush=True)
 
 
+def attention_phase(torch, np, tree: Path) -> None:
+    """The tree's `chip_smoke.attention_kernel_phase`."""
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+
+    print(f"tree {tree}, attention: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["attention"])
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    for name, res in chip_smoke.attention_kernel_phase(torch, np,
+                                                       flush).items():
+        print(f"result {name}: {res}", flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     groups = None
@@ -103,6 +123,9 @@ def main() -> int:
     shapes = "--shapes" in args
     if shapes:
         args.remove("--shapes")
+    attention = "--attention" in args
+    if attention:
+        args.remove("--attention")
     tree = Path(args[0] if args else ".").resolve()
     sys.path[:0] = [str(tree), str(tree / "src")]
     import numpy as np
@@ -117,6 +140,9 @@ def main() -> int:
         return 0
     if shapes:
         shapes_phase(torch, np, tree)
+        return 0
+    if attention:
+        attention_phase(torch, np, tree)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

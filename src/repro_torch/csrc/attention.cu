@@ -113,6 +113,13 @@ template <typename Elt> __device__ __forceinline__ float to_f(Elt x);
 template <> __device__ __forceinline__ float to_f<float>(float x) {
   return x;
 }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(
+    __nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <> __device__ __forceinline__ float to_f<__half>(__half x) {
+  return __half2float(x);
+}
 
 template <typename Elt> __device__ __forceinline__ Elt from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -143,6 +150,7 @@ struct FlashArgs {
   long long o_sb, o_ss, o_sh;
   int H, KH, S, T, causal, window;
   float scale;
+  float* lse;                      // [B, H, S] f32 log-sum-exp, or null
 };
 
 template <int HD>
@@ -283,6 +291,10 @@ flash_kernel(const FlashArgs a) {
   for (int i = 0; i < 4; ++i) {
     const int s = q0 + ty * 4 + i;
     if (s >= a.S) continue;
+    // m is in the scaled units of the pre-scaled Q
+    if (a.lse != nullptr && tx == 0)
+      a.lse[((long long)b * a.H + h) * a.S + s] =
+          m[i] == -INFINITY ? -INFINITY : m[i] + logf(l[i]);
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int e = 0; e < NO; ++e)
@@ -700,6 +712,13 @@ flash_kernel_wgmma(const FlashArgs a) {
   l1 += __shfl_xor_sync(kFull, l1, 1);
   l1 += __shfl_xor_sync(kFull, l1, 2);
   const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (a.lse != nullptr && (lane & 3) == 0) {   // m is the raw max of Q·Kᵀ
+    float* lp = a.lse + ((long long)b * a.H + h) * a.S;
+    if (r0 < a.S)
+      lp[r0] = m0 == -INFINITY ? -INFINITY : m0 * a.scale + logf(l0);
+    if (r1 < a.S)
+      lp[r1] = m1 == -INFINITY ? -INFINITY : m1 * a.scale + logf(l1);
+  }
   // stage O over the first tile of shared memory, rows of HD·2 bytes with
   // their 16-byte chunks permuted by the row (no bank conflicts), then
   // write 16-byte pieces
@@ -761,6 +780,740 @@ int flash_f32_hd(const FlashArgs& a, int B, int hd, cudaStream_t stream) {
     case 32: return launch_flash<32>(a, B, stream);
     case 64: return launch_flash<64>(a, B, stream);
     case 128: return launch_flash<128>(a, B, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// -------------------------------------------------------- flash backward
+// fa_flash_bwd: the gradients of flash attention from the forward's
+// output O and per-row log-sum-exp L (f32 [B, H, S]), three launches:
+//
+// 1. `flash_bwd_delta_kernel`: δ = rowsum(dO∘O) per query row into an
+//    f32 [B, H, S] buffer (a warp a row), read by both later kernels.
+// 2. dK/dV: one block per (b, kv-head, 64-key tile).  It loops over the
+//    G query heads of its kv-head and, for each, over the query tiles
+//    that see its keys (a tile that the causal mask or the window hides
+//    is never loaded), recomputes Sᵀ = K·Qᵀ and Pᵀ = exp(Sᵀ·scale − L),
+//    dPᵀ = V·dOᵀ and dSᵀ = Pᵀ∘(dPᵀ − δ), and accumulates dV += Pᵀ·dO and
+//    dK += dSᵀ·Q in registers, written once (dK times scale).
+// 3. dQ: one block per (b, head, 64-query tile) over the key tiles its
+//    rows see: S, P, dP and dS as above, dQ += dS·K, written once.
+//
+// No block writes what another writes and no atomics are used, so the
+// result is deterministic.  bf16 / f16 run on the tensor cores
+// (mma.sync m16n8k16, f32 accumulators; P and dS rounded once to the
+// input type as the A operand of their products), each warp owning 16
+// key rows (dK/dV) or 16 query rows (dQ) of the block's 64; the query
+// tiles of the dK/dV loop (64 rows, 32 at hd 128, where the registers of
+// dK and dV fill the file) and the K/V tiles of the dQ loop are
+// double-buffered with cp.async.  f32 runs on FMA from shared memory
+// (the f32 checks hold it to 2e-5).  Masked entries take P = 0, as the
+// references' -inf before the exp gives.
+//
+// Bound at Qwen's train shape (B = 8, S = T = 1,024, H = K = 16, hd 64,
+// causal, bf16): 10·pairs·hd·B·H = 43.0 GFLOP (0.043 ms at 989 TFLOP/s)
+// against 134 MB of q, k, v, o, dO, dq, dk, dv (0.040 ms): bound by
+// operations by a little.  This first version issues mma.sync from one
+// warpgroup without overlap of loads and products: far from either.
+struct FlashBwdArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* o;
+  const void* dout;
+  const float* lse;                // [B, H, S]
+  float* delta;                    // [B, H, S], written by pass 1
+  void* dq;
+  void* dk;
+  void* dv;
+  long long q_sb, q_ss, q_sh;      // element strides over (b, s, h)
+  long long k_sb, k_st, k_sh;
+  long long v_sb, v_st, v_sh;
+  long long o_sb, o_ss, o_sh;
+  long long do_sb, do_ss, do_sh;
+  long long dq_sb, dq_ss, dq_sh;
+  long long dk_sb, dk_st, dk_sh;
+  long long dv_sb, dv_st, dv_sh;
+  int B, H, KH, S, T, causal, window;
+  float scale;
+};
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kBwdTile = 64;       // key rows (dK/dV) / query rows (dQ)
+
+__device__ __forceinline__ bool visible(const FlashBwdArgs& a, int qpos,
+                                        int kpos) {
+  return qpos < a.S && kpos < a.T && (!a.causal || qpos >= kpos) &&
+         (a.window <= 0 || qpos - kpos < a.window);
+}
+
+// 1. δ: 8 warps a block, a warp a query row
+template <typename Elt, int HD>
+__global__ void __launch_bounds__(256)
+flash_bwd_delta_kernel(const FlashBwdArgs a) {
+  const long long row = (long long)blockIdx.x * 8 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= (long long)a.B * a.H * a.S) return;
+  const int s = static_cast<int>(row % a.S);
+  const long long bh = row / a.S;
+  const int h = static_cast<int>(bh % a.H), b = static_cast<int>(bh / a.H);
+  const Elt* op = static_cast<const Elt*>(a.o) + b * a.o_sb + s * a.o_ss +
+                  h * a.o_sh;
+  const Elt* gp = static_cast<const Elt*>(a.dout) + b * a.do_sb +
+                  s * a.do_ss + h * a.do_sh;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < HD; d += 32) acc = fmaf(to_f(op[d]), to_f(gp[d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) a.delta[row] = acc;
+}
+
+// query rows per tile of the dK/dV loop on the tensor cores
+template <int HD>
+__host__ __device__ constexpr int bwd_bq() {
+  return HD == 128 ? 32 : 64;
+}
+
+template <int HD>
+constexpr int bwd_dkdv_smem_bytes() {
+  constexpr int LD = HD + 8, BQ = bwd_bq<HD>();
+  // K, V [64][LD]; 2 stages of Q, dO [BQ][LD]; 2 stages of L, δ [BQ]
+  return (2 * kBwdTile * LD + 4 * BQ * LD) * 2 + 4 * BQ * 4;
+}
+
+template <int HD>
+constexpr int bwd_dq_smem_bytes() {
+  constexpr int LD = HD + 8;
+  // Q, dO [64][LD]; 2 stages of K, V [64][LD]
+  return 6 * kBwdTile * LD * 2;
+}
+
+// 2. dK/dV on the tensor cores.  Warp w owns key rows 16w..16w+15 of the
+// tile.  Sᵀ and dPᵀ are [16 keys x BQ queries] accumulators (K and V
+// rows the A operand, Q and dO rows the B operand); Pᵀ and dSᵀ, rounded,
+// are the A operand of dV += Pᵀ·dO and dK += dSᵀ·Q (dO and Q through
+// ldmatrix.trans).
+template <typename Elt, int HD>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkdv_mma(const FlashBwdArgs a) {
+  constexpr int LD = HD + 8, CH = HD / 8, BK = kBwdTile, NT = 128;
+  constexpr int BQ = bwd_bq<HD>(), NQ = BQ / 8, NH = HD / 8;
+  extern __shared__ float4 smem4[];
+  Elt* Ks = reinterpret_cast<Elt*>(smem4);   // [BK][LD]
+  Elt* Vs = Ks + BK * LD;                    // [BK][LD]
+  Elt* Qs = Vs + BK * LD;                    // [2][BQ][LD]
+  Elt* Gs = Qs + 2 * BQ * LD;                // [2][BQ][LD] (dO)
+  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // [2][BQ]
+  float* Ds = Ls + 2 * BQ;                                  // [2][BQ]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KH;
+  const Elt* kp = static_cast<const Elt*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const Elt* vp = static_cast<const Elt*>(a.v) + b * a.v_sb + kh * a.v_sh;
+  for (int i = tid; i < BK * CH; i += NT) {
+    const int r = i / CH, c = i % CH, t = k0 + r;
+    const long long tt = t < a.T ? t : 0;
+    const int n = t < a.T ? 16 : 0;
+    cp_async16(smem_u32(Ks + r * LD + c * 8), kp + tt * a.k_st + c * 8, n);
+    cp_async16(smem_u32(Vs + r * LD + c * 8), vp + tt * a.v_st + c * 8, n);
+  }
+  cp_async_commit();
+
+  // the query tiles that see a key of this tile, per head of the group
+  const int k_last = min(k0 + BK, a.T) - 1;
+  const int q_begin = a.causal ? k0 : 0;
+  const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
+  const int qt_first = q_begin / BQ * BQ;
+  const int n_qt = q_end > qt_first ? (q_end - qt_first + BQ - 1) / BQ : 0;
+  const int n_iter = G * n_qt;
+  auto load_q = [&](int it, int stage) {
+    const int h = kh * G + it / n_qt, q0 = qt_first + it % n_qt * BQ;
+    const Elt* qp = static_cast<const Elt*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const Elt* gp =
+        static_cast<const Elt*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    Elt* qs = Qs + stage * BQ * LD;
+    Elt* gs = Gs + stage * BQ * LD;
+    for (int i = tid; i < BQ * CH; i += NT) {
+      const int r = i / CH, c = i % CH, s = q0 + r;
+      const long long ss = s < a.S ? s : 0;
+      const int n = s < a.S ? 16 : 0;
+      cp_async16(smem_u32(qs + r * LD + c * 8), qp + ss * a.q_ss + c * 8, n);
+      cp_async16(smem_u32(gs + r * LD + c * 8), gp + ss * a.do_ss + c * 8,
+                 n);
+    }
+    const long long row0 = ((long long)b * a.H + h) * a.S;
+    for (int r = tid; r < BQ; r += NT) {
+      const int s = q0 + r;
+      Ls[stage * BQ + r] = s < a.S ? a.lse[row0 + s] * kLog2e : 0.f;
+      Ds[stage * BQ + r] = s < a.S ? a.delta[row0 + s] : 0.f;
+    }
+  };
+
+  const int kw = warp * 16, g8 = lane >> 2, c2 = 2 * (lane & 3);
+  const int kr0 = k0 + kw + g8, kr1 = kr0 + 8;   // this lane's keys
+  const float sl2 = a.scale * kLog2e;
+  float dk[NH][4], dv[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
+  if (n_iter > 0) load_q(0, 0);
+  cp_async_commit();
+  for (int it = 0; it < n_iter; ++it) {
+    const int stage = it & 1;
+    cp_async_wait<0>();
+    __syncthreads();     // tile it landed; every warp is done with it - 1
+    if (it + 1 < n_iter) load_q(it + 1, stage ^ 1);
+    cp_async_commit();
+    const int q0 = qt_first + it % n_qt * BQ;
+    const Elt* qs = Qs + stage * BQ * LD;
+    const Elt* gs = Gs + stage * BQ * LD;
+    const float* ls = Ls + stage * BQ;
+    const float* ds = Ds + stage * BQ;
+
+    float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; kk += 2) {
+      uint32_t ka0[4], ka1[4], va0[4], va1[4];
+      const int arow = (kw + (lane & 15)) * LD + (lane >> 4) * 8;
+      ldsm_x4(ka0, smem_u32(Ks + arow + kk * 16));
+      ldsm_x4(ka1, smem_u32(Ks + arow + kk * 16 + 16));
+      ldsm_x4(va0, smem_u32(Vs + arow + kk * 16));
+      ldsm_x4(va1, smem_u32(Vs + arow + kk * 16 + 16));
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        uint32_t qb[4], gb[4];
+        const int brow = (8 * j + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8;
+        ldsm_x4(qb, smem_u32(qs + brow));
+        ldsm_x4(gb, smem_u32(gs + brow));
+        Mma<Elt>::run(st[j], ka0, qb[0], qb[1]);
+        Mma<Elt>::run(st[j], ka1, qb[2], qb[3]);
+        Mma<Elt>::run(dpt[j], va0, gb[0], gb[1]);
+        Mma<Elt>::run(dpt[j], va1, gb[2], gb[3]);
+      }
+    }
+
+    const bool partial = q0 + BQ > a.S || k0 + BK > a.T ||
+                         (a.causal && q0 < k0 + BK - 1) ||
+                         (a.window > 0 && q0 + BQ - 1 - k0 >= a.window);
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + c2 + (e & 1);
+        const bool ok = !partial || visible(a, q0 + qi, e < 2 ? kr0 : kr1);
+        const float p = ok ? ex2(fmaf(st[j][e], sl2, -ls[qi])) : 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - ds[qi]);
+      }
+
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      const uint32_t pa[4] = {Mma<Elt>::pack(st[2 * kq][0], st[2 * kq][1]),
+                              Mma<Elt>::pack(st[2 * kq][2], st[2 * kq][3]),
+                              Mma<Elt>::pack(st[2 * kq + 1][0],
+                                             st[2 * kq + 1][1]),
+                              Mma<Elt>::pack(st[2 * kq + 1][2],
+                                             st[2 * kq + 1][3])};
+      const uint32_t sa[4] = {Mma<Elt>::pack(dpt[2 * kq][0], dpt[2 * kq][1]),
+                              Mma<Elt>::pack(dpt[2 * kq][2], dpt[2 * kq][3]),
+                              Mma<Elt>::pack(dpt[2 * kq + 1][0],
+                                             dpt[2 * kq + 1][1]),
+                              Mma<Elt>::pack(dpt[2 * kq + 1][2],
+                                             dpt[2 * kq + 1][3])};
+#pragma unroll
+      for (int n = 0; n < HD / 16; ++n) {
+        uint32_t gb[4], qb[4];
+        const int brow = (16 * kq + (lane & 15)) * LD + 16 * n +
+                         (lane >> 4) * 8;
+        ldsm_x4_t(gb, smem_u32(gs + brow));
+        ldsm_x4_t(qb, smem_u32(qs + brow));
+        Mma<Elt>::run(dv[2 * n], pa, gb[0], gb[1]);
+        Mma<Elt>::run(dv[2 * n + 1], pa, gb[2], gb[3]);
+        Mma<Elt>::run(dk[2 * n], sa, qb[0], qb[1]);
+        Mma<Elt>::run(dk[2 * n + 1], sa, qb[2], qb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  Elt* dkp = static_cast<Elt*>(a.dk) + b * a.dk_sb + kh * a.dk_sh;
+  Elt* dvp = static_cast<Elt*>(a.dv) + b * a.dv_sb + kh * a.dv_sh;
+#pragma unroll
+  for (int n = 0; n < NH; ++n) {
+    if (kr0 < a.T) {
+      *reinterpret_cast<uint32_t*>(dkp + (long long)kr0 * a.dk_st + 8 * n +
+                                   c2) =
+          Mma<Elt>::pack(dk[n][0] * a.scale, dk[n][1] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvp + (long long)kr0 * a.dv_st + 8 * n +
+                                   c2) = Mma<Elt>::pack(dv[n][0], dv[n][1]);
+    }
+    if (kr1 < a.T) {
+      *reinterpret_cast<uint32_t*>(dkp + (long long)kr1 * a.dk_st + 8 * n +
+                                   c2) =
+          Mma<Elt>::pack(dk[n][2] * a.scale, dk[n][3] * a.scale);
+      *reinterpret_cast<uint32_t*>(dvp + (long long)kr1 * a.dv_st + 8 * n +
+                                   c2) = Mma<Elt>::pack(dv[n][2], dv[n][3]);
+    }
+  }
+}
+
+// 3. dQ on the tensor cores.  Warp w owns query rows 16w..16w+15 of the
+// tile; S and dP are [16 queries x 64 keys] accumulators (Q and dO rows
+// the A operand, K and V rows the B operand); dS, rounded, is the A
+// operand of dQ += dS·K (K through ldmatrix.trans).  The grid issues the
+// query tiles of every (b, h) in reverse order, so under a causal mask
+// the longest tiles start first.
+template <typename Elt, int HD>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_mma(const FlashBwdArgs a) {
+  constexpr int LD = HD + 8, CH = HD / 8, BQ = kBwdTile, BK = kBwdTile;
+  constexpr int NT = 128, NH = HD / 8;
+  extern __shared__ float4 smem4[];
+  Elt* Qs = reinterpret_cast<Elt*>(smem4);   // [BQ][LD]
+  Elt* Gs = Qs + BQ * LD;                    // [BQ][LD] (dO)
+  Elt* KVs = Gs + BQ * LD;                   // [2 stages][K, V][BK][LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y;
+  const int b = blockIdx.z, kh = h / (a.H / a.KH);
+  const Elt* qp = static_cast<const Elt*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const Elt* gp = static_cast<const Elt*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const Elt* kp = static_cast<const Elt*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const Elt* vp = static_cast<const Elt*>(a.v) + b * a.v_sb + kh * a.v_sh;
+  for (int i = tid; i < BQ * CH; i += NT) {
+    const int r = i / CH, c = i % CH, s = q0 + r;
+    const long long ss = s < a.S ? s : 0;
+    const int n = s < a.S ? 16 : 0;
+    cp_async16(smem_u32(Qs + r * LD + c * 8), qp + ss * a.q_ss + c * 8, n);
+    cp_async16(smem_u32(Gs + r * LD + c * 8), gp + ss * a.do_ss + c * 8, n);
+  }
+  cp_async_commit();
+  auto load_kv = [&](int k0, int stage) {
+    Elt* ks = KVs + stage * 2 * BK * LD;
+    Elt* vs = ks + BK * LD;
+    for (int i = tid; i < BK * CH; i += NT) {
+      const int r = i / CH, c = i % CH, t = k0 + r;
+      const long long tt = t < a.T ? t : 0;
+      const int n = t < a.T ? 16 : 0;
+      cp_async16(smem_u32(ks + r * LD + c * 8), kp + tt * a.k_st + c * 8, n);
+      cp_async16(smem_u32(vs + r * LD + c * 8), vp + tt * a.v_st + c * 8, n);
+    }
+  };
+
+  const int q_last = min(q0 + BQ, a.S) - 1;
+  const int kv_end = a.causal ? min(a.T, q_last + 1) : a.T;
+  const int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int k_first = kv_begin / BK * BK;
+  if (k_first < kv_end) load_kv(k_first, 0);
+  cp_async_commit();
+
+  const int g8 = lane >> 2, c2 = 2 * (lane & 3);
+  const int r0 = q0 + warp * 16 + g8, r1 = r0 + 8;   // this lane's rows
+  const long long row0 = ((long long)b * a.H + h) * a.S;
+  const float l0 = r0 < a.S ? a.lse[row0 + r0] * kLog2e : 0.f;
+  const float l1 = r1 < a.S ? a.lse[row0 + r1] * kLog2e : 0.f;
+  const float d0 = r0 < a.S ? a.delta[row0 + r0] : 0.f;
+  const float d1 = r1 < a.S ? a.delta[row0 + r1] : 0.f;
+  const float sl2 = a.scale * kLog2e;
+  float dq[NH][4];
+#pragma unroll
+  for (int n = 0; n < NH; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+
+  int stage = 0;
+  for (int k0 = k_first; k0 < kv_end; k0 += BK, stage ^= 1) {
+    cp_async_wait<0>();
+    __syncthreads();     // tile k0 landed; every warp is done with stage ^ 1
+    if (k0 + BK < kv_end) load_kv(k0 + BK, stage ^ 1);
+    cp_async_commit();
+    const Elt* ks = KVs + stage * 2 * BK * LD;
+    const Elt* vs = ks + BK * LD;
+
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; kk += 2) {
+      uint32_t qa0[4], qa1[4], ga0[4], ga1[4];
+      const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
+      ldsm_x4(qa0, smem_u32(Qs + arow + kk * 16));
+      ldsm_x4(qa1, smem_u32(Qs + arow + kk * 16 + 16));
+      ldsm_x4(ga0, smem_u32(Gs + arow + kk * 16));
+      ldsm_x4(ga1, smem_u32(Gs + arow + kk * 16 + 16));
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        uint32_t kb[4], vb[4];
+        const int brow = (8 * j + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8;
+        ldsm_x4(kb, smem_u32(ks + brow));
+        ldsm_x4(vb, smem_u32(vs + brow));
+        Mma<Elt>::run(s[j], qa0, kb[0], kb[1]);
+        Mma<Elt>::run(s[j], qa1, kb[2], kb[3]);
+        Mma<Elt>::run(dp[j], ga0, vb[0], vb[1]);
+        Mma<Elt>::run(dp[j], ga1, vb[2], vb[3]);
+      }
+    }
+
+    const bool partial = k0 + BK > a.T || (a.causal && k0 + BK - 1 > q0) ||
+                         (a.window > 0 && q0 + BQ - 1 - k0 >= a.window);
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + 8 * j + c2 + (e & 1);
+        const int qpos = e < 2 ? r0 : r1;
+        const bool ok = !partial || visible(a, qpos, kpos);
+        const float p = ok ? ex2(fmaf(s[j][e], sl2, -(e < 2 ? l0 : l1)))
+                           : 0.f;
+        s[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));   // dS
+      }
+
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t sa[4] = {Mma<Elt>::pack(s[2 * kk][0], s[2 * kk][1]),
+                              Mma<Elt>::pack(s[2 * kk][2], s[2 * kk][3]),
+                              Mma<Elt>::pack(s[2 * kk + 1][0],
+                                             s[2 * kk + 1][1]),
+                              Mma<Elt>::pack(s[2 * kk + 1][2],
+                                             s[2 * kk + 1][3])};
+#pragma unroll
+      for (int n = 0; n < HD / 16; ++n) {
+        uint32_t kb[4];
+        ldsm_x4_t(kb, smem_u32(ks + (16 * kk + (lane & 15)) * LD + 16 * n +
+                               (lane >> 4) * 8));
+        Mma<Elt>::run(dq[2 * n], sa, kb[0], kb[1]);
+        Mma<Elt>::run(dq[2 * n + 1], sa, kb[2], kb[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  Elt* dqp = static_cast<Elt*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+  for (int n = 0; n < NH; ++n) {
+    if (r0 < a.S)
+      *reinterpret_cast<uint32_t*>(dqp + (long long)r0 * a.dq_ss + 8 * n +
+                                   c2) =
+          Mma<Elt>::pack(dq[n][0] * a.scale, dq[n][1] * a.scale);
+    if (r1 < a.S)
+      *reinterpret_cast<uint32_t*>(dqp + (long long)r1 * a.dq_ss + 8 * n +
+                                   c2) =
+          Mma<Elt>::pack(dq[n][2] * a.scale, dq[n][3] * a.scale);
+  }
+}
+
+// f32 on FMA.  Thread (ty, tx) of a 16 x 8 grid owns the block's rows
+// 4ty..4ty+3 (keys for dK/dV, queries for dQ), score columns tx + 8j and
+// output columns tx + 8e; the row operand of the score products is
+// staged transposed ([HD][64]) for float4 reads, the column operand as
+// [64][HD + 1] rows; Pᵀ / dSᵀ go through shared memory ([64][68]) for the
+// output products.
+constexpr int kBwdPS = 68;         // padded row of a staged P / dS tile
+
+template <int HD>
+constexpr int bwd_f32_smem_floats() {
+  return 2 * HD * kBwdTile + 2 * kBwdTile * (HD + 1) +
+         2 * kBwdTile * kBwdPS + 2 * kBwdTile;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+flash_bwd_dkdv_f32(const FlashBwdArgs a) {
+  constexpr int BK = kBwdTile, BQ = kBwdTile, NO = HD / 8, LDR = HD + 1;
+  extern __shared__ float4 smem4[];
+  float* Kt = reinterpret_cast<float*>(smem4);  // [HD][BK]
+  float* Vt = Kt + HD * BK;                     // [HD][BK]
+  float* Qs = Vt + HD * BK;                     // [BQ][LDR]
+  float* Gs = Qs + BQ * LDR;                    // [BQ][LDR] (dO)
+  float* Pt = Gs + BQ * LDR;                    // [BQ][kBwdPS]: Pᵀ
+  float* St = Pt + BQ * kBwdPS;                 // [BQ][kBwdPS]: dSᵀ
+  float* Ls = St + BQ * kBwdPS;                 // [BQ]
+  float* Ds = Ls + BQ;                          // [BQ]
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
+  const int G = a.H / a.KH;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + kh * a.v_sh;
+  for (int i = tid; i < BK * HD; i += 128) {
+    const int r = i / HD, d = i % HD, t = k0 + r;
+    Kt[d * BK + r] = t < a.T ? kp[(long long)t * a.k_st + d] : 0.f;
+    Vt[d * BK + r] = t < a.T ? vp[(long long)t * a.v_st + d] : 0.f;
+  }
+
+  const int k_last = min(k0 + BK, a.T) - 1;
+  const int q_begin = a.causal ? k0 : 0;
+  const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
+  const int qt_first = q_begin / BQ * BQ;
+  float dk[4][NO], dv[4][NO];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dk[i][e] = dv[i][e] = 0.f;
+
+  for (int g = 0; g < G; ++g) {
+    const int h = kh * G + g;
+    const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+    const float* gp =
+        static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
+    const long long row0 = ((long long)b * a.H + h) * a.S;
+    for (int q0 = qt_first; q0 < q_end; q0 += BQ) {
+      __syncthreads();             // the previous tile's reads are done
+      for (int i = tid; i < BQ * HD; i += 128) {
+        const int r = i / HD, d = i % HD, s = q0 + r;
+        Qs[r * LDR + d] = s < a.S ? qp[(long long)s * a.q_ss + d] : 0.f;
+        Gs[r * LDR + d] = s < a.S ? gp[(long long)s * a.do_ss + d] : 0.f;
+      }
+      for (int r = tid; r < BQ; r += 128) {
+        const int s = q0 + r;
+        Ls[r] = s < a.S ? a.lse[row0 + s] : 0.f;
+        Ds[r] = s < a.S ? a.delta[row0 + s] : 0.f;
+      }
+      __syncthreads();
+
+      float st[4][8], dpt[4][8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) st[i][j] = dpt[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < HD; ++d) {
+        const float4 kv = *reinterpret_cast<const float4*>(Kt + d * BK +
+                                                           ty * 4);
+        const float4 vv = *reinterpret_cast<const float4*>(Vt + d * BK +
+                                                           ty * 4);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float qx = Qs[(tx + 8 * j) * LDR + d];
+          const float gx = Gs[(tx + 8 * j) * LDR + d];
+          st[0][j] = fmaf(kv.x, qx, st[0][j]);
+          st[1][j] = fmaf(kv.y, qx, st[1][j]);
+          st[2][j] = fmaf(kv.z, qx, st[2][j]);
+          st[3][j] = fmaf(kv.w, qx, st[3][j]);
+          dpt[0][j] = fmaf(vv.x, gx, dpt[0][j]);
+          dpt[1][j] = fmaf(vv.y, gx, dpt[1][j]);
+          dpt[2][j] = fmaf(vv.z, gx, dpt[2][j]);
+          dpt[3][j] = fmaf(vv.w, gx, dpt[3][j]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qi = tx + 8 * j;
+        float p[4], ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const bool ok = visible(a, q0 + qi, k0 + ty * 4 + i);
+          p[i] = ok ? expf(st[i][j] * a.scale - Ls[qi]) : 0.f;
+          ds[i] = p[i] * (dpt[i][j] - Ds[qi]);
+        }
+        *reinterpret_cast<float4*>(Pt + qi * kBwdPS + ty * 4) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(St + qi * kBwdPS + ty * 4) =
+            make_float4(ds[0], ds[1], ds[2], ds[3]);
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int c = 0; c < BQ; ++c) {
+        const float4 pv = *reinterpret_cast<const float4*>(Pt + c * kBwdPS +
+                                                           ty * 4);
+        const float4 sv = *reinterpret_cast<const float4*>(St + c * kBwdPS +
+                                                           ty * 4);
+#pragma unroll
+        for (int e = 0; e < NO; ++e) {
+          const float gx = Gs[c * LDR + tx + 8 * e];
+          const float qx = Qs[c * LDR + tx + 8 * e];
+          dv[0][e] = fmaf(pv.x, gx, dv[0][e]);
+          dv[1][e] = fmaf(pv.y, gx, dv[1][e]);
+          dv[2][e] = fmaf(pv.z, gx, dv[2][e]);
+          dv[3][e] = fmaf(pv.w, gx, dv[3][e]);
+          dk[0][e] = fmaf(sv.x, qx, dk[0][e]);
+          dk[1][e] = fmaf(sv.y, qx, dk[1][e]);
+          dk[2][e] = fmaf(sv.z, qx, dk[2][e]);
+          dk[3][e] = fmaf(sv.w, qx, dk[3][e]);
+        }
+      }
+    }
+  }
+
+  float* dkp = static_cast<float*>(a.dk) + b * a.dk_sb + kh * a.dk_sh;
+  float* dvp = static_cast<float*>(a.dv) + b * a.dv_sb + kh * a.dv_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int t = k0 + ty * 4 + i;
+    if (t >= a.T) continue;
+#pragma unroll
+    for (int e = 0; e < NO; ++e) {
+      dkp[(long long)t * a.dk_st + tx + 8 * e] = dk[i][e] * a.scale;
+      dvp[(long long)t * a.dv_st + tx + 8 * e] = dv[i][e];
+    }
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(128)
+flash_bwd_dq_f32(const FlashBwdArgs a) {
+  constexpr int BK = kBwdTile, BQ = kBwdTile, NO = HD / 8, LDR = HD + 1;
+  extern __shared__ float4 smem4[];
+  float* Qt = reinterpret_cast<float*>(smem4);  // [HD][BQ]
+  float* Gt = Qt + HD * BQ;                     // [HD][BQ] (dO)
+  float* Ks = Gt + HD * BQ;                     // [BK][LDR]
+  float* Vs = Ks + BK * LDR;                    // [BK][LDR]
+  float* St = Vs + BK * LDR;                    // [BK][kBwdPS]: dSᵀ
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y;
+  const int b = blockIdx.z, kh = h / (a.H / a.KH);
+  const float* qp = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* gp =
+      static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh;
+  const float* kp = static_cast<const float*>(a.k) + b * a.k_sb + kh * a.k_sh;
+  const float* vp = static_cast<const float*>(a.v) + b * a.v_sb + kh * a.v_sh;
+  for (int i = tid; i < BQ * HD; i += 128) {
+    const int r = i / HD, d = i % HD, s = q0 + r;
+    Qt[d * BQ + r] = s < a.S ? qp[(long long)s * a.q_ss + d] : 0.f;
+    Gt[d * BQ + r] = s < a.S ? gp[(long long)s * a.do_ss + d] : 0.f;
+  }
+  const long long row0 = ((long long)b * a.H + h) * a.S;
+  float lse[4], del[4], dq[4][NO];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty * 4 + i;
+    lse[i] = s < a.S ? a.lse[row0 + s] : 0.f;
+    del[i] = s < a.S ? a.delta[row0 + s] : 0.f;
+#pragma unroll
+    for (int e = 0; e < NO; ++e) dq[i][e] = 0.f;
+  }
+
+  const int q_last = min(q0 + BQ, a.S) - 1;
+  const int kv_end = a.causal ? min(a.T, q_last + 1) : a.T;
+  const int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  for (int k0 = kv_begin / BK * BK; k0 < kv_end; k0 += BK) {
+    __syncthreads();               // the previous tile's reads are done
+    for (int i = tid; i < BK * HD; i += 128) {
+      const int r = i / HD, d = i % HD, t = k0 + r;
+      Ks[r * LDR + d] = t < a.T ? kp[(long long)t * a.k_st + d] : 0.f;
+      Vs[r * LDR + d] = t < a.T ? vp[(long long)t * a.v_st + d] : 0.f;
+    }
+    __syncthreads();
+    float s[4][8], dp[4][8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < HD; ++d) {
+      const float4 qv = *reinterpret_cast<const float4*>(Qt + d * BQ +
+                                                         ty * 4);
+      const float4 gv = *reinterpret_cast<const float4*>(Gt + d * BQ +
+                                                         ty * 4);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float kx = Ks[(tx + 8 * j) * LDR + d];
+        const float vx = Vs[(tx + 8 * j) * LDR + d];
+        s[0][j] = fmaf(qv.x, kx, s[0][j]);
+        s[1][j] = fmaf(qv.y, kx, s[1][j]);
+        s[2][j] = fmaf(qv.z, kx, s[2][j]);
+        s[3][j] = fmaf(qv.w, kx, s[3][j]);
+        dp[0][j] = fmaf(gv.x, vx, dp[0][j]);
+        dp[1][j] = fmaf(gv.y, vx, dp[1][j]);
+        dp[2][j] = fmaf(gv.z, vx, dp[2][j]);
+        dp[3][j] = fmaf(gv.w, vx, dp[3][j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kj = tx + 8 * j;
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool ok = visible(a, q0 + ty * 4 + i, k0 + kj);
+        const float p = ok ? expf(s[i][j] * a.scale - lse[i]) : 0.f;
+        ds[i] = p * (dp[i][j] - del[i]);
+      }
+      *reinterpret_cast<float4*>(St + kj * kBwdPS + ty * 4) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      const float4 sv = *reinterpret_cast<const float4*>(St + c * kBwdPS +
+                                                         ty * 4);
+#pragma unroll
+      for (int e = 0; e < NO; ++e) {
+        const float kx = Ks[c * LDR + tx + 8 * e];
+        dq[0][e] = fmaf(sv.x, kx, dq[0][e]);
+        dq[1][e] = fmaf(sv.y, kx, dq[1][e]);
+        dq[2][e] = fmaf(sv.z, kx, dq[2][e]);
+        dq[3][e] = fmaf(sv.w, kx, dq[3][e]);
+      }
+    }
+  }
+
+  float* dqp = static_cast<float*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int s = q0 + ty * 4 + i;
+    if (s >= a.S) continue;
+#pragma unroll
+    for (int e = 0; e < NO; ++e)
+      dqp[(long long)s * a.dq_ss + tx + 8 * e] = dq[i][e] * a.scale;
+  }
+}
+
+template <typename K>
+int set_smem(K kernel, int bytes, bool& done) {
+  if (done) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return static_cast<int>(err);
+}
+
+// the three launches, in order; Elt float takes the FMA kernels
+template <typename Elt, int HD>
+int launch_flash_bwd(const FlashBwdArgs& a, cudaStream_t stream) {
+  const long long rows = (long long)a.B * a.H * a.S;
+  flash_bwd_delta_kernel<Elt, HD>
+      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(a);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const dim3 gk((a.T + kBwdTile - 1) / kBwdTile, a.KH, a.B);
+  const dim3 gq((a.S + kBwdTile - 1) / kBwdTile, a.H, a.B);
+  static bool dkdv_set = false, dq_set = false;
+  if constexpr (sizeof(Elt) == 4) {
+    constexpr int bytes = bwd_f32_smem_floats<HD>() * 4;
+    if ((err = set_smem(flash_bwd_dkdv_f32<HD>, bytes, dkdv_set))) return err;
+    if ((err = set_smem(flash_bwd_dq_f32<HD>, bytes, dq_set))) return err;
+    flash_bwd_dkdv_f32<HD><<<gk, 128, bytes, stream>>>(a);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    flash_bwd_dq_f32<HD><<<gq, 128, bytes, stream>>>(a);
+  } else {
+    constexpr int bk = bwd_dkdv_smem_bytes<HD>(), bq = bwd_dq_smem_bytes<HD>();
+    if ((err = set_smem(flash_bwd_dkdv_mma<Elt, HD>, bk, dkdv_set)))
+      return err;
+    if ((err = set_smem(flash_bwd_dq_mma<Elt, HD>, bq, dq_set))) return err;
+    flash_bwd_dkdv_mma<Elt, HD><<<gk, 128, bk, stream>>>(a);
+    if ((err = static_cast<int>(cudaGetLastError()))) return err;
+    flash_bwd_dq_mma<Elt, HD><<<gq, 128, bq, stream>>>(a);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename Elt>
+int flash_bwd_hd(const FlashBwdArgs& a, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 32: return launch_flash_bwd<Elt, 32>(a, stream);
+    case 64: return launch_flash_bwd<Elt, 64>(a, stream);
+    case 128: return launch_flash_bwd<Elt, 128>(a, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1316,25 +2069,55 @@ int decode_dtype(const DecodeArgs& a, int B, int dtype, int n_split, int ng,
 // empty output.
 
 // strides: q (b, s, h), k (b, t, h), v (b, t, h), o (b, s, h); 12 values.
+// lse: null, or f32 [batch, heads, s_len] that receives each query row's
+// log-sum-exp of its scaled scores (-inf for a row that sees no key).
 // *route: the kernel launched, 0 = flash_kernel (f32 FMA), 1 =
 // flash_kernel_wgmma.
 extern "C" int fa_flash(const void* q, const void* k, const void* v, void* o,
-                        const long long* strides, int batch, int heads,
-                        int kv_heads, int s_len, int t_len, int hd,
-                        int dtype, int causal, int window, float scale,
-                        int* route, void* stream) {
+                        float* lse, const long long* strides, int batch,
+                        int heads, int kv_heads, int s_len, int t_len,
+                        int hd, int dtype, int causal, int window,
+                        float scale, int* route, void* stream) {
   const FlashArgs a{q, k, v, o,
                     strides[0], strides[1], strides[2],
                     strides[3], strides[4], strides[5],
                     strides[6], strides[7], strides[8],
                     strides[9], strides[10], strides[11],
-                    heads, kv_heads, s_len, t_len, causal, window, scale};
+                    heads, kv_heads, s_len, t_len, causal, window, scale,
+                    lse};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   *route = dtype == 0 ? 0 : 1;
   switch (dtype) {
     case 0: return flash_f32_hd(a, batch, hd, st);
     case 1: return flash_tc_hd<__nv_bfloat16>(a, batch, hd, st);
     case 2: return flash_tc_hd<__half>(a, batch, hd, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// strides: q (b, s, h), k (b, t, h), v (b, t, h), o (b, s, h), dout
+// (b, s, h), dq (b, s, h), dk (b, t, h), dv (b, t, h); 24 values.  lse:
+// the forward's f32 [batch, heads, s_len]; delta: f32 scratch of the same
+// shape.  Three launches (delta, dK/dV, dQ); dq, dk, dv in q's dtype.
+extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
+                            const void* o, const void* dout,
+                            const float* lse, float* delta, void* dq,
+                            void* dk, void* dv, const long long* st,
+                            int batch, int heads, int kv_heads, int s_len,
+                            int t_len, int hd, int dtype, int causal,
+                            int window, float scale, void* stream) {
+  const FlashBwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
+                       st[0], st[1], st[2], st[3], st[4], st[5],
+                       st[6], st[7], st[8], st[9], st[10], st[11],
+                       st[12], st[13], st[14], st[15], st[16], st[17],
+                       st[18], st[19], st[20], st[21], st[22], st[23],
+                       batch, heads, kv_heads, s_len, t_len, causal, window,
+                       scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return flash_bwd_hd<float>(a, hd, s);
+    case 1: return flash_bwd_hd<__nv_bfloat16>(a, hd, s);
+    case 2: return flash_bwd_hd<__half>(a, hd, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -106,6 +106,20 @@ def on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {t.device}")
 
 
+def no_backward(name: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through a kernel that
+    has none (grad enabled and an input that requires grad): its output
+    would carry no `grad_fn`, and the gradient would be lost without a
+    word.  Called by such wrappers before they launch; None entries are
+    skipped."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward kernel: call it under torch.no_grad() "
+            "or on inputs that do not require grad (training with it is "
+            "ROADMAP queue 1 item 7e)")
+
+
 def tensor_arg(t: torch.Tensor, name: str, dev: torch.device, ndim: int,
                dtype: torch.dtype | None = torch.int32) -> int:
     """The data pointer of a kernel input after checking its device,

@@ -42,7 +42,8 @@ import math
 
 import torch
 
-from ..cuda_build import check, i32, on_cuda, reset_counts, stream
+from ..cuda_build import (check, i32, no_backward, on_cuda, reset_counts,
+                          stream)
 from ..flash_attention.kernel import (DTYPE_CODES, attention_lib,
                                       check_operands, check_rows_16b,
                                       strides)
@@ -105,6 +106,7 @@ def run_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_cuda(q):
         from .ref import decode_attention_ref
         return decode_attention_ref(q, k, v, valid_len)
+    no_backward("decode_attention", q, k, v)
     B, H, K, T, hd = check_operands(q, k, v, 3)
     valid_len = i32(valid_len, "valid_len")
     if not 1 <= valid_len <= T:

@@ -23,10 +23,23 @@ tensor-core route moves rows in 16-byte pieces: a bf16 / f16 q, k, v or
 output whose start or (b, s, h) strides are not multiples of 16 bytes
 raises ValueError.
 
+With `return_lse=True` the forward also returns each query row's
+log-sum-exp of its scaled scores, f32 [B, H, S], which the backward
+reads.  `flash_attention_bwd` binds `fa_flash_bwd` of the same source:
+(dq, dk, dv) from q, k, v, the output o, lse and the output's gradient
+dO, in three launches (δ = rowsum(dO∘O) into an f32 [B, H, S] buffer, a
+dK/dV kernel, a dQ kernel), deterministic (no atomics).  The Pallas
+package has no backward kernel; its gradients come from autodiff of the
+XLA twin (`repro.models.layers.flash_attention_xla`).  dO is read
+through its strides as autograd hands it; only where its head dimension
+is not contiguous or a bf16 / f16 row is off 16 bytes is it copied to a
+contiguous tensor first.
+
 Device choice: CUDA tensors launch the kernel (or raise); CPU tensors
-return the plain version, `ref.attention_ref`.  `flash_attention.launches`
-counts real kernel launches only; `flash_attention.last_route` names the
-kernel the last one ran, as the C dispatch reports it.
+return the plain version, `ref.attention_ref` / `ref.attention_bwd_ref`.
+`flash_attention.launches` and `flash_attention_bwd.launches` count real
+kernel launches only (one a call; a backward call is its three
+kernels); `last_route` names the kernel the last one ran.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from ..cuda_build import check, i32, load, on_cuda, reset_counts, stream
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernels `fa_flash` launches, by the route code it returns
 ROUTES = ("flash_kernel (f32 FMA)", "flash_kernel_wgmma (wgmma)")
+BWD_ROUTES = ("flash_bwd_*_f32 (f32 FMA)", "flash_bwd_*_mma (mma.sync)")
 HEAD_DIMS = (32, 64, 128)
 _GRID_MAX = 65535                   # grid y / z limit (heads, batch)
 _I32_MAX = 2 ** 31 - 1              # grid x limit (blocks)
@@ -48,8 +62,10 @@ _I32_MAX = 2 ** 31 - 1              # grid x limit (blocks)
 
 def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fa_flash.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i, i, f,
-                             ctypes.POINTER(i), p]
+    lib.fa_flash.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
+                             f, ctypes.POINTER(i), p]
+    lib.fa_flash_bwd.argtypes = [p] * 11 + [i] * 9 + [f, p]
+    lib.fa_flash_bwd.restype = ctypes.c_int
     lib.fa_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
     lib.fa_flash.restype = ctypes.c_int
     lib.fa_decode.restype = ctypes.c_int
@@ -94,14 +110,19 @@ def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return B, H, K, T, hd
 
 
+def rows_16b(t: torch.Tensor) -> bool:
+    """True when `t` starts on 16 bytes and its strides over dims 0-2
+    (those of size > 1) are multiples of 16 bytes."""
+    vec = 16 // t.element_size()
+    return t.data_ptr() % 16 == 0 and not any(
+        t.size(d) > 1 and t.stride(d) % vec for d in (0, 1, 2))
+
+
 def check_rows_16b(*named: tuple[str, torch.Tensor]) -> None:
-    """Raise ValueError unless each tensor starts on 16 bytes and its
-    strides over dims 0-2 (those of size > 1) are multiples of 16 bytes:
-    the kernels move its rows in 16-byte pieces."""
+    """Raise ValueError unless each tensor's rows lie on 16 bytes
+    (`rows_16b`): the kernels move its rows in 16-byte pieces."""
     for name, t in named:
-        vec = 16 // t.element_size()
-        if t.data_ptr() % 16 or any(t.size(d) > 1 and t.stride(d) % vec
-                                    for d in (0, 1, 2)):
+        if not rows_16b(t):
             raise ValueError(f"{name} must start on 16 bytes with strides "
                              "that are multiples of 16 bytes")
 
@@ -113,23 +134,33 @@ def strides(*pairs: tuple[torch.Tensor, tuple[int, ...]]):
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q [B,H,S,hd]; k/v [B,K,T,hd] with H = K·G -> [B,H,S,hd] in q's
-    dtype.  Replaces the TPU `flash_attention`."""
-    if not on_cuda(q):
-        from .ref import attention_ref
-        return attention_ref(q, k, v, causal=causal, window=window)
+def _check_launch(q, k, v, window: int):
+    """Checks shared by both directions: (B, H, K, S, T, hd, window)."""
     B, H, K, T, hd = check_operands(q, k, v, 4)
-    S = q.shape[2]
     window = i32(window, "window")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    out = torch.empty_like(q)           # q's memory layout (see above)
-    if out.numel() == 0:
-        return out
-    if T == 0:
+    if T == 0 and q.numel():
         raise ValueError("T = 0: no key to attend to")
+    return B, H, K, i32(q.shape[2], "S"), i32(T, "T"), hd, window
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    return_lse: bool = False):
+    """q [B,H,S,hd]; k/v [B,K,T,hd] with H = K·G -> [B,H,S,hd] in q's
+    dtype, and with `return_lse` also lse f32 [B,H,S].  Replaces the TPU
+    `flash_attention`."""
+    if not on_cuda(q):
+        from .ref import attention_ref
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             return_lse=return_lse)
+    B, H, K, S, T, hd, window = _check_launch(q, k, v, window)
+    out = torch.empty_like(q)           # q's memory layout (see above)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if out.numel() == 0:
+        return (out, lse) if return_lse else out
     if q.dtype != torch.float32:
         check_rows_16b(("q", q), ("k", k), ("v", v), ("out", out))
         if -(-S // 64) * B * H > _I32_MAX:      # blocks of 64 query rows
@@ -138,20 +169,69 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     st = strides((q, bsh), (k, bsh), (v, bsh), (out, bsh))
     route = ctypes.c_int(-1)
     check(attention_lib().fa_flash(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), st,
-        B, H, K, i32(S, "S"), i32(T, "T"), hd, DTYPE_CODES[q.dtype],
-        int(bool(causal)), window, 1.0 / math.sqrt(hd), ctypes.byref(route),
-        stream()), "flash_attention")
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), st, B, H, K, S, T, hd,
+        DTYPE_CODES[q.dtype], int(bool(causal)), window, 1.0 / math.sqrt(hd),
+        ctypes.byref(route), stream()), "flash_attention")
     flash_attention.launches += 1
     flash_attention.last_route = ROUTES[route.value]
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor, *, causal: bool = True,
+                        window: int = 0):
+    """The gradients (dq [B,H,S,hd], dk, dv [B,K,T,hd], in q's dtype and
+    each in its input's memory layout) of `flash_attention`'s output o
+    with row log-sum-exp lse (f32 [B,H,S]) for its gradient dO.  dK and
+    dV sum over the G query heads of each KV head."""
+    if not on_cuda(q):
+        from .ref import attention_bwd_ref
+        return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 window=window)
+    B, H, K, S, T, hd, window = _check_launch(q, k, v, window)
+    for name, t in (("o", o), ("do", do)):
+        if tuple(t.shape) != tuple(q.shape) or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} must match "
+                             f"q {tuple(q.shape)} {q.dtype}")
+    if tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous f32 {(B, H, S)}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    bf = q.dtype != torch.float32
+    if do.stride(-1) != 1 or (bf and not rows_16b(do)):
+        do = do.contiguous()
+    if o.stride(-1) != 1:
+        raise ValueError("o's head dimension must be contiguous")
+    if bf:
+        check_rows_16b(("q", q), ("k", k), ("v", v), ("do", do),
+                       ("dq", dq), ("dk", dk), ("dv", dv))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    bsh = (0, 2, 1)
+    st = strides(*((t, bsh) for t in (q, k, v, o, do, dq, dk, dv)))
+    check(attention_lib().fa_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), st, B, H, K, S, T, hd,
+        DTYPE_CODES[q.dtype], int(bool(causal)), window, 1.0 / math.sqrt(hd),
+        stream()), "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.last_route = BWD_ROUTES[int(bf)]
+    return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.last_route = None   # ROUTES entry of the last launch
-KERNELS = (flash_attention,)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.last_route = None   # BWD_ROUTES entry of the last
+KERNELS = (flash_attention, flash_attention_bwd)
 
 
 def reset_launches() -> dict:
-    """Zero `flash_attention.launches`; returns the count before."""
+    """Zero both wrappers' `launches`; returns the counts before."""
     return reset_counts(KERNELS)

@@ -47,8 +47,8 @@ from typing import Optional
 
 import torch
 
-from ..cuda_build import (Launch, check, i32, load, on_16b, on_cuda,
-                          reset_counts, stream)
+from ..cuda_build import (Launch, check, i32, load, no_backward, on_16b,
+                          on_cuda, reset_counts, stream)
 from ..flash_attention.kernel import strides
 
 STATE_SIZES = (8, 16)
@@ -147,6 +147,7 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     if not on_cuda(u):
         from .ref import ssm_scan_ref
         return ssm_scan_ref(u, dt, B, C, A, D, h0, state_out=state_out)
+    no_backward("ssm_scan", u, dt, B, C, A, D, h0)
     Bb, T, Di, N = _check(u, dt, B, C, A, D, h0, state_out)
     route = pick_route(T, route)
     y = torch.empty((Bb, T, Di), dtype=torch.float32, device=u.device)

@@ -51,8 +51,8 @@ from typing import Optional
 
 import torch
 
-from ..cuda_build import (Launch, check, i32, load, on_16b, on_cuda,
-                          reset_counts, stream)
+from ..cuda_build import (Launch, check, i32, load, no_backward, on_16b,
+                          on_cuda, reset_counts, stream)
 from ..flash_attention.kernel import DTYPE_CODES, strides
 
 HEAD_SIZES = (32, 64)
@@ -147,6 +147,7 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not on_cuda(r):
         from .ref import wkv_scan_plain
         return wkv_scan_plain(r, k, v, w_log, u, s0, state_out=state_out)
+    no_backward("wkv_scan", r, k, v, w_log, u, s0)
     u = u.float()
     B, H, T, N = _check(r, k, v, w_log, u, s0, state_out)
     route = pick_route(T, route)

@@ -12,7 +12,12 @@ the port launches the Hopper kernels for CUDA tensors
 (`kernels.flash_attention`, `kernels.decode_attention`, which implement
 the same contract) and takes the plain PyTorch versions for CPU tensors:
 the chunked online softmax of `flash_attention_chunked`, and
-`decode_attention_ref`.
+`decode_attention_ref`.  In training, the CUDA path's gradient is
+`FlashAttention`'s hand-written backward kernel (`attention_bshd` applies
+it when an input requires grad); on the CPU autograd differentiates the
+chunked softmax, the counterpart of the reference's `jax.grad` through
+`flash_attention_xla`.  The scan and decode kernels have no backward and
+refuse a gradient on the card.
 
 RWKV6: where the reference computes its XLA twin `_wkv_chunked` (an
 associative scan) or the one-step einsums of `rwkv_decode`, the port
@@ -223,9 +228,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, window: int = 0, chunk: int = 1024) \
         -> torch.Tensor:
     """The layers' whole-sequence attention (q [B,S,H,hd]; k/v
-    [B,T,K,hd]): the Hopper kernel for CUDA tensors (`attention_bshd`;
-    `chunk` is the plain path's only), the chunked online softmax for CPU
-    tensors."""
+    [B,T,K,hd]): the Hopper kernel for CUDA tensors (`attention_bshd`,
+    with its backward kernel under autograd; `chunk` is the plain path's
+    only), the chunked online softmax for CPU tensors."""
     if on_cuda(q):
         return attention_bshd(q, k, v, causal=causal, window=window)
     return flash_attention_chunked(q, k, v, causal=causal, window=window,

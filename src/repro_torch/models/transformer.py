@@ -9,9 +9,21 @@ dict per pattern position whose leaves are stacked over periods
 experts (`init_params(..., experts=)`): its expert leaves hold those
 experts only, and its int32 leaf `expert_ids` names them (the one leaf
 the reference's tree lacks).  The reference applies the stack with
-`lax.scan`; here a Python loop runs over periods.  Remat (training) is
-not ported, nor is the sharding `hint`, which is the identity on one
-device.
+`lax.scan`; here a Python loop runs over periods.  The sharding `hint`
+is not ported: it is the identity on one device.
+
+Training: `loss_fn` is the reference's causal-LM cross entropy (f32
+logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period (one
+layer for every config `check_trainable` admits) as the reference's
+`_remat` wraps its scan body: "none"; "full", one
+`torch.utils.checkpoint` (non-reentrant) a period, whose backward runs
+the period's forward again; "dots", selective checkpointing that keeps
+the outputs of the matrix products and of the flash forward op
+(`repro_torch::flash_forward`) and recomputes the rest (the reference's
+`checkpoint_dots`).  Per train step on CUDA the flash kernel launches
+once a layer under "none" and "dots" and twice under "full"; its
+backward once a layer.  `check_trainable` refuses the RWKV6 and Mamba
+mixers, whose scan kernels have no backward yet.
 
 Caches, per pattern position, stacked over periods:
   attention -> (k, v) buffers [n_periods, B, T_cache, K, hd]
@@ -30,17 +42,22 @@ NotImplementedError: they are not ported yet (ROADMAP queue 1 item 7).
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..kernels.config import resolve_device
+from ..tree import leaves
 from . import layers as L
 from .config import LayerSpec, ModelConfig
 
 Params = dict
 ROADMAP_ITEM = "ROADMAP queue 1 item 7"
+TRAIN_ROADMAP_ITEM = "ROADMAP queue 1 item 7e"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -66,6 +83,18 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(sorted(set(why)))} not ported yet "
             f"({ROADMAP_ITEM})")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config the port cannot train on
+    the card: RWKV6's and Mamba's scan kernels have no backward yet."""
+    check_supported(cfg)
+    mixers = sorted({s.mixer for s in cfg.pattern} & {"rwkv", "mamba"})
+    if mixers:
+        raise NotImplementedError(
+            f"{cfg.name}: training with the {', '.join(mixers)} mixer is not "
+            f"ported yet (the wkv_scan / ssm_scan backward kernels, "
+            f"{TRAIN_ROADMAP_ITEM})")
 
 
 def _device(device) -> torch.device:
@@ -204,15 +233,61 @@ def _positions(batch: dict, S: int, device) -> torch.Tensor:
     return torch.arange(S, device=device) if pos is None else pos
 
 
+# ops whose outputs remat "dots" keeps: the matrix products, and the
+# flash forward (its backward needs o and lse)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    keep = op in _DOTS or op is torch.ops.repro_torch.flash_forward.default
+    return (CheckpointPolicy.MUST_SAVE if keep
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig, params=None):
+    """`fn` under `cfg.remat` (see the module docstring) when autograd
+    records a gradient of `params` (None: of anything); as it is
+    otherwise (serving, scoring)."""
+    if cfg.remat == "none" or not torch.is_grad_enabled() or (
+            params is not None
+            and not any(x.requires_grad for x in leaves(params))):
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {} if cfg.remat == "full" else {"context_fn": partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
-    """Scoring forward -> logits [B,S,V]."""
+    """Training / scoring forward -> logits [B,S,V]."""
     check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     positions = _positions(batch, x.shape[1], x.device)
-    for _i, _j, spec, pp in _layers(params, cfg):
-        x = _block_full(pp, spec, cfg, x, positions)
+
+    def period(x, *pps):
+        for spec, pp in zip(cfg.pattern, pps):
+            x = _block_full(pp, spec, cfg, x, positions)
+        return x
+
+    period = _remat(period, cfg, params)
+    for i in range(cfg.n_periods):
+        x = period(x, *(_index(b, i) for b in params["blocks"]))
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return x @ params["lm_head"]
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    """Causal-LM cross entropy: f32 logsumexp over the vocabulary, the
+    mean NLL of the positions whose label is >= 0."""
+    logits = forward(params, cfg, batch).float()
+    labels = batch["labels"]
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    nll = (lse - picked) * mask
+    return nll.sum() / mask.sum().clamp_min(1.0)
 
 
 # --------------------------------------------------------------------- serving

@@ -1,0 +1,99 @@
+"""AdamW with global-norm clipping, a configurable moment dtype and an
+optional int8 error-feedback gradient-compression stage, ported from
+`repro.optim.adamw` as functions on the same nested dicts.
+
+Not `torch.optim.AdamW`: `update` returns new tensors and never writes
+into `params` or `state`, as the reference does.  A trainer publishes
+each version's tree into `VersionedParamStore`, which keeps a reference
+to it; an in-place update would change a version a reader has pinned.
+Leaves that are not floating point (a MoE layer's `expert_ids`) are
+carried unchanged.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..models.transformer import torch_dtype
+from ..tree import leaves, tree_map, tree_unzip
+
+
+@dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    moment_dtype: str = "float32"
+    compress: bool = False            # int8 error-feedback compression
+
+
+def init(params, cfg: AdamWConfig) -> dict:
+    """Zero moments in `cfg.moment_dtype` (and f32 error-feedback
+    residuals with `compress`) beside each leaf, and an int32 step count,
+    on the parameters' device."""
+    mdt = torch_dtype(cfg.moment_dtype)
+    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+    state = {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+             "count": torch.zeros((), dtype=torch.int32,
+                                  device=leaves(params)[0].device)}
+    if cfg.compress:
+        state["ef"] = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+    return state
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves of their f32 sums of squares."""
+    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+
+
+def _compress_int8(g: torch.Tensor, ef: torch.Tensor):
+    """Simulated int8 compression with error feedback: the value that
+    crosses the DP boundary is the dequantized int8; the quantization
+    error stays in `ef` and is added to the next step's gradient.
+    Returns (dequantized, new residual)."""
+    gf = g.float() + ef
+    scale = gf.abs().max().clamp_min(1e-12) / 127.0
+    q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
+    deq = q.float() * scale
+    return deq, gf - deq
+
+
+def update(grads, state: dict, params, cfg: AdamWConfig):
+    """Returns (new_params, new_state, {"grad_norm": ...}); the inputs are
+    left as they are."""
+    count = state["count"] + 1
+    new_ef = None
+    if cfg.compress:
+        grads, new_ef = tree_unzip(
+            tree_map(_compress_int8, grads, state["ef"]), grads, 2)
+    gnorm = global_norm(grads)
+    clip_scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
+                             max=1.0)
+    mdt = torch_dtype(cfg.moment_dtype)
+    b1c = 1.0 - cfg.b1 ** count.float()
+    b2c = 1.0 - cfg.b2 ** count.float()
+
+    def upd(p, g, m, v):
+        if not p.is_floating_point():
+            return p, m, v
+        g = g.float() * clip_scale
+        m32 = m.float() * cfg.b1 + g * (1 - cfg.b1)
+        v32 = v.float() * cfg.b2 + g.square() * (1 - cfg.b2)
+        mh = m32 / b1c
+        vh = v32 / b2c
+        step = cfg.lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                         + cfg.weight_decay * p.float())
+        return ((p.float() - step).to(p.dtype), m32.to(mdt), v32.to(mdt))
+
+    new_params, m, v = tree_unzip(
+        tree_map(upd, params, grads, state["m"], state["v"]), params, 3)
+    new_state = {"m": m, "v": v, "count": count}
+    if new_ef is not None:
+        new_state["ef"] = new_ef
+    return new_params, new_state, {"grad_norm": gnorm}

@@ -32,6 +32,7 @@ from ..kernels.config import resolve_device
 from ..models.config import ModelConfig
 from ..models.transformer import check_supported, decode_step, prefill
 from ..tensorstore.versioned import VersionedParamStore
+from ..tree import leaves
 
 
 @dataclass
@@ -39,17 +40,6 @@ class GenerationResult:
     tokens: Any                 # [B, n_steps]
     snapshot_lsn: int           # WAL position of the pinned version
     freshness_lag: int          # LSNs behind the newest committed version
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (tuple, list)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 class ServingEngine:
@@ -70,7 +60,7 @@ class ServingEngine:
         return self.store.refresh()
 
     def _check_params(self, params) -> None:
-        for t in _leaves(params):
+        for t in leaves(params):
             if t.device.type != self.device.type:
                 raise ValueError(f"pinned parameters are on {t.device}, "
                                  f"the engine serves on {self.device}")

@@ -31,6 +31,11 @@ def smoke(monkeypatch):
     for name, value in (("SERVE_B", 2), ("SERVE_S", 24), ("SERVE_STEPS", 6),
                         ("SERVE_PUBLISH_AT", 2)):
         monkeypatch.setattr(chip_smoke, name, value)
+    for name, value in (("TRAIN_SMOKE", True), ("TRAIN_B", 2),
+                        ("TRAIN_S", 16), ("TRAIN_STEPS", 3),
+                        ("TRAIN_SERVE", (1, 4, 2)), ("TRAIN_CHECK_B", 2),
+                        ("TRAIN_CRASH_LAYERS", 1)):
+        monkeypatch.setattr(chip_smoke, name, value)
     return chip_smoke
 
 
@@ -367,3 +372,46 @@ def test_grouped_and_fold_on_cpu(smoke, monkeypatch, capsys):
     assert "sector_only_ms=0.0" in out and "fill_only_ms=0.0" in out
     assert list(times) == ["rss_delta_fold"]     # Lp 64, Dp 256
     assert times["rss_delta_fold"][:2] == (0.0, 0.0)
+
+
+def test_attention_bwd_phase_on_cpu(smoke, capsys, monkeypatch):
+    """The flash-backward phase's checks at small shapes (every mask and
+    head layout of the card's cases), the plain version standing in."""
+    monkeypatch.setattr(smoke, "BWD_CASES", [
+        ("train", "bfloat16", 2, 40, 40, 4, 4, 64, True, 0, True),
+        ("gqa+window", "bfloat16", 1, 50, 50, 8, 2, 128, True, 8, True),
+        ("mqa", "bfloat16", 1, 30, 30, 6, 1, 128, True, 0, True),
+        ("ragged", "float32", 1, 37, 37, 4, 2, 32, False, 0, False)])
+    res = smoke.attention_bwd_phase(torch, np, None, device="cpu")
+    assert res["max_abs_err"] == 0.0 and "times" not in res
+    out = capsys.readouterr().out
+    assert out.count("two launches bitwise equal") == 4
+
+
+def test_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """Qwen1.5-0.5B's smoke variant through the train phase: (a) the step
+    against the plain path in f32 and bf16, (b) training while a reader
+    pinned at v1 keeps it and requests are served between steps, (c) no
+    kernel launches off the card, (d) crash and restore at the depth
+    cut."""
+    monkeypatch.setattr(smoke, "TRAIN_CKPT", tmp_path / "ckpt")
+    launches = smoke.train_phase(torch, np, device="cpu")
+    assert launches == {"flash_attention": 0, "flash_attention_bwd": 0}
+    out = capsys.readouterr().out
+    for part in ("train (a): f32 loss", "train (b): 3 steps",
+                 "reads v1 bitwise", "train (c)", "train (d): 1 of 2 layers",
+                 "(3 saves"):
+        assert part in out, part
+    assert not (tmp_path / "ckpt").exists()
+
+
+def test_count_plain_attention_counts_and_restores(smoke):
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.models import layers
+
+    before = layers.flash_attention_chunked, FO.attention_bwd_ref
+    with smoke.count_plain_attention() as plain:
+        q = torch.zeros(1, 4, 2, 32)
+        layers.flash_attention(q, q, q, causal=True)
+    assert plain["calls"] == 1
+    assert (layers.flash_attention_chunked, FO.attention_bwd_ref) == before

@@ -1677,3 +1677,144 @@ def test_jamba_smoke_kernel_path_equals_plain_path(no_tf32, monkeypatch):
     want = run()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max() <= 1e-3 * want.abs().max()
+
+
+# ------------------------------------------------- flash attention backward
+def _bwd_close(got, want, dtype):
+    """Each gradient within ATTN_TOL of its max-abs (f32 summation order;
+    bf16 / f16 P and dS rounded once to the working type)."""
+    tol = ATTN_TOL[dtype]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == getattr(torch, dtype)
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max() <= tol * w.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_bwd_kernel_equals_plain(no_tf32, dtype, G, hd):
+    """Every mask (causal or not, window 0 or 64) at S = T = 256, ragged
+    S = T = 130 and ragged S != T (rows past T + window see no key: lse
+    -inf, no gradient); the lse the forward returns; two launches bitwise
+    equal; one launch a call."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+
+    dev, K = no_tf32, 2
+    FK.reset_launches()
+    calls = 0
+    for S, T in ((256, 256), (130, 130), (70, 201), (201, 70)):
+        q, do = (_randn(dev, (2, K * G, S, hd), dtype, S + hd + i)
+                 for i in range(2))
+        k, v = (_randn(dev, (2, K, T, hd), dtype, T + i) for i in (1, 2))
+        for causal, window in ((True, 0), (True, 64), (False, 0),
+                               (False, 64)):
+            o, lse = FK.flash_attention(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+            _, want_lse = FR.attention_ref(q, k, v, causal=causal,
+                                           window=window, return_lse=True)
+            assert torch.equal(torch.isinf(lse), torch.isinf(want_lse))
+            fin = torch.isfinite(want_lse)
+            torch.testing.assert_close(lse[fin], want_lse[fin], rtol=1e-5,
+                                       atol=1e-4)
+            got = FK.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                         window=window)
+            again = FK.flash_attention_bwd(q, k, v, o, lse, do,
+                                           causal=causal, window=window)
+            calls += 2
+            assert all(torch.equal(a, b) for a, b in zip(got, again))
+            _bwd_close(got, FR.attention_bwd_ref(
+                q, k, v, o, lse, do, causal=causal, window=window), dtype)
+    assert FK.flash_attention_bwd.launches == calls
+
+
+def test_flash_bwd_through_autograd_in_the_model_layout(no_tf32):
+    """`attention_bshd` on CUDA tensors that require grad: the Function
+    launches the forward once and the backward once; dO arrives through
+    strides (a transposed view), or copied where its head dim is not
+    contiguous; the gradients come back in the inputs' layout."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.flash_attention.ops import attention_bshd
+
+    dev = no_tf32
+    q = _randn(dev, (2, 200, 8, 64), "bfloat16", 1).requires_grad_()
+    k = _randn(dev, (2, 200, 2, 64), "bfloat16", 2).requires_grad_()
+    v = _randn(dev, (2, 200, 2, 64), "bfloat16", 3).requires_grad_()
+    do = _randn(dev, (2, 200, 8, 64), "bfloat16", 4)
+    o_ref, lse = FR.attention_ref(*(x.detach().transpose(1, 2)
+                                    for x in (q, k, v)), causal=True,
+                                  return_lse=True)
+    want = FR.attention_bwd_ref(*(x.detach().transpose(1, 2)
+                                  for x in (q, k, v)), o_ref, lse,
+                                do.transpose(1, 2), causal=True)
+    for grad in (do, do.transpose(2, 3).contiguous().transpose(2, 3)):
+        FK.reset_launches()
+        out = attention_bshd(q, k, v, causal=True)
+        got = torch.autograd.grad(out, (q, k, v), grad)
+        assert FK.flash_attention.launches == 1
+        assert FK.flash_attention_bwd.launches == 1
+        assert all(g.shape == x.shape and g.stride() == x.stride()
+                   for g, x in zip(got, (q, k, v)))
+        _bwd_close([g.transpose(1, 2) for g in got], want, "bfloat16")
+
+
+def test_kernels_without_a_backward_raise_under_grad(no_tf32):
+    """decode_attention, wkv_scan and ssm_scan have no backward kernel:
+    with an input that requires grad they raise on the card instead of
+    returning an output without a gradient; under no_grad they run."""
+    from repro_torch.kernels.decode_attention.ops import decode_gqa
+    from repro_torch.kernels.ssm_scan.ops import selective_scan
+    from repro_torch.kernels.wkv_scan.ops import wkv
+
+    dev = no_tf32
+    q = _randn(dev, (2, 4, 64), "bfloat16", 0)
+    kc = _randn(dev, (2, 2, 64, 64), "bfloat16", 1)
+    r, k, v, w_log, u = _wkv_inputs(dev, 2, 8, 2, 32, "float32", 3)
+    x = _ssm_inputs(dev, 2, 8, 128, 16, "float32", 4)
+    calls = (lambda a: decode_gqa(a, kc, kc, 64),
+             lambda a: wkv(a, k, v, w_log, u),
+             lambda a: selective_scan(a, *x[1:]))
+    for call, first in zip(calls, (q, r, x[0])):
+        with pytest.raises(RuntimeError, match="no backward kernel"):
+            call(first.clone().requires_grad_())
+        with torch.no_grad():
+            call(first.clone().requires_grad_())
+
+
+def test_qwen_smoke_train_step_kernel_path_equals_plain_path(no_tf32):
+    """One train step's loss and gradients on the Qwen1.5-0.5B smoke
+    variant in f32 on the card: the flash forward and backward kernels
+    against the layers' chunked plain attention (autograd), loss within
+    1e-5 relative and every leaf within 1e-4 of its max-abs."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.models import init_params, layers
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import leaves
+
+    dev = no_tf32
+    cfg = smoke_variant(get_config("qwen1.5-0.5b")).with_overrides(
+        param_dtype="float32", compute_dtype="float32", remat="dots")
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    batch = SyntheticPipeline(cfg, batch=2, seq_len=100,
+                              device=dev).batch_at(0)
+    FK.reset_launches()
+    lk, gk = _value_and_grad(params, cfg, batch)
+    assert FK.flash_attention.launches == FK.flash_attention_bwd.launches \
+        == cfg.n_layers
+    saved = layers.attention_bshd
+    layers.attention_bshd = lambda q, k, v, *, causal, window: \
+        layers.flash_attention_chunked(q, k, v, causal=causal, window=window)
+    try:
+        lp, gp = _value_and_grad(params, cfg, batch)
+    finally:
+        layers.attention_bshd = saved
+    assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
+    for a, b in zip(leaves(gk), leaves(gp)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()

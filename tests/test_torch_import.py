@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch` (and `chip_smoke.py`, which drives
 it on the GPU machine, where JAX is not installed) imports neither jax nor
-the reference package `repro`."""
+the reference package `repro`, nor `ml_dtypes` (JAX's bf16 arrays; the
+GPU machine does not list it)."""
 
 import pkgutil
 import re
@@ -15,8 +16,8 @@ pytest.importorskip("torch")
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+(jax|repro)\b(?!_torch)|from\s+(jax|repro)\b(?!_torch))",
-    re.M)
+    r"^\s*(import\s+(jax|repro|ml_dtypes)\b(?!_torch)"
+    r"|from\s+(jax|repro|ml_dtypes)\b(?!_torch))", re.M)
 
 
 def _port_modules():
@@ -36,13 +37,16 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "repro_torch.kernels.flash_attention.kernel",
                  "repro_torch.kernels.decode_attention.kernel",
                  "repro_torch.models.transformer",
-                 "repro_torch.configs.qwen1_5_0_5b"):
+                 "repro_torch.configs.qwen1_5_0_5b",
+                 "repro_torch.train.loop", "repro_torch.checkpoint.manager",
+                 "repro_torch.optim.adamw", "repro_torch.data.pipeline"):
         assert name in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"
             "bad = sorted(m for m in sys.modules\n"
-            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro',\n"
+            "                                    'ml_dtypes'))\n"
             "print(bad)\n")
     env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
