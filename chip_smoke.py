@@ -105,6 +105,14 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    prefill at Jamba's scales and at the reference test's (A = -exp(z)),
    and of the decode with f32 u and with bf16 u (the served case), the
    served decode also on the chunked route (forced);
+   then the scans' backward kernels (`scan_bwd_phase`): `wkv_scan_bwd`
+   at RWKV6-3B's train shape (f32, B = TRAIN_BATCH 4, T = 1,024, H = 40,
+   N = 64, from the forward kernel's chunk states; the reference test's
+   decays and RWKV6-3B's own) and `ssm_scan_bwd` at Jamba's train
+   microbatch (bf16 u, Bb = 1, T = 1,024, Di = 16,384, N = 16, Jamba's
+   scales), each gradient within 1e-4 of its max-abs of the plain
+   backward (bf16 du: + 2^-7), two launches bitwise equal, timed beside
+   plain and the bound (bytes, f32 operations, exponentials on the SFU);
 11. serve phase, once per architecture: Qwen1.5-0.5B, RWKV6-3B, then
    Jamba-1.5-Large, then Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
@@ -142,9 +150,19 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    request 2's snapshot LSN above request 1's, and request 1 served from
    v1 alone; then one more request under torch.profiler for the device's
    busy time, idle share, peak memory and time by kernel kind;
-12. train phase: Qwen1.5-0.5B at full width and depth (bf16, random
-   weights from torch.Generator seed 0, 8 x 1,024 tokens a step, remat
-   "dots" as its config says).  (a) one step's loss and gradients on the
+12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
+   full width and depth, RWKV6-3B at full width and depth (32 layers,
+   d 2,560, f32 moments, batch 4: `TRAIN_BATCH`), and Jamba-1.5-Large's
+   Mamba layers (`TRAIN_CUT`: the period's first position, Mamba with a
+   dense MLP, 2 layers at the published widths, bf16 moments, 8
+   microbatches), each bf16 from torch.Generator seed 0 with remat
+   "dots" as its config says.  RWKV6 and Jamba run checks (a)-(c) as
+   below (check (a) at 2 layers, the plain path the plain forwards and
+   the plain backwards' explicit reverse scans), and (a) also holds every
+   scan backward launch of one full-depth bf16 step against the plain
+   backward on the same inputs (`checked_scan_bwd`); (c) counts each
+   scan's forward and backward launches.  Qwen1.5-0.5B (8 x 1,024 tokens
+   a step):  (a) one step's loss and gradients on the
    kernels against the plain path (`plain_attention`) on the card at
    batch 2 (`TRAIN_CHECK_B`): in f32 with TF32 off the loss within 1e-5
    relative and every leaf within 1e-3 of its max-abs; in bf16 on the
@@ -167,7 +185,8 @@ scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
 chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches), the card line, and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
-launches in the train phase's steps.  It imports neither jax nor the JAX
+launches in the train phase's steps, the scans' backwards theirs
+(`wkv_scan bwd`, `ssm_scan bwd`).  It imports neither jax nor the JAX
 package `repro`.  Without a card, or outside a checkout (no
 `src/repro_torch` beside it), it exits 2 and prints nothing on stdout.
 """
@@ -177,8 +196,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import json
 import math
+import os
 import random
 import re
 import shutil
@@ -262,12 +283,28 @@ SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
 # Its decode grid is 16 blocks, so every decode_attention launch splits
 # the cache over a cluster; the batch-8 runs never split
 SERVE_LONG = {"qwen1.5-0.5b": (1, 8192, 64)}
-# train phase: Qwen1.5-0.5B at full width and depth, bf16, TRAIN_B x
-# TRAIN_S tokens a step, TRAIN_STEPS steps published while a request of
-# TRAIN_SERVE (batch, prompt, decode steps) is served between steps
-TRAIN_ARCH = "qwen1.5-0.5b"
+# train phase, once per architecture: bf16, TRAIN_B x TRAIN_S tokens a
+# step, TRAIN_STEPS steps published while a request of TRAIN_SERVE
+# (batch, prompt, decode steps) is served between steps
+TRAIN_ARCH = ("qwen1.5-0.5b", "rwkv6-3b", "jamba-1.5-large-398b")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
 TRAIN_SERVE = (1, 64, 8)
+# RWKV6-3B at batch 8: parameters, AdamW's f32 moments, the pinned v1
+# and the gradients take ~50 GB before activations, and remat "dots"
+# keeps ~1.4 GB of f32 product outputs a layer at batch 8 (45 GB over
+# 32 layers): the card forces a cut of the batch to 4 (widths and depth
+# as published)
+TRAIN_BATCH = {"rwkv6-3b": 4}
+# Jamba-1.5-Large cannot train a period on one card (one MoE layer is
+# 9.7 B parameters, ~78 GB at 8 bytes a parameter): its cut is the
+# period's first position alone (Mamba with a dense MLP, as positions 0
+# and 2 are), this many layers deep, at the published widths
+TRAIN_CUT = {"jamba-1.5-large-398b": 2}
+# check (a)'s depth where it is not the whole model: 2 layers at full
+# width (the plain backwards' explicit reverse scans at full length)
+TRAIN_CHECK_LAYERS = {"rwkv6-3b": 2}
+# check (d) runs on this architecture only
+TRAIN_CRASH_ARCH = "qwen1.5-0.5b"
 # check (a)'s batch: the plain path's attention keeps [B, H, S, T] f32
 # scores a layer for its backward (B 2: 128 MB a layer)
 TRAIN_CHECK_B = 2
@@ -1563,6 +1600,8 @@ def _launch_txt(launch) -> str:
     """A scan wrapper's `last_route` as printed: route, grid x block, and
     how its operands move."""
     grid = " x ".join(str(g) for g in launch.grid)
+    if launch.route == "reverse":
+        return f"route reverse, grid {grid} of {launch.block} threads"
     return (f"route {launch.route}, grid {grid} of {launch.block} threads, "
             f"{'16-byte' if launch.vector else 'element'} "
             f"{'staging' if launch.route == 'chunked' else 'state access'}")
@@ -1868,6 +1907,159 @@ def ssm_kernel_phase(torch, np, flush) -> dict:
           flush=True)
     print(f"kernel ssm_scan: {len(cases) + 3} shapes within {tol} of "
           f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
+    return res
+
+
+# --------------------------------------------------------- scan backwards
+def _wkv_bwd_cost(B: int, T: int, H: int, N: int, itemsize: int):
+    """Bytes the WKV backward must move (r, k, v, w_log and dO read once,
+    the forward's chunk states and u, the four gradients written once,
+    du) and its f32 operations: per step and head S^T dO, G v and G^T k
+    (N^2 FMAs each) and G advanced (N^2 mul + FMA), 9 N^2 flops (the
+    state's recompute, 3 N^2 more, is not counted: a backward that kept
+    every state would not need it)."""
+    elems = B * T * H * N
+    nbytes = (elems * (4 * itemsize + 4 + 4 * itemsize)
+              + B * H * -(-T // 64) * N * N * 4 + 2 * H * N * 4)
+    return nbytes, 9 * B * H * T * N * N
+
+
+def _ssm_bwd_cost(Bb: int, T: int, Di: int, N: int, u_size: int):
+    """Bytes the selective scan's backward must move (u, dt, dy read once,
+    B, C, A, D, the forward's chunk states; du, ddt, dB, dC, dA, dD
+    written once), its f32 operations, 17 per (b, t, d, n) (the adjoint's
+    FMA, the dB and dC products, ddt's two products and two FMAs, du's
+    FMA, dA's product and FMA, the carry's product, the decay's argument
+    and its product with h_{t-1}; the state's recompute not counted), and
+    its exponentials, one per (b, t, d, n)."""
+    elems = Bb * T * Di
+    nbytes = (elems * (2 * u_size + 4 + 4 + 4) + 4 * Bb * T * N * 4
+              + 2 * Di * N * 4 + 2 * Di * 4
+              + Bb * -(-T // 8) * Di * N * 4)
+    return nbytes, 17 * elems * N, elems * N
+
+
+def _grads_close(torch, label, got, want, names, tol, tol16=None):
+    """Each gradient within `tol` of its max-abs (a 16-bit one within
+    `tol16`: both sides round it to its type); returns the largest
+    |d| over them."""
+    worst, seen = 0.0, []
+    for name, a, b in zip(names, got, want):
+        if b is None:
+            continue
+        a, b = a.float(), b.float()
+        err = (a - b).abs().max().item()
+        ratio = err / max(b.abs().max().item(), 1e-30)
+        t = tol16 if tol16 is not None and got[names.index(name)].dtype \
+            != torch.float32 else tol
+        if not (torch.isfinite(a).all() and ratio <= t):
+            raise AssertionError(f"{label} {name}: kernel != plain (max |d| "
+                                 f"/ max = {ratio:.3g} > {t})")
+        worst = max(worst, err)
+        seen.append(f"{name} {ratio:.3g}")
+    print(f"{label}: max |d| / max per gradient {', '.join(seen)}",
+          flush=True)
+    return worst
+
+
+def scan_bwd_phase(torch, np, flush) -> dict:
+    """The two scan backward kernels, `wkv_scan_bwd` and `ssm_scan_bwd`,
+    on numpy-seeded inputs at the train phase's shapes (RWKV6-3B: f32
+    r/k/v/w_log B = TRAIN_BATCH x 1,024 x 40 x 64 from the forward
+    kernel's chunk states, at the reference test's decays and at
+    RWKV6-3B's own; Jamba's Mamba layer: one microbatch, bf16 u, 1 x
+    1,024 x 16,384 x 16 at Jamba's scales), against the plain backwards
+    on the same inputs (each gradient within 1e-4 of its max-abs; bf16
+    du within that plus one bf16 step, 2^-7), two launches bitwise equal,
+    timed beside plain and the bound (bytes at 3.35 TB/s; f32 operations
+    at 67 TFLOP/s and exponentials on the SFU); `library_ms` None: no
+    PyTorch call computes either.  Returns {"wkv_scan bwd": {...},
+    "ssm_scan bwd": {...}}, each {"max_abs_err", "times"}."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_bwd_ref
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(8)
+    put = lambda *shape: torch.from_numpy(
+        rng.standard_normal(shape, dtype=np.float32)).to(dev)
+    res = {}
+    B, T, H, N = TRAIN_BATCH.get("rwkv6-3b", TRAIN_B), TRAIN_S, 40, 64
+    names = ("dr", "dk", "dv", "dw_log", "du")
+    res["wkv_scan bwd"] = {"max_abs_err": 0.0}
+    for scale in ("reference", "rwkv6"):
+        ref = scale == "reference"
+        s = 0.5 if ref else 1.0
+        x = [(s * put(B, T, H, N)).transpose(1, 2) for _ in range(2)]
+        x.append(put(B, T, H, N).transpose(1, 2))
+        x.append((-torch.exp(put(B, T, H, N) - (2 if ref else 6)))
+                 .transpose(1, 2))
+        u = ((0.1 if ref else 0.5) * put(H, N))[None].expand(B, H, N)
+        _, _, states = WK.wkv_scan(*x, u, return_states=True)
+        do = put(B, T, H, N).transpose(1, 2)
+        call = lambda: WK.wkv_scan_bwd(*x, u, do, None, None, states)
+        got, again = call(), call()
+        label = (f"kernel wkv_scan bwd f32 B={B} T={T} H={H} N={N} "
+                 f"decay={scale} [{_launch_txt(WK.wkv_scan_bwd.last_route)}"
+                 "]")
+        if not all(torch.equal(a, b) for a, b in zip(got[:5], again[:5])):
+            raise AssertionError("wkv_scan bwd: two launches differ")
+        want = wkv_scan_bwd_ref(*x, u, do, None, None, states)
+        err = _grads_close(torch, label + ", two launches bitwise equal",
+                           got, want, names, 1e-4)
+        res["wkv_scan bwd"]["max_abs_err"] = max(
+            res["wkv_scan bwd"]["max_abs_err"], err)
+        if ref:
+            ms = time_ms(torch, call, flush)
+            plain_ms = time_ms(torch, lambda: wkv_scan_bwd_ref(
+                *x, u, do, None, None, states), flush, reps=3)
+            nbytes, flops = _wkv_bwd_cost(B, T, H, N, 4)
+            bound_ms, by = _bound(nbytes, flops, "float32")
+            print(f"{label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"bound_ms={bound_ms:.4f} ({by}; {nbytes / 1e6:.1f} MB, "
+                  f"{flops / 1e9:.2f} GFLOP) library_ms=null (no PyTorch "
+                  "call computes the WKV6 backward)", flush=True)
+            res["wkv_scan bwd"]["times"] = (ms, plain_ms, bound_ms, None, by)
+        del x, u, states, do, got, again, want
+    Bb, Di, Ns = 1, 16384, 16
+    F = torch.nn.functional
+    u = put(Bb, T, Di).to(torch.bfloat16)
+    dt = F.softplus(put(Bb, T, Di))
+    Bm, C = put(Bb, T, Ns), put(Bb, T, Ns)
+    A = -torch.arange(1, Ns + 1, device=dev,
+                      dtype=torch.float32).expand(Di, Ns).contiguous()
+    D = torch.ones(Di, device=dev)
+    _, _, states = SK.ssm_scan(u, dt, Bm, C, A, D, return_states=True)
+    dy = put(Bb, T, Di)
+    call = lambda: SK.ssm_scan_bwd(u, dt, Bm, C, A, D, dy, None, None,
+                                   states)
+    got, again = call(), call()
+    if not all(torch.equal(a, b) for a, b in zip(got[:6], again[:6])):
+        raise AssertionError("ssm_scan bwd: two launches differ")
+    label = (f"kernel ssm_scan bwd bf16 u Bb={Bb} T={T} Di={Di} N={Ns} "
+             f"scale=jamba [{_launch_txt(SK.ssm_scan_bwd.last_route)}]")
+    want = ssm_scan_bwd_ref(u, dt, Bm, C, A, D, dy, None, None, states)
+    err = _grads_close(torch, label + ", two launches bitwise equal", got,
+                       want, ("du", "ddt", "dB", "dC", "dA", "dD"), 1e-4,
+                       1e-4 + 2 ** -7)
+    ms = time_ms(torch, call, flush)
+    plain_ms = time_ms(torch, lambda: ssm_scan_bwd_ref(
+        u, dt, Bm, C, A, D, dy, None, None, states), flush, reps=3)
+    nbytes, flops, n_exp = _ssm_bwd_cost(Bb, T, Di, Ns, 2)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(flops / PEAK_FLOPS["float32"], n_exp / SFU_PER_S) * 1e3
+    bound_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops \
+        else (t_ops, "operations")
+    print(f"{label}: kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({by}; {nbytes / 1e6:.1f} MB "
+          f"{t_bytes:.4f} ms, {flops / 1e9:.2f} GFLOP "
+          f"{flops / PEAK_FLOPS['float32'] * 1e3:.4f} ms, {n_exp / 1e9:.3f} "
+          f"G exponentials {n_exp / SFU_PER_S * 1e3:.4f} ms) "
+          "library_ms=null (no PyTorch call computes the selective scan's "
+          "backward)", flush=True)
+    res["ssm_scan bwd"] = {"max_abs_err": err,
+                           "times": (ms, plain_ms, bound_ms, None, by)}
     return res
 
 
@@ -2512,17 +2704,23 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
 
 # ------------------------------------------------------------------ training
 @contextlib.contextmanager
-def count_plain_attention():
-    """Inside the block, calls of the plain attention versions (the
-    layers' chunked softmax, `attention_ref`, `attention_bwd_ref`) are
-    counted in the yielded dict; on the card the train path makes none."""
+def count_plain():
+    """Inside the block, calls of the plain versions the train path could
+    fall back on (the layers' chunked softmax, `attention_ref`,
+    `attention_bwd_ref`, the scans' plain forwards and backwards) are
+    counted in the yielded dict; on the card the train path makes
+    none."""
     from repro_torch.kernels.flash_attention import ops as FO
     from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.ssm_scan import ref as SR
+    from repro_torch.kernels.wkv_scan import ref as WR
     from repro_torch.models import layers
 
     calls = {"calls": 0}
     sites = [(layers, "flash_attention_chunked"), (FR, "attention_ref"),
-             (FO, "attention_bwd_ref")]
+             (FO, "attention_bwd_ref"), (WR, "wkv_scan_plain"),
+             (WR, "wkv_scan_bwd_ref"), (SR, "ssm_scan_ref"),
+             (SR, "ssm_scan_bwd_ref")]
     saved = [getattr(m, n) for m, n in sites]
 
     def counted(fn):
@@ -2538,6 +2736,86 @@ def count_plain_attention():
     finally:
         for (m, n), fn in zip(sites, saved):
             setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def plain_train_scans():
+    """Inside the block, the scan ops (`WKVScan`, `SSMScan` and the serve
+    path) call the plain forwards and the plain backwards (the explicit
+    reverse scans) on the tensors' own device: with `plain_attention`,
+    the plain path of the train phase's check (a)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ref as SR
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    sites = [(WK, "wkv_scan", WR.wkv_scan_plain),
+             (WK, "wkv_scan_bwd", WR.wkv_scan_bwd_ref),
+             (SK, "ssm_scan", SR.ssm_scan_ref),
+             (SK, "ssm_scan_bwd", SR.ssm_scan_bwd_ref)]
+    saved = [getattr(m, n) for m, n, _ in sites]
+    for m, n, fn in sites:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(sites, saved):
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def checked_scan_bwd():
+    """Inside the block, every scan backward launch (`wkv_scan_bwd`,
+    `ssm_scan_bwd`) is held against the plain backward on the same
+    inputs, run in f64 (so the comparison measures the kernel's f32
+    rounding, not the plain version's: at RWKV6-3B's slow decays both
+    carry recurrences over 1,024 steps): each gradient within 1e-4 of
+    its max-abs (a bf16 du within that plus one bf16 step, 2^-7).  The
+    yielded dict counts the launches and keeps the worst ratio."""
+    import torch
+
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ref as SR
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    seen = {"launches": 0, "worst": 0.0}
+
+    def checked(kernel, plain, names):
+        wide = lambda x: x.double() if isinstance(x, torch.Tensor) \
+            and x.is_floating_point() else x
+
+        def call(*a, **kw):
+            got = kernel(*a, **kw)
+            want = plain(*map(wide, a), **{k: wide(x) for k, x in kw.items()})
+            for name, x, y in zip(names, got, want):
+                if y is None:
+                    continue
+                ratio = ((x.float() - y.float()).abs().max()
+                         / y.float().abs().max().clamp_min(1e-30)).item()
+                tol = 1e-4 if x.dtype == torch.float32 else 1e-4 + 2 ** -7
+                if not ratio <= tol:
+                    raise AssertionError(
+                        f"train (a) {kernel.__name__} launch "
+                        f"{seen['launches']}, {name}: max |d| / max = "
+                        f"{ratio:.4g} > {tol}")
+                seen["worst"] = max(seen["worst"], ratio)
+            seen["launches"] += 1
+            return got
+        # the kernel wrapper counts through its module-level name, which
+        # is this function while the block runs: share its dict
+        call.route_launches = kernel.route_launches
+        return call
+
+    saved = WK.wkv_scan_bwd, SK.ssm_scan_bwd
+    WK.wkv_scan_bwd = checked(WK.wkv_scan_bwd, WR.wkv_scan_bwd_ref,
+                              ("dr", "dk", "dv", "dw_log", "du", "ds0"))
+    SK.ssm_scan_bwd = checked(SK.ssm_scan_bwd, SR.ssm_scan_bwd_ref,
+                              ("du", "ddt", "dB", "dC", "dA", "dD", "dh0"))
+    try:
+        yield seen
+    finally:
+        WK.wkv_scan_bwd, SK.ssm_scan_bwd = saved
 
 
 @contextlib.contextmanager
@@ -2575,11 +2853,26 @@ def _leaf_ratios(torch, got, want) -> dict:
     return out
 
 
+def train_config(arch: str):
+    """The train phase's config of `arch`: published (or its smoke variant
+    with TRAIN_SMOKE), cut as TRAIN_CUT says."""
+    from repro_torch.configs import get_config, smoke_variant
+
+    cfg = get_config(arch)
+    cfg = smoke_variant(cfg) if TRAIN_SMOKE else cfg
+    if arch in TRAIN_CUT:
+        cfg = cfg.with_overrides(pattern=cfg.pattern[:1],
+                                 n_layers=TRAIN_CUT[arch])
+    return cfg
+
+
 def _train_check_a(torch, cfg, device) -> str:
     """Check (a): one step's loss and gradients on the kernels against
-    the plain path (`plain_attention`) on the card, at TRAIN_CHECK_B x
+    the plain path (`plain_attention`, `plain_train_scans`: the plain
+    forwards and the plain backwards) on the card, at TRAIN_CHECK_B x
     TRAIN_S: in f32 with TF32 off (loss 1e-5 relative, each leaf within
-    1e-3 of its max-abs), and in bf16 on the same weights rounded (loss
+    1e-3 of its max-abs), and in bf16 on the same weights rounded to the
+    bf16 model's dtypes (loss
     3e-2 relative; each leaf's ratio printed beside the bf16 model's own
     distance from the f32 one, the noise floor)."""
     from repro_torch.data import SyntheticPipeline
@@ -2593,13 +2886,16 @@ def _train_check_a(torch, cfg, device) -> str:
     gen = torch.Generator(device=device)
     gen.manual_seed(0)
     p32 = init_params(cfg32, gen, device)
-    p16 = tree_map(lambda x: x.to(torch.bfloat16) if x.is_floating_point()
-                   else x, p32)
+    # the same weights in the bf16 model's own dtypes (its f32 leaves,
+    # Mamba's A_log, D and dt_bias among them, stay f32)
+    p16 = tree_map(lambda x, like: x.to(like.dtype), p32,
+                   init_params(cfg, None, "meta"))
     batch = SyntheticPipeline(cfg, batch=TRAIN_CHECK_B, seq_len=TRAIN_S,
                               device=device).batch_at(0)
 
     def run(c, p, plain):
-        with plain_attention() if plain else contextlib.nullcontext():
+        with plain_attention() if plain else contextlib.nullcontext(), \
+                plain_train_scans() if plain else contextlib.nullcontext():
             loss, grads = _value_and_grad(p, c, batch)
         return loss.item(), grads
 
@@ -2635,24 +2931,24 @@ def _train_check_a(torch, cfg, device) -> str:
     return "; ".join(out)
 
 
-def _train_profile(torch, tr) -> None:
-    """One more step (of the trainer's state, on the next batch) timed on
-    the host clock, then again under torch.profiler: step ms, tokens/s,
+def _train_profile(torch, tr, B: int, at: int) -> None:
+    """One more step (of the trainer's state, on batch `at`) timed on the
+    host clock, then again under torch.profiler: step ms, tokens/s,
     device busy time and idle share (against the unprofiled step), peak
     memory, device time by kind."""
     from torch.profiler import ProfilerActivity, profile
 
-    batch = tr.pipeline.batch_at(TRAIN_STEPS)
+    batch = tr.pipeline.batch_at(at)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    _, m = tr.step_fn(tr.state, batch)
+    m = tr.step_fn(tr.state, batch)[1]     # the new state dropped at once
     float(m["loss"])
     torch.cuda.synchronize()
     step_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 1e9
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _, m = tr.step_fn(tr.state, batch)
+        m = tr.step_fn(tr.state, batch)[1]     # the new state dropped at once
         float(m["loss"])
         torch.cuda.synchronize()
     kinds: dict = {}
@@ -2665,61 +2961,89 @@ def _train_profile(torch, tr) -> None:
         low = name.lower()
         kind = ("flash backward" if "flash_bwd" in name else
                 "flash forward" if "flash_kernel" in name else
+                "scan backward" if any(w in name for w in (
+                    "wkv_bwd", "ssm_bwd", "sum_leading")) else
+                "scan forward" if any(w in name for w in (
+                    "wkv_kernel", "ssm_kernel")) else
                 "matmul" if any(w in low for w in ("gemm", "gemv", "xmma",
                                                    "cutlass", "splitk",
                                                    "nvjet"))
                 else "other")
         kinds[kind] = kinds.get(kind, 0.0) + us
     busy = sum(kinds.values()) / 1e6
-    B, S = TRAIN_B, TRAIN_S
-    print(f"train profile: step {step_s * 1e3:.1f} ms, {B * S / step_s:.1f} "
-          f"tokens/s ({B}x{S}); device busy {busy * 1e3:.1f} ms, idle share "
-          f"{1 - busy / step_s:.4f}; peak memory {peak:.2f} GB; by kind: "
+    S = TRAIN_S
+    print(f"train profile {tr.cfg.name}: step {step_s * 1e3:.1f} ms, "
+          f"{B * S / step_s:.1f} tokens/s ({B}x{S}); device busy "
+          f"{busy * 1e3:.1f} ms, idle share {1 - busy / step_s:.4f}; peak "
+          f"memory {peak:.2f} GB; by kind: "
           + ", ".join(f"{k} {v / 1e3:.2f} ms" for k, v in
                       sorted(kinds.items(), key=lambda kv: -kv[1])),
           flush=True)
-    flash = {re.search(r"flash_\w+", n).group(0): c
-             for _, c, n in top if "flash_" in n}
-    print("train profile: flash kernels in the step (launches): "
-          + ", ".join(f"{k} x{c}" for k, c in sorted(flash.items())),
+    ours = {re.search(r"(flash|wkv|ssm)_\w+", n).group(0): c
+            for _, c, n in top if re.search(r"(flash|wkv|ssm)_\w+", n)}
+    print("train profile: hand-written kernels in the step (launches): "
+          + ", ".join(f"{k} x{c}" for k, c in sorted(ours.items())),
           flush=True)
     for us, n, name in sorted(top, reverse=True)[:12]:
         print(f"train profile device: {us / 1e3:9.3f} ms x{n:6d} "
               f"{name[:90]}", flush=True)
 
 
-def train_phase(torch, np, device: str = "cuda") -> dict:
-    """Qwen1.5-0.5B trained at full width and depth (bf16, random weights
-    from torch.Generator seed 0, TRAIN_B x TRAIN_S tokens a step; remat
-    as its config says), with checks (a)-(d) (see the module docstring)
-    and a profiled step.  Returns the flash kernels' launches over the
-    TRAIN_STEPS steps of (b), counted from 0 before each step and read
-    after it.  (`device="cpu"` is a rehearsal: the plain versions run,
-    nothing launches, nothing is profiled.)"""
-    from repro_torch.configs import get_config, smoke_variant
-    from repro_torch.kernels.cuda_build import launch_count, reset_counts
+def _train_wrappers(cfg):
+    """(forward wrapper, backward wrapper, the key of each in the kernels
+    line, the layers that launch them) of the architecture's kernel."""
     from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    mixers = {s.mixer for s in cfg.pattern}
+    if "rwkv" in mixers:
+        return (WK.wkv_scan, WK.wkv_scan_bwd, "wkv_scan chunked",
+                "wkv_scan bwd", _n_layers(cfg, mixer="rwkv"))
+    if "mamba" in mixers:
+        return (SK.ssm_scan, SK.ssm_scan_bwd, "ssm_scan chunked",
+                "ssm_scan bwd", _n_layers(cfg, mixer="mamba"))
+    return (FK.flash_attention, FK.flash_attention_bwd, "flash_attention",
+            "flash_attention_bwd", _n_layers(cfg, mixer="attn"))
+
+
+def train_phase(torch, np, device: str = "cuda",
+                arch: str = "qwen1.5-0.5b") -> dict:
+    """`arch` trained at full width (`train_config`: Jamba cut to its
+    Mamba layers; bf16, random weights from torch.Generator seed 0,
+    TRAIN_B (or TRAIN_BATCH) x TRAIN_S tokens a step; remat and
+    microbatches as its config says), with checks (a)-(c), (d) for
+    TRAIN_CRASH_ARCH, and a profiled step (see the module docstring).
+    Returns the launches of its kernel's forward and backward over the
+    TRAIN_STEPS steps of (b), counted from 0 before each step and read
+    after it, under the kernels line's keys.  (`device="cpu"` is a
+    rehearsal: the plain versions run, nothing launches, nothing is
+    profiled.)"""
+    from repro_torch.kernels.cuda_build import launch_count, reset_counts
     from repro_torch.serve import ServingEngine
     from repro_torch.tensorstore import VersionedParamStore
     from repro_torch.train import Trainer
     from repro_torch.tree import leaves
 
     on_card = device == "cuda"
-    cfg = get_config(TRAIN_ARCH)
-    cfg = smoke_variant(cfg) if TRAIN_SMOKE else cfg
+    cfg = train_config(arch)
+    B = TRAIN_BATCH.get(arch, TRAIN_B)
     t0 = time.perf_counter()
-    print(f"train (a): {_train_check_a(torch, cfg, device)}; "
+    cfg_a = cfg.with_overrides(n_layers=TRAIN_CHECK_LAYERS[arch]) \
+        if arch in TRAIN_CHECK_LAYERS else cfg
+    print(f"train (a) {arch}: {_train_check_a(torch, cfg_a, device)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if on_card:
         torch.cuda.empty_cache()
 
     # (b) train while serving, (c) launches per step
-    wrappers = (FK.flash_attention, FK.flash_attention_bwd)
-    n_attn = _n_layers(cfg, mixer="attn")
-    want = {"flash_attention": n_attn * (2 if cfg.remat == "full" else 1),
-            "flash_attention_bwd": n_attn}
+    fwd, bwd, fwd_key, bwd_key, n = _train_wrappers(cfg)
+    wrappers = (fwd, bwd)
+    A = max(cfg.microbatches, 1)
+    want = {fwd_key: n * A * (2 if cfg.remat == "full" else 1),
+            bwd_key: n * A}
     store = VersionedParamStore(slots=2)
-    tr = Trainer(cfg, batch=TRAIN_B, seq_len=TRAIN_S, seed=0, store=store,
+    tr = Trainer(cfg, batch=B, seq_len=TRAIN_S, seed=0, store=store,
                  publish_every=1, device=device)
     pin_us, pin_fn = [], store.pin_snapshot
 
@@ -2731,7 +3055,9 @@ def train_phase(torch, np, device: str = "cuda") -> dict:
 
     store.pin_snapshot = timed_pin
     pin, v1 = store.pin_snapshot()                 # a reader pins v1
-    v1_copy = [x.clone() for x in leaves(v1)]
+    # its copy on the host: RWKV6-3B's 6.2 GB would not fit the card
+    # beside the trainer's two versions of the moments
+    v1_copy = [x.to("cpu", copy=True) for x in leaves(v1)]
     Bq, Sq, Nq = TRAIN_SERVE
     eng = ServingEngine(cfg, store, max_seq=Sq + Nq, device=device)
     prompts = torch.from_numpy(np.random.default_rng(5).integers(
@@ -2739,49 +3065,75 @@ def train_phase(torch, np, device: str = "cuda") -> dict:
     per_step, lsns = [], []
 
     def after_step(i, metrics):
-        per_step.append({fn.__name__: launch_count(fn) for fn in wrappers})
+        per_step.append({fwd_key: launch_count(fwd),
+                         bwd_key: launch_count(bwd)})
         eng.refresh()
         lsns.append(eng.generate({"tokens": prompts}, Nq).snapshot_lsn)
         reset_counts(wrappers)                     # serving is not the step
 
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    with count_plain_attention() as plain:
+    with count_plain() as plain:
         log = tr.run(TRAIN_STEPS, after_step=after_step)
     wall = time.perf_counter() - t0
     losses = [m["loss"] for m in log]
-    same_v1 = all(torch.equal(a, b) for a, b in zip(leaves(v1), v1_copy))
+    same_v1 = all(torch.equal(a.cpu(), b)
+                  for a, b in zip(leaves(v1), v1_copy))
     store.release(pin)
     aborts = sum(r.type == "abort" for r in store.wal.records)
     if not (same_v1 and all(math.isfinite(x) for x in losses)
             and all(b > a for a, b in zip(lsns, lsns[1:])) and aborts == 0
             and store.stats["publishes"] == TRAIN_STEPS + 1):
         raise AssertionError(
-            f"train (b): v1 unchanged {same_v1}, losses {losses}, snapshot "
-            f"lsns {lsns}, aborts {aborts}, publishes "
+            f"train (b) {arch}: v1 unchanged {same_v1}, losses {losses}, "
+            f"snapshot lsns {lsns}, aborts {aborts}, publishes "
             f"{store.stats['publishes']}")
     if on_card and (any(c != want for c in per_step) or plain["calls"]):
-        raise AssertionError(f"train (c): launches per step {per_step} != "
-                             f"{want}, plain attention calls "
+        raise AssertionError(f"train (c) {arch}: launches per step "
+                             f"{per_step} != {want}, plain calls "
                              f"{plain['calls']}")
-    print(f"train (b): {TRAIN_STEPS} steps of {TRAIN_B}x{TRAIN_S} in "
-          f"{wall:.1f} s with a {Bq}x{Sq} + {Nq}-step request served between "
-          f"steps; losses {', '.join(f'{x:.4f}' for x in losses)}; reader "
+    n_params = sum(x.numel() for x in leaves(tr.state["params"]))
+    print(f"train (b) {arch}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
+          f"parameters, {A} microbatch(es); {TRAIN_STEPS} steps of "
+          f"{B}x{TRAIN_S} in {wall:.1f} s with a {Bq}x{Sq} + {Nq}-step "
+          f"request served between steps; losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; reader "
           f"pinned at v1 reads v1 bitwise after step {TRAIN_STEPS}; snapshot "
           f"lsns {lsns}; store {store.stats['publishes']} publishes, "
           f"{store.stats['gc_blocked']} of them grew the ring instead of "
           f"waiting; {len(pin_us)} reader pins, the longest "
           f"{max(pin_us):.1f} us (a pin selects a slot: no wait path); "
           f"{aborts} aborts in the WAL", flush=True)
-    print(f"train (c): launches per step {per_step[0]} (remat "
-          f"{cfg.remat!r}: {want}), plain attention calls {plain['calls']}",
-          flush=True)
-    if on_card:
-        _train_profile(torch, tr)
-    launches = {n: sum(c[n] for c in per_step) for n in want}
-    del tr, store, eng, v1, v1_copy
+    print(f"train (c) {arch}: launches per step {per_step[0]} (remat "
+          f"{cfg.remat!r}, {A} microbatch(es): {want}), plain calls "
+          f"{plain['calls']}", flush=True)
+    del store.pin_snapshot         # the timed pin holds the store: a cycle
+    launches = {k: sum(c[k] for c in per_step) for k in want}
+    del eng, v1, v1_copy
     if on_card:
         torch.cuda.empty_cache()
+    if fwd_key != "flash_attention":
+        # (a) per launch: every scan backward of one full-depth bf16 step
+        with checked_scan_bwd() as seen:
+            # the new state is dropped at once: a second one would not fit
+            m = tr.step_fn(tr.state, tr.pipeline.batch_at(TRAIN_STEPS))[1]
+            float(m["loss"])
+        if seen["launches"] != want[bwd_key]:
+            raise AssertionError(f"train (a) {arch}: {seen['launches']} "
+                                 f"backward launches held, {want[bwd_key]} "
+                                 "expected")
+        print(f"train (a) {arch}: {seen['launches']} {bwd.__name__} "
+              f"launches of a full-depth bf16 step, each gradient within "
+              f"1e-4 of its max-abs of the plain backward (bf16 du: + "
+              f"2^-7), worst {seen['worst']:.3g}", flush=True)
+    if on_card:
+        _train_profile(torch, tr, B, TRAIN_STEPS)
+    del tr, store
+    gc.collect()                   # the trainer's closures hold cycles
+    if on_card:
+        torch.cuda.empty_cache()
+    if arch != TRAIN_CRASH_ARCH:
+        return launches
 
     # (d) crash and restore at a depth cut, full width
     cfg_d = cfg.with_overrides(n_layers=TRAIN_CRASH_LAYERS)
@@ -2802,6 +3154,8 @@ def train_phase(torch, np, device: str = "cuda") -> dict:
             raise AssertionError("train (d): the restored run's parameters "
                                  "differ from the uninterrupted run's")
     n_params = sum(x.numel() for x in leaves(t2.state["params"]))
+    del t1, t2
+    gc.collect()
     print(f"train (d): {TRAIN_CRASH_LAYERS} of {cfg.n_layers} layers at "
           f"full width ({n_params / 1e6:.1f} M parameters): run(6, "
           f"inject_failure_at=4) with a save every 2 steps ({len(saves)} "
@@ -2842,6 +3196,12 @@ def main() -> int:
                     "torch.profiler) and write the reports into DIR")
     args = ap.parse_args()
 
+    # RWKV6-3B's train phase holds three published versions, two versions
+    # of the f32 moments in AdamW's update and the gradients (~69 GiB):
+    # segments that grow in place keep the freed activations' memory from
+    # staying split around live tensors
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -2879,6 +3239,7 @@ def main() -> int:
     results["flash_attention_bwd"] = attention_bwd_phase(torch, np, flush)
     results["wkv_scan"] = wkv_kernel_phase(torch, np, flush)
     results["ssm_scan"] = ssm_kernel_phase(torch, np, flush)
+    results.update(scan_bwd_phase(torch, np, flush))
     del flush
     torch.cuda.empty_cache()
     small_driver_phase()
@@ -2917,12 +3278,16 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
-    # the train path: launches of the flash kernels over its steps
-    t0 = time.perf_counter()
-    for name, n in train_phase(torch, np).items():
-        launches[name] = launches.get(name, 0) + n
-    print(f"train phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    torch.cuda.empty_cache()
+    # the train paths: launches of each one's kernels over its steps
+    for arch in TRAIN_ARCH:
+        t0 = time.perf_counter()
+        for name, n in train_phase(torch, np, arch=arch).items():
+            launches[name] = launches.get(name, 0) + n
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train phase {arch}: {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+              "allocated", flush=True)
     scan_rows = [(f"{name}{suffix}", name, key, launches[f"{name} {route}"])
                  for name in (*WKV_TPU, *SSM_TPU)
                  for suffix, key, route in (("", "times", "chunked"),
@@ -2930,7 +3295,9 @@ def main() -> int:
     for name in (*ATTN_TPU, *ATTN_BWD_TPU, *WKV_TPU, *SSM_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")
-    for row, _, _, n in scan_rows:
+    bwd_rows = [(name, name, "times", launches[name])
+                for name in ("wkv_scan bwd", "ssm_scan bwd")]
+    for row, _, _, n in scan_rows + bwd_rows:
         if n == 0:
             raise AssertionError(f"{row} never launched")
 
@@ -2948,18 +3315,20 @@ def main() -> int:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
     sources = {**{n: ATTN_SRC for n in (*ATTN_TPU, *ATTN_BWD_TPU)},
-               **{n: WKV_SRC for n in WKV_TPU},
-               **{n: SSM_SRC for n in SSM_TPU}}
+               **{n: WKV_SRC for n in (*WKV_TPU, "wkv_scan bwd")},
+               **{n: SSM_SRC for n in (*SSM_TPU, "ssm_scan bwd")}}
+    tpu = {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU, **SSM_TPU,
+           "wkv_scan bwd": WKV_TPU["wkv_scan"],
+           "ssm_scan bwd": SSM_TPU["ssm_scan"]}
     # the scans have two kernels each: a row per kernel, with the
     # launches of its route
     rows_of = [(name, name, "times", launches[name])
                for name in (*ATTN_TPU, *ATTN_BWD_TPU)]
-    for row, name, key, n in rows_of + scan_rows:
+    for row, name, key, n in rows_of + scan_rows + bwd_rows:
         ms, plain_ms, bound_ms, library_ms, by = results[name][key]
         rows.append({"name": row, "route": "cuda",
                      "source": sources[name],
-                     "replaces": {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU,
-                                  **SSM_TPU}[name],
+                     "replaces": tpu[name],
                      "launches": n,
                      "max_abs_err": results[name]["max_abs_err"],
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,

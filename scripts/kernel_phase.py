@@ -5,6 +5,7 @@
     python3 scripts/kernel_phase.py TREE --groups G
     python3 scripts/kernel_phase.py TREE --shapes
     python3 scripts/kernel_phase.py TREE --attention
+    python3 scripts/kernel_phase.py TREE --scans
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -32,6 +33,13 @@ tree's own `chip_smoke.attention_kernel_phase` (flash and decode attention
 at the serve shapes, held against plain and timed beside SDPA): run on
 an earlier tree and on this one in turns, it shows whether a change to
 the attention source moved the forward kernels' times.
+
+With `--scans` it builds the tree's `wkv.cu` and `ssm.cu`, prints their
+ptxas lines, and runs the tree's own `chip_smoke.wkv_kernel_phase` and
+`chip_smoke.ssm_kernel_phase` (the serving forwards of `wkv_scan` and
+`ssm_scan` at the prefill and decode shapes, held against plain and
+timed): run on an earlier tree and on this one in turns, it shows
+whether a change to the scan sources moved the serving kernels' times.
 """
 
 import importlib.util
@@ -113,6 +121,22 @@ def attention_phase(torch, np, tree: Path) -> None:
         print(f"result {name}: {res}", flush=True)
 
 
+def scans_phase(torch, np, tree: Path) -> None:
+    """The tree's `chip_smoke.wkv_kernel_phase` and `ssm_kernel_phase`."""
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+
+    print(f"tree {tree}, scans: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["wkv", "ssm"])
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in chip_smoke._ptxas_report(log):
+            print(f"ptxas {name}: {line}", flush=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    for name, phase in (("wkv_scan", chip_smoke.wkv_kernel_phase),
+                        ("ssm_scan", chip_smoke.ssm_kernel_phase)):
+        print(f"result {name}: {phase(torch, np, flush)}", flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     groups = None
@@ -126,6 +150,9 @@ def main() -> int:
     attention = "--attention" in args
     if attention:
         args.remove("--attention")
+    scans = "--scans" in args
+    if scans:
+        args.remove("--scans")
     tree = Path(args[0] if args else ".").resolve()
     sys.path[:0] = [str(tree), str(tree / "src")]
     import numpy as np
@@ -143,6 +170,9 @@ def main() -> int:
         return 0
     if attention:
         attention_phase(torch, np, tree)
+        return 0
+    if scans:
+        scans_phase(torch, np, tree)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

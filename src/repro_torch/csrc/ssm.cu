@@ -52,6 +52,30 @@
 // chunk: at Jamba's decode shape on an H100 the step route takes ~0.32x
 // its time (PERF.md).
 //
+// Training.  With a non-null `states`, the chunked route also stores h
+// before every 8th step (each chunk's start) into f32 [Bb, ceil(T / 8),
+// Di, N]: a second instantiation of the kernel (kSave), so the serving
+// kernel's code is what it was.  `ssm_backward` (below) is the gradient,
+// the counterpart of autodiff through the reference's XLA twin
+// `_mamba_scan_chunked` (the Pallas package has no backward kernel).  A
+// thread owns one (b, d) channel as in the forward, a block 64 channels
+// of one batch row: for each 8-step chunk from the last to the first it
+// recomputes h forward from the chunk's saved state into shared memory,
+// with the forward's own arithmetic (never dividing by the decay), then
+// walks the chunk backward with the adjoint G in registers, writing ddt
+// and du and accumulating dA and dD.  dB and dC sum over the channels:
+// over a warp by a reduce-scatter of the 2N values (31 shuffles at N =
+// 16), over the block's two warps in shared memory, into per-block
+// partials that a second kernel sums over the blocks in a fixed order;
+// dA and dD, per (b, d) partials summed over b the same way.  No atomics:
+// two calls give the same bits.  Bound at Jamba's train microbatch (Bb 1,
+// T 1,024, Di 16,384, N 16, bf16 u): u, dt, dy read, du, ddt written,
+// B, C, dB, dC, A, D, dA, dD and the 134 MB of states, ~0.40 GB, 0.12 ms
+// at 3.35 TB/s; 17 flops and one exponential per (b, t, d, n), 4.6 GFLOP
+// (0.068 ms) and 0.27 G exponentials (0.064 ms on the SFU): bound by
+// bytes.  What bounds the kernel: at Bb 1 its 256 blocks of two warps
+// leave ~4 warps an SM, each a dependent chain a step.
+//
 // Both routes: u is f32 or bf16 (widened on load, which is exact); dt, B,
 // C, A, D, h0, y and h are f32.  N in {8, 16}; any T >= 1 and any Di (the
 // Pallas kernel asserts T % chunk == 0 and Di % block == 0).  u, dt, y as
@@ -100,8 +124,12 @@ struct SsmArgs {
   const float* h0;              // nullptr: h starts at zero
   float* y;
   float* h;
-  // element strides: u, dt, B, C, y (b, t); A (d); h0, h (b, d)
+  float* states;                // chunked route: h before every kChunk-th
+                                // step, or nullptr
+  // element strides: u, dt, B, C, y (b, t); A (d); h0, h (b, d);
+  // states (b, chunk, d)
   long long ub, ut, db, dtt, bb, bt, cb, ct, ad, h0b, h0d, yb, yt, hb, hd;
+  long long xb, xc, xd;
   int batch, di, t_len;
   int vec;                      // step route: h0, A, B, C, h as float4
 };
@@ -133,7 +161,7 @@ struct ChunkSmem {
   float C[kStages][kChunk][N];
 };
 
-template <typename U, int N, bool kAsync>
+template <typename U, int N, bool kAsync, bool kSave>
 __global__ void __launch_bounds__(kBlock, 4) ssm_kernel_chunked(
     const SsmArgs a) {
   constexpr int kUVec = 16 / static_cast<int>(sizeof(U));
@@ -207,6 +235,13 @@ __global__ void __launch_bounds__(kBlock, 4) ssm_kernel_chunked(
   for (int n = 0; n < kStages - 1; ++n) fetch(n * kChunk, n);
   for (int t0 = 0, stage = 0; t0 < T;
        t0 += kChunk, stage = stage + 1 == kStages ? 0 : stage + 1) {
+    if constexpr (kSave) {      // h before step t0: a chunk boundary
+      if (live) {
+        float* xp = a.states + b * a.xb + (t0 / kChunk) * a.xc + d * a.xd;
+#pragma unroll
+        for (int n = 0; n < N; ++n) xp[n] = h[n];
+      }
+    }
     if constexpr (kAsync)
       asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 2)
                    : "memory");
@@ -291,6 +326,200 @@ __global__ void __launch_bounds__(kStepBlock) ssm_kernel_step(
   if (live && q == 0) a.y[b * a.yb + d] = yq + a.D[d] * uc;
 }
 
+// ---------------------------------------------------------------- backward
+// One thread owns one (b, d) channel, as in the chunked forward; a block
+// is kBwdBlock channels of one batch row.  For each chunk of kChunk steps,
+// from the last to the first, the thread recomputes its N states forward
+// from the chunk's saved boundary state into shared memory (the chunk's
+// h_{t0-1} .. h_{t0+7}, with the forward's own arithmetic), then walks the
+// chunk backward with the adjoint in registers.
+constexpr int kBwdBlock = 64;   // channels (threads) per backward block
+
+template <typename U> __device__ __forceinline__ U from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);
+}
+
+struct SsmBwdArgs {
+  const void* u;
+  const float* dt;
+  const float* B;
+  const float* C;
+  const float* A;
+  const float* D;
+  const float* dy;
+  const float* dh;              // nullptr: no gradient on the final state
+  const float* states;          // h before every kChunk-th step
+  void* du;                     // [Bb, T, Di] in u's dtype
+  float* ddt;                   // [Bb, T, Di]
+  float* part;                  // [Bb, blocks, T, 2N]: dB, dC per block
+  float* dA_part;               // [Bb, Di, N]
+  float* dD_part;               // [Bb, Di]
+  float* dh0;                   // [Bb, Di, N] or nullptr
+  // element strides: u, dt, B, C, dy (b, t); A (d); dh (b, d); states
+  // (b, chunk, d)
+  long long ub, ut, db, dtt, bb, bt, cb, ct, ad, yb, yt, hb, hd;
+  long long xb, xc, xd;
+  int batch, di, t_len;
+};
+
+template <int N>
+struct SsmBwdSmem {
+  float u[kChunk][kBwdBlock], dt[kChunk][kBwdBlock], dy[kChunk][kBwdBlock];
+  float B[kChunk][N], C[kChunk][N];
+  float hist[kChunk + 1][N][kBwdBlock];   // h_{t0-1} .. h_{t0+kChunk-1}
+  float red[kChunk][kBwdBlock / 32][2 * N];
+};
+
+// v[0..K) summed over the warp, scattered: lane L ends with the sum of
+// v[L % K] in v[0] (K a power of two <= 32).  Each round halves the
+// values a lane holds: it keeps one half and sends the other.
+template <int K>
+__device__ __forceinline__ void warp_reduce_scatter(float (&v)[K],
+                                                    int lane) {
+#pragma unroll
+  for (int off = K / 2; off >= 1; off >>= 1) {
+    const bool up = lane & off;
+#pragma unroll
+    for (int j = 0; j < off; ++j)
+      v[j] = (up ? v[j + off] : v[j]) +
+             __shfl_xor_sync(kFull, up ? v[j] : v[j + off], off);
+  }
+#pragma unroll
+  for (int off = K; off < 32; off <<= 1)
+    v[0] += __shfl_xor_sync(kFull, v[0], off);
+}
+
+// Per step t, from the last to the first, with G_t the adjoint of h_t:
+//   G_t = dy_t C_t + a_{t+1} G_{t+1}   (G_{T-1} also takes dh)
+//   ddt_t = sum_n G_t (A a_t h_{t-1} + u_t B_t)
+//   du_t = dt_t sum_n G_t B_t + D dy_t
+//   dA += G_t dt_t a_t h_{t-1},  dD += u_t dy_t
+//   dB_t, dC_t: sum over d of G_t dt_t u_t and of h_t dy_t, over the
+//   warp by `warp_reduce_scatter`, then over the block's warps into
+//   `part` (a second kernel sums the blocks).  dh0 = a_0 G_0.
+template <typename U, int N>
+__global__ void __launch_bounds__(kBwdBlock) ssm_bwd_kernel(
+    const SsmBwdArgs a) {
+  __shared__ __align__(16) SsmBwdSmem<N> sm;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int d = blockIdx.x * kBwdBlock + tid;
+  const long long b = blockIdx.y;
+  const bool live = d < a.di;
+  const int T = a.t_len, Di = a.di;
+  const U* up = static_cast<const U*>(a.u) + b * a.ub + d;
+  const float* dtp = a.dt + b * a.db + d;
+  const float* dyp = a.dy + b * a.yb + d;
+  float A[N], a2[N], carry[N], dA[N];
+  float Dd = 0.f, dD = 0.f;
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    A[n] = live ? a.A[d * a.ad + n] : 0.f;
+    a2[n] = A[n] * kLog2e;
+    carry[n] = live && a.dh != nullptr ? a.dh[b * a.hb + d * a.hd + n] : 0.f;
+    dA[n] = 0.f;
+  }
+  if (live) Dd = a.D[d];
+  float* part = a.part + (b * gridDim.x + blockIdx.x) * T * (2 * N);
+
+  for (int t0 = (T - 1) / kChunk * kChunk; t0 >= 0; t0 -= kChunk) {
+    const int nc = min(kChunk, T - t0);
+    __syncthreads();            // the last chunk's partials are out
+#pragma unroll
+    for (int c = 0; c < kChunk; ++c) {
+      const bool ok = live && c < nc;
+      sm.u[c][tid] = ok ? to_f(up[(t0 + c) * a.ut]) : 0.f;
+      sm.dt[c][tid] = ok ? dtp[(t0 + c) * a.dtt] : 0.f;
+      sm.dy[c][tid] = ok ? dyp[(t0 + c) * a.yt] : 0.f;
+    }
+    for (int x = tid; x < kChunk * N; x += kBwdBlock) {
+      const int c = x / N, n = x % N;
+      const long long t = t0 + c;
+      sm.B[c][n] = c < nc ? a.B[b * a.bb + t * a.bt + n] : 0.f;
+      sm.C[c][n] = c < nc ? a.C[b * a.cb + t * a.ct + n] : 0.f;
+    }
+    float h[N];
+    const float* xp = a.states + b * a.xb + (t0 / kChunk) * a.xc + d * a.xd;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      h[n] = live ? xp[n] : 0.f;
+      sm.hist[0][n][tid] = h[n];
+    }
+    __syncthreads();            // B and C staged
+    // the chunk forward, as the forward kernel computes it
+    for (int c = 0; c < nc; ++c) {
+      const float dtc = sm.dt[c][tid], du = dtc * sm.u[c][tid];
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        h[n] = fmaf(ex2(dtc * a2[n]), h[n], du * sm.B[c][n]);
+        sm.hist[c + 1][n][tid] = h[n];
+      }
+    }
+    // and back
+    for (int c = nc - 1; c >= 0; --c) {
+      const float uc = sm.u[c][tid], dtc = sm.dt[c][tid];
+      const float dyc = sm.dy[c][tid], dtu = dtc * uc;
+      float red[2 * N];
+      float sddt = 0.f, sgb = 0.f;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        const float an = ex2(dtc * a2[n]);
+        const float ahp = an * sm.hist[c][n][tid];
+        const float bn = sm.B[c][n];
+        const float g = fmaf(dyc, sm.C[c][n], carry[n]);
+        red[n] = g * dtu;
+        red[N + n] = sm.hist[c + 1][n][tid] * dyc;
+        sddt = fmaf(g, fmaf(A[n], ahp, uc * bn), sddt);
+        sgb = fmaf(g, bn, sgb);
+        dA[n] = fmaf(g * dtc, ahp, dA[n]);
+        carry[n] = an * g;
+      }
+      dD = fmaf(uc, dyc, dD);
+      if (live) {
+        const long long off = (b * T + t0 + c) * Di + d;
+        a.ddt[off] = sddt;
+        static_cast<U*>(a.du)[off] = from_f<U>(fmaf(dtc, sgb, Dd * dyc));
+      }
+      warp_reduce_scatter<2 * N>(red, lane);
+      if (lane < 2 * N) sm.red[c][warp][lane] = red[0];
+    }
+    __syncthreads();
+    for (int x = tid; x < nc * 2 * N; x += kBwdBlock) {
+      const int c = x / (2 * N), q = x % (2 * N);
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kBwdBlock / 32; ++w) s += sm.red[c][w][q];
+      part[(t0 + c) * (2 * N) + q] = s;
+    }
+  }
+  if (live) {
+    const long long bd = b * Di + d;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      a.dA_part[bd * N + n] = dA[n];
+      if (a.dh0 != nullptr) a.dh0[bd * N + n] = carry[n];
+    }
+    a.dD_part[bd] = dD;
+  }
+}
+
+// out[o][x] = sum over p < q of in[o * in_outer + p * len + x], in p
+// order (the deterministic second pass of every sum over blocks or b)
+__global__ void sum_leading_kernel(const float* in, float* out, int q,
+                                   long long len, long long in_outer) {
+  const long long x = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  if (x >= len) return;
+  const float* src = in + blockIdx.y * in_outer + x;
+  float s = 0.f;
+  for (int p = 0; p < q; ++p) s += src[p * len];
+  out[blockIdx.y * len + x] = s;
+}
+
 // route codes, as the wrapper passes them
 constexpr int kRouteChunkedAsync = 0;
 constexpr int kRouteChunkedLoads = 1;
@@ -298,32 +527,41 @@ constexpr int kRouteStep = 2;
 
 using Kernel = void (*)(SsmArgs);
 
+// the kernel of a route; `save`: the chunked kernel that also stores the
+// chunk-boundary states (a separate instantiation, so the serving
+// kernel's code is untouched)
 template <typename U, int N>
-Kernel kernel_for(int route) {
+Kernel kernel_for(int route, bool save) {
   switch (route) {
-    case kRouteChunkedAsync: return ssm_kernel_chunked<U, N, true>;
-    case kRouteChunkedLoads: return ssm_kernel_chunked<U, N, false>;
-    case kRouteStep: return ssm_kernel_step<U, N>;
+    case kRouteChunkedAsync:
+      return save ? ssm_kernel_chunked<U, N, true, true>
+                  : ssm_kernel_chunked<U, N, true, false>;
+    case kRouteChunkedLoads:
+      return save ? ssm_kernel_chunked<U, N, false, true>
+                  : ssm_kernel_chunked<U, N, false, false>;
+    case kRouteStep: return save ? nullptr : ssm_kernel_step<U, N>;
     default: return nullptr;
   }
 }
 
 template <typename U>
-Kernel kernel_for(int n, int route) {
+Kernel kernel_for(int n, int route, bool save) {
   switch (n) {
-    case 8: return kernel_for<U, 8>(route);
-    case 16: return kernel_for<U, 16>(route);
+    case 8: return kernel_for<U, 8>(route, save);
+    case 16: return kernel_for<U, 16>(route, save);
     default: return nullptr;
   }
 }
 
-// the kernel of (dtype, N, route), its block size in *block, and, on the
-// chunked routes, the largest shared-memory carveout asked for (the
-// default carveout may hold fewer rings than the registers allow blocks
-// on an SM); null for a dtype, N or route it does not take
-Kernel prepare(int dtype, int n, int route, int* block) {
-  Kernel k = dtype == 0 ? kernel_for<float>(n, route)
-             : dtype == 1 ? kernel_for<__nv_bfloat16>(n, route) : nullptr;
+// the kernel of (dtype, N, route, save), its block size in *block, and,
+// on the chunked routes, the largest shared-memory carveout asked for
+// (the default carveout may hold fewer rings than the registers allow
+// blocks on an SM); null for a dtype, N or route it does not take (the
+// step route stores no states)
+Kernel prepare(int dtype, int n, int route, bool save, int* block) {
+  Kernel k = dtype == 0 ? kernel_for<float>(n, route, save)
+             : dtype == 1 ? kernel_for<__nv_bfloat16>(n, route, save)
+                          : nullptr;
   *block = route == kRouteStep ? kStepBlock : kBlock;
   if (k != nullptr && route != kRouteStep &&
       cudaFuncSetAttribute(k, cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -343,19 +581,22 @@ Kernel prepare(int dtype, int n, int route, int* block) {
 // blocks of 256).  route: 0 chunked with cp.async staging (u, dt, B, C
 // rows and strides on 16 bytes), 1 chunked with element loads, 2 step
 // (T = 1; vec: h0, A, B, C and h move as float4).  dtype of u: 0 = f32,
-// 1 = bf16.  h0 may be null (zeros) and may equal h.  strides: u, dt,
-// B, C (b, t); A (d); h0 (b, d); y (b, t); h (b, d): 15 values.  The
-// wrapper checks shapes, devices and strides, and never calls with
-// Bb * Di = 0 or T = 0.
+// 1 = bf16.  h0 may be null (zeros) and may equal h.  states: null, or
+// (chunked routes only) f32 [Bb, ceil(T / 8), Di, N] that receives h
+// before every 8th step, for the backward.  strides: u, dt, B, C (b,
+// t); A (d); h0 (b, d); y (b, t); h (b, d); states (b, chunk, d): 18
+// values.  The wrapper checks shapes, devices and strides, and never
+// calls with Bb * Di = 0 or T = 0.
 extern "C" int ssm_forward(const void* u, const float* dt, const float* B,
                            const float* C, const float* A, const float* D,
                            const float* h0, float* y, float* h,
-                           const long long* st, int batch, int di,
-                           int t_len, int n, int dtype, int route,
+                           float* states, const long long* st, int batch,
+                           int di, int t_len, int n, int dtype, int route,
                            long long grid, int block, int vec,
                            void* stream) {
   int want_block = 0;
-  const Kernel kern = prepare(dtype, n, route, &want_block);
+  const Kernel kern = prepare(dtype, n, route, states != nullptr,
+                              &want_block);
   if (kern == nullptr || (route == kRouteStep && t_len != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long want_grid =
@@ -365,12 +606,64 @@ extern "C" int ssm_forward(const void* u, const float* dt, const float* B,
           : (di + kBlock - 1) / kBlock;
   if (block != want_block || grid != want_grid)
     return static_cast<int>(cudaErrorInvalidConfiguration);
-  const SsmArgs a{u, dt, B, C, A, D, h0, y, h,
+  const SsmArgs a{u, dt, B, C, A, D, h0, y, h, states,
                   st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                   st[8], st[9], st[10], st[11], st[12], st[13], st[14],
-                  batch, di, t_len, vec};
+                  st[15], st[16], st[17], batch, di, t_len, vec};
   const dim3 g(static_cast<unsigned>(grid),
                route == kRouteStep ? 1u : static_cast<unsigned>(batch));
   kern<<<g, block, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The backward: four launches on `stream` (the reverse scan over
+// ceil(Di / 64) x Bb blocks of 64 threads, then the sums of its
+// per-block and per-row partials over blocks or b); returns
+// cudaGetLastError() (0 = launched), cudaErrorInvalidValue for an N or
+// dtype it does not take, or cudaErrorInvalidConfiguration when the grid
+// or block the wrapper chose is not ceil(Di / 64) blocks of 64.  Inputs
+// as the forward's (u f32 or bf16: dtype 0 or 1), dy f32, dh f32 or null,
+// `states` the forward's chunk-boundary states.  Outputs: du [Bb, T, Di]
+// in u's dtype, ddt [Bb, T, Di], dBC [Bb, T, 2N] (dB then dC), dA
+// [Di, N], dD [Di], dh0 [Bb, Di, N] or null, all f32 and contiguous;
+// part [Bb, blocks, T, 2N], dA_part [Bb, Di, N] and dD_part [Bb, Di] f32
+// scratch.  strides: u, dt, B, C, dy (b, t); A (d); dh (b, d); states
+// (b, chunk, d): 16 values.  No atomics: two calls give the same bits.
+extern "C" int ssm_backward(const void* u, const float* dt, const float* B,
+                            const float* C, const float* A, const float* D,
+                            const float* dy, const float* dh,
+                            const float* states, void* du, float* ddt,
+                            float* dBC, float* dA, float* dD, float* dh0,
+                            float* part, float* dA_part, float* dD_part,
+                            const long long* st, int batch, int di,
+                            int t_len, int n, int dtype, long long grid,
+                            int block, void* stream) {
+  if ((n != 8 && n != 16) || (dtype != 0 && dtype != 1) || t_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (block != kBwdBlock || grid != (di + kBwdBlock - 1) / kBwdBlock)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const SsmBwdArgs a{u, dt, B, C, A, D, dy, dh, states, du, ddt, part,
+                     dA_part, dD_part, dh0,
+                     st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
+                     st[8], st[9], st[10], st[11], st[12], st[13], st[14],
+                     st[15], batch, di, t_len};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 g(static_cast<unsigned>(grid), static_cast<unsigned>(batch));
+  using BwdKernel = void (*)(SsmBwdArgs);
+  const BwdKernel kern =
+      dtype == 0 ? (n == 8 ? ssm_bwd_kernel<float, 8>
+                           : ssm_bwd_kernel<float, 16>)
+                 : (n == 8 ? ssm_bwd_kernel<__nv_bfloat16, 8>
+                           : ssm_bwd_kernel<__nv_bfloat16, 16>);
+  kern<<<g, kBwdBlock, 0, s>>>(a);
+  const long long bc = static_cast<long long>(t_len) * 2 * n;
+  sum_leading_kernel<<<dim3(static_cast<unsigned>((bc + 255) / 256),
+                            static_cast<unsigned>(batch)), 256, 0, s>>>(
+      part, dBC, static_cast<int>(grid), bc, grid * bc);
+  const long long dn = static_cast<long long>(di) * n;
+  sum_leading_kernel<<<static_cast<unsigned>((dn + 255) / 256), 256, 0,
+                       s>>>(dA_part, dA, batch, dn, 0);
+  sum_leading_kernel<<<static_cast<unsigned>((di + 255) / 256), 256, 0,
+                       s>>>(dD_part, dD, batch, di, 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -116,8 +116,7 @@ def no_backward(name: str, *tensors) -> None:
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} has no backward kernel: call it under torch.no_grad() "
-            "or on inputs that do not require grad (training with it is "
-            "ROADMAP queue 1 item 7e)")
+            "or on inputs that do not require grad")
 
 
 def tensor_arg(t: torch.Tensor, name: str, dev: torch.device, ndim: int,

@@ -33,11 +33,25 @@ Routes (`pick_route`, then `plan`; one launch per call either way):
   (`route="chunked"` forces it); the step route is the faster there
   (the H100 figures are in PERF.md).
 
+With `return_states=True` (training) the call also returns the state
+before every 8th step (`ref.STATE_EVERY`), f32 [Bb, ceil(T / 8), Di, N],
+the chunk boundaries the backward recomputes from; it then always takes
+the chunked route, whose kernel is instantiated a second time with the
+store, so the serving kernel's code stays as it was.
+
+`ssm_scan_bwd` binds `ssm_backward` of the same source: the gradients of
+(y, h) in four launches (the reverse scan over ceil(Di / 64) x Bb blocks
+of 64 channels, then the deterministic sums over blocks and batch rows
+of its partials of dB, dC, dA and dD), no atomics.  The Pallas package
+has no backward kernel; its gradients come from autodiff of the XLA
+twin `repro.models.layers._mamba_scan_chunked`.
+
 Device choice: CUDA tensors launch the kernel (or raise); CPU tensors
-take the plain version, `ref.ssm_scan_ref`.
-`ssm_scan.route_launches` counts real kernel launches only, by route
-(`cuda_build.launch_count` sums them), and `ssm_scan.last_route` is the
-last launch's `Launch` (route, grid, block, vector).
+take the plain versions, `ref.ssm_scan_ref` and `ref.ssm_scan_bwd_ref`.
+`ssm_scan.route_launches` and `ssm_scan_bwd.route_launches` count real
+kernel launches only, by route (`cuda_build.launch_count` sums them; a
+backward call is one), and `last_route` is the last launch's `Launch`
+(route, grid, block, vector).
 """
 
 from __future__ import annotations
@@ -47,23 +61,27 @@ from typing import Optional
 
 import torch
 
-from ..cuda_build import (Launch, check, i32, load, no_backward, on_16b,
-                          on_cuda, reset_counts, stream)
+from ..cuda_build import (Launch, check, i32, load, on_16b, on_cuda,
+                          reset_counts, stream)
 from ..flash_attention.kernel import strides
+from .ref import STATE_EVERY
 
 STATE_SIZES = (8, 16)
 U_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = ("chunked", "step")        # the routes `plan` chooses from
 CHUNK_BLOCK = 256                   # channels per chunked block
 STEP_BLOCK = 256                    # threads per step block
+BWD_ROUTES = ("reverse",)           # the backward's one route
+BWD_BLOCK = 64                      # channels per backward block
 _GRID_Y_MAX = 65535                 # batch rows are the grid's y axis
 
 
 def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.ssm_forward.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                i, ll, i, i, p]
+    lib.ssm_forward.argtypes = [p] * 11 + [i] * 6 + [ll, i, i, p]
     lib.ssm_forward.restype = ctypes.c_int
+    lib.ssm_backward.argtypes = [p] * 19 + [i] * 5 + [ll, i, p]
+    lib.ssm_backward.restype = ctypes.c_int
 
 
 def pick_route(T: int, route: Optional[str] = None) -> str:
@@ -139,22 +157,29 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
              C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
              h0: Optional[torch.Tensor] = None, *,
              state_out: Optional[torch.Tensor] = None,
-             route: Optional[str] = None):
+             route: Optional[str] = None, return_states: bool = False):
     """u/dt [Bb,T,Di]; B/C [Bb,T,N]; A [Di,N]; D [Di]; h0 [Bb,Di,N] f32 or
     None -> (y [Bb,T,Di] f32, h [Bb,Di,N] f32; h is `state_out` when
-    given).  Replaces the TPU `ssm_scan`.  `route` forces a route on the
-    card (to compare the two at T = 1); None takes `pick_route`'s."""
+    given), and with `return_states` the chunk-boundary states
+    [Bb,ceil(T/8),Di,N] f32 (chunked route).  Replaces the TPU
+    `ssm_scan`.  `route` forces a route on the card (to compare the two at
+    T = 1); None takes `pick_route`'s.  Autograd does not see the launch:
+    `ops.selective_scan` wraps it in `SSMScan` when a gradient is
+    needed."""
     if not on_cuda(u):
         from .ref import ssm_scan_ref
-        return ssm_scan_ref(u, dt, B, C, A, D, h0, state_out=state_out)
-    no_backward("ssm_scan", u, dt, B, C, A, D, h0)
+        return ssm_scan_ref(u, dt, B, C, A, D, h0, state_out=state_out,
+                            return_states=return_states)
     Bb, T, Di, N = _check(u, dt, B, C, A, D, h0, state_out)
-    route = pick_route(T, route)
+    route = pick_route(T, "chunked" if return_states else route)
     y = torch.empty((Bb, T, Di), dtype=torch.float32, device=u.device)
     h = state_out if state_out is not None else torch.empty(
         (Bb, Di, N), dtype=torch.float32, device=u.device)
+    states = torch.empty((Bb, -(-T // STATE_EVERY), Di, N),
+                         dtype=torch.float32, device=u.device) \
+        if return_states else None
     if Bb * Di == 0:
-        return y, h
+        return (y, h, states) if return_states else (y, h)
     bt = (0, 1)                     # (b, t) or, for a state, (b, d)
     state_in = h if h0 is None else h0
     if route == "step":
@@ -164,24 +189,95 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         vector = all(on_16b(x, bt) for x in (u, dt, B, C))
     launch = plan(Bb, Di, N, route, vector)
     st = strides((u, bt), (dt, bt), (B, bt), (C, bt), (A, (0,)),
-                 (state_in, bt), (y, bt), (h, bt))
+                 (state_in, bt), (y, bt), (h, bt),
+                 (y if states is None else states, (0, 1, 2)))
     check(ssm_lib().ssm_forward(
         u.data_ptr(), dt.data_ptr(), B.data_ptr(), C.data_ptr(),
         A.data_ptr(), D.data_ptr(), None if h0 is None else h0.data_ptr(),
-        y.data_ptr(), h.data_ptr(), st, Bb, Di, T, N, U_DTYPES[u.dtype],
-        _route_code(launch), launch.grid[0], launch.block, int(vector),
-        stream()), "ssm_scan")
+        y.data_ptr(), h.data_ptr(),
+        None if states is None else states.data_ptr(), st, Bb, Di, T, N,
+        U_DTYPES[u.dtype], _route_code(launch), launch.grid[0],
+        launch.block, int(vector), stream()), "ssm_scan")
     ssm_scan.route_launches[launch.route] += 1
     ssm_scan.last_route = launch
-    return y, h
+    return (y, h, states) if return_states else (y, h)
+
+
+def plan_bwd(Bb: int, Di: int) -> Launch:
+    """The backward's launch as the C entry checks it: ceil(Di / 64) x Bb
+    blocks of 64 threads, one channel each."""
+    return Launch("reverse", (-(-Di // BWD_BLOCK), Bb), BWD_BLOCK, False)
+
+
+def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
+                 C: torch.Tensor, A: torch.Tensor, D: torch.Tensor,
+                 dy: torch.Tensor, dh: Optional[torch.Tensor] = None,
+                 h0: Optional[torch.Tensor] = None,
+                 states: Optional[torch.Tensor] = None, *,
+                 need_dh0: bool = False):
+    """The gradients of `ssm_scan`'s (y, h) for their gradients dy
+    [Bb,T,Di] f32 and dh [Bb,Di,N] f32 (None: zero), from the forward's
+    inputs and its chunk-boundary `states`: (du in u's dtype, ddt, dB,
+    dC, dA, dD f32, dh0 [Bb,Di,N] f32 when `need_dh0`, else None).  dB and
+    dC are views of one [Bb,T,2N] buffer.  `ref.ssm_scan_bwd_ref`'s
+    signature; on the card `states` is required and `h0` is not read (the
+    states start from it).  Four launches, counted as one in
+    `ssm_scan_bwd.route_launches`."""
+    if not on_cuda(u):
+        from .ref import ssm_scan_bwd_ref
+        return ssm_scan_bwd_ref(u, dt, B, C, A, D, dy, dh, h0, states,
+                                need_dh0=need_dh0)
+    if states is None:
+        raise ValueError("ssm_scan_bwd on the card takes the forward's "
+                         "states")
+    Bb, T, Di, N = _check(u, dt, B, C, A, D, None, dh)
+    if tuple(dy.shape) != (Bb, T, Di) or dy.dtype != torch.float32:
+        raise ValueError(f"dy must be float32 {(Bb, T, Di)}, got "
+                         f"{dy.dtype}{list(dy.shape)}")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    want = (Bb, -(-T // STATE_EVERY), Di, N)
+    if tuple(states.shape) != want or states.dtype != torch.float32 \
+            or not states.is_contiguous():
+        raise ValueError(f"states must be contiguous float32 {want}")
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du = torch.empty((Bb, T, Di), dtype=u.dtype, device=u.device)
+    ddt = torch.empty((Bb, T, Di), **f32)
+    dBC = torch.empty((Bb, T, 2 * N), **f32)
+    dA, dD = torch.empty((Di, N), **f32), torch.empty((Di,), **f32)
+    dh0 = torch.empty((Bb, Di, N), **f32) if need_dh0 else None
+    if Bb * Di == 0:
+        return (du, ddt.zero_(), dBC[..., :N].zero_(), dBC[..., N:].zero_(),
+                dA.zero_(), dD.zero_(), None if dh0 is None else dh0.zero_())
+    launch = plan_bwd(Bb, Di)
+    blocks = launch.grid[0]
+    part = torch.empty((Bb, blocks, T, 2 * N), **f32)
+    dA_part, dD_part = torch.empty((Bb, Di, N), **f32), \
+        torch.empty((Bb, Di), **f32)
+    bt = (0, 1)
+    st = strides((u, bt), (dt, bt), (B, bt), (C, bt), (A, (0,)), (dy, bt),
+                 (states if dh is None else dh, bt), (states, (0, 1, 2)))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    check(ssm_lib().ssm_backward(
+        *(t.data_ptr() for t in (u, dt, B, C, A, D, dy)), ptr(dh),
+        states.data_ptr(), du.data_ptr(), ddt.data_ptr(), dBC.data_ptr(),
+        dA.data_ptr(), dD.data_ptr(), ptr(dh0), part.data_ptr(),
+        dA_part.data_ptr(), dD_part.data_ptr(), st, Bb, Di, T, N,
+        U_DTYPES[u.dtype], blocks, launch.block, stream()), "ssm_scan_bwd")
+    ssm_scan_bwd.route_launches[launch.route] += 1
+    ssm_scan_bwd.last_route = launch
+    return du, ddt, dBC[..., :N], dBC[..., N:], dA, dD, dh0
 
 
 ssm_scan.last_route = None          # `Launch` of the last launch
 # kernel launches by route: the wrapper's one count (`launch_count`)
 ssm_scan.route_launches = dict.fromkeys(ROUTES, 0)
-KERNELS = (ssm_scan,)
+ssm_scan_bwd.last_route = None
+ssm_scan_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)
+KERNELS = (ssm_scan, ssm_scan_bwd)
 
 
 def reset_launches() -> dict:
-    """Zero `ssm_scan.route_launches`; returns the launches before."""
+    """Zero both wrappers' `route_launches`; returns the launches
+    before."""
     return reset_counts(KERNELS)

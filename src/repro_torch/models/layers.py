@@ -16,8 +16,8 @@ the chunked online softmax of `flash_attention_chunked`, and
 `FlashAttention`'s hand-written backward kernel (`attention_bshd` applies
 it when an input requires grad); on the CPU autograd differentiates the
 chunked softmax, the counterpart of the reference's `jax.grad` through
-`flash_attention_xla`.  The scan and decode kernels have no backward and
-refuse a gradient on the card.
+`flash_attention_xla`.  The decode kernel has no backward and refuses a
+gradient on the card.
 
 RWKV6: where the reference computes its XLA twin `_wkv_chunked` (an
 associative scan) or the one-step einsums of `rwkv_decode`, the port
@@ -25,14 +25,22 @@ calls `kernels.wkv_scan.ops.wkv`: the Hopper kernel for CUDA tensors (the
 whole prompt in prefill; one step from the layer's state, updated in
 place, in decode), the sequential `wkv_scan_ref` for CPU tensors.  The
 reference's `f32 @ bf16` products (the f32 ddlerp streams against bf16
-weights) are computed in f32 as JAX computes them (`_mm32`).
+weights) are computed in f32 as JAX computes them (`_mm32`; autograd
+carries the gradient back through the widening to the bf16 weight).  In
+training, `wkv` applies `WKVScan`: the kernel's hand-written backward on
+the card, `wkv_scan_bwd_ref` on the CPU (the counterpart of the
+reference's `jax.grad` through `_wkv_chunked`).  Training passes no
+cache, so nothing is written in place under autograd.
 
 Mamba: where the reference computes its XLA twin `_mamba_scan_chunked`
 (an associative scan) and then adds D·u, or the one-step einsums of
 `mamba_decode`, the port calls `kernels.ssm_scan.ops.selective_scan`,
 which adds D·u itself: the Hopper kernel for CUDA tensors (the whole
 prompt in prefill; one step from the layer's state, updated in place, in
-decode), the sequential `ssm_scan_ref` for CPU tensors.
+decode), the sequential `ssm_scan_ref` for CPU tensors.  In training,
+`selective_scan` applies `SSMScan` (the kernel's backward on the card,
+`ssm_scan_bwd_ref` on the CPU); the causal conv is plain tensor code,
+which autograd differentiates.
 
 MoE: the reference's GShard-style top-k dispatch with per-sequence
 capacity, its routing factored out (`moe_route`: router, softmax, top-k,
@@ -439,7 +447,10 @@ def moe_apply(p: Params, x: torch.Tensor, cfg, *,
     up = torch.bmm(xe, p["w_up"])
     if "w_gate" in p:                   # in place: one [Eh, B*C, F] less
         h = torch.bmm(xe, p["w_gate"])
-        h = (F.silu(h, inplace=True) if cfg.mlp_act == "swiglu"
+        # not under autograd: remat "dots" keeps the bmm output, which
+        # must stay as it was
+        h = (F.silu(h, inplace=not torch.is_grad_enabled())
+             if cfg.mlp_act == "swiglu"
              else F.gelu(h, approximate="tanh")).mul_(up)
     else:
         h = torch.relu(up).square() if cfg.mlp_act == "relu2" \

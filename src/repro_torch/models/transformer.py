@@ -13,17 +13,19 @@ the reference's tree lacks).  The reference applies the stack with
 is not ported: it is the identity on one device.
 
 Training: `loss_fn` is the reference's causal-LM cross entropy (f32
-logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period (one
-layer for every config `check_trainable` admits) as the reference's
-`_remat` wraps its scan body: "none"; "full", one
+logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period as
+the reference's `_remat` wraps its scan body: "none"; "full", one
 `torch.utils.checkpoint` (non-reentrant) a period, whose backward runs
 the period's forward again; "dots", selective checkpointing that keeps
-the outputs of the matrix products and of the flash forward op
-(`repro_torch::flash_forward`) and recomputes the rest (the reference's
-`checkpoint_dots`).  Per train step on CUDA the flash kernel launches
-once a layer under "none" and "dots" and twice under "full"; its
-backward once a layer.  `check_trainable` refuses the RWKV6 and Mamba
-mixers, whose scan kernels have no backward yet.
+the outputs of the matrix products and of the kernels' forward ops
+(`repro_torch::flash_forward`, `repro_torch::wkv_forward`,
+`repro_torch::ssm_forward`) and recomputes the rest (the reference's
+`checkpoint_dots`).  Per train step (a microbatch) on CUDA each
+attention layer launches the flash forward once under "none" and
+"dots" and twice under "full", and its backward once; each RWKV6 layer
+launches `wkv_scan` (chunked route, with its chunk-boundary states) and
+`wkv_scan_bwd` the same way, and each Mamba layer `ssm_scan` and
+`ssm_scan_bwd`.
 
 Caches, per pattern position, stacked over periods:
   attention -> (k, v) buffers [n_periods, B, T_cache, K, hd]
@@ -57,7 +59,6 @@ from .config import LayerSpec, ModelConfig
 
 Params = dict
 ROADMAP_ITEM = "ROADMAP queue 1 item 7"
-TRAIN_ROADMAP_ITEM = "ROADMAP queue 1 item 7e"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -86,15 +87,10 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot train on
-    the card: RWKV6's and Mamba's scan kernels have no backward yet."""
+    """Raise NotImplementedError for a config the port cannot train: what
+    it cannot run at all (`check_supported`).  Every mixer it runs has a
+    backward kernel on the card."""
     check_supported(cfg)
-    mixers = sorted({s.mixer for s in cfg.pattern} & {"rwkv", "mamba"})
-    if mixers:
-        raise NotImplementedError(
-            f"{cfg.name}: training with the {', '.join(mixers)} mixer is not "
-            f"ported yet (the wkv_scan / ssm_scan backward kernels, "
-            f"{TRAIN_ROADMAP_ITEM})")
 
 
 def _device(device) -> torch.device:
@@ -234,14 +230,17 @@ def _positions(batch: dict, S: int, device) -> torch.Tensor:
 
 
 # ops whose outputs remat "dots" keeps: the matrix products, and the
-# flash forward (its backward needs o and lse)
+# kernels' forward ops (their backwards read o and lse, the scans' chunk
+# states): a recompute would launch them again
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
-         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+         torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+         torch.ops.repro_torch.flash_forward.default,
+         torch.ops.repro_torch.wkv_forward.default,
+         torch.ops.repro_torch.ssm_forward.default)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
-    keep = op in _DOTS or op is torch.ops.repro_torch.flash_forward.default
-    return (CheckpointPolicy.MUST_SAVE if keep
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 

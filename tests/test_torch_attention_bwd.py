@@ -195,15 +195,15 @@ def test_remat_runs_the_flash_forward_as_the_setting_implies(
 
 
 def test_kernels_without_a_backward_refuse_a_gradient():
-    """`decode_attention`, `wkv_scan` and `ssm_scan` have no backward
-    kernel: on a CUDA tensor, under grad with an input that requires it,
-    they raise (`cuda_build.no_backward`); CPU tensors take the plain
-    versions, which autograd differentiates."""
+    """`decode_attention` has no backward kernel: on a CUDA tensor, under
+    grad with an input that requires it, it raises
+    (`cuda_build.no_backward`); CPU tensors take the plain version, which
+    autograd differentiates."""
     from repro_torch.kernels.cuda_build import no_backward
 
     x = torch.ones(2, requires_grad=True)
     with pytest.raises(RuntimeError, match="has no backward"):
-        no_backward("wkv_scan", x, None)
-    no_backward("wkv_scan", x.detach(), None)
+        no_backward("decode_attention", x, None)
+    no_backward("decode_attention", x.detach(), None)
     with torch.no_grad():
-        no_backward("wkv_scan", x, None)
+        no_backward("decode_attention", x, None)

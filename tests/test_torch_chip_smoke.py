@@ -398,20 +398,78 @@ def test_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     launches = smoke.train_phase(torch, np, device="cpu")
     assert launches == {"flash_attention": 0, "flash_attention_bwd": 0}
     out = capsys.readouterr().out
-    for part in ("train (a): f32 loss", "train (b): 3 steps",
-                 "reads v1 bitwise", "train (c)", "train (d): 1 of 2 layers",
-                 "(3 saves"):
+    for part in ("train (a) qwen1.5-0.5b: f32 loss",
+                 "train (b) qwen1.5-0.5b: ", "3 steps of 2x16",
+                 "reads v1 bitwise", "train (c) qwen1.5-0.5b",
+                 "train (d): 1 of 2 layers", "(3 saves"):
         assert part in out, part
     assert not (tmp_path / "ckpt").exists()
 
 
 def test_count_plain_attention_counts_and_restores(smoke):
+    """`count_plain` counts the plain attention and the plain scans (a
+    CPU call of each wrapper reaches one) and puts every name back."""
     from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ref as SR
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
     from repro_torch.models import layers
 
-    before = layers.flash_attention_chunked, FO.attention_bwd_ref
-    with smoke.count_plain_attention() as plain:
+    names = lambda: (layers.flash_attention_chunked, FO.attention_bwd_ref,
+                     WR.wkv_scan_plain, WR.wkv_scan_bwd_ref,
+                     SR.ssm_scan_ref, SR.ssm_scan_bwd_ref)
+    before = names()
+    with smoke.count_plain() as plain:
         q = torch.zeros(1, 4, 2, 32)
         layers.flash_attention(q, q, q, causal=True)
-    assert plain["calls"] == 1
-    assert (layers.flash_attention_chunked, FO.attention_bwd_ref) == before
+        x = torch.zeros(1, 1, 3, 32)
+        WK.wkv_scan(x, x, x, x, x[:, :, 0])
+        y = torch.zeros(1, 3, 4)
+        SK.ssm_scan(y, y, torch.zeros(1, 3, 8), torch.zeros(1, 3, 8),
+                    torch.zeros(4, 8), torch.zeros(4))
+    assert plain["calls"] == 3
+    assert names() == before
+
+
+def test_plain_train_scans_and_checked_bwd_swap_and_restore(smoke):
+    """`plain_train_scans` swaps the scan wrappers the ops call for the
+    plain versions, `checked_scan_bwd` wraps the two backwards with the
+    per-launch check; both put the wrappers back."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    before = (WK.wkv_scan, WK.wkv_scan_bwd, SK.ssm_scan, SK.ssm_scan_bwd)
+    with smoke.plain_train_scans():
+        assert WK.wkv_scan is WR.wkv_scan_plain
+        assert WK.wkv_scan_bwd is WR.wkv_scan_bwd_ref
+    assert (WK.wkv_scan, WK.wkv_scan_bwd, SK.ssm_scan,
+            SK.ssm_scan_bwd) == before
+    r = torch.randn(1, 2, 5, 32)
+    u = torch.randn(1, 2, 32)
+    with smoke.checked_scan_bwd() as seen:
+        WK.wkv_scan_bwd(r, r, r, -r.exp(), u, r)
+    assert seen["launches"] == 1 and seen["worst"] < 1e-5   # f32 vs f64
+    assert (WK.wkv_scan, WK.wkv_scan_bwd, SK.ssm_scan,
+            SK.ssm_scan_bwd) == before
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+def test_scan_train_phase_on_cpu(smoke, capsys, arch):
+    """RWKV6's smoke variant and Jamba's Mamba-layer cut of its smoke
+    variant through the train phase: (a) against the plain path in f32
+    and bf16 and per backward launch, (b) training while a reader pinned
+    at v1 keeps it and requests are served between steps, (c) no kernel
+    launches off the card."""
+    launches = smoke.train_phase(torch, np, device="cpu", arch=arch)
+    name = "wkv_scan" if arch == "rwkv6-3b" else "ssm_scan"
+    assert launches == {f"{name} chunked": 0, f"{name} bwd": 0}
+    out = capsys.readouterr().out
+    for part in (f"train (a) {arch}: f32 loss", f"train (b) {arch}: ",
+                 "reads v1 bitwise", f"train (c) {arch}",
+                 f"{name}_bwd launches of a full-depth bf16 step"):
+        assert part in out, part
+    assert "train (d)" not in out
+    if arch != "rwkv6-3b":
+        assert "train (b) jamba-1.5-large-398b: 2 layers" in out

@@ -7,6 +7,7 @@ Marked `cuda`: they skip without a GPU (a CUDA kernel has no CPU mode).
 On the GPU machine: PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -1762,26 +1763,19 @@ def test_flash_bwd_through_autograd_in_the_model_layout(no_tf32):
 
 
 def test_kernels_without_a_backward_raise_under_grad(no_tf32):
-    """decode_attention, wkv_scan and ssm_scan have no backward kernel:
-    with an input that requires grad they raise on the card instead of
-    returning an output without a gradient; under no_grad they run."""
+    """decode_attention has no backward kernel: with an input that
+    requires grad it raises on the card instead of returning an output
+    without a gradient; under no_grad it runs.  (wkv_scan and ssm_scan
+    have backward kernels: `test_*_scan_bwd_*` below.)"""
     from repro_torch.kernels.decode_attention.ops import decode_gqa
-    from repro_torch.kernels.ssm_scan.ops import selective_scan
-    from repro_torch.kernels.wkv_scan.ops import wkv
 
     dev = no_tf32
     q = _randn(dev, (2, 4, 64), "bfloat16", 0)
     kc = _randn(dev, (2, 2, 64, 64), "bfloat16", 1)
-    r, k, v, w_log, u = _wkv_inputs(dev, 2, 8, 2, 32, "float32", 3)
-    x = _ssm_inputs(dev, 2, 8, 128, 16, "float32", 4)
-    calls = (lambda a: decode_gqa(a, kc, kc, 64),
-             lambda a: wkv(a, k, v, w_log, u),
-             lambda a: selective_scan(a, *x[1:]))
-    for call, first in zip(calls, (q, r, x[0])):
-        with pytest.raises(RuntimeError, match="no backward kernel"):
-            call(first.clone().requires_grad_())
-        with torch.no_grad():
-            call(first.clone().requires_grad_())
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        decode_gqa(q.clone().requires_grad_(), kc, kc, 64)
+    with torch.no_grad():
+        decode_gqa(q.clone().requires_grad_(), kc, kc, 64)
 
 
 def test_qwen_smoke_train_step_kernel_path_equals_plain_path(no_tf32):
@@ -1818,3 +1812,246 @@ def test_qwen_smoke_train_step_kernel_path_equals_plain_path(no_tf32):
     assert abs(lk.item() - lp.item()) <= 1e-5 * abs(lp.item())
     for a, b in zip(leaves(gk), leaves(gp)):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+
+# ------------------------------------------------------ scan backwards
+# each gradient of a backward kernel against its plain backward on the
+# card, within 1e-4 of the gradient's max-abs (f32: both sum in f32 in
+# other orders); 16-bit gradients are rounded to their type by both
+# sides, so there one rounding step (2^-7 bf16, 2^-10 f16) of the
+# max-abs on top
+SCAN_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-4 + 2 ** -7,
+                "float16": 1e-4 + 2 ** -10}
+
+
+def _grad_close(got, want, what, tol=1e-4):
+    for name, g, w in zip(what, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        scale = w.float().abs().max().clamp_min(1e-30)
+        ratio = ((g.float() - w.float()).abs().max() / scale).item()
+        assert ratio <= tol, f"{name}: max |d| / max = {ratio:.3g} > {tol}"
+
+
+def _wkv_bwd_case(dev, B, T, H, N, dtype, seed, s0=False, dS=False):
+    """Model-layout inputs as [B,H,T,N] views, the kernel forward's
+    (o, S, states), and seeded dO (and dS, s0)."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+
+    r, k, v, w_log, u = _wkv_inputs(dev, B, T, H, N, dtype, seed)
+    x = [t.transpose(1, 2) for t in (r, k, v, w_log)]
+    ub = u[None].expand(B, H, N)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state0 = torch.randn((B, H, N, N), generator=g, device=dev) \
+        if s0 else None
+    o, S, states = WK.wkv_scan(*x, ub, state0, return_states=True)
+    do = torch.randn(o.shape, generator=g, device=dev)
+    gS = torch.randn(S.shape, generator=g, device=dev) if dS else None
+    return x, ub, state0, S, states, do, gS
+
+
+WKV_GRADS = ("dr", "dk", "dv", "dw_log", "du", "ds0")
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("B,T,H,N", [(2, 1, 3, 32), (2, 37, 3, 64),
+                                     (3, 200, 5, 32), (2, 130, 3, 64)])
+def test_wkv_scan_bwd_equals_plain(no_tf32, dtype, B, T, H, N):
+    """T = 1, ragged T, T over two and four 64-step segments, both head
+    sizes, every input dtype, strided model-layout views; from a zero
+    state with no dS, and from s0 with dS (and ds0)."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_bwd_ref
+
+    dev = no_tf32
+    for extra in (False, True):
+        x, ub, s0, S, states, do, dS = _wkv_bwd_case(
+            dev, B, T, H, N, dtype, T + N, s0=extra, dS=extra)
+        WK.reset_launches()
+        got = WK.wkv_scan_bwd(*x, ub, do, dS, s0, states, S=S,
+                              need_ds0=extra)
+        assert WK.wkv_scan_bwd.route_launches == {"reverse": 1}
+        want = wkv_scan_bwd_ref(*x, ub, do, dS, s0, states, need_ds0=extra)
+        _grad_close(got, want, WKV_GRADS, SCAN_BWD_TOL[dtype])
+
+
+def test_wkv_scan_bwd_at_the_train_shape_is_deterministic(no_tf32):
+    """RWKV6-3B's train shape at batch 4 (B x H = 160 blocks; T 1,024, 16
+    segments), f32: equal to the plain backward, and two launches give
+    the same bits (no atomics)."""
+    from repro_torch.kernels.cuda_build import Launch
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_bwd_ref
+
+    x, ub, s0, S, states, do, dS = _wkv_bwd_case(no_tf32, 4, 1024, 40, 64,
+                                                 "float32", 7, dS=True)
+    got = WK.wkv_scan_bwd(*x, ub, do, dS, s0, states, S=S)
+    assert WK.wkv_scan_bwd.last_route == Launch("reverse", (160,), 512,
+                                                False)
+    again = WK.wkv_scan_bwd(*x, ub, do, dS, s0, states, S=S)
+    for a, b in zip(got[:5], again[:5]):
+        assert torch.equal(a, b)
+    _grad_close(got, wkv_scan_bwd_ref(*x, ub, do, dS, s0, states),
+                WKV_GRADS)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [16, 200])
+def test_scan_forward_states_leave_o_and_s_bitwise(no_tf32, dtype, T):
+    """The forwards with the chunk-boundary states on and off give the
+    same o/y and final state, bit for bit; the states equal the plain
+    version's."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_plain
+
+    dev = no_tf32
+    r, k, v, w_log, u = _wkv_inputs(dev, 2, T, 3, 64, dtype, T)
+    x = [t.transpose(1, 2) for t in (r, k, v, w_log)]
+    ub = u[None].expand(2, 3, 64)
+    o, S = WK.wkv_scan(*x, ub)
+    o2, S2, states = WK.wkv_scan(*x, ub, return_states=True)
+    assert torch.equal(o, o2) and torch.equal(S, S2)
+    torch.testing.assert_close(states, wkv_scan_plain(
+        *x, ub, return_states=True)[2], rtol=WKV_TOL, atol=WKV_TOL)
+    y_in = _ssm_inputs(dev, 2, T, 300, 16, dtype, T)
+    y, h = SK.ssm_scan(*y_in)
+    y2, h2, hs = SK.ssm_scan(*y_in, return_states=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    torch.testing.assert_close(hs, ssm_scan_ref(*y_in, return_states=True)[2],
+                               rtol=SSM_TOL, atol=SSM_TOL)
+
+
+def _ssm_bwd_case(dev, Bb, T, Di, N, u_dtype, seed, h0=False, dh=False):
+    from repro_torch.kernels.ssm_scan import kernel as SK
+
+    x = _ssm_inputs(dev, Bb, T, Di, N, u_dtype, seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    state0 = torch.randn((Bb, Di, N), generator=g, device=dev) \
+        if h0 else None
+    y, h, states = SK.ssm_scan(*x, state0, return_states=True)
+    dy = torch.randn(y.shape, generator=g, device=dev)
+    gh = torch.randn(h.shape, generator=g, device=dev) if dh else None
+    return x, state0, states, dy, gh
+
+
+SSM_GRADS = ("du", "ddt", "dB", "dC", "dA", "dD", "dh0")
+
+
+@pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Bb,T,Di,N", [(2, 1, 300, 16), (2, 37, 1000, 8),
+                                       (3, 200, 300, 16), (1, 64, 64, 16)])
+def test_ssm_scan_bwd_equals_plain(no_tf32, u_dtype, Bb, T, Di, N):
+    """T = 1, ragged T and Di (not multiples of the 8-step chunk or the
+    64-channel block), both state sizes, f32 and bf16 u (du in u's
+    dtype); from a zero state with no dh, and from h0 with dh (and
+    dh0)."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+
+    dev = no_tf32
+    for extra in (False, True):
+        x, h0, states, dy, dh = _ssm_bwd_case(dev, Bb, T, Di, N, u_dtype,
+                                              T + Di, h0=extra, dh=extra)
+        SK.reset_launches()
+        got = SK.ssm_scan_bwd(*x, dy, dh, h0, states, need_dh0=extra)
+        assert SK.ssm_scan_bwd.route_launches == {"reverse": 1}
+        want = ssm_scan_bwd_ref(*x, dy, dh, h0, states, need_dh0=extra)
+        assert got[0].dtype == x[0].dtype
+        _grad_close(got, want, SSM_GRADS, SCAN_BWD_TOL[u_dtype])
+
+
+def test_ssm_scan_bwd_at_the_train_shape_is_deterministic(no_tf32):
+    """Jamba's train microbatch (Bb 1, T 1,024, Di 16,384, N 16, bf16 u):
+    256 blocks of 64 channels; equal to the plain backward, and two
+    launches give the same bits (no atomics)."""
+    from repro_torch.kernels.cuda_build import Launch
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
+
+    x, h0, states, dy, dh = _ssm_bwd_case(no_tf32, 1, 1024, 16384, 16,
+                                          "bfloat16", 3)
+    got = SK.ssm_scan_bwd(*x, dy, dh, h0, states)
+    assert SK.ssm_scan_bwd.last_route == Launch("reverse", (256, 1), 64,
+                                                False)
+    again = SK.ssm_scan_bwd(*x, dy, dh, h0, states)
+    for a, b in zip(got[:6], again[:6]):
+        assert torch.equal(a, b)
+    _grad_close(got, ssm_scan_bwd_ref(*x, dy, dh, h0, states), SSM_GRADS,
+                SCAN_BWD_TOL["bfloat16"])
+
+
+@contextlib.contextmanager
+def _plain_scans():
+    """The scan wrappers the ops call, swapped for the plain versions."""
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.ssm_scan import ref as SR
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan import ref as WR
+
+    sites = [(WK, "wkv_scan", WR.wkv_scan_plain),
+             (WK, "wkv_scan_bwd", WR.wkv_scan_bwd_ref),
+             (SK, "ssm_scan", SR.ssm_scan_ref),
+             (SK, "ssm_scan_bwd", SR.ssm_scan_bwd_ref)]
+    saved = [getattr(m, n) for m, n, _ in sites]
+    for m, n, fn in sites:
+        setattr(m, n, fn)
+    try:
+        yield
+    finally:
+        for (m, n, _), fn in zip(sites, saved):
+            setattr(m, n, fn)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
+@pytest.mark.parametrize("remat", ["none", "dots", "full"])
+def test_scan_smoke_train_step_kernel_path_equals_plain_path(no_tf32, arch,
+                                                             remat):
+    """One train step's loss and gradients on the smoke variant in f32
+    on the card: the scan kernels forward and backward (through
+    `WKVScan` / `SSMScan`) against the plain forwards and backwards,
+    loss within 1e-5 relative and every leaf within 1e-4 of its
+    max-abs; each step launches each scan's forward once a layer (twice
+    under "full") and its backward once."""
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.kernels.ssm_scan import kernel as SK
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.models import init_params, layers
+    from repro_torch.train.step import _value_and_grad
+    from repro_torch.tree import leaves
+
+    dev = no_tf32
+    cfg = smoke_variant(get_config(arch)).with_overrides(
+        param_dtype="float32", compute_dtype="float32", remat=remat)
+    if arch != "rwkv6-3b":      # Mamba and attention, no MoE routing to flip
+        cfg = cfg.with_overrides(pattern=(cfg.pattern[0], cfg.pattern[4]),
+                                 n_layers=2)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    batch = SyntheticPipeline(cfg, batch=2, seq_len=80,
+                              device=dev).batch_at(0)
+    mod, fwd, bwd = (WK, WK.wkv_scan, WK.wkv_scan_bwd) if arch == "rwkv6-3b" \
+        else (SK, SK.ssm_scan, SK.ssm_scan_bwd)
+    mixer = "rwkv" if arch == "rwkv6-3b" else "mamba"
+    n = sum(s.mixer == mixer for s in cfg.pattern) * cfg.n_periods
+    mod.reset_launches()
+    lk, gk = _value_and_grad(params, cfg, batch)
+    assert fwd.route_launches["chunked"] == n * (2 if remat == "full" else 1)
+    assert bwd.route_launches == {"reverse": n}
+    saved_attn = layers.attention_bshd
+    layers.attention_bshd = lambda q, k, v, *, causal, window: \
+        layers.flash_attention_chunked(q, k, v, causal=causal, window=window)
+    try:
+        with _plain_scans():
+            lp, gp = _value_and_grad(params, cfg, batch)
+    finally:
+        layers.attention_bshd = saved_attn
+    torch.testing.assert_close(lk, lp, rtol=1e-5, atol=0)
+    for a, b in zip(leaves(gk), leaves(gp)):
+        if a.is_floating_point():
+            scale = b.abs().max().clamp_min(1e-30)
+            assert ((a - b).abs().max() / scale).item() <= 1e-4

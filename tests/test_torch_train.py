@@ -61,7 +61,19 @@ from repro_torch.tree import leaves, leaves_with_path
 CFG = smoke_variant(get_config("qwen1.5-0.5b"))
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 STEP_ARCHS = ["qwen1.5-0.5b", "granite-34b", "nemotron-4-15b",
-              "codeqwen1.5-7b", "mixtral-8x7b"]
+              "codeqwen1.5-7b", "mixtral-8x7b", "rwkv6-3b",
+              "jamba-1.5-large-398b"]
+# the step parity's tolerance where it is not 1e-5: the scans' recorded
+# deviation from the reference (ROADMAP), whose associative chunked
+# scans (`_wkv_chunked`, `_mamba_scan_chunked`) sum in another order than
+# the port's sequential ones: 1e-4 for the WKV, 2e-4 for the selective scan
+STEP_TOL = {"rwkv6-3b": 1e-4, "jamba-1.5-large-398b": 2e-4}
+# the pattern positions, one layer each, of the scan families' step
+# parity: RWKV6's one layer kind, and three positions of Jamba's period
+# of 8 that hold every kind of layer it has (Mamba with a dense and with
+# a MoE MLP, attention with a dense MLP), at a fraction of the JAX
+# compile time of their two-period smoke variants
+STEP_POSITIONS = {"rwkv6-3b": (0,), "jamba-1.5-large-398b": (0, 1, 4)}
 
 
 def _t(x):
@@ -217,6 +229,10 @@ def _routing_equal(jcfg, tcfg, jp, tp, batch_np):
 @pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_train_step_matches_the_reference(arch):
     jcfg = JC.smoke_variant(JC.get_config(arch)).with_overrides(**F32)
+    if arch in STEP_POSITIONS:
+        pos = STEP_POSITIONS[arch]
+        jcfg = jcfg.with_overrides(pattern=tuple(jcfg.pattern[i] for i in pos),
+                                   n_layers=len(pos))
     tcfg = _port_cfg(jcfg)
     jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
     tp = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
@@ -230,13 +246,14 @@ def test_train_step_matches_the_reference(arch):
     jl, jg = jax.jit(jax.value_and_grad(
         lambda p, b: JM.loss_fn(p, jcfg, b)))(jp, jb)
     tl, tg = _value_and_grad(tp, tcfg, tb)
-    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    tol = STEP_TOL.get(arch, 1e-5)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=tol)
     for (path, a), b in zip(
             [(p, x) for p, x in leaves_with_path(tg) if p[-1] != "expert_ids"],
             jax.tree.leaves(jg)):
         b = np.asarray(b)
         scale = max(float(np.abs(b).max()), 1e-30)
-        assert np.abs(a.numpy() - b).max() <= 1e-5 * scale, path
+        assert np.abs(a.numpy() - b).max() <= tol * scale, path
     # 3 steps of the whole train step
     jopt, topt = JAdamWConfig(lr=1e-3, eps=1e-4), AdamWConfig(lr=1e-3,
                                                               eps=1e-4)
@@ -250,11 +267,11 @@ def test_train_step_matches_the_reference(arch):
         if i in (0, 2):
             for k in ("loss", "grad_norm"):
                 np.testing.assert_allclose(float(tm[k]), float(jm[k]),
-                                           rtol=1e-5, err_msg=k)
+                                           rtol=tol, err_msg=k)
             for a, b in zip(_float_leaves(ts["params"]),
                             jax.tree.leaves(js["params"])):
                 np.testing.assert_allclose(a.numpy(), np.asarray(b),
-                                           rtol=1e-5, atol=1e-5)
+                                           rtol=tol, atol=tol)
     assert int(ts["step"]) == int(js["step"]) == 3
 
 
@@ -281,8 +298,13 @@ def test_two_microbatches_equal_one():
                                    atol=1e-5)
 
 
-def test_remat_settings_give_equal_gradients():
-    cfg = CFG.with_overrides(**F32)
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "rwkv6-3b",
+                                  "jamba-1.5-large-398b"])
+def test_remat_settings_give_equal_gradients(arch):
+    """none, dots and full give the same loss and gradients, bit for bit:
+    the scans' forward ops are kept under "dots" and launched again under
+    "full", on the same inputs."""
+    cfg = smoke_variant(get_config(arch)).with_overrides(**F32)
     params = _f32_state(cfg, AdamWConfig())["params"]
     batch = SyntheticPipeline(cfg, batch=2, seq_len=16,
                               device="cpu").batch_at(0)
@@ -405,7 +427,18 @@ def test_a_reader_pinned_at_v1_sees_v1_after_three_steps():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])
-def test_trainer_refuses_the_scan_mixers(arch):
-    cfg = smoke_variant(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7e"):
-        Trainer(cfg, batch=2, seq_len=16, device="cpu")
+def test_trainer_trains_the_scan_mixers(arch):
+    """Two steps of RWKV6's and Jamba's smoke variants through `Trainer`
+    on the CPU (the plain scans and their plain backwards): finite losses,
+    every float leaf moved (f32 weights: a bf16 weight near 1 does not
+    move by lr), and each step published."""
+    cfg = smoke_variant(get_config(arch)).with_overrides(**F32)
+    store = VersionedParamStore(slots=2)
+    tr = Trainer(cfg, batch=2, seq_len=16, store=store, device="cpu")
+    before = [x.clone() for x in leaves(tr.state["params"])]
+    log = tr.run(2)
+    assert all(np.isfinite(m["loss"]) for m in log)
+    assert store.stats["publishes"] == 3
+    for (path, a), b in zip(leaves_with_path(tr.state["params"]), before):
+        if a.is_floating_point():
+            assert not torch.equal(a, b), path
