@@ -81,7 +81,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    `attention_bwd_ref` on the same inputs (bf16 within 3e-2 of each
    gradient's max-abs, f32 2e-5), two launches bitwise equal, timed
    beside plain, the bound and SDPA's backward on its flash route
-   (null where that route does not take the mask);
+   (null where that route does not take the mask), printing the launch
+   `plan_bwd` chose (the head ranges of a KV head's dK/dV, `hsplit`);
+   the bound counts 10·hd operations a visible pair, not the 14·hd the
+   kernels issue (the dQ kernel computes S and dP again);
 9. WKV kernel phase: `wkv_scan` in the model's [B,T,H,N] layout at the
    RWKV serve path's prefill shape (f32, B = 8, T = 1,024, H = 40,
    N = 64) and decode shape (T = 1, the state as s0 and output, in
@@ -112,7 +115,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    microbatch (bf16 u, Bb = 1, T = 1,024, Di = 16,384, N = 16, Jamba's
    scales), each gradient within 1e-4 of its max-abs of the plain
    backward (bf16 du: + 2^-7), two launches bitwise equal, timed beside
-   plain and the bound (bytes, f32 operations, exponentials on the SFU);
+   plain and the bound (bytes, f32 operations, exponentials on the SFU:
+   the least work, not what the kernels recompute; WKV's recomputes S
+   from the saved states with each segment's state from zero beside it,
+   and runs the adjoint twice, see `_wkv_bwd_cost`);
 11. serve phase, once per architecture: Qwen1.5-0.5B, RWKV6-3B, then
    Jamba-1.5-Large, then Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
@@ -1915,9 +1921,13 @@ def _wkv_bwd_cost(B: int, T: int, H: int, N: int, itemsize: int):
     """Bytes the WKV backward must move (r, k, v, w_log and dO read once,
     the forward's chunk states and u, the four gradients written once,
     du) and its f32 operations: per step and head S^T dO, G v and G^T k
-    (N^2 FMAs each) and G advanced (N^2 mul + FMA), 9 N^2 flops (the
-    state's recompute, 3 N^2 more, is not counted: a backward that kept
-    every state would not need it)."""
+    (N^2 FMAs each) and G advanced (N^2 mul + FMA), 9 N^2 flops.  Not
+    counted, so that the bound stays the least work and does not move
+    with the kernel's design: what the kernel does beyond it (the state
+    recomputed from the saved states with the segment's state from zero
+    beside it, 6 N^2 flops a step, and the adjoint run twice, from zero
+    and then from its true value, in f64), its further reads of the
+    inputs and its ~300 MB of scratch (a, the jumps, e, gin)."""
     elems = B * T * H * N
     nbytes = (elems * (4 * itemsize + 4 + 4 * itemsize)
               + B * H * -(-T // 64) * N * N * 4 + 2 * H * N * 4)
@@ -1962,7 +1972,7 @@ def _grads_close(torch, label, got, want, names, tol, tol16=None):
     return worst
 
 
-def scan_bwd_phase(torch, np, flush) -> dict:
+def scan_bwd_phase(torch, np, flush, kernels=("wkv", "ssm")) -> dict:
     """The two scan backward kernels, `wkv_scan_bwd` and `ssm_scan_bwd`,
     on numpy-seeded inputs at the train phase's shapes (RWKV6-3B: f32
     r/k/v/w_log B = TRAIN_BATCH x 1,024 x 40 x 64 from the forward
@@ -1973,8 +1983,9 @@ def scan_bwd_phase(torch, np, flush) -> dict:
     du within that plus one bf16 step, 2^-7), two launches bitwise equal,
     timed beside plain and the bound (bytes at 3.35 TB/s; f32 operations
     at 67 TFLOP/s and exponentials on the SFU); `library_ms` None: no
-    PyTorch call computes either.  Returns {"wkv_scan bwd": {...},
-    "ssm_scan bwd": {...}}, each {"max_abs_err", "times"}."""
+    PyTorch call computes either.  `kernels` names the halves to run
+    ("wkv", "ssm").  Returns {"wkv_scan bwd": {...}, "ssm_scan bwd":
+    {...}} (the halves run), each {"max_abs_err", "times"}."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
     from repro_torch.kernels.wkv_scan import kernel as WK
@@ -1987,8 +1998,9 @@ def scan_bwd_phase(torch, np, flush) -> dict:
     res = {}
     B, T, H, N = TRAIN_BATCH.get("rwkv6-3b", TRAIN_B), TRAIN_S, 40, 64
     names = ("dr", "dk", "dv", "dw_log", "du")
-    res["wkv_scan bwd"] = {"max_abs_err": 0.0}
-    for scale in ("reference", "rwkv6"):
+    if "wkv" in kernels:
+        res["wkv_scan bwd"] = {"max_abs_err": 0.0}
+    for scale in ("reference", "rwkv6") if "wkv" in kernels else ():
         ref = scale == "reference"
         s = 0.5 if ref else 1.0
         x = [(s * put(B, T, H, N)).transpose(1, 2) for _ in range(2)]
@@ -2022,6 +2034,8 @@ def scan_bwd_phase(torch, np, flush) -> dict:
                   "call computes the WKV6 backward)", flush=True)
             res["wkv_scan bwd"]["times"] = (ms, plain_ms, bound_ms, None, by)
         del x, u, states, do, got, again, want
+    if "ssm" not in kernels:
+        return res
     Bb, Di, Ns = 1, 16384, 16
     F = torch.nn.functional
     u = put(Bb, T, Di).to(torch.bfloat16)

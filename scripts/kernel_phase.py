@@ -6,6 +6,7 @@
     python3 scripts/kernel_phase.py TREE --shapes
     python3 scripts/kernel_phase.py TREE --attention
     python3 scripts/kernel_phase.py TREE --scans
+    python3 scripts/kernel_phase.py TREE --backwards
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -40,6 +41,17 @@ ptxas lines, and runs the tree's own `chip_smoke.wkv_kernel_phase` and
 `ssm_scan` at the prefill and decode shapes, held against plain and
 timed): run on an earlier tree and on this one in turns, it shows
 whether a change to the scan sources moved the serving kernels' times.
+
+With `--backwards` it builds the tree's `attention.cu` and `wkv.cu`,
+prints their ptxas lines, and runs the tree's own
+`chip_smoke.attention_bwd_phase` (`flash_attention_bwd` at every case of
+its `BWD_CASES`, held against `attention_bwd_ref`, two launches bitwise
+equal, the timed cases timed beside plain, the bound and SDPA's
+backward) and the WKV half of this checkout's `chip_smoke.scan_bwd_phase`
+on the tree's `wkv_scan_bwd` (RWKV6-3B's train shape at two decay
+scales, held against `wkv_scan_bwd_ref`, timed beside plain and the
+bound): run on an earlier tree and on this one in turns, it times the
+two backward kernels of each in one call.
 """
 
 import importlib.util
@@ -137,6 +149,24 @@ def scans_phase(torch, np, tree: Path) -> None:
         print(f"result {name}: {phase(torch, np, flush)}", flush=True)
 
 
+def backwards_phase(torch, np, tree: Path) -> None:
+    """The tree's `chip_smoke.attention_bwd_phase`, then the WKV half of
+    this checkout's `scan_bwd_phase` on the tree's wrapper."""
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+
+    print(f"tree {tree}, backwards: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["attention", "wkv"])
+    for name, log in cuda_build.BUILD_LOGS.items():
+        for line in chip_smoke._ptxas_report(log):
+            print(f"ptxas {name}: {line}", flush=True)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    res = chip_smoke.attention_bwd_phase(torch, np, flush)
+    print(f"result flash_attention_bwd: {res}", flush=True)
+    res = _here().scan_bwd_phase(torch, np, flush, kernels=("wkv",))
+    print(f"result wkv_scan bwd: {res}", flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     groups = None
@@ -153,6 +183,9 @@ def main() -> int:
     scans = "--scans" in args
     if scans:
         args.remove("--scans")
+    backwards = "--backwards" in args
+    if backwards:
+        args.remove("--backwards")
     tree = Path(args[0] if args else ".").resolve()
     sys.path[:0] = [str(tree), str(tree / "src")]
     import numpy as np
@@ -173,6 +206,9 @@ def main() -> int:
         return 0
     if scans:
         scans_phase(torch, np, tree)
+        return 0
+    if backwards:
+        backwards_phase(torch, np, tree)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

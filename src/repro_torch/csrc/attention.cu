@@ -486,6 +486,14 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
                  : WG_D32                                               \
                  : "l"(da), "l"(db), "r"(acc));                         \
   }                                                                     \
+  /* the same at m64n32k16 */                                            \
+  static __device__ __forceinline__ void ss32(float (&d)[16], uint64_t da, \
+                                              uint64_t db, int acc) {   \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n" WG_OP(     \
+                     "m64n32k16", T) WG_R16 "%16, %17, p, 1, 1, 0, 0;\n}\n" \
+                 : WG_D8(0), WG_D8(8)                                   \
+                 : "l"(da), "l"(db), "r"(acc));                         \
+  }                                                                     \
   /* D += A·B, m64nNk16 (N = 64, 32, 128), A in registers, B MN-major */ \
   static __device__ __forceinline__ void rs64(                          \
       float (&d)[32], const uint32_t (&a)[4], uint64_t db) {            \
@@ -786,35 +794,77 @@ int flash_f32_hd(const FlashArgs& a, int B, int hd, cudaStream_t stream) {
 
 // -------------------------------------------------------- flash backward
 // fa_flash_bwd: the gradients of flash attention from the forward's
-// output O and per-row log-sum-exp L (f32 [B, H, S]), three launches:
+// output O and per-row log-sum-exp L (f32 [B, H, S]).  It replaces no
+// Pallas kernel: the JAX package's gradients are autodiff of its XLA twin
+// `flash_attention_xla`.  Three launches:
 //
 // 1. `flash_bwd_delta_kernel`: δ = rowsum(dO∘O) per query row into an
 //    f32 [B, H, S] buffer (a warp a row), read by both later kernels.
-// 2. dK/dV: one block per (b, kv-head, 64-key tile).  It loops over the
-//    G query heads of its kv-head and, for each, over the query tiles
-//    that see its keys (a tile that the causal mask or the window hides
-//    is never loaded), recomputes Sᵀ = K·Qᵀ and Pᵀ = exp(Sᵀ·scale − L),
-//    dPᵀ = V·dOᵀ and dSᵀ = Pᵀ∘(dPᵀ − δ), and accumulates dV += Pᵀ·dO and
-//    dK += dSᵀ·Q in registers, written once (dK times scale).
-// 3. dQ: one block per (b, head, 64-query tile) over the key tiles its
-//    rows see: S, P, dP and dS as above, dQ += dS·K, written once.
+// 2. dK/dV: a block per (64-key tile, KV head, batch, head range).  The
+//    G query heads of a KV head are cut into `hsplit` contiguous ranges
+//    (the wrapper's plan), one block each, so under GQA and MQA the grid
+//    still fills the card.  A block loops over its heads and, for each,
+//    over the query tiles that see its keys (a tile the causal mask or
+//    the window hides is never loaded), recomputes Sᵀ = K·Qᵀ and
+//    Pᵀ = exp(Sᵀ·scale − L), dPᵀ = V·dOᵀ and dSᵀ = Pᵀ∘(dPᵀ − δ), and
+//    accumulates dV += Pᵀ·dO and dK += dSᵀ·Q in registers.  With one range
+//    (hsplit 1) it writes dK (times scale) and dV once, in the input type;
+//    otherwise it writes f32 partials into a [2][hsplit][B, T, KH, hd]
+//    scratch.
+// 3. dQ: a block per (64-query tile, head, batch) over the key tiles its
+//    rows see: S, P, dP and dS as above, dQ += dS·K, written once.  With
+//    hsplit > 1 the same launch has more blocks after those, which sum
+//    the dK/dV partials over the ranges in range order, scale dK, round
+//    to the input type and write dK and dV.
 //
-// No block writes what another writes and no atomics are used, so the
-// result is deterministic.  bf16 / f16 run on the tensor cores
-// (mma.sync m16n8k16, f32 accumulators; P and dS rounded once to the
-// input type as the A operand of their products), each warp owning 16
-// key rows (dK/dV) or 16 query rows (dQ) of the block's 64; the query
-// tiles of the dK/dV loop (64 rows, 32 at hd 128, where the registers of
-// dK and dV fill the file) and the K/V tiles of the dQ loop are
-// double-buffered with cp.async.  f32 runs on FMA from shared memory
-// (the f32 checks hold it to 2e-5).  Masked entries take P = 0, as the
-// references' -inf before the exp gives.
+// No block writes what another writes, every sum runs in a fixed order
+// and no atomics are used, so two calls give the same bits.
+//
+// bf16 / f16 (`flash_bwd_dkdv_wgmma`, `flash_bwd_dq_wgmma`): 160 threads,
+// a consumer warpgroup (warps 0-3) and a producer warp (warp 4).  The
+// block's own tile (K and V for dK/dV, Q and dO for dQ) is staged once
+// by all threads; the producer then carries the tiles it loops over (Q,
+// dO, L and δ for dK/dV; K and V for dQ) into a ring of shared-memory
+// stages with cp.async, and marks each stage full on an mbarrier that
+// completes when its copies land (cp.async.mbarrier.arrive.noinc); the
+// consumers mark it empty on a second mbarrier once their products have
+// read it.  Tiles lie in the swizzle the forward's wgmma reads (128-byte
+// rows: hd/64 column blocks of [rows][64]; at hd 32, 64-byte rows).  The
+// products run on wgmma with f32 accumulators: in the dK/dV kernel
+// Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with K and V the shared-memory A operand and
+// Q and dO the K-major B operand (m64 n BQ), then Pᵀ and dSᵀ, rounded in
+// registers to the input type, are the register A operand of dV += Pᵀ·dO
+// and dK += dSᵀ·Q with dO and Q read MN-major through the descriptor's
+// transpose (m64 n hd), as the forward reads V; the consumer waits for
+// Sᵀ alone before its exponentials, so dPᵀ finishes under them.  Each
+// consumer warpgroup owns the block's 64 keys; BQ, the query rows of a
+// stage, is 64, and 32 at hd 128, where dK and dV alone hold 128
+// registers a thread.  The dQ kernel is the forward's shape: S = Q·Kᵀ
+// and dP = dO·Vᵀ (m64n64), dQ += dS·K with K read MN-major.  The rounding
+// of P and dS is the one difference in arithmetic from the f32 plain
+// version.  Not built: TMA tensor maps for the loads (the producer warp
+// issues cp.async, 16 bytes a lane a copy) and a second consumer
+// warpgroup per block.
+//
+// f32 (`flash_bwd_dkdv_f32`, `flash_bwd_dq_f32`): FMA from shared memory
+// (the f32 checks hold it to 2e-5), hsplit 1.  Masked entries take P = 0
+// on both routes, as the references' -inf before the exp gives.
 //
 // Bound at Qwen's train shape (B = 8, S = T = 1,024, H = K = 16, hd 64,
 // causal, bf16): 10·pairs·hd·B·H = 43.0 GFLOP (0.043 ms at 989 TFLOP/s)
 // against 134 MB of q, k, v, o, dO, dq, dk, dv (0.040 ms): bound by
-// operations by a little.  This first version issues mma.sync from one
-// warpgroup without overlap of loads and products: far from either.
+// operations by a little.  The design issues 14·hd operations a visible
+// pair (the dQ kernel recomputes S and dP) on 64 x 64 tiles, whole tiles
+// on the diagonal: ~1.5x the bound's products.  What bounds it on the
+// card (timings of variants built without parts of the work): a
+// consumer warpgroup runs its tile's products, exponentials and dS one
+// after another and waits on each, with two warpgroups an SM (the
+// producer warp's registers keep dK/dV at 168 a thread, and it spills at
+// hd 128); the products, then the exponentials, take the largest shares,
+// the waits for loads a small one.  The dQ kernel runs three blocks an
+// SM up to hd 64, which measured faster there.  Overlapping one warpgroup's exponentials with another's
+// products (two consumer warpgroups a block, register reallocation) is
+// the next step.
 struct FlashBwdArgs {
   const void* q;
   const void* k;
@@ -826,6 +876,7 @@ struct FlashBwdArgs {
   void* dq;
   void* dk;
   void* dv;
+  float* part;                     // hsplit > 1: [2][hsplit][B][T][KH][hd]
   long long q_sb, q_ss, q_sh;      // element strides over (b, s, h)
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
@@ -836,10 +887,13 @@ struct FlashBwdArgs {
   long long dv_sb, dv_st, dv_sh;
   int B, H, KH, S, T, causal, window;
   float scale;
+  int hsplit;
 };
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kBwdTile = 64;       // key rows (dK/dV) / query rows (dQ)
+constexpr int kBwdThreads = 160;   // tensor cores: 4 consumer warps + 1
+constexpr int kBwdConsumers = 128;
 
 __device__ __forceinline__ bool visible(const FlashBwdArgs& a, int qpos,
                                         int kpos) {
@@ -870,298 +924,482 @@ flash_bwd_delta_kernel(const FlashBwdArgs a) {
   if (lane == 0) a.delta[row] = acc;
 }
 
-// query rows per tile of the dK/dV loop on the tensor cores
+// ------------------------------------------- mbarriers and the load ring
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// the barrier counts this thread's arrival once all its earlier cp.async
+// copies have landed (its count includes the arrival: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+// wait for the phase of `parity` to complete; a ring that never completes
+// (a fault in the kernel) traps instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (int spins = 0; !mbar_try_wait(bar, parity);)
+    if (++spins > (1 << 24)) __trap();
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 of an operand with rows of HD elements `rs`
+// apart (rows >= n read as zeros) into a swizzled tile at `dst`, the
+// 16-byte pieces dealt to threads t, t + nthr, ...
+template <typename Elt, int HD, int ROWS>
+__device__ __forceinline__ void load_tile(uint32_t dst, const Elt* src,
+                                          long long rs, int r0, int n,
+                                          int t, int nthr) {
+  constexpr int COLS = HD < 64 ? HD : 64, RB = COLS * 2, CPB = COLS / 8;
+  constexpr int CH = HD / 8;
+  for (int i = t; i < ROWS * CH; i += nthr) {
+    const int r = i / CH, cc = i % CH, s = r0 + r;
+    const bool ok = s < n;
+    cp_async16(dst + cc / CPB * ROWS * RB + swz<RB>(r, cc % CPB),
+               ok ? src + (long long)s * rs + cc * 8 : src, ok ? 16 : 0);
+  }
+}
+
+// query rows a stage of the dK/dV ring holds, and the rings' depths
 template <int HD>
 __host__ __device__ constexpr int bwd_bq() {
   return HD == 128 ? 32 : 64;
 }
-
+constexpr int kDkdvStages = 3;
 template <int HD>
-constexpr int bwd_dkdv_smem_bytes() {
-  constexpr int LD = HD + 8, BQ = bwd_bq<HD>();
-  // K, V [64][LD]; 2 stages of Q, dO [BQ][LD]; 2 stages of L, δ [BQ]
-  return (2 * kBwdTile * LD + 4 * BQ * LD) * 2 + 4 * BQ * 4;
+__host__ __device__ constexpr int dq_stages() {
+  return HD == 128 ? 2 : 3;
 }
 
+// K, V; the stages' Q, dO, L and δ; the barriers; + alignment to 1,024
 template <int HD>
-constexpr int bwd_dq_smem_bytes() {
-  constexpr int LD = HD + 8;
-  // Q, dO [64][LD]; 2 stages of K, V [64][LD]
-  return 6 * kBwdTile * LD * 2;
+constexpr int dkdv_smem_bytes() {
+  constexpr int BQ = bwd_bq<HD>(), ST = kDkdvStages;
+  return 1024 + 2 * kBwdTile * HD * 2 + ST * 2 * BQ * HD * 2 +
+         ST * 2 * BQ * 4 + 2 * ST * 8;
+}
+// Q, dO; the stages' K and V; the barriers; + alignment
+template <int HD>
+constexpr int dq_smem_bytes() {
+  return 1024 + 2 * kBwdTile * HD * 2 + dq_stages<HD>() * 2 * kBwdTile * HD *
+         2 + 2 * dq_stages<HD>() * 8;
 }
 
-// 2. dK/dV on the tensor cores.  Warp w owns key rows 16w..16w+15 of the
-// tile.  Sᵀ and dPᵀ are [16 keys x BQ queries] accumulators (K and V
-// rows the A operand, Q and dO rows the B operand); Pᵀ and dSᵀ, rounded,
-// are the A operand of dV += Pᵀ·dO and dK += dSᵀ·Q (dO and Q through
-// ldmatrix.trans).
+// D (+)= A·Bᵀ with the B rows of a stage: m64 n64 or n32
+template <typename Elt, int BQ>
+__device__ __forceinline__ void ss_tile(float (&d)[BQ / 2], uint64_t da,
+                                        uint64_t db, int acc) {
+  if constexpr (BQ == 64)
+    Wgmma<Elt>::ss64(d, da, db, acc);
+  else
+    Wgmma<Elt>::ss32(d, da, db, acc);
+}
+// D += A·B, A in registers, B MN-major, N = HD
 template <typename Elt, int HD>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_mma(const FlashBwdArgs a) {
-  constexpr int LD = HD + 8, CH = HD / 8, BK = kBwdTile, NT = 128;
-  constexpr int BQ = bwd_bq<HD>(), NQ = BQ / 8, NH = HD / 8;
+__device__ __forceinline__ void rs_hd(float (&d)[HD / 2],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (HD == 32)
+    Wgmma<Elt>::rs32(d, a, db);
+  else if constexpr (HD == 64)
+    Wgmma<Elt>::rs64(d, a, db);
+  else
+    Wgmma<Elt>::rs128(d, a, db);
+}
+
+// the register A operand of a k16 step from accumulator columns 16kk ..
+template <typename Elt, int N>
+__device__ __forceinline__ void a_frag(uint32_t (&f)[4], const float (&s)[N],
+                                       int kk) {
+  f[0] = Mma<Elt>::pack(s[8 * kk], s[8 * kk + 1]);
+  f[1] = Mma<Elt>::pack(s[8 * kk + 2], s[8 * kk + 3]);
+  f[2] = Mma<Elt>::pack(s[8 * kk + 4], s[8 * kk + 5]);
+  f[3] = Mma<Elt>::pack(s[8 * kk + 6], s[8 * kk + 7]);
+}
+
+// 2. dK/dV on wgmma.  The 1-D grid: tile-major (under a causal mask the
+// longest tiles, the first, start first), then head range, KV head, batch.
+template <typename Elt, int HD>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+flash_bwd_dkdv_wgmma(const FlashBwdArgs a) {
+  constexpr int BK = kBwdTile, BQ = bwd_bq<HD>(), ST = kDkdvStages;
+  constexpr int COLS = HD < 64 ? HD : 64, RB = COLS * 2;
+  constexpr int KT = BK * HD * 2, QT = BQ * HD * 2;   // bytes of a tile
   extern __shared__ float4 smem4[];
-  Elt* Ks = reinterpret_cast<Elt*>(smem4);   // [BK][LD]
-  Elt* Vs = Ks + BK * LD;                    // [BK][LD]
-  Elt* Qs = Vs + BK * LD;                    // [2][BQ][LD]
-  Elt* Gs = Qs + 2 * BQ * LD;                // [2][BQ][LD] (dO)
-  float* Ls = reinterpret_cast<float*>(Gs + 2 * BQ * LD);  // [2][BQ]
-  float* Ds = Ls + 2 * BQ;                                  // [2][BQ]
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // K, V; stage st: Q at sQ + 2 st QT, dO QT after; L [ST][BQ], δ [ST][BQ];
+  // full[ST], empty[ST]
+  const uint32_t sK = base, sV = base + KT, sQ = base + 2 * KT;
+  const uint32_t sL = sQ + ST * 2 * QT, sD = sL + ST * BQ * 4;
+  const uint32_t sFull = sD + ST * BQ * 4, sEmpty = sFull + ST * 8;
+  const float* const Ls = reinterpret_cast<const float*>(
+      reinterpret_cast<const char*>(smem4) + (sL - raw));
+  const float* const Ds = Ls + ST * BQ;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int k0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x;
   const int G = a.H / a.KH;
-  const Elt* kp = static_cast<const Elt*>(a.k) + b * a.k_sb + kh * a.k_sh;
-  const Elt* vp = static_cast<const Elt*>(a.v) + b * a.v_sb + kh * a.v_sh;
-  for (int i = tid; i < BK * CH; i += NT) {
-    const int r = i / CH, c = i % CH, t = k0 + r;
-    const long long tt = t < a.T ? t : 0;
-    const int n = t < a.T ? 16 : 0;
-    cp_async16(smem_u32(Ks + r * LD + c * 8), kp + tt * a.k_st + c * 8, n);
-    cp_async16(smem_u32(Vs + r * LD + c * 8), vp + tt * a.v_st + c * 8, n);
+  const int per_tile = a.hsplit * a.KH * a.B;
+  const int tile = blockIdx.x / per_tile, rem = blockIdx.x % per_tile;
+  const int split = rem % a.hsplit, kh = rem / a.hsplit % a.KH;
+  const int b = rem / a.hsplit / a.KH;
+  const int k0 = tile * BK;
+  const int h_lo = kh * G + split * G / a.hsplit;
+  const int h_hi = kh * G + (split + 1) * G / a.hsplit;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(sFull + 8 * s, 32);
+      mbar_init(sEmpty + 8 * s, kBwdConsumers);
+    }
+    fence_mbar_init();
   }
+  load_tile<Elt, HD, BK>(
+      sK, static_cast<const Elt*>(a.k) + b * a.k_sb + kh * a.k_sh, a.k_st,
+      k0, a.T, tid, kBwdThreads);
+  load_tile<Elt, HD, BK>(
+      sV, static_cast<const Elt*>(a.v) + b * a.v_sb + kh * a.v_sh, a.v_st,
+      k0, a.T, tid, kBwdThreads);
   cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();      // K, V landed; the barriers are set
 
-  // the query tiles that see a key of this tile, per head of the group
+  // the query tiles that see a key of this tile, per head of the range
   const int k_last = min(k0 + BK, a.T) - 1;
   const int q_begin = a.causal ? k0 : 0;
   const int q_end = a.window > 0 ? min(a.S, k_last + a.window) : a.S;
   const int qt_first = q_begin / BQ * BQ;
   const int n_qt = q_end > qt_first ? (q_end - qt_first + BQ - 1) / BQ : 0;
-  const int n_iter = G * n_qt;
-  auto load_q = [&](int it, int stage) {
-    const int h = kh * G + it / n_qt, q0 = qt_first + it % n_qt * BQ;
-    const Elt* qp = static_cast<const Elt*>(a.q) + b * a.q_sb + h * a.q_sh;
-    const Elt* gp =
-        static_cast<const Elt*>(a.dout) + b * a.do_sb + h * a.do_sh;
-    Elt* qs = Qs + stage * BQ * LD;
-    Elt* gs = Gs + stage * BQ * LD;
-    for (int i = tid; i < BQ * CH; i += NT) {
-      const int r = i / CH, c = i % CH, s = q0 + r;
-      const long long ss = s < a.S ? s : 0;
-      const int n = s < a.S ? 16 : 0;
-      cp_async16(smem_u32(qs + r * LD + c * 8), qp + ss * a.q_ss + c * 8, n);
-      cp_async16(smem_u32(gs + r * LD + c * 8), gp + ss * a.do_ss + c * 8,
-                 n);
-    }
-    const long long row0 = ((long long)b * a.H + h) * a.S;
-    for (int r = tid; r < BQ; r += NT) {
-      const int s = q0 + r;
-      Ls[stage * BQ + r] = s < a.S ? a.lse[row0 + s] * kLog2e : 0.f;
-      Ds[stage * BQ + r] = s < a.S ? a.delta[row0 + s] : 0.f;
-    }
-  };
+  const int n_iter = (h_hi - h_lo) * n_qt;
 
-  const int kw = warp * 16, g8 = lane >> 2, c2 = 2 * (lane & 3);
-  const int kr0 = k0 + kw + g8, kr1 = kr0 + 8;   // this lane's keys
-  const float sl2 = a.scale * kLog2e;
-  float dk[NH][4], dv[NH][4];
-#pragma unroll
-  for (int n = 0; n < NH; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-  if (n_iter > 0) load_q(0, 0);
-  cp_async_commit();
-  for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    cp_async_wait<0>();
-    __syncthreads();     // tile it landed; every warp is done with it - 1
-    if (it + 1 < n_iter) load_q(it + 1, stage ^ 1);
-    cp_async_commit();
-    const int q0 = qt_first + it % n_qt * BQ;
-    const Elt* qs = Qs + stage * BQ * LD;
-    const Elt* gs = Gs + stage * BQ * LD;
-    const float* ls = Ls + stage * BQ;
-    const float* ds = Ds + stage * BQ;
-
-    float st[NQ][4], dpt[NQ][4];
-#pragma unroll
-    for (int j = 0; j < NQ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; kk += 2) {
-      uint32_t ka0[4], ka1[4], va0[4], va1[4];
-      const int arow = (kw + (lane & 15)) * LD + (lane >> 4) * 8;
-      ldsm_x4(ka0, smem_u32(Ks + arow + kk * 16));
-      ldsm_x4(ka1, smem_u32(Ks + arow + kk * 16 + 16));
-      ldsm_x4(va0, smem_u32(Vs + arow + kk * 16));
-      ldsm_x4(va1, smem_u32(Vs + arow + kk * 16 + 16));
-#pragma unroll
-      for (int j = 0; j < NQ; ++j) {
-        uint32_t qb[4], gb[4];
-        const int brow = (8 * j + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8;
-        ldsm_x4(qb, smem_u32(qs + brow));
-        ldsm_x4(gb, smem_u32(gs + brow));
-        Mma<Elt>::run(st[j], ka0, qb[0], qb[1]);
-        Mma<Elt>::run(st[j], ka1, qb[2], qb[3]);
-        Mma<Elt>::run(dpt[j], va0, gb[0], gb[1]);
-        Mma<Elt>::run(dpt[j], va1, gb[2], gb[3]);
+  if (tid >= kBwdConsumers) {             // the producer warp
+    const int lane = tid - kBwdConsumers;
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % ST;
+      mbar_wait(sEmpty + 8 * st, (it / ST & 1) ^ 1);
+      const int h = h_lo + it / n_qt, q0 = qt_first + it % n_qt * BQ;
+      const uint32_t sq = sQ + st * 2 * QT;
+      load_tile<Elt, HD, BQ>(
+          sq, static_cast<const Elt*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss,
+          q0, a.S, lane, 32);
+      load_tile<Elt, HD, BQ>(
+          sq + QT,
+          static_cast<const Elt*>(a.dout) + b * a.do_sb + h * a.do_sh,
+          a.do_ss, q0, a.S, lane, 32);
+      const long long row0 = ((long long)b * a.H + h) * a.S;
+      for (int r = lane; r < BQ; r += 32) {
+        const bool ok = q0 + r < a.S;
+        const long long x = ok ? row0 + q0 + r : 0;
+        cp_async4(sL + (st * BQ + r) * 4, a.lse + x, ok ? 4 : 0);
+        cp_async4(sD + (st * BQ + r) * 4, a.delta + x, ok ? 4 : 0);
       }
+      cp_async_mbar_arrive(sFull + 8 * st);
     }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumers: warp wq owns key rows 16wq .. 16wq + 15 of the tile
+  const int lane = tid & 31, wq = tid >> 5, g = lane >> 2, c2 = 2 * (lane & 3);
+  const int kr0 = k0 + wq * 16 + g, kr1 = kr0 + 8;   // this lane's keys
+  const float sl2 = a.scale * kLog2e;
+  float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+  for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it % ST;
+    mbar_wait(sFull + 8 * st, it / ST & 1);
+    fence_proxy_async();          // cp.async's writes, then wgmma's reads
+    const int q0 = qt_first + it % n_qt * BQ;
+    const uint32_t sq = sQ + st * 2 * QT, sg = sq + QT;
+    float s[BQ / 2], dp[BQ / 2];
+#pragma unroll
+    for (int i = 0; i < BQ / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int blk = kk / (COLS / 16), col = kk % (COLS / 16) * 32;
+      ss_tile<Elt, BQ>(s, gmma_desc<RB>(sK + blk * BK * RB + col, 16),
+                       gmma_desc<RB>(sq + blk * BQ * RB + col, 16), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int blk = kk / (COLS / 16), col = kk % (COLS / 16) * 32;
+      ss_tile<Elt, BQ>(dp, gmma_desc<RB>(sV + blk * BK * RB + col, 16),
+                       gmma_desc<RB>(sg + blk * BQ * RB + col, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait1();                // Sᵀ is in; dPᵀ may still run
+    fence_regs(s);
 
     const bool partial = q0 + BQ > a.S || k0 + BK > a.T ||
                          (a.causal && q0 < k0 + BK - 1) ||
                          (a.window > 0 && q0 + BQ - 1 - k0 >= a.window);
+    const float* ls = Ls + st * BQ;
+    const float* ds = Ds + st * BQ;
 #pragma unroll
-    for (int j = 0; j < NQ; ++j)
+    for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int qi = 8 * j + c2 + (e & 1);
         const bool ok = !partial || visible(a, q0 + qi, e < 2 ? kr0 : kr1);
-        const float p = ok ? ex2(fmaf(st[j][e], sl2, -ls[qi])) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = p * (dpt[j][e] - ds[qi]);
+        s[4 * j + e] =
+            ok ? ex2(fmaf(s[4 * j + e], sl2, -ls[qi] * kLog2e)) : 0.f;
       }
-
+    wgmma_wait0();
+    fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = 8 * j + c2 + (e & 1);
+        dp[4 * j + e] = s[4 * j + e] * (dp[4 * j + e] - ds[qi]);
+      }
+    uint32_t pa[BQ / 16][4], sa[BQ / 16][4];
 #pragma unroll
     for (int kq = 0; kq < BQ / 16; ++kq) {
-      const uint32_t pa[4] = {Mma<Elt>::pack(st[2 * kq][0], st[2 * kq][1]),
-                              Mma<Elt>::pack(st[2 * kq][2], st[2 * kq][3]),
-                              Mma<Elt>::pack(st[2 * kq + 1][0],
-                                             st[2 * kq + 1][1]),
-                              Mma<Elt>::pack(st[2 * kq + 1][2],
-                                             st[2 * kq + 1][3])};
-      const uint32_t sa[4] = {Mma<Elt>::pack(dpt[2 * kq][0], dpt[2 * kq][1]),
-                              Mma<Elt>::pack(dpt[2 * kq][2], dpt[2 * kq][3]),
-                              Mma<Elt>::pack(dpt[2 * kq + 1][0],
-                                             dpt[2 * kq + 1][1]),
-                              Mma<Elt>::pack(dpt[2 * kq + 1][2],
-                                             dpt[2 * kq + 1][3])};
+      a_frag<Elt>(pa[kq], s, kq);
+      a_frag<Elt>(sa[kq], dp, kq);
+    }
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        uint32_t gb[4], qb[4];
-        const int brow = (16 * kq + (lane & 15)) * LD + 16 * n +
-                         (lane >> 4) * 8;
-        ldsm_x4_t(gb, smem_u32(gs + brow));
-        ldsm_x4_t(qb, smem_u32(qs + brow));
-        Mma<Elt>::run(dv[2 * n], pa, gb[0], gb[1]);
-        Mma<Elt>::run(dv[2 * n + 1], pa, gb[2], gb[3]);
-        Mma<Elt>::run(dk[2 * n], sa, qb[0], qb[1]);
-        Mma<Elt>::run(dk[2 * n + 1], sa, qb[2], qb[3]);
+    for (int kq = 0; kq < BQ / 16; ++kq)   // query rows 16kq .. of dO, Q
+      rs_hd<Elt, HD>(dv, pa[kq], gmma_desc<RB>(sg + kq * 16 * RB, BQ * RB));
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq)
+      rs_hd<Elt, HD>(dk, sa[kq], gmma_desc<RB>(sq + kq * 16 * RB, BQ * RB));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_proxy_async();
+    mbar_arrive(sEmpty + 8 * st);   // the stage is free to load again
+  }
+
+  if (a.hsplit == 1) {
+    Elt* dkp = static_cast<Elt*>(a.dk) + b * a.dk_sb + kh * a.dk_sh;
+    Elt* dvp = static_cast<Elt*>(a.dv) + b * a.dv_sb + kh * a.dv_sh;
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      if (kr0 < a.T) {
+        *reinterpret_cast<uint32_t*>(dkp + (long long)kr0 * a.dk_st + 8 * n +
+                                     c2) =
+            Mma<Elt>::pack(dk[4 * n] * a.scale, dk[4 * n + 1] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvp + (long long)kr0 * a.dv_st + 8 * n +
+                                     c2) =
+            Mma<Elt>::pack(dv[4 * n], dv[4 * n + 1]);
+      }
+      if (kr1 < a.T) {
+        *reinterpret_cast<uint32_t*>(dkp + (long long)kr1 * a.dk_st + 8 * n +
+                                     c2) =
+            Mma<Elt>::pack(dk[4 * n + 2] * a.scale, dk[4 * n + 3] * a.scale);
+        *reinterpret_cast<uint32_t*>(dvp + (long long)kr1 * a.dv_st + 8 * n +
+                                     c2) =
+            Mma<Elt>::pack(dv[4 * n + 2], dv[4 * n + 3]);
       }
     }
-  }
-  cp_async_wait<0>();
-
-  Elt* dkp = static_cast<Elt*>(a.dk) + b * a.dk_sb + kh * a.dk_sh;
-  Elt* dvp = static_cast<Elt*>(a.dv) + b * a.dv_sb + kh * a.dv_sh;
+  } else {
+    // partials, f32 [2][hsplit][B][T][KH][HD]: dK's, then dV's
+    const long long half = (long long)a.hsplit * a.B * a.T * a.KH * HD;
+    float* pk = a.part + ((long long)split * a.B + b) * a.T * a.KH * HD +
+                (long long)kh * HD + c2;
+    float* pv = pk + half;
+    const long long row = (long long)a.KH * HD;
 #pragma unroll
-  for (int n = 0; n < NH; ++n) {
-    if (kr0 < a.T) {
-      *reinterpret_cast<uint32_t*>(dkp + (long long)kr0 * a.dk_st + 8 * n +
-                                   c2) =
-          Mma<Elt>::pack(dk[n][0] * a.scale, dk[n][1] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvp + (long long)kr0 * a.dv_st + 8 * n +
-                                   c2) = Mma<Elt>::pack(dv[n][0], dv[n][1]);
-    }
-    if (kr1 < a.T) {
-      *reinterpret_cast<uint32_t*>(dkp + (long long)kr1 * a.dk_st + 8 * n +
-                                   c2) =
-          Mma<Elt>::pack(dk[n][2] * a.scale, dk[n][3] * a.scale);
-      *reinterpret_cast<uint32_t*>(dvp + (long long)kr1 * a.dv_st + 8 * n +
-                                   c2) = Mma<Elt>::pack(dv[n][2], dv[n][3]);
+    for (int n = 0; n < HD / 8; ++n) {
+      if (kr0 < a.T) {
+        *reinterpret_cast<float2*>(pk + kr0 * row + 8 * n) =
+            make_float2(dk[4 * n], dk[4 * n + 1]);
+        *reinterpret_cast<float2*>(pv + kr0 * row + 8 * n) =
+            make_float2(dv[4 * n], dv[4 * n + 1]);
+      }
+      if (kr1 < a.T) {
+        *reinterpret_cast<float2*>(pk + kr1 * row + 8 * n) =
+            make_float2(dk[4 * n + 2], dk[4 * n + 3]);
+        *reinterpret_cast<float2*>(pv + kr1 * row + 8 * n) =
+            make_float2(dv[4 * n + 2], dv[4 * n + 3]);
+      }
     }
   }
 }
 
-// 3. dQ on the tensor cores.  Warp w owns query rows 16w..16w+15 of the
-// tile; S and dP are [16 queries x 64 keys] accumulators (Q and dO rows
-// the A operand, K and V rows the B operand); dS, rounded, is the A
-// operand of dQ += dS·K (K through ldmatrix.trans).  The grid issues the
-// query tiles of every (b, h) in reverse order, so under a causal mask
-// the longest tiles start first.
+// the dK/dV partials of the head ranges summed in range order, dK scaled,
+// both rounded once and written; block `blk` of the sum, a float4 of dK
+// or dV a thread
 template <typename Elt, int HD>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_mma(const FlashBwdArgs a) {
-  constexpr int LD = HD + 8, CH = HD / 8, BQ = kBwdTile, BK = kBwdTile;
-  constexpr int NT = 128, NH = HD / 8;
-  extern __shared__ float4 smem4[];
-  Elt* Qs = reinterpret_cast<Elt*>(smem4);   // [BQ][LD]
-  Elt* Gs = Qs + BQ * LD;                    // [BQ][LD] (dO)
-  Elt* KVs = Gs + BQ * LD;                   // [2 stages][K, V][BK][LD]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ, h = blockIdx.y;
-  const int b = blockIdx.z, kh = h / (a.H / a.KH);
-  const Elt* qp = static_cast<const Elt*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const Elt* gp = static_cast<const Elt*>(a.dout) + b * a.do_sb + h * a.do_sh;
-  const Elt* kp = static_cast<const Elt*>(a.k) + b * a.k_sb + kh * a.k_sh;
-  const Elt* vp = static_cast<const Elt*>(a.v) + b * a.v_sb + kh * a.v_sh;
-  for (int i = tid; i < BQ * CH; i += NT) {
-    const int r = i / CH, c = i % CH, s = q0 + r;
-    const long long ss = s < a.S ? s : 0;
-    const int n = s < a.S ? 16 : 0;
-    cp_async16(smem_u32(Qs + r * LD + c * 8), qp + ss * a.q_ss + c * 8, n);
-    cp_async16(smem_u32(Gs + r * LD + c * 8), gp + ss * a.do_ss + c * 8, n);
+__device__ __forceinline__ void flash_bwd_sum(const FlashBwdArgs& a,
+                                              int blk) {
+  const long long n4 = (long long)a.B * a.T * a.KH * HD / 4;
+  const long long x = (long long)blk * kBwdThreads + threadIdx.x;
+  if (x >= 2 * n4) return;
+  const bool is_v = x >= n4;
+  const long long y = is_v ? x - n4 : x;
+  const float4* p = reinterpret_cast<const float4*>(a.part) +
+                    (is_v ? a.hsplit * n4 : 0) + y;
+  float4 acc = p[0];
+  for (int s = 1; s < a.hsplit; ++s) {
+    const float4 t = p[s * n4];
+    acc.x += t.x;
+    acc.y += t.y;
+    acc.z += t.z;
+    acc.w += t.w;
   }
-  cp_async_commit();
-  auto load_kv = [&](int k0, int stage) {
-    Elt* ks = KVs + stage * 2 * BK * LD;
-    Elt* vs = ks + BK * LD;
-    for (int i = tid; i < BK * CH; i += NT) {
-      const int r = i / CH, c = i % CH, t = k0 + r;
-      const long long tt = t < a.T ? t : 0;
-      const int n = t < a.T ? 16 : 0;
-      cp_async16(smem_u32(ks + r * LD + c * 8), kp + tt * a.k_st + c * 8, n);
-      cp_async16(smem_u32(vs + r * LD + c * 8), vp + tt * a.v_st + c * 8, n);
+  const float sc = is_v ? 1.f : a.scale;
+  const int d = static_cast<int>(y % (HD / 4)) * 4;
+  long long r = y / (HD / 4);
+  const int kh = static_cast<int>(r % a.KH);
+  r /= a.KH;
+  const int t = static_cast<int>(r % a.T), b = static_cast<int>(r / a.T);
+  Elt* dst = is_v ? static_cast<Elt*>(a.dv) + b * a.dv_sb +
+                        (long long)t * a.dv_st + kh * a.dv_sh
+                  : static_cast<Elt*>(a.dk) + b * a.dk_sb +
+                        (long long)t * a.dk_st + kh * a.dk_sh;
+  *reinterpret_cast<uint2*>(dst + d) =
+      make_uint2(Mma<Elt>::pack(acc.x * sc, acc.y * sc),
+                 Mma<Elt>::pack(acc.z * sc, acc.w * sc));
+}
+
+// 3. dQ on wgmma (and, past `nq` blocks, the partials' sum).  The first
+// nq blocks issue the query tiles of every (b, h) in reverse order, so
+// under a causal mask the longest tiles start first.  Up to hd 64 three
+// blocks an SM hold their registers (at most 128 a thread) without
+// spilling; at hd 128 two.
+template <typename Elt, int HD>
+__global__ void __launch_bounds__(kBwdThreads, HD <= 64 ? 3 : 2)
+flash_bwd_dq_wgmma(const FlashBwdArgs a, int nq) {
+  if (static_cast<int>(blockIdx.x) >= nq) {
+    flash_bwd_sum<Elt, HD>(a, blockIdx.x - nq);
+    return;
+  }
+  constexpr int BQ = kBwdTile, BK = kBwdTile, ST = dq_stages<HD>();
+  constexpr int COLS = HD < 64 ? HD : 64, RB = COLS * 2;
+  constexpr int TT = BK * HD * 2;                 // bytes of a tile
+  extern __shared__ float4 smem4[];
+  const uint32_t raw = smem_u32(smem4);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  // Q, dO; stage st: K at sKV + 2 st TT, V TT after; full[ST], empty[ST]
+  const uint32_t sQ = base, sG = base + TT, sKV = base + 2 * TT;
+  const uint32_t sFull = sKV + ST * 2 * TT, sEmpty = sFull + ST * 8;
+
+  const int tid = threadIdx.x;
+  const int BH = a.B * a.H;
+  const int idx = nq - 1 - blockIdx.x;           // longest tiles first
+  const int q0 = idx / BH * BQ, b = idx % BH / a.H, h = idx % BH % a.H;
+  const int kh = h / (a.H / a.KH);
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(sFull + 8 * s, 32);
+      mbar_init(sEmpty + 8 * s, kBwdConsumers);
     }
-  };
+    fence_mbar_init();
+  }
+  load_tile<Elt, HD, BQ>(
+      sQ, static_cast<const Elt*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0,
+      a.S, tid, kBwdThreads);
+  load_tile<Elt, HD, BQ>(
+      sG, static_cast<const Elt*>(a.dout) + b * a.do_sb + h * a.do_sh,
+      a.do_ss, q0, a.S, tid, kBwdThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();      // Q, dO landed; the barriers are set
 
   const int q_last = min(q0 + BQ, a.S) - 1;
   const int kv_end = a.causal ? min(a.T, q_last + 1) : a.T;
   const int kv_begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   const int k_first = kv_begin / BK * BK;
-  if (k_first < kv_end) load_kv(k_first, 0);
-  cp_async_commit();
+  const int n_iter = kv_end > k_first ? (kv_end - k_first + BK - 1) / BK : 0;
 
-  const int g8 = lane >> 2, c2 = 2 * (lane & 3);
-  const int r0 = q0 + warp * 16 + g8, r1 = r0 + 8;   // this lane's rows
+  if (tid >= kBwdConsumers) {             // the producer warp
+    const int lane = tid - kBwdConsumers;
+    const Elt* kp = static_cast<const Elt*>(a.k) + b * a.k_sb + kh * a.k_sh;
+    const Elt* vp = static_cast<const Elt*>(a.v) + b * a.v_sb + kh * a.v_sh;
+    for (int it = 0; it < n_iter; ++it) {
+      const int st = it % ST;
+      mbar_wait(sEmpty + 8 * st, (it / ST & 1) ^ 1);
+      const int k0 = k_first + it * BK;
+      const uint32_t sk = sKV + st * 2 * TT;
+      load_tile<Elt, HD, BK>(sk, kp, a.k_st, k0, a.T, lane, 32);
+      load_tile<Elt, HD, BK>(sk + TT, vp, a.v_st, k0, a.T, lane, 32);
+      cp_async_mbar_arrive(sFull + 8 * st);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // consumers: warp wq owns query rows 16wq .. 16wq + 15 of the tile
+  const int lane = tid & 31, wq = tid >> 5, g = lane >> 2, c2 = 2 * (lane & 3);
+  const int r0 = q0 + wq * 16 + g, r1 = r0 + 8;   // this lane's rows
   const long long row0 = ((long long)b * a.H + h) * a.S;
   const float l0 = r0 < a.S ? a.lse[row0 + r0] * kLog2e : 0.f;
   const float l1 = r1 < a.S ? a.lse[row0 + r1] * kLog2e : 0.f;
   const float d0 = r0 < a.S ? a.delta[row0 + r0] : 0.f;
   const float d1 = r1 < a.S ? a.delta[row0 + r1] : 0.f;
   const float sl2 = a.scale * kLog2e;
-  float dq[NH][4];
+  float dq[HD / 2];
 #pragma unroll
-  for (int n = 0; n < NH; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.f;
+  for (int i = 0; i < HD / 2; ++i) dq[i] = 0.f;
 
-  int stage = 0;
-  for (int k0 = k_first; k0 < kv_end; k0 += BK, stage ^= 1) {
-    cp_async_wait<0>();
-    __syncthreads();     // tile k0 landed; every warp is done with stage ^ 1
-    if (k0 + BK < kv_end) load_kv(k0 + BK, stage ^ 1);
-    cp_async_commit();
-    const Elt* ks = KVs + stage * 2 * BK * LD;
-    const Elt* vs = ks + BK * LD;
-
-    float s[BK / 8][4], dp[BK / 8][4];
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it % ST;
+    mbar_wait(sFull + 8 * st, it / ST & 1);
+    fence_proxy_async();
+    const int k0 = k_first + it * BK;
+    const uint32_t sk = sKV + st * 2 * TT, sv = sk + TT;
+    float s[BK / 2], dp[BK / 2];
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j)
+    for (int i = 0; i < BK / 2; ++i) s[i] = dp[i] = 0.f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; kk += 2) {
-      uint32_t qa0[4], qa1[4], ga0[4], ga1[4];
-      const int arow = (warp * 16 + (lane & 15)) * LD + (lane >> 4) * 8;
-      ldsm_x4(qa0, smem_u32(Qs + arow + kk * 16));
-      ldsm_x4(qa1, smem_u32(Qs + arow + kk * 16 + 16));
-      ldsm_x4(ga0, smem_u32(Gs + arow + kk * 16));
-      ldsm_x4(ga1, smem_u32(Gs + arow + kk * 16 + 16));
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        uint32_t kb[4], vb[4];
-        const int brow = (8 * j + (lane & 7)) * LD + kk * 16 + (lane >> 3) * 8;
-        ldsm_x4(kb, smem_u32(ks + brow));
-        ldsm_x4(vb, smem_u32(vs + brow));
-        Mma<Elt>::run(s[j], qa0, kb[0], kb[1]);
-        Mma<Elt>::run(s[j], qa1, kb[2], kb[3]);
-        Mma<Elt>::run(dp[j], ga0, vb[0], vb[1]);
-        Mma<Elt>::run(dp[j], ga1, vb[2], vb[3]);
-      }
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int blk = kk / (COLS / 16), col = kk % (COLS / 16) * 32;
+      Wgmma<Elt>::ss64(s, gmma_desc<RB>(sQ + blk * BQ * RB + col, 16),
+                       gmma_desc<RB>(sk + blk * BK * RB + col, 16), kk > 0);
     }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const int blk = kk / (COLS / 16), col = kk % (COLS / 16) * 32;
+      Wgmma<Elt>::ss64(dp, gmma_desc<RB>(sG + blk * BQ * RB + col, 16),
+                       gmma_desc<RB>(sv + blk * BK * RB + col, 16), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait1();
+    fence_regs(s);
 
     const bool partial = k0 + BK > a.T || (a.causal && k0 + BK - 1 > q0) ||
                          (a.window > 0 && q0 + BQ - 1 - k0 >= a.window);
@@ -1170,44 +1408,43 @@ flash_bwd_dq_mma(const FlashBwdArgs a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kpos = k0 + 8 * j + c2 + (e & 1);
-        const int qpos = e < 2 ? r0 : r1;
-        const bool ok = !partial || visible(a, qpos, kpos);
-        const float p = ok ? ex2(fmaf(s[j][e], sl2, -(e < 2 ? l0 : l1)))
-                           : 0.f;
-        s[j][e] = p * (dp[j][e] - (e < 2 ? d0 : d1));   // dS
+        const bool ok = !partial || visible(a, e < 2 ? r0 : r1, kpos);
+        s[4 * j + e] =
+            ok ? ex2(fmaf(s[4 * j + e], sl2, -(e < 2 ? l0 : l1))) : 0.f;
       }
-
+    wgmma_wait0();
+    fence_regs(dp);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t sa[4] = {Mma<Elt>::pack(s[2 * kk][0], s[2 * kk][1]),
-                              Mma<Elt>::pack(s[2 * kk][2], s[2 * kk][3]),
-                              Mma<Elt>::pack(s[2 * kk + 1][0],
-                                             s[2 * kk + 1][1]),
-                              Mma<Elt>::pack(s[2 * kk + 1][2],
-                                             s[2 * kk + 1][3])};
+    for (int j = 0; j < BK / 8; ++j)
 #pragma unroll
-      for (int n = 0; n < HD / 16; ++n) {
-        uint32_t kb[4];
-        ldsm_x4_t(kb, smem_u32(ks + (16 * kk + (lane & 15)) * LD + 16 * n +
-                               (lane >> 4) * 8));
-        Mma<Elt>::run(dq[2 * n], sa, kb[0], kb[1]);
-        Mma<Elt>::run(dq[2 * n + 1], sa, kb[2], kb[3]);
-      }
-    }
+      for (int e = 0; e < 4; ++e)
+        s[4 * j + e] *= dp[4 * j + e] - (e < 2 ? d0 : d1);   // dS
+    uint32_t sa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) a_frag<Elt>(sa[kk], s, kk);
+    fence_regs(dq);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)   // key rows 16kk .. of K
+      rs_hd<Elt, HD>(dq, sa[kk], gmma_desc<RB>(sk + kk * 16 * RB, BK * RB));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dq);
+    fence_proxy_async();
+    mbar_arrive(sEmpty + 8 * st);
   }
-  cp_async_wait<0>();
 
   Elt* dqp = static_cast<Elt*>(a.dq) + b * a.dq_sb + h * a.dq_sh;
 #pragma unroll
-  for (int n = 0; n < NH; ++n) {
+  for (int n = 0; n < HD / 8; ++n) {
     if (r0 < a.S)
       *reinterpret_cast<uint32_t*>(dqp + (long long)r0 * a.dq_ss + 8 * n +
                                    c2) =
-          Mma<Elt>::pack(dq[n][0] * a.scale, dq[n][1] * a.scale);
+          Mma<Elt>::pack(dq[4 * n] * a.scale, dq[4 * n + 1] * a.scale);
     if (r1 < a.S)
       *reinterpret_cast<uint32_t*>(dqp + (long long)r1 * a.dq_ss + 8 * n +
                                    c2) =
-          Mma<Elt>::pack(dq[n][2] * a.scale, dq[n][3] * a.scale);
+          Mma<Elt>::pack(dq[4 * n + 2] * a.scale, dq[4 * n + 3] * a.scale);
   }
 }
 
@@ -1478,18 +1715,31 @@ int set_smem(K kernel, int bytes, bool& done) {
   return static_cast<int>(err);
 }
 
+// the blocks of the three launches (δ, dK/dV, dQ with the partials' sum
+// after it) for a.hsplit head ranges, as the wrapper's plan gives them
+void bwd_grids(const FlashBwdArgs& a, int hd, bool f32, long long (&g)[3]) {
+  const long long n_kt = (a.T + kBwdTile - 1) / kBwdTile;
+  const long long n_qt = (a.S + kBwdTile - 1) / kBwdTile;
+  g[0] = ((long long)a.B * a.H * a.S + 7) / 8;
+  g[1] = n_kt * a.hsplit * a.KH * a.B;
+  g[2] = n_qt * a.H * a.B;
+  if (!f32 && a.hsplit > 1)
+    g[2] += (2LL * a.B * a.T * a.KH * hd / 4 + kBwdThreads - 1) /
+            kBwdThreads;
+}
+
 // the three launches, in order; Elt float takes the FMA kernels
 template <typename Elt, int HD>
-int launch_flash_bwd(const FlashBwdArgs& a, cudaStream_t stream) {
-  const long long rows = (long long)a.B * a.H * a.S;
+int launch_flash_bwd(const FlashBwdArgs& a, const long long (&g)[3],
+                     cudaStream_t stream) {
   flash_bwd_delta_kernel<Elt, HD>
-      <<<static_cast<unsigned>((rows + 7) / 8), 256, 0, stream>>>(a);
+      <<<static_cast<unsigned>(g[0]), 256, 0, stream>>>(a);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  const dim3 gk((a.T + kBwdTile - 1) / kBwdTile, a.KH, a.B);
-  const dim3 gq((a.S + kBwdTile - 1) / kBwdTile, a.H, a.B);
   static bool dkdv_set = false, dq_set = false;
   if constexpr (sizeof(Elt) == 4) {
+    const dim3 gk((a.T + kBwdTile - 1) / kBwdTile, a.KH, a.B);
+    const dim3 gq((a.S + kBwdTile - 1) / kBwdTile, a.H, a.B);
     constexpr int bytes = bwd_f32_smem_floats<HD>() * 4;
     if ((err = set_smem(flash_bwd_dkdv_f32<HD>, bytes, dkdv_set))) return err;
     if ((err = set_smem(flash_bwd_dq_f32<HD>, bytes, dq_set))) return err;
@@ -1497,23 +1747,27 @@ int launch_flash_bwd(const FlashBwdArgs& a, cudaStream_t stream) {
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
     flash_bwd_dq_f32<HD><<<gq, 128, bytes, stream>>>(a);
   } else {
-    constexpr int bk = bwd_dkdv_smem_bytes<HD>(), bq = bwd_dq_smem_bytes<HD>();
-    if ((err = set_smem(flash_bwd_dkdv_mma<Elt, HD>, bk, dkdv_set)))
+    constexpr int bk = dkdv_smem_bytes<HD>(), bq = dq_smem_bytes<HD>();
+    if ((err = set_smem(flash_bwd_dkdv_wgmma<Elt, HD>, bk, dkdv_set)))
       return err;
-    if ((err = set_smem(flash_bwd_dq_mma<Elt, HD>, bq, dq_set))) return err;
-    flash_bwd_dkdv_mma<Elt, HD><<<gk, 128, bk, stream>>>(a);
+    if ((err = set_smem(flash_bwd_dq_wgmma<Elt, HD>, bq, dq_set))) return err;
+    flash_bwd_dkdv_wgmma<Elt, HD>
+        <<<static_cast<unsigned>(g[1]), kBwdThreads, bk, stream>>>(a);
     if ((err = static_cast<int>(cudaGetLastError()))) return err;
-    flash_bwd_dq_mma<Elt, HD><<<gq, 128, bq, stream>>>(a);
+    const int nq = (a.S + kBwdTile - 1) / kBwdTile * a.H * a.B;
+    flash_bwd_dq_wgmma<Elt, HD>
+        <<<static_cast<unsigned>(g[2]), kBwdThreads, bq, stream>>>(a, nq);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename Elt>
-int flash_bwd_hd(const FlashBwdArgs& a, int hd, cudaStream_t stream) {
+int flash_bwd_hd(const FlashBwdArgs& a, int hd, const long long (&g)[3],
+                 cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch_flash_bwd<Elt, 32>(a, stream);
-    case 64: return launch_flash_bwd<Elt, 64>(a, stream);
-    case 128: return launch_flash_bwd<Elt, 128>(a, stream);
+    case 32: return launch_flash_bwd<Elt, 32>(a, g, stream);
+    case 64: return launch_flash_bwd<Elt, 64>(a, g, stream);
+    case 128: return launch_flash_bwd<Elt, 128>(a, g, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -2098,27 +2352,45 @@ extern "C" int fa_flash(const void* q, const void* k, const void* v, void* o,
 // strides: q (b, s, h), k (b, t, h), v (b, t, h), o (b, s, h), dout
 // (b, s, h), dq (b, s, h), dk (b, t, h), dv (b, t, h); 24 values.  lse:
 // the forward's f32 [batch, heads, s_len]; delta: f32 scratch of the same
-// shape.  Three launches (delta, dK/dV, dQ); dq, dk, dv in q's dtype.
+// shape; part: with hsplit > 1, f32 scratch [2][hsplit][batch][t_len]
+// [kv_heads][hd] (else unread).  hsplit: the contiguous ranges the query
+// heads of a KV head are cut into for dK/dV, 1 <= hsplit <= heads /
+// kv_heads (1 for f32).  grid: the blocks of the three launches (delta,
+// dK/dV, dQ with the partials' sum after its blocks); block: the threads
+// of the dK/dV and dQ blocks (160 on the tensor cores, 128 for f32).  A
+// launch shape other than the plan's for hsplit is refused
+// (cudaErrorInvalidConfiguration).  dq, dk, dv in q's dtype.
 extern "C" int fa_flash_bwd(const void* q, const void* k, const void* v,
                             const void* o, const void* dout,
                             const float* lse, float* delta, void* dq,
-                            void* dk, void* dv, const long long* st,
-                            int batch, int heads, int kv_heads, int s_len,
-                            int t_len, int hd, int dtype, int causal,
-                            int window, float scale, void* stream) {
-  const FlashBwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv,
+                            void* dk, void* dv, float* part,
+                            const long long* st, int batch, int heads,
+                            int kv_heads, int s_len, int t_len, int hd,
+                            int dtype, int causal, int window, float scale,
+                            int hsplit, const long long* grid, int block,
+                            void* stream) {
+  const FlashBwdArgs a{q, k, v, o, dout, lse, delta, dq, dk, dv, part,
                        st[0], st[1], st[2], st[3], st[4], st[5],
                        st[6], st[7], st[8], st[9], st[10], st[11],
                        st[12], st[13], st[14], st[15], st[16], st[17],
                        st[18], st[19], st[20], st[21], st[22], st[23],
                        batch, heads, kv_heads, s_len, t_len, causal, window,
-                       scale};
+                       scale, hsplit};
+  if (dtype < 0 || dtype > 2 || (hd != 32 && hd != 64 && hd != 128) ||
+      kv_heads < 1 || heads % kv_heads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool f32 = dtype == 0;
+  long long want[3];
+  bwd_grids(a, hd, f32, want);
+  if (hsplit < 1 || hsplit > heads / kv_heads || (f32 && hsplit != 1) ||
+      block != (f32 ? 128 : kBwdThreads) || grid[0] != want[0] ||
+      grid[1] != want[1] || grid[2] != want[2])
+    return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return flash_bwd_hd<float>(a, hd, s);
-    case 1: return flash_bwd_hd<__nv_bfloat16>(a, hd, s);
-    case 2: return flash_bwd_hd<__half>(a, hd, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    case 0: return flash_bwd_hd<float>(a, hd, want, s);
+    case 1: return flash_bwd_hd<__nv_bfloat16>(a, hd, want, s);
+    default: return flash_bwd_hd<__half>(a, hd, want, s);
   }
 }
 

@@ -72,37 +72,47 @@
 // kernel's code is what it was.  `wkv_backward` (below) is the gradient,
 // the counterpart of autodiff through the reference's XLA twin
 // `_wkv_chunked` (the Pallas package has no backward kernel).  With G_t
-// the adjoint of S_t it runs two passes, a block of N^2 / 8 threads per
-// (b, h) and each thread holding 8 columns of one row of its matrix:
-// the state pass recomputes S forward from each 64-step segment's saved
-// state (one block per (b, h, segment): the segments run in parallel)
-// and writes dr_t = S_{t-1} dO_t + u k_t (v_t . dO_t) and a_t = r_t *
-// (S_{t-1} dO_t); the gradient pass runs G from the last step to the
-// first in registers (G_{t-1} = diag(w_t) G_t + r_t dO_t^T) and writes
-// dk, dv and dw_log.  dw_log_t = w_t rowsum(S_{t-1} * G_t) needs S and G
-// at the same step; it is computed instead through the cumulative log
-// decay c_m = sum_{q <= m} w_log_q: dL/dc_m = a_{m+1} - k_m * (G_m v_m)
-// (a_T = rowsum(S_{T-1} * dS)), and dw_log_t = sum_{m >= t} dL/dc_m, a
-// running sum in the gradient pass.  So no pass needs S and G at once,
-// and S_{t-1} is never recovered by dividing by the decay (w_t -> 0).
-// Both passes carry S, G, their products with dO and v and the dw sum in
-// f64 (the inputs are read and the gradients written in their own
-// types): at RWKV6-3B's initial decays (w ~ 0.9975) the state and the
-// adjoint sum ~400 steps, and the group norm after the scan makes dO
-// orthogonal to o = S^T r, so rowsum(S * G), S dO and G v cancel; in f32
-// their rounding (and that of exp(w_log)) reached 1.7e-4 of dw's
-// max-abs against an f64 evaluation on the same inputs.  du is summed
-// per (b, h), then over b by a third kernel in a fixed order: no
-// atomics anywhere, two calls give the same bits.  Bound at
-// RWKV6-3B's train shape (f32, B 4, T 1,024, H 40, N 64): r, k, v, w_log,
-// dO read and four gradients written, 377 MB, and the 42 MB of states:
-// 0.125 ms at 3.35 TB/s; 9 N^2 flops per step and head (S^T dO, G v,
-// G^T k, G's update), 6.0 GFLOP, 0.090 ms at 67 TFLOP/s (f32; the f64
-// the kernel runs them in has half that rate): bound by bytes.
-// What bounds the kernel: the gradient pass has B x H blocks (160 at
-// batch 4, 1.2 an SM), each a dependent chain a step (a shuffle sum over
-// a row, a shuffle sum of dv over the warp's rows, shared memory over the
-// warps once a 16-step chunk).
+// the adjoint of S_t, G_{t-1} = diag(w_t) G_t + r_t dO_t^T is linear and
+// elementwise in (i, j), so it runs over the forward's 64-step segments
+// in parallel, each block a (b, h, segment) of N^2 / 8 threads holding 8
+// columns of one row.  dw_log_t = w_t rowsum(S_{t-1} * G_t) needs S and
+// G at one step; it is taken instead as a running sum through the
+// cumulative log decay, dw_log_t = sum_{m >= t} (a_{m+1} - k_m * (G_m
+// v_m)) with a_t = r_t * (S_{t-1} dO_t), so no pass holds S and G at once
+// and none divides by a decay (w -> 0 stays safe).  Four launches: (1)
+// the state pass, forward from each segment's saved state: dr, a, the
+// jump into the next segment (delta), the segment's state from zero M,
+// its decay product W, and in closed forward forms what it contributes
+// from a zero adjoint (the adjoint it leaves at its start, L(c), and its
+// running sum) and its du; (2) the carry, per (b, h) over the segments
+// from the last: the adjoint entering each segment, G_in(c - 1) =
+// diag(W(c)) G_in(c) + L(c) from G_in(last) = dS, and the running sum
+// entering each segment's last step (a segment adds its own sum plus
+// rowsum(G_in * (delta - M)), the part G_in carries in); (3) the
+// gradient pass, backward over each segment from its true G_in and sum,
+// writing dk, dv and dw_log once; (4) du summed over b and the segments.
+// Everything that carries the recurrences or the dw sum runs in f64 (the
+// inputs are read and the gradients written in their own types): at
+// RWKV6-3B's initial decays (w ~ 0.9975) S and G sum ~400 steps, and the
+// group norm after the scan makes dO orthogonal to o = S^T r, so the dw
+// sums cancel; an f32 design that took dw_log directly as w_t
+// rowsum(S_{t-1} * G_t) (S kept for 8 steps in registers) missed the
+// 1e-4 per-launch check on the real model by 2.7x (PERF.md).  No atomics:
+// every sum runs in a fixed order, two calls give the same bits.  Bound
+// at RWKV6-3B's train shape (f32, B 4, T 1,024, H 40, N 64): r, k, v,
+// w_log, dO read and four gradients written, 377 MB, and the 42 MB of
+// states: 0.125 ms at 3.35 TB/s; 9 N^2 flops per step and head (S^T dO,
+// G v, G^T k, G's update), 6.0 GFLOP, 0.090 ms at 67 TFLOP/s (f32; f64
+// has half that rate): bound by bytes.  The design does more: S
+// recomputed from the saved states with M, L and M dO beside it (8 N^2
+// flops a step), all in f64, the inputs read twice, and ~300 MB of
+// scratch written and read (a, delta, e, gin).  What bounds it on the
+// card: the two segment passes, about evenly, which issue ~17 N^2 f64
+// flops a step with their widenings from f32 and a chain of f64 shuffle
+// sums over a row each step, at one block of 16 warps an SM in the state
+// pass (124 registers a thread) and two in the gradient pass (64).
+// Staging the chunks in f64 instead (no widening a step) measured
+// slower: 64-byte shared rows conflict, and more registers.
 //
 // Layouts.  Every operand is read and written through element strides
 // (the last dim contiguous): r, k, v, w_log as [B, H, T, N] views of the
@@ -483,12 +493,14 @@ __global__ void __launch_bounds__(Step<N>::kThreads) wkv_kernel_step(
 }
 
 // ---------------------------------------------------------------- backward
-// Layout of both backward kernels: a block of N^2 / 8 threads owns one
-// (b, h) (one segment of it in the state pass); a thread holds 8
-// adjacent columns of one row i of its N x N matrix (S or the adjoint
-// G), the N / 8 threads of a row are adjacent lanes, so a sum over j is
-// a shuffle reduction over those lanes, and a sum over i runs over the
-// warp's rows by shuffles and over the warps in shared memory.
+// Layout of the backward kernels: a block of N^2 / 8 threads owns one
+// (b, h, 64-step segment) (one (b, h) in the carry); a thread holds 8
+// columns of one row i of its N x N matrix (S, M, L or the adjoint G):
+// 4 at c0 = 4 g and 4 at c1 = c0 + N / 2 for its lane g of the row's N / 8
+// adjacent lanes, so the 16-byte reads of a shared row by a warp cover
+// contiguous bytes (no bank conflict); a sum over j is a shuffle
+// reduction over the row's lanes, and a sum over i runs over the warp's
+// rows by shuffles and over the warps in shared memory.
 constexpr int kBwdChunk = 16;   // steps staged in shared memory at once
 constexpr int kBwdCols = 8;     // columns a thread holds
 
@@ -498,6 +510,11 @@ struct Bwd {
   static constexpr int kThreads = N * kLanes;       // N^2 / 8
   static constexpr int kWarps = kThreads / 32;
 };
+
+// the column of a thread's value e (c0 = 4 g, c1 = c0 + N / 2)
+__device__ __forceinline__ int col_of(int e, int c0, int c1) {
+  return e < 4 ? c0 + e : c1 + e - 4;
+}
 
 struct WkvBwdArgs {
   const void* r;
@@ -514,18 +531,30 @@ struct WkvBwdArgs {
   void* dv;
   void* dw;
   double* a;                    // [B, H, T, N]: r_t * (S_{t-1} dO_t)
-  float* delta;                 // [B, H, ceil(T / 64), N, N]: each
-                                // segment's S continued to its end minus
-                                // the next segment's saved state
-  float* du_part;               // [B, H, N]: du of each (b, h)
-  float* du;                    // [H, N]: summed over b
+  float* delta;                 // [B, H, segs + 1, N, N]: slot c + 1,
+                                // segment c's S continued to its end minus
+                                // the saved state of segment c + 1 (the
+                                // last: minus the final state, with dS)
+  double* e;                    // [B, H, segs, N, N]: delta(c + 1) - M(c),
+                                // M(c) the segment's state from zero
+  double* gin;                  // [B, H, segs, N, N]: the segment's adjoint
+                                // from zero at its start (pass 1), then the
+                                // adjoint entering it (pass 2)
+  double* wseg;                 // [B, H, segs, N]: the segment's decay
+                                // product per row
+  double* loc;                  // [B, H, segs, N]: the segment's dw sum
+                                // from a zero adjoint (pass 1)
+  double* dwin;                 // [B, H, segs, N]: the dw sum entering the
+                                // segment's last step (pass 2)
+  float* du_part;               // [B, H, segs, N]: du of each segment
+  float* du;                    // [H, N]: summed over b and the segments
   float* ds0;                   // [B, H, N, N] or nullptr
   // element strides: r, k, v, w, dO (b, h, t); u (b, h); dS, S (b, h, i);
   // states (b, h, chunk, i); dr, dk, dv, dw (b, h, t), one layout
   long long rb, rh, rt, kb, kh, kt, vb, vh, vt, wb, wh, wt;
   long long ob, oh, ot, ub, uh, gb, gh, gi, fb, fh, fi;
   long long xb, xh, xc, xi, db, dh, dt;
-  int heads, t_len;
+  int heads, t_len, segs;
 };
 
 template <typename Elt> __device__ __forceinline__ Elt from_f(float x);
@@ -540,7 +569,8 @@ template <> __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half(x);
 }
 
-// a chunk's rows of r, k, v and dO widened to f32, the decays exp(w_log)
+// a chunk's rows of r, k, v and dO widened to f32 (kept f32: the rows a
+// warp reads at once stay 128 contiguous bytes), the decays exp(w_log)
 // in f64, and u
 template <int N>
 struct BwdStage {
@@ -560,7 +590,8 @@ struct BwdGradSmem {
   float red[kBwdChunk][Bwd<N>::kWarps][N];   // dv: each warp's rows
 };
 
-// stage steps t0 .. t0 + nc - 1 (zeros past nc) and the step scalars
+// stage steps t0 .. t0 + nc - 1 (zeros and decay 1 past nc) and the step
+// scalars
 template <typename Elt, int N>
 __device__ __forceinline__ void bwd_stage(BwdStage<N>& sm,
                                           const WkvBwdArgs& a, long long b,
@@ -614,18 +645,51 @@ __device__ __forceinline__ double row_sum(double x) {
   return x;
 }
 
-// 8 f32 values at p (16-byte aligned) as f64
-__device__ __forceinline__ void load8(const float* p, double (&x)[kBwdCols]) {
-  const float4 lo = reinterpret_cast<const float4*>(p)[0];
-  const float4 hi = reinterpret_cast<const float4*>(p)[1];
+// a thread's 8 values of a row (its columns c0 .. c0 + 3, c1 .. c1 + 3;
+// 16-byte aligned) as f64, and back
+__device__ __forceinline__ void load8(const float* row, int c0, int c1,
+                                      double (&x)[kBwdCols]) {
+  const float4 lo = *reinterpret_cast<const float4*>(row + c0);
+  const float4 hi = *reinterpret_cast<const float4*>(row + c1);
   x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
   x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
 }
+__device__ __forceinline__ void load8(const double* row, int c0, int c1,
+                                      double (&x)[kBwdCols]) {
+#pragma unroll
+  for (int e = 0; e < kBwdCols; e += 2) {
+    const double2 d = *reinterpret_cast<const double2*>(
+        row + col_of(e, c0, c1));
+    x[e] = d.x;
+    x[e + 1] = d.y;
+  }
+}
+__device__ __forceinline__ void store8(double* row, int c0, int c1,
+                                       const double (&x)[kBwdCols]) {
+#pragma unroll
+  for (int e = 0; e < kBwdCols; e += 2)
+    *reinterpret_cast<double2*>(row + col_of(e, c0, c1)) =
+        make_double2(x[e], x[e + 1]);
+}
 
-// Pass 1, forward in time, one block per (b, h, segment of kStateEvery
-// steps): S from the segment's saved state, and per step
+// Pass 1, forward in time, one block per (b, h, segment): S from the
+// segment's saved state, and per step
 //   dr_t = S_{t-1} dO_t + u * k_t (v_t . dO_t),   a_t = r_t * (S_{t-1} dO_t)
-// (a into the scratch, for the pass-2 dw sum).
+// (a into the scratch, for the dw sums).  Beside S it carries what the
+// segment contributes from a zero adjoint, in closed forward forms:
+//   M: the segment's state from zero (M_t = diag(w_t) M_{t-1} + k_t v_t^T),
+//   L: the adjoint from zero at the segment's start, sum_t diag(P_t) r_t
+//      dO_t^T with P_t the decays from the segment's start to step t - 1,
+//   loc: the dw running sum from a zero adjoint over the segment,
+//      sum_{m in c} (a_{m+1} - k_m * (L_m v_m)) = sum a_{m+1} - sum_t r_t *
+//      (M_{t-1} dO_t), a_{t1} (the next segment's first) from its saved
+//      state,
+// and W = P at the end, the segment's decay product, and du's share
+// (sum_t r_t * k_t (v_t . dO_t)).  At the segment's end delta(c + 1) = S -
+// saved(c + 1) (the jump into the next segment; after the last segment,
+// into the forward's final state, where dS is given), and e(c) = delta(c
+// + 1) - M (-M without a jump), which carries the adjoint entering the
+// segment into its dw sum.
 template <typename Elt, int N>
 __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_state_kernel(
     const WkvBwdArgs a) {
@@ -633,16 +697,21 @@ __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_state_kernel(
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdStage<N>& sm = *reinterpret_cast<BwdStage<N>*>(smem_raw);
   const int tid = threadIdx.x;
-  const int i = tid / Bwd<N>::kLanes, j0 = tid % Bwd<N>::kLanes * kBwdCols;
+  const int i = tid / Bwd<N>::kLanes, g = tid % Bwd<N>::kLanes;
+  const int c0 = 4 * g, c1 = c0 + N / 2;
   const long long b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
   const int T = a.t_len;
   const int t_begin = blockIdx.y * kStateEvery;
   const int t_end = min(T, t_begin + kStateEvery);
   const float* xp = a.states + b * a.xb + h * a.xh + blockIdx.y * a.xc +
-                    i * a.xi + j0;
-  double S[kBwdCols];
+                    i * a.xi;
+  double S[kBwdCols], M[kBwdCols], L[kBwdCols], P = 1.0, loc = 0.0;
+  double du = 0.0;
 #pragma unroll
-  for (int e = 0; e < kBwdCols; ++e) S[e] = xp[e];
+  for (int e = 0; e < kBwdCols; ++e) {
+    S[e] = xp[col_of(e, c0, c1)];
+    M[e] = L[e] = 0.0;
+  }
   for (int x = tid; x < N; x += kT) sm.u[x] = a.u[b * a.ub + h * a.uh + x];
   const double ui = a.u[b * a.ub + h * a.uh + i];
   Elt* drp = static_cast<Elt*>(a.dr) + b * a.db + h * a.dh;
@@ -654,19 +723,33 @@ __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_state_kernel(
     bwd_stage<Elt, N>(sm, a, b, h, t0, nc);
     for (int c = 0; c < nc; ++c) {
       double dd[kBwdCols], vv[kBwdCols];
-      load8(&sm.dO[c][j0], dd);
-      load8(&sm.v[c][j0], vv);
-      double sd = 0.0;
+      load8(sm.dO[c], c0, c1, dd);
+      load8(sm.v[c], c0, c1, vv);
+      double sd = 0.0, md = 0.0;
 #pragma unroll
-      for (int e = 0; e < kBwdCols; ++e) sd = fma(S[e], dd[e], sd);
-      sd = row_sum<N>(sd);
-      const double ri = sm.r[c][i], ki = sm.k[c][i], wi = sm.w[c][i];
-      if (j0 == 0) {
-        sm.out0[c][i] = static_cast<float>(fma(ui * ki, sm.vdo[c], sd));
-        ap[(t0 + c) * N + i] = ri * sd;
+      for (int e = 0; e < kBwdCols; ++e) {
+        sd = fma(S[e], dd[e], sd);
+        md = fma(M[e], dd[e], md);
       }
+      sd = row_sum<N>(sd);
+      md = row_sum<N>(md);
+      const double ri = sm.r[c][i], ki = sm.k[c][i], wi = sm.w[c][i];
+      const double at = ri * sd;
+      if (g == 0) {
+        sm.out0[c][i] = static_cast<float>(fma(ui * ki, sm.vdo[c], sd));
+        ap[(t0 + c) * N + i] = at;
+      }
+      loc += (t0 + c > t_begin ? at : 0.0) - ri * md;
+      du = fma(ri * ki, sm.vdo[c], du);
+      const double pr = P * ri;
 #pragma unroll
-      for (int e = 0; e < kBwdCols; ++e) S[e] = fma(wi, S[e], ki * vv[e]);
+      for (int e = 0; e < kBwdCols; ++e) {
+        const double kv = ki * vv[e];
+        S[e] = fma(wi, S[e], kv);
+        M[e] = fma(wi, M[e], kv);
+        L[e] = fma(pr, dd[e], L[e]);
+      }
+      P *= wi;
     }
     __syncthreads();
     for (int x = tid; x < nc * N; x += kT) {
@@ -674,71 +757,101 @@ __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_state_kernel(
       drp[(t0 + c) * a.dt + n] = from_f<Elt>(sm.out0[c][n]);
     }
   }
-  if (blockIdx.y + 1 < gridDim.y) {   // the jump into the next segment
+  const long long s = (b * a.heads + h) * a.segs + blockIdx.y;
+  if (t_end < T) {              // a_{t1}, from the next saved state
     const float* np = xp + a.xc;
-    float* dp = a.delta + (((b * a.heads + h) * gridDim.y + blockIdx.y + 1)
-                           * N + i) * N + j0;
+    const float* op = a.dO + b * a.ob + h * a.oh + t_end * a.ot;
+    double x = 0.0;
 #pragma unroll
-    for (int e = 0; e < kBwdCols; ++e)
-      dp[e] = static_cast<float>(S[e] - static_cast<double>(np[e]));
+    for (int e = 0; e < kBwdCols; ++e) {
+      const int j = col_of(e, c0, c1);
+      x = fma(static_cast<double>(np[j]), static_cast<double>(op[j]), x);
+    }
+    loc += to_f(static_cast<const Elt*>(a.r)[b * a.rb + h * a.rh +
+                                             t_end * a.rt + i]) *
+           row_sum<N>(x);
+  }
+  // the jump into the next segment's saved state, or at the end of the
+  // sequence into the forward's final state (read when dS is given)
+  const long long seg = (b * a.heads + h) * (a.segs + 1) + blockIdx.y;
+  const bool last = blockIdx.y + 1 == a.segs;
+  double E[kBwdCols];
+  if (!last || a.dS != nullptr) {
+    const float* np = last ? a.S + b * a.fb + h * a.fh + i * a.fi
+                           : xp + a.xc;
+    float* dp = a.delta + ((seg + 1) * N + i) * N;
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) {
+      const int j = col_of(e, c0, c1);
+      const float d = static_cast<float>(S[e] - static_cast<double>(np[j]));
+      dp[j] = d;
+      E[e] = static_cast<double>(d) - M[e];
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) E[e] = -M[e];
+  }
+  store8(a.e + (s * N + i) * N, c0, c1, E);
+  store8(a.gin + (s * N + i) * N, c0, c1, L);
+  if (g == 0) {
+    a.wseg[s * N + i] = P;
+    a.loc[s * N + i] = loc;
+    a.du_part[s * N + i] = static_cast<float>(du);
   }
 }
 
-// Pass 2, backward in time, one block per (b, h): the adjoint G of S in
-// registers (G_{T-1} = dS), and per step t, from the last to the first,
+// Pass 3, backward in time, one block per (b, h, segment), the adjoint G
+// in registers from the one entering the segment (the carry's), per step
+// t from the segment's last to its first
 //   dk_t = G_t v_t + u * r_t (v_t . dO_t)
 //   dv_t = G_t^T k_t + dO_t (sum_i u_i r_t[i] k_t[i])
-//   dw_log_t = sum_{m >= t} (a_{m+1} - k_m * (G_m v_m))
+//   dw_log_t = sum_{m >= t} (a_{m+1} - k_m * (G_m v_m))   (+ the jumps)
 //   G_{t-1} = diag(w_t) G_t + r_t dO_t^T
-// The dw sum is w_t * rowsum(S_{t-1} * G_t) rewritten through the
-// cumulative log decay: the loss depends on w_log_t through every
-// c_m = sum_{q <= m} w_log_q with m >= t, and dL/dc_m = a_{m+1} -
-// k_m * (G_m v_m), with a_T = rowsum(S_{T-1} * dS).  So no step needs
-// S_{t-1} and G_t at once, and S is never recovered by dividing by the
-// decay.  The state pass restarts each segment from its saved state,
-// which is not exactly the previous segment's state continued; at the
-// last step t of a segment the sum takes rowsum(delta * G_t) for that
-// jump, so dw_log is the one the saved states imply step by step (as
-// the plain backward computes it) and the jumps do not add up.  du of
-// the (b, h) (sum_t r_t * k_t (v_t . dO_t)) goes to du_part; ds0 =
-// G_{-1}.
+// writing dk, dv and dw_log once, and ds0 = G_{-1} (segment 0).
+// dw_log_t = w_t rowsum(S_{t-1} * G_t) rewritten through the cumulative
+// log decay: the loss depends on w_log_t through every c_m = sum_{q <= m}
+// w_log_q with m >= t, and dL/dc_m = a_{m+1} - k_m * (G_m v_m), with a_T
+// = rowsum(S_{T-1} * dS).  So no step needs S_{t-1} and G_t at once, and
+// S is never recovered by dividing by a decay.  The state pass restarts
+// each segment from its saved state, which is not exactly the previous
+// segment's state continued; at a segment's last step the sum takes
+// rowsum(delta * G_t) for that jump (at the last segment's, the jump to
+// the final state a_T is taken at), so dw_log is the one the saved
+// states imply step by step (as the plain backward computes it).  The sum
+// starts at the one the carry left entering the segment's last step.  dv
+// is summed over the warp's rows by shuffles, then over the warps in
+// shared memory.
 template <typename Elt, int N>
 __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_grad_kernel(
     const WkvBwdArgs a) {
-  constexpr int kT = Bwd<N>::kThreads;
+  constexpr int kT = Bwd<N>::kThreads, kLanes = Bwd<N>::kLanes;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   BwdGradSmem<N>& sm = *reinterpret_cast<BwdGradSmem<N>*>(smem_raw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = tid / Bwd<N>::kLanes, j0 = tid % Bwd<N>::kLanes * kBwdCols;
+  const int i = tid / kLanes, g = tid % kLanes;
+  const int c0 = 4 * g, c1 = c0 + N / 2;
   const long long b = blockIdx.x / a.heads, h = blockIdx.x % a.heads;
   const int T = a.t_len;
+  const int t_begin = blockIdx.y * kStateEvery;
+  const int t_end = min(T, t_begin + kStateEvery);
+  const long long seg = (b * a.heads + h) * a.segs + blockIdx.y;
   double G[kBwdCols];
-  double acc = 0.0;             // sum_{m >= t} dL/dc_m, row i
-  if (a.dS != nullptr) {
-    const float* gp = a.dS + b * a.gb + h * a.gh + i * a.gi + j0;
-    const float* fp = a.S + b * a.fb + h * a.fh + i * a.fi + j0;
-#pragma unroll
-    for (int e = 0; e < kBwdCols; ++e) {
-      G[e] = gp[e];
-      acc = fma(static_cast<double>(fp[e]), G[e], acc);
-    }
-    acc = row_sum<N>(acc);
-  } else {
-#pragma unroll
-    for (int e = 0; e < kBwdCols; ++e) G[e] = 0.0;
-  }
+  load8(a.gin + (seg * N + i) * N, c0, c1, G);
+  double acc = a.dwin[seg * N + i];
   for (int x = tid; x < N; x += kT)
     sm.st.u[x] = a.u[b * a.ub + h * a.uh + x];
   const double ui = a.u[b * a.ub + h * a.uh + i];
-  double du = 0.0;
   Elt* dkp = static_cast<Elt*>(a.dk) + b * a.db + h * a.dh;
   Elt* dvp = static_cast<Elt*>(a.dv) + b * a.db + h * a.dh;
   Elt* dwp = static_cast<Elt*>(a.dw) + b * a.db + h * a.dh;
   const double* ap = a.a + ((b * a.heads + h) * T) * N;
+  const float* jp =                 // the segment's jump, its last step
+      a.delta + (((b * a.heads + h) * (a.segs + 1) + blockIdx.y + 1) * N +
+                 i) * N;
 
-  for (int t0 = (T - 1) / kBwdChunk * kBwdChunk; t0 >= 0;
-       t0 -= kBwdChunk) {
-    const int nc = min(kBwdChunk, T - t0);
+  for (int t0 = t_begin + (t_end - 1 - t_begin) / kBwdChunk * kBwdChunk;
+       t0 >= t_begin; t0 -= kBwdChunk) {
+    const int nc = min(kBwdChunk, t_end - t0);
     __syncthreads();            // the last chunk's outputs are out
     for (int x = tid; x < kBwdChunk * N; x += kT) {
       const int c = x / N, n = x % N;
@@ -748,20 +861,16 @@ __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_grad_kernel(
     bwd_stage<Elt, N>(sm.st, a, b, h, t0, nc);
     for (int c = nc - 1; c >= 0; --c) {
       const int t = t0 + c;
-      if ((t + 1) % kStateEvery == 0 && t + 1 < T) {   // a segment's end
-        const float* dp = a.delta + (((b * a.heads + h) *
-                                      ((T + kStateEvery - 1) / kStateEvery)
-                                      + (t + 1) / kStateEvery) * N + i) * N
-                          + j0;
+      if (t + 1 == t_end && (t_end < T || a.dS != nullptr)) {
         double jump = 0.0;
 #pragma unroll
         for (int e = 0; e < kBwdCols; ++e)
-          jump = fma(static_cast<double>(dp[e]), G[e], jump);
+          jump = fma(static_cast<double>(jp[col_of(e, c0, c1)]), G[e], jump);
         acc += row_sum<N>(jump);
       }
       double dd[kBwdCols], vv[kBwdCols];
-      load8(&sm.st.dO[c][j0], dd);
-      load8(&sm.st.v[c][j0], vv);
+      load8(sm.st.dO[c], c0, c1, dd);
+      load8(sm.st.v[c], c0, c1, vv);
       const double ri = sm.st.r[c][i], ki = sm.st.k[c][i];
       const double wi = sm.st.w[c][i];
       double gv = 0.0;
@@ -774,21 +883,21 @@ __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_grad_kernel(
       gv = row_sum<N>(gv);
       // dv: sum over the warp's rows, then (below) over the warps
 #pragma unroll
-      for (int off = Bwd<N>::kLanes; off < 32; off <<= 1)
+      for (int off = kLanes; off < 32; off <<= 1)
 #pragma unroll
         for (int e = 0; e < kBwdCols; ++e)
           p[e] += __shfl_xor_sync(kFull, p[e], off);
-      if (lane < Bwd<N>::kLanes) {
-        float4* rp = reinterpret_cast<float4*>(&sm.red[c][warp][j0]);
-        rp[0] = make_float4(p[0], p[1], p[2], p[3]);
-        rp[1] = make_float4(p[4], p[5], p[6], p[7]);
+      if (lane < kLanes) {
+        *reinterpret_cast<float4*>(&sm.red[c][warp][c0]) =
+            make_float4(p[0], p[1], p[2], p[3]);
+        *reinterpret_cast<float4*>(&sm.red[c][warp][c1]) =
+            make_float4(p[4], p[5], p[6], p[7]);
       }
       acc += sm.an[c][i] - ki * gv;
-      if (j0 == 0) {
+      if (g == 0) {
         sm.st.out0[c][i] = static_cast<float>(fma(ui * ri, sm.st.vdo[c], gv));
         sm.st.out1[c][i] = static_cast<float>(acc);
       }
-      du = fma(ri * ki, sm.st.vdo[c], du);
 #pragma unroll
       for (int e = 0; e < kBwdCols; ++e) G[e] = fma(wi, G[e], ri * dd[e]);
     }
@@ -806,23 +915,96 @@ __global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_grad_kernel(
       dwp[off] = from_f<Elt>(sm.st.out1[c][n]);
     }
   }
-  if (a.ds0 != nullptr) {
-    float* sp = a.ds0 + ((b * a.heads + h) * N + i) * N + j0;
+  if (blockIdx.y == 0 && a.ds0 != nullptr) {
+    float* sp = a.ds0 + ((b * a.heads + h) * N + i) * N;
 #pragma unroll
-    for (int e = 0; e < kBwdCols; ++e) sp[e] = static_cast<float>(G[e]);
+    for (int e = 0; e < kBwdCols; ++e)
+      sp[col_of(e, c0, c1)] = static_cast<float>(G[e]);
   }
-  if (j0 == 0) a.du_part[(b * a.heads + h) * N + i] = static_cast<float>(du);
 }
 
-// du[h, i] = sum over b of du_part[b, h, i], in b order
-__global__ void wkv_bwd_du_kernel(const float* part, float* du, int batch,
-                                  int hn) {
+// Pass 2, one block per (b, h): from the last segment to the first, the
+// adjoint entering each segment, G_in(last) = dS and G_in(c - 1) =
+// diag(wseg(c)) G_in(c) + L(c), and the dw sum entering each segment's
+// last step, from a_T = rowsum(S_{T-1} * dS): a segment adds loc(c) +
+// rowsum(G_in(c) * e(c)) to it (its steps' sum from a zero adjoint, the
+// part G_in(c) carries in through M, and its jump).  G_in is written
+// over gin (each slot read before it is written), the sums into dwin; the
+// next two slots' reads are in flight ahead of their use.
+template <int N>
+__global__ void __launch_bounds__(Bwd<N>::kThreads) wkv_bwd_carry_kernel(
+    const WkvBwdArgs a) {
+  constexpr long long NN = static_cast<long long>(N) * N;
+  const int tid = threadIdx.x;
+  const int i = tid / Bwd<N>::kLanes, g = tid % Bwd<N>::kLanes;
+  const int c0 = 4 * g, c1 = c0 + N / 2;
+  const long long bh = blockIdx.x, b = bh / a.heads, h = bh % a.heads;
+  const long long s0 = bh * a.segs;                 // segment 0's slot
+  double G[kBwdCols], acc = 0.0;
+  if (a.dS != nullptr) {
+    const float* gp = a.dS + b * a.gb + h * a.gh + i * a.gi;
+    const float* fp = a.S + b * a.fb + h * a.fh + i * a.fi;
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) {
+      const int j = col_of(e, c0, c1);
+      G[e] = gp[j];
+      acc = fma(static_cast<double>(fp[j]), G[e], acc);
+    }
+    acc = row_sum<N>(acc);
+  } else {
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) G[e] = 0.0;
+  }
+  const long long row = i * N;
+  double L0[kBwdCols], E0[kBwdCols], L1[kBwdCols] = {}, E1[kBwdCols] = {};
+  const int last = a.segs - 1;
+  load8(a.gin + (s0 + last) * NN + row, c0, c1, L0);
+  load8(a.e + (s0 + last) * NN + row, c0, c1, E0);
+  if (last >= 1) {
+    load8(a.gin + (s0 + last - 1) * NN + row, c0, c1, L1);
+    load8(a.e + (s0 + last - 1) * NN + row, c0, c1, E1);
+  }
+  for (int c = last; c >= 0; --c) {
+    double L2[kBwdCols] = {}, E2[kBwdCols] = {};
+    if (c >= 2) {
+      load8(a.gin + (s0 + c - 2) * NN + row, c0, c1, L2);
+      load8(a.e + (s0 + c - 2) * NN + row, c0, c1, E2);
+    }
+    const double lc = a.loc[(s0 + c) * N + i];
+    const double wc = a.wseg[(s0 + c) * N + i];
+    store8(a.gin + (s0 + c) * NN + row, c0, c1, G);
+    double x = 0.0;
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) x = fma(G[e], E0[e], x);
+    x = row_sum<N>(x);
+    if (g == 0) a.dwin[(s0 + c) * N + i] = acc;
+    acc += lc + x;
+#pragma unroll
+    for (int e = 0; e < kBwdCols; ++e) {
+      G[e] = fma(wc, G[e], L0[e]);
+      L0[e] = L1[e];
+      E0[e] = E1[e];
+      L1[e] = L2[e];
+      E1[e] = E2[e];
+    }
+  }
+}
+
+// du[h, i] = sum over b, then over the segments, of du_part: a fixed
+// order
+__global__ void wkv_bwd_du_kernel(const WkvBwdArgs a, int batch, int n) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= hn) return;
+  if (x >= a.heads * n) return;
+  const int h = x / n, i = x % n;
   float s = 0.f;
-  for (int b = 0; b < batch; ++b)
-    s += part[static_cast<long long>(b) * hn + x];
-  du[x] = s;
+  for (int b = 0; b < batch; ++b) {
+    const float* pp = a.du_part +
+                      (static_cast<long long>(b) * a.heads + h) * a.segs * n +
+                      i;
+#pragma unroll 8
+    for (int c = 0; c < a.segs; ++c) s += pp[c * n];
+  }
+  a.du[x] = s;
 }
 
 template <typename Elt, int N>
@@ -837,13 +1019,13 @@ int launch_backward(const WkvBwdArgs& a, int batch, cudaStream_t stream) {
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            grad_smem) != cudaSuccess)
     return static_cast<int>(cudaGetLastError());
-  const unsigned bh = static_cast<unsigned>(batch) * a.heads;
-  const unsigned segs = (a.t_len + kStateEvery - 1) / kStateEvery;
-  wkv_bwd_state_kernel<Elt, N><<<dim3(bh, segs), kT, state_smem, stream>>>(a);
-  wkv_bwd_grad_kernel<Elt, N><<<bh, kT, grad_smem, stream>>>(a);
-  const int hn = a.heads * N;
-  wkv_bwd_du_kernel<<<(hn + 255) / 256, 256, 0, stream>>>(a.du_part, a.du,
-                                                         batch, hn);
+  const int bh = batch * a.heads;
+  const dim3 segs(static_cast<unsigned>(bh), static_cast<unsigned>(a.segs));
+  wkv_bwd_state_kernel<Elt, N><<<segs, kT, state_smem, stream>>>(a);
+  wkv_bwd_carry_kernel<N><<<bh, kT, 0, stream>>>(a);
+  wkv_bwd_grad_kernel<Elt, N><<<segs, kT, grad_smem, stream>>>(a);
+  wkv_bwd_du_kernel<<<(a.heads * N + 255) / 256, 256, 0, stream>>>(a, batch,
+                                                                  N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -951,44 +1133,49 @@ extern "C" int wkv_forward(const void* r, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The backward: three launches on `stream` (the state pass over B x H x
-// ceil(T / 64) blocks, the gradient pass over B x H blocks, both of
-// N^2 / 8 threads, then the du sum over b); returns cudaGetLastError()
-// (0 = launched), cudaErrorInvalidValue for an N or dtype it does not
-// take, or cudaErrorInvalidConfiguration when the grid or block the
-// wrapper chose is not B x H blocks of N^2 / 8 threads.  Inputs as the
-// forward's (dtype 0 = f32, 1 = bf16, 2 = f16), dO f32, dS and S f32
-// (dS null: no gradient on the final state, S then unread), `states`
-// the forward's chunk-boundary states.  Outputs: dr, dk, dv, dw in the
-// inputs' dtype, all four in one layout; `a` an f64 [B, H, T, N],
-// delta an f32 [B, H, ceil(T / 64), N, N] and du_part an f32 [B, H, N]
-// scratch, du f32 [H, N], ds0 f32 [B, H, N, N]
-// or null.  strides: r, k, v, w, dO (b, h, t); u (b, h); dS, S (b, h,
-// i); states (b, h, chunk, i); the gradients (b, h, t): 30 values.  No
-// atomics: every sum runs in a fixed order, so two calls give the same
-// bits.
+// The backward: four launches on `stream`, each a fixed order of sums
+// and no atomics, so two calls give the same bits: the state pass over
+// B x H x ceil(T / 64) blocks, the carry over B x H blocks, the gradient
+// pass over B x H x ceil(T / 64) blocks (all of N^2 / 8 threads), then
+// the du sum over ceil(H N / 256) blocks of 256.
+// Returns cudaGetLastError() (0 = launched), cudaErrorInvalidValue for an
+// N or dtype it does not take, or cudaErrorInvalidConfiguration when the
+// grid or block the wrapper chose is not B x H x ceil(T / 64) blocks of
+// N^2 / 8 threads.  Inputs as the forward's (dtype 0 = f32, 1 = bf16, 2 =
+// f16), dO f32, dS and S f32 (dS null: no gradient on the final state, S
+// then unread), `states` the forward's chunk-boundary states.  Outputs:
+// dr, dk, dv, dw in the inputs' dtype, all four in one layout; du f32
+// [H, N]; ds0 f32 [B, H, N, N] or null.  Scratch: `a` f64 [B, H, T, N],
+// delta f32 [B, H, ceil(T / 64) + 1, N, N], e and gin f64 [B, H,
+// ceil(T / 64), N, N], wseg,
+// loc and dwin f64 [B, H, ceil(T / 64), N], du_part f32 of that shape.
+// strides: r, k, v, w, dO (b, h, t); u (b, h); dS, S (b, h, i); states
+// (b, h, chunk, i); the gradients (b, h, t): 30 values.
 extern "C" int wkv_backward(const void* r, const void* k, const void* v,
                             const void* w, const float* u, const float* dO,
                             const float* dS, const float* S,
                             const float* states, void* dr, void* dk,
-                            void* dv, void* dw, double* a_buf,
-                            float* delta, float* du_part, float* du,
-                            float* ds0,
-                            const long long* st, int batch, int heads,
-                            int t_len, int n, int dtype, long long grid,
+                            void* dv, void* dw, double* a_buf, float* delta,
+                            double* e, double* gin, double* wseg,
+                            double* loc, double* dwin, float* du_part,
+                            float* du, float* ds0, const long long* st,
+                            int batch, int heads, int t_len, int n,
+                            int dtype, long long grid_x, long long grid_y,
                             int block, void* stream) {
   if ((n != 32 && n != 64) || dtype < 0 || dtype > 2 || t_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int want = n == 32 ? Bwd<32>::kThreads : Bwd<64>::kThreads;
-  if (block != want || grid != static_cast<long long>(batch) * heads)
+  const int segs = (t_len + kStateEvery - 1) / kStateEvery;
+  if (block != want || grid_x != static_cast<long long>(batch) * heads ||
+      grid_y != segs)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const WkvBwdArgs a{r, k, v, w, u, dO, dS, S, states, dr, dk, dv, dw,
-                     a_buf, delta, du_part, du, ds0,
+                     a_buf, delta, e, gin, wseg, loc, dwin, du_part, du, ds0,
                      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7],
                      st[8], st[9], st[10], st[11], st[12], st[13], st[14],
                      st[15], st[16], st[17], st[18], st[19], st[20], st[21],
                      st[22], st[23], st[24], st[25], st[26], st[27], st[28],
-                     st[29], heads, t_len};
+                     st[29], heads, t_len, segs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_backward<float>(a, n, batch, s);

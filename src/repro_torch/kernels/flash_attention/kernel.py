@@ -28,24 +28,33 @@ log-sum-exp of its scaled scores, f32 [B, H, S], which the backward
 reads.  `flash_attention_bwd` binds `fa_flash_bwd` of the same source:
 (dq, dk, dv) from q, k, v, the output o, lse and the output's gradient
 dO, in three launches (δ = rowsum(dO∘O) into an f32 [B, H, S] buffer, a
-dK/dV kernel, a dQ kernel), deterministic (no atomics).  The Pallas
-package has no backward kernel; its gradients come from autodiff of the
-XLA twin (`repro.models.layers.flash_attention_xla`).  dO is read
-through its strides as autograd hands it; only where its head dimension
-is not contiguous or a bf16 / f16 row is off 16 bytes is it copied to a
+dK/dV kernel, a dQ kernel), deterministic (no atomics).  `plan_bwd`
+decides the launch: on the tensor cores (bf16 / f16, wgmma) the dK/dV
+work of a KV head is split over `hsplit` blocks, each a contiguous range
+of its G query heads, so that the grid holds at least two blocks an SM
+where G allows; with hsplit > 1 those blocks write f32 partials into a
+scratch of [2, hsplit, B, T, K, hd] (dK's, then dV's) that more blocks of
+the dQ launch sum in range order, scale and round into dk and dv.  f32
+runs on FMA with hsplit 1.  The Pallas package has no backward kernel;
+its gradients come from autodiff of the XLA twin
+(`repro.models.layers.flash_attention_xla`).  dO is read through its
+strides as autograd hands it; only where its head dimension is not
+contiguous or a bf16 / f16 row is off 16 bytes is it copied to a
 contiguous tensor first.
 
 Device choice: CUDA tensors launch the kernel (or raise); CPU tensors
 return the plain version, `ref.attention_ref` / `ref.attention_bwd_ref`.
 `flash_attention.launches` and `flash_attention_bwd.launches` count real
 kernel launches only (one a call; a backward call is its three
-kernels); `last_route` names the kernel the last one ran.
+kernels); `last_route` names the kernel the last one ran (the
+backward's: its `BwdLaunch`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -54,7 +63,10 @@ from ..cuda_build import check, i32, load, on_cuda, reset_counts, stream
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # the kernels `fa_flash` launches, by the route code it returns
 ROUTES = ("flash_kernel (f32 FMA)", "flash_kernel_wgmma (wgmma)")
-BWD_ROUTES = ("flash_bwd_*_f32 (f32 FMA)", "flash_bwd_*_mma (mma.sync)")
+BWD_ROUTES = ("fma", "wgmma")      # flash_bwd_*_f32, flash_bwd_*_wgmma
+BWD_TILE = 64                       # key rows (dK/dV), query rows (dQ)
+BWD_THREADS = 160                   # wgmma: a consumer warpgroup + a warp
+SMS = 132                           # H100 SXM
 HEAD_DIMS = (32, 64, 128)
 _GRID_MAX = 65535                   # grid y / z limit (heads, batch)
 _I32_MAX = 2 ** 31 - 1              # grid x limit (blocks)
@@ -64,7 +76,7 @@ def _bind(lib) -> None:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.fa_flash.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, i, i,
                              f, ctypes.POINTER(i), p]
-    lib.fa_flash_bwd.argtypes = [p] * 11 + [i] * 9 + [f, p]
+    lib.fa_flash_bwd.argtypes = [p] * 12 + [i] * 9 + [f, i, p, i, p]
     lib.fa_flash_bwd.restype = ctypes.c_int
     lib.fa_decode.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
     lib.fa_flash.restype = ctypes.c_int
@@ -178,6 +190,48 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse) if return_lse else out
 
 
+class BwdLaunch(NamedTuple):
+    """The backward's launch: its route ("wgmma" for bf16 / f16, "fma"
+    for f32), the blocks of its three launches (δ, dK/dV, dQ with the
+    partials' sum), the threads of a dK/dV or dQ block, and the number
+    of head ranges a KV head's dK/dV is split into."""
+    route: str
+    grid: tuple[int, int, int]
+    block: int
+    hsplit: int
+
+
+def head_ranges(G: int, hsplit: int) -> list[tuple[int, int]]:
+    """The query heads [lo, hi) (of a KV head's G) that each of the
+    hsplit dK/dV blocks of a key tile takes, in range order: contiguous,
+    sizes differing by at most one."""
+    return [(s * G // hsplit, (s + 1) * G // hsplit) for s in range(hsplit)]
+
+
+def plan_bwd(B: int, H: int, KH: int, S: int, T: int, hd: int, *,
+             causal: bool = True, window: int = 0, f32: bool = False,
+             sms: int = SMS) -> BwdLaunch:
+    """The launch of `fa_flash_bwd` for these shapes (the C entry refuses
+    any other).  On the tensor cores the dK/dV grid is a block per
+    (64-key tile, KV head, batch) times `hsplit`, the least number of
+    head ranges (at most G = H / KH) that gives `target` blocks: two an
+    SM, or four under a causal mask without a window, where a tile's work
+    falls from the first key tile to the last and the first tiles would
+    otherwise set the pace.  With hsplit > 1 the dQ launch has
+    ceil(2 B T KH hd / 4 / 160) more blocks, which sum the partials."""
+    n_kt, n_qt = -(-T // BWD_TILE), -(-S // BWD_TILE)
+    delta = -(-B * H * S // 8)
+    if f32:
+        return BwdLaunch("fma", (delta, n_kt * KH * B, n_qt * H * B), 128, 1)
+    G = H // KH
+    base = n_kt * KH * B
+    target = (4 if causal and window <= 0 else 2) * sms
+    hsplit = max(1, min(G, -(-target // base)))
+    sums = -(-2 * B * T * KH * hd // 4 // BWD_THREADS) if hsplit > 1 else 0
+    return BwdLaunch("wgmma", (delta, base * hsplit, n_qt * H * B + sums),
+                     BWD_THREADS, hsplit)
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, lse: torch.Tensor,
                         do: torch.Tensor, *, causal: bool = True,
@@ -185,7 +239,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """The gradients (dq [B,H,S,hd], dk, dv [B,K,T,hd], in q's dtype and
     each in its input's memory layout) of `flash_attention`'s output o
     with row log-sum-exp lse (f32 [B,H,S]) for its gradient dO.  dK and
-    dV sum over the G query heads of each KV head."""
+    dV sum over the G query heads of each KV head: on the tensor cores
+    over `plan_bwd`'s head ranges, through an f32 scratch of [2, hsplit,
+    B, T, K, hd] when there is more than one."""
     if not on_cuda(q):
         from .ref import attention_bwd_ref
         return attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
@@ -211,24 +267,32 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bf:
         check_rows_16b(("q", q), ("k", k), ("v", v), ("do", do),
                        ("dq", dq), ("dk", dk), ("dv", dv))
+    launch = plan_bwd(B, H, K, S, T, hd, causal=causal, window=window,
+                      f32=not bf)
+    if max(launch.grid) > _I32_MAX:
+        raise ValueError(f"B·H·S = {B}·{H}·{S}: too many blocks")
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, launch.hsplit, B, T, K, hd), dtype=torch.float32,
+                       device=q.device) if launch.hsplit > 1 else None
     bsh = (0, 2, 1)
     st = strides(*((t, bsh) for t in (q, k, v, o, do, dq, dk, dv)))
     check(attention_lib().fa_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), st, B, H, K, S, T, hd,
+        dk.data_ptr(), dv.data_ptr(),
+        None if part is None else part.data_ptr(), st, B, H, K, S, T, hd,
         DTYPE_CODES[q.dtype], int(bool(causal)), window, 1.0 / math.sqrt(hd),
+        launch.hsplit, (ctypes.c_longlong * 3)(*launch.grid), launch.block,
         stream()), "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.last_route = BWD_ROUTES[int(bf)]
+    flash_attention_bwd.last_route = launch
     return dq, dk, dv
 
 
 flash_attention.launches = 0
 flash_attention.last_route = None   # ROUTES entry of the last launch
 flash_attention_bwd.launches = 0
-flash_attention_bwd.last_route = None   # BWD_ROUTES entry of the last
+flash_attention_bwd.last_route = None   # `BwdLaunch` of the last
 KERNELS = (flash_attention, flash_attention_bwd)
 
 

@@ -43,11 +43,17 @@ takes the chunked route, whose kernel is instantiated a second time with
 the store, so the serving kernel's code stays as it was.
 
 `wkv_scan_bwd` binds `wkv_backward` of the same source: the gradients of
-(o, S) in three launches (a state pass over B x H x ceil(T / 64) blocks,
-a gradient pass over B x H blocks, the sum of du over the batch), its
-recurrences in f64 (the source's header says why), no atomics.  The
-Pallas package has no backward kernel; its gradients come
-from autodiff of the XLA twin `repro.models.layers._wkv_chunked`.
+(o, S) over the forward's 64-step segments in parallel, its recurrences
+and the dw_log running sum in f64 (the source's header says why), in
+four launches (`plan_bwd`): a state pass over B x H x ceil(T / 64)
+blocks, a carry between segments over B x H blocks, the gradient pass
+over B x H x ceil(T / 64) blocks, then the du sum over the batch and the
+segments.  Scratch: `a` f64 [B, H, T, N] (84 MB at RWKV6-3B's train
+shape, B 4), the jumps f32 [B, H, ceil(T / 64) + 1, N, N] (45 MB), two
+f64 [B, H, ceil(T / 64), N, N] (84 MB each) and four small [B, H,
+ceil(T / 64), N].  No atomics.  The Pallas package has no backward
+kernel; its gradients come from autodiff of the XLA twin
+`repro.models.layers._wkv_chunked`.
 
 Device choice: CUDA tensors launch the kernel (or raise); CPU tensors
 take the plain version, `ref.wkv_scan_plain` (`wkv_scan_ref` at this
@@ -55,7 +61,7 @@ contract) and `ref.wkv_scan_bwd_ref`.  `wkv_scan.route_launches` and
 `wkv_scan_bwd.route_launches` count real kernel launches only, by route
 (`cuda_build.launch_count` sums them; a backward call is one), and
 `last_route` is the last launch's `Launch` (route, grid, block,
-vector).
+vector); a backward call, four kernels, counts once.
 """
 
 from __future__ import annotations
@@ -82,7 +88,7 @@ def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.wkv_forward.argtypes = [p] * 10 + [i] * 6 + [ll, i, i, p]
     lib.wkv_forward.restype = ctypes.c_int
-    lib.wkv_backward.argtypes = [p] * 19 + [i] * 5 + [ll, i, p]
+    lib.wkv_backward.argtypes = [p] * 24 + [i] * 5 + [ll, ll, i, p]
     lib.wkv_backward.restype = ctypes.c_int
 
 
@@ -210,11 +216,13 @@ def wkv_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o, S, states) if return_states else (o, S)
 
 
-def plan_bwd(B: int, H: int, N: int) -> Launch:
-    """The backward's launch as the C entry checks it: B x H blocks of
-    N^2 / 8 threads (the state pass also splits T into segments of
-    STATE_EVERY steps, the grid's y axis)."""
-    return Launch("reverse", (B * H,), N * N // BWD_COLS, False)
+def plan_bwd(B: int, H: int, N: int, T: int) -> Launch:
+    """The backward's launch as the C entry checks it: B x H x ceil(T /
+    STATE_EVERY) blocks (a (b, h, segment) each) of N^2 / 8 threads, for
+    the state and gradient passes; the carry between them runs B x H
+    blocks, and the du sum ceil(H N / 256) of 256."""
+    return Launch("reverse", (B * H, -(-T // STATE_EVERY)),
+                  N * N // BWD_COLS, False)
 
 
 def wkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -231,8 +239,8 @@ def wkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batch: the model shares u, a stride-0 view), and ds0 [B,H,N,N] f32
     when `need_ds0` (else None).  `ref.wkv_scan_bwd_ref`'s signature; on
     the card `states` is required and `s0` is not read (the states start
-    from it).  Three launches, counted as one in
-    `wkv_scan_bwd.route_launches`."""
+    from it).  Four launches (see the module docstring), counted as one
+    in `wkv_scan_bwd.route_launches`."""
     if not on_cuda(r):
         from .ref import wkv_scan_bwd_ref
         return wkv_scan_bwd_ref(r, k, v, w_log, u, do, dS, s0, states,
@@ -247,7 +255,8 @@ def wkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{do.dtype}{list(do.shape)}")
     if do.stride(-1) != 1:
         do = do.contiguous()
-    want = (B, H, -(-T // STATE_EVERY), N, N)
+    segs = -(-T // STATE_EVERY)
+    want = (B, H, segs, N, N)
     if tuple(states.shape) != want or states.dtype != torch.float32 \
             or not states.is_contiguous():
         raise ValueError(f"states must be contiguous float32 {want}")
@@ -265,10 +274,15 @@ def wkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if B * H == 0:
         return (*(g.zero_() for g in grads), du.zero_().to(u.dtype),
                 None if ds0 is None else ds0.zero_())
-    scratch = torch.empty((B, H, T, N), dtype=torch.float64, device=dev)
-    jumps = torch.empty_like(states)
-    du_part = torch.empty((B, H, N), dtype=torch.float32, device=dev)
-    launch = plan_bwd(B, H, N)
+    f64 = dict(dtype=torch.float64, device=dev)
+    a_buf = torch.empty((B, H, T, N), **f64)
+    jumps = torch.empty((B, H, segs + 1, N, N), dtype=torch.float32,
+                        device=dev)
+    e, gin = (torch.empty(want, **f64) for _ in range(2))
+    wseg, loc, dwin = (torch.empty((B, H, segs, N), **f64)
+                       for _ in range(3))
+    du_part = torch.empty((B, H, segs, N), dtype=torch.float32, device=dev)
+    launch = plan_bwd(B, H, N, T)
     bht, state = (0, 1, 2), dS if dS is not None else states
     st = strides((r, bht), (k, bht), (v, bht), (w_log, bht), (do, bht),
                  (uf, (0, 1)), (state, bht),
@@ -278,10 +292,11 @@ def wkv_scan_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(wkv_lib().wkv_backward(
         *(t.data_ptr() for t in (r, k, v, w_log, uf, do)), ptr(dS),
         ptr(S if dS is not None else None), states.data_ptr(),
-        *(g.data_ptr() for g in grads), scratch.data_ptr(),
-        jumps.data_ptr(), du_part.data_ptr(), du.data_ptr(), ptr(ds0), st,
-        B, H, T, N, DTYPE_CODES[r.dtype], launch.grid[0], launch.block,
-        stream()),
+        *(g.data_ptr() for g in grads),
+        *(t.data_ptr() for t in (a_buf, jumps, e, gin, wseg, loc, dwin,
+                                 du_part, du)),
+        ptr(ds0), st, B, H, T, N, DTYPE_CODES[r.dtype], *launch.grid,
+        launch.block, stream()),
         "wkv_scan_bwd")
     wkv_scan_bwd.route_launches[launch.route] += 1
     wkv_scan_bwd.last_route = launch

@@ -1699,7 +1699,8 @@ def test_flash_bwd_kernel_equals_plain(no_tf32, dtype, G, hd):
     """Every mask (causal or not, window 0 or 64) at S = T = 256, ragged
     S = T = 130 and ragged S != T (rows past T + window see no key: lse
     -inf, no gradient); the lse the forward returns; two launches bitwise
-    equal; one launch a call."""
+    equal; one launch a call, on `plan_bwd`'s launch (at these small grids
+    bf16 / f16 split every G > 1 into G head ranges: the partials' sum)."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention import ref as FR
 
@@ -1725,6 +1726,9 @@ def test_flash_bwd_kernel_equals_plain(no_tf32, dtype, G, hd):
             again = FK.flash_attention_bwd(q, k, v, o, lse, do,
                                            causal=causal, window=window)
             calls += 2
+            assert FK.flash_attention_bwd.last_route == FK.plan_bwd(
+                2, K * G, K, S, T, hd, causal=causal, window=window,
+                f32=dtype == "float32")
             assert all(torch.equal(a, b) for a, b in zip(got, again))
             _bwd_close(got, FR.attention_bwd_ref(
                 q, k, v, o, lse, do, causal=causal, window=window), dtype)
@@ -1877,10 +1881,33 @@ def test_wkv_scan_bwd_equals_plain(no_tf32, dtype, B, T, H, N):
         _grad_close(got, want, WKV_GRADS, SCAN_BWD_TOL[dtype])
 
 
+@pytest.mark.parametrize("N", [32, 64])
+def test_wkv_scan_bwd_on_operands_off_16_bytes(no_tf32, N):
+    """f32 r, k, v, w_log and dO one element into wider buffers (rows off
+    16 bytes, read through their strides) equal the plain backward."""
+    from repro_torch.kernels.wkv_scan import kernel as WK
+    from repro_torch.kernels.wkv_scan.ref import wkv_scan_bwd_ref
+
+    dev = no_tf32
+    B, T, H = 2, 130, 3
+    g = torch.Generator(device=dev).manual_seed(N)
+    wide = lambda: torch.randn((B, T, H, N + 1), generator=g, device=dev)
+    x = [(0.5 * wide())[..., 1:].transpose(1, 2) for _ in range(2)]
+    x.append(wide()[..., 1:].transpose(1, 2))
+    x.append((-torch.exp(wide() - 2))[..., 1:].transpose(1, 2))
+    u = (0.1 * torch.randn((H, N), generator=g, device=dev))[None].expand(
+        B, H, N)
+    _, _, states = WK.wkv_scan(*x, u, return_states=True)
+    do = wide()[..., 1:].transpose(1, 2)
+    got = WK.wkv_scan_bwd(*x, u, do, None, None, states)
+    _grad_close(got, wkv_scan_bwd_ref(*x, u, do, None, None, states),
+                WKV_GRADS)
+
+
 def test_wkv_scan_bwd_at_the_train_shape_is_deterministic(no_tf32):
-    """RWKV6-3B's train shape at batch 4 (B x H = 160 blocks; T 1,024, 16
-    segments), f32: equal to the plain backward, and two launches give
-    the same bits (no atomics)."""
+    """RWKV6-3B's train shape at batch 4 (B x H x 16 segments = 2,560
+    blocks; T 1,024), f32: equal to the plain backward, and two launches
+    give the same bits (no atomics)."""
     from repro_torch.kernels.cuda_build import Launch
     from repro_torch.kernels.wkv_scan import kernel as WK
     from repro_torch.kernels.wkv_scan.ref import wkv_scan_bwd_ref
@@ -1888,7 +1915,7 @@ def test_wkv_scan_bwd_at_the_train_shape_is_deterministic(no_tf32):
     x, ub, s0, S, states, do, dS = _wkv_bwd_case(no_tf32, 4, 1024, 40, 64,
                                                  "float32", 7, dS=True)
     got = WK.wkv_scan_bwd(*x, ub, do, dS, s0, states, S=S)
-    assert WK.wkv_scan_bwd.last_route == Launch("reverse", (160,), 512,
+    assert WK.wkv_scan_bwd.last_route == Launch("reverse", (160, 16), 512,
                                                 False)
     again = WK.wkv_scan_bwd(*x, ub, do, dS, s0, states, S=S)
     for a, b in zip(got[:5], again[:5]):
