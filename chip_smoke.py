@@ -1949,6 +1949,22 @@ def _ssm_bwd_cost(Bb: int, T: int, Di: int, N: int, u_size: int):
     return nbytes, 17 * elems * N, elems * N
 
 
+def _kernel_split(torch, fn, calls: int = 5) -> dict:
+    """Device time in us of one `fn()` call by kernel name (all launches
+    of a name summed), from a torch.profiler trace of `calls` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {re.sub(r"^void |\(anonymous namespace\)::|[<(].*$", "", e.key):
+            e.self_device_time_total / calls
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
 def _grads_close(torch, label, got, want, names, tol, tol16=None):
     """Each gradient within `tol` of its max-abs (a 16-bit one within
     `tol16`: both sides round it to its type); returns the largest
@@ -1972,7 +1988,7 @@ def _grads_close(torch, label, got, want, names, tol, tol16=None):
     return worst
 
 
-def scan_bwd_phase(torch, np, flush, kernels=("wkv", "ssm")) -> dict:
+def scan_bwd_phase(torch, np, flush) -> dict:
     """The two scan backward kernels, `wkv_scan_bwd` and `ssm_scan_bwd`,
     on numpy-seeded inputs at the train phase's shapes (RWKV6-3B: f32
     r/k/v/w_log B = TRAIN_BATCH x 1,024 x 40 x 64 from the forward
@@ -1983,9 +1999,10 @@ def scan_bwd_phase(torch, np, flush, kernels=("wkv", "ssm")) -> dict:
     du within that plus one bf16 step, 2^-7), two launches bitwise equal,
     timed beside plain and the bound (bytes at 3.35 TB/s; f32 operations
     at 67 TFLOP/s and exponentials on the SFU); `library_ms` None: no
-    PyTorch call computes either.  `kernels` names the halves to run
-    ("wkv", "ssm").  Returns {"wkv_scan bwd": {...}, "ssm_scan bwd":
-    {...}} (the halves run), each {"max_abs_err", "times"}."""
+    PyTorch call computes either.  The SSM backward's device time is also
+    split by kernel (the reverse scan, the sums of its partials) from a
+    profiler trace.  Returns {"wkv_scan bwd": {...}, "ssm_scan bwd":
+    {...}}, each {"max_abs_err", "times"}."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
     from repro_torch.kernels.wkv_scan import kernel as WK
@@ -1998,9 +2015,8 @@ def scan_bwd_phase(torch, np, flush, kernels=("wkv", "ssm")) -> dict:
     res = {}
     B, T, H, N = TRAIN_BATCH.get("rwkv6-3b", TRAIN_B), TRAIN_S, 40, 64
     names = ("dr", "dk", "dv", "dw_log", "du")
-    if "wkv" in kernels:
-        res["wkv_scan bwd"] = {"max_abs_err": 0.0}
-    for scale in ("reference", "rwkv6") if "wkv" in kernels else ():
+    res["wkv_scan bwd"] = {"max_abs_err": 0.0}
+    for scale in ("reference", "rwkv6"):
         ref = scale == "reference"
         s = 0.5 if ref else 1.0
         x = [(s * put(B, T, H, N)).transpose(1, 2) for _ in range(2)]
@@ -2034,8 +2050,6 @@ def scan_bwd_phase(torch, np, flush, kernels=("wkv", "ssm")) -> dict:
                   "call computes the WKV6 backward)", flush=True)
             res["wkv_scan bwd"]["times"] = (ms, plain_ms, bound_ms, None, by)
         del x, u, states, do, got, again, want
-    if "ssm" not in kernels:
-        return res
     Bb, Di, Ns = 1, 16384, 16
     F = torch.nn.functional
     u = put(Bb, T, Di).to(torch.bfloat16)
@@ -2072,6 +2086,9 @@ def scan_bwd_phase(torch, np, flush, kernels=("wkv", "ssm")) -> dict:
           f"G exponentials {n_exp / SFU_PER_S * 1e3:.4f} ms) "
           "library_ms=null (no PyTorch call computes the selective scan's "
           "backward)", flush=True)
+    print(f"{label}: device time by kernel "
+          + ", ".join(f"{name} {us / 1e3:.4f} ms" for name, us in
+                      _kernel_split(torch, call).items()), flush=True)
     res["ssm_scan bwd"] = {"max_abs_err": err,
                            "times": (ms, plain_ms, bound_ms, None, by)}
     return res

@@ -42,19 +42,28 @@ ptxas lines, and runs the tree's own `chip_smoke.wkv_kernel_phase` and
 timed): run on an earlier tree and on this one in turns, it shows
 whether a change to the scan sources moved the serving kernels' times.
 
-With `--backwards` it builds the tree's `attention.cu` and `wkv.cu`,
-prints their ptxas lines, and runs the tree's own
+With `--backwards` it builds the tree's `attention.cu`, `wkv.cu` and
+`ssm.cu`, prints their ptxas lines, and runs the tree's own
 `chip_smoke.attention_bwd_phase` (`flash_attention_bwd` at every case of
 its `BWD_CASES`, held against `attention_bwd_ref`, two launches bitwise
 equal, the timed cases timed beside plain, the bound and SDPA's
-backward) and the WKV half of this checkout's `chip_smoke.scan_bwd_phase`
-on the tree's `wkv_scan_bwd` (RWKV6-3B's train shape at two decay
-scales, held against `wkv_scan_bwd_ref`, timed beside plain and the
-bound): run on an earlier tree and on this one in turns, it times the
-two backward kernels of each in one call.
+backward) and this checkout's `chip_smoke.scan_bwd_phase` on the tree's
+`wkv_scan_bwd` and `ssm_scan_bwd` (RWKV6-3B's train shape at two decay
+scales; Jamba's train microbatch, bf16 u, 1 x 1,024 x 16,384 x 16; each
+held against its plain backward, two launches bitwise equal, timed
+beside plain and the bound, the SSM backward's device time split by
+kernel from a profiler trace): run on an earlier tree and on this one in
+turns, it times the three backward kernels of each in one call.  It also
+prints each `ssm_bwd_kernel` instantiation's instruction count and mix
+from `cuobjdump -sass` of the built library, where the toolkit has it.
 """
 
+import collections
 import importlib.util
+import os
+import re
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -149,22 +158,50 @@ def scans_phase(torch, np, tree: Path) -> None:
         print(f"result {name}: {phase(torch, np, flush)}", flush=True)
 
 
+def sass_mix(lib: Path, kernel: str) -> None:
+    """Each function of `lib` whose name holds `kernel`: its instruction
+    count (static: a chunk loop's body counts once) and its most common
+    opcodes, from `cuobjdump -sass`."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                "bin/cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if tool is None:
+        print("sass: no cuobjdump", flush=True)
+        return
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    for block in out.split("Function : ")[1:]:
+        name = block.splitlines()[0].strip()
+        if kernel not in name:
+            continue
+        ops = collections.Counter(
+            m.group(1).split(".")[0] for m in re.finditer(
+                r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                block))
+        fp = sum(ops[o] for o in ("FMUL", "FFMA", "FADD", "MUFU"))
+        print(f"sass {name}: {sum(ops.values())} instructions, {fp} "
+              "floating point (FMUL, FFMA, FADD, MUFU); "
+              + " ".join(f"{o}:{n}" for o, n in ops.most_common(16)),
+              flush=True)
+
+
 def backwards_phase(torch, np, tree: Path) -> None:
-    """The tree's `chip_smoke.attention_bwd_phase`, then the WKV half of
-    this checkout's `scan_bwd_phase` on the tree's wrapper."""
+    """The tree's `chip_smoke.attention_bwd_phase`, then this checkout's
+    `scan_bwd_phase` on the tree's scan backwards."""
     import chip_smoke
     from repro_torch.kernels import cuda_build
 
     print(f"tree {tree}, backwards: {chip_smoke.card_line()}", flush=True)
-    cuda_build.build(["attention", "wkv"])
+    cuda_build.build(["attention", "wkv", "ssm"])
     for name, log in cuda_build.BUILD_LOGS.items():
         for line in chip_smoke._ptxas_report(log):
             print(f"ptxas {name}: {line}", flush=True)
+    sass_mix(cuda_build.library_path("ssm"), "ssm_bwd_kernel")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     res = chip_smoke.attention_bwd_phase(torch, np, flush)
     print(f"result flash_attention_bwd: {res}", flush=True)
-    res = _here().scan_bwd_phase(torch, np, flush, kernels=("wkv",))
-    print(f"result wkv_scan bwd: {res}", flush=True)
+    for name, res in _here().scan_bwd_phase(torch, np, flush).items():
+        print(f"result {name}: {res}", flush=True)
 
 
 def main() -> int:

@@ -57,24 +57,39 @@
 // Di, N]: a second instantiation of the kernel (kSave), so the serving
 // kernel's code is what it was.  `ssm_backward` (below) is the gradient,
 // the counterpart of autodiff through the reference's XLA twin
-// `_mamba_scan_chunked` (the Pallas package has no backward kernel).  A
-// thread owns one (b, d) channel as in the forward, a block 64 channels
-// of one batch row: for each 8-step chunk from the last to the first it
-// recomputes h forward from the chunk's saved state into shared memory,
-// with the forward's own arithmetic (never dividing by the decay), then
-// walks the chunk backward with the adjoint G in registers, writing ddt
-// and du and accumulating dA and dD.  dB and dC sum over the channels:
-// over a warp by a reduce-scatter of the 2N values (31 shuffles at N =
-// 16), over the block's two warps in shared memory, into per-block
-// partials that a second kernel sums over the blocks in a fixed order;
-// dA and dD, per (b, d) partials summed over b the same way.  No atomics:
-// two calls give the same bits.  Bound at Jamba's train microbatch (Bb 1,
-// T 1,024, Di 16,384, N 16, bf16 u): u, dt, dy read, du, ddt written,
-// B, C, dB, dC, A, D, dA, dD and the 134 MB of states, ~0.40 GB, 0.12 ms
-// at 3.35 TB/s; 17 flops and one exponential per (b, t, d, n), 4.6 GFLOP
+// `_mamba_scan_chunked` (the Pallas package has no backward kernel).
+// Lanes map to (b, d, quarter of n) as in the step route: four lanes a
+// channel of four states each (two at N = 8), a block 256 lanes, 64
+// channels of one batch row at N = 16 (128 at N = 8), so Jamba's train
+// microbatch (Bb 1) runs 256 blocks, two an SM, ~16 warps on each.  A
+// lane holds its states' A, A log2 e, adjoint carries and dA sums in
+// registers.  For each 8-step chunk, from the last to the first: the
+// chunk's rows of u, dt, dy (the block's channels), B and C and the
+// block's saved states (512 contiguous bytes a warp) arrive in a two-stage
+// ring by 16-byte cp.async copies (element loads where a row does not
+// start on 16 bytes), the chunk one step earlier in time in flight under
+// the current one; each lane recomputes its h forward from the saved
+// state with the forward's own arithmetic (never dividing by a decay),
+// h_t in registers, then walks the chunk back with the adjoint G in
+// registers, taking the decays again on the SFU (keeping them measured
+// slower: it crowds the 128 registers two blocks an SM leave).  ddt and
+// du join over a channel's lanes by two xor shuffles.  Each lane's 2 x 4
+// dB/dC terms of a step wait in shared memory, and with them ddt and du;
+// after the chunk's barrier the block writes the ddt and du rows
+// (coalesced) and sums the terms over its channels in a fixed order into
+// per-block partials, which a second kernel sums over the blocks; dA and
+// dD, per (b, d) partials summed over b the same way.  No atomics: two
+// calls give the same bits.  Bound at Jamba's train microbatch (Bb 1, T
+// 1,024, Di 16,384, N 16, bf16 u): u, dt, dy read, du, ddt written, B, C,
+// dB, dC, A, D, dA, dD and the 134 MB of states, ~0.40 GB, 0.12 ms at
+// 3.35 TB/s; 17 flops and one exponential per (b, t, d, n), 4.6 GFLOP
 // (0.068 ms) and 0.27 G exponentials (0.064 ms on the SFU): bound by
-// bytes.  What bounds the kernel: at Bb 1 its 256 blocks of two warps
-// leave ~4 warps an SM, each a dependent chain a step.
+// bytes.  What bounds the kernel (PERF.md): instruction throughput.
+// 128 registers (the most two blocks of 256 threads an SM allow), no
+// spill, 88 KB of shared memory at N = 16 with bf16 u; ~1,400
+// instructions a lane a chunk, about half of them floating point, at
+// close to one a cycle on each scheduler; the partials' 33.5 MB and their
+// sum are ~5% of the time.
 //
 // Both routes: u is f32 or bf16 (widened on load, which is exact); dt, B,
 // C, A, D, h0, y and h are f32.  N in {8, 16}; any T >= 1 and any Di (the
@@ -327,13 +342,10 @@ __global__ void __launch_bounds__(kStepBlock) ssm_kernel_step(
 }
 
 // ---------------------------------------------------------------- backward
-// One thread owns one (b, d) channel, as in the chunked forward; a block
-// is kBwdBlock channels of one batch row.  For each chunk of kChunk steps,
-// from the last to the first, the thread recomputes its N states forward
-// from the chunk's saved boundary state into shared memory (the chunk's
-// h_{t0-1} .. h_{t0+7}, with the forward's own arithmetic), then walks the
-// chunk backward with the adjoint in registers.
-constexpr int kBwdBlock = 64;   // channels (threads) per backward block
+// Four lanes a channel (two at N = 8), as the step kernel maps them: lane
+// q of channel ch holds states 4q .. 4q + 3.  A block is kBwdThreads
+// lanes: 64 channels of one batch row at N = 16, 128 at N = 8.
+constexpr int kBwdThreads = 256;  // threads per backward block
 
 template <typename U> __device__ __forceinline__ U from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
@@ -367,31 +379,37 @@ struct SsmBwdArgs {
   int batch, di, t_len;
 };
 
-template <int N>
+// One ring stage holds a chunk's rows of u, dt, dy (the block's
+// channels), B and C, and the block's saved states at the chunk's start.
+// `terms` holds each lane's dB terms (half 0) and dC terms (half 1) of
+// the chunk's steps as float4s, each half padded by 16 floats so that
+// the sums over the channels read 32 banks; `ddt` and `du` the chunk's
+// rows, written out after its barrier.
+constexpr int kTermRow = kBwdThreads * 4 + 16;
+
+template <typename U, int N>
 struct SsmBwdSmem {
-  float u[kChunk][kBwdBlock], dt[kChunk][kBwdBlock], dy[kChunk][kBwdBlock];
-  float B[kChunk][N], C[kChunk][N];
-  float hist[kChunk + 1][N][kBwdBlock];   // h_{t0-1} .. h_{t0+kChunk-1}
-  float red[kChunk][kBwdBlock / 32][2 * N];
+  static constexpr int kCh = kBwdThreads / (N / 4);
+  U u[kStages][kChunk][kCh];
+  float dt[kStages][kChunk][kCh];
+  float dy[kStages][kChunk][kCh];
+  float B[kStages][kChunk][N];
+  float C[kStages][kChunk][N];
+  float x[kStages][kCh * N];
+  float terms[kChunk][2][kTermRow];
+  float ddt[kChunk][kCh];
+  U du[kChunk][kCh];
 };
 
-// v[0..K) summed over the warp, scattered: lane L ends with the sum of
-// v[L % K] in v[0] (K a power of two <= 32).  Each round halves the
-// values a lane holds: it keeps one half and sends the other.
-template <int K>
-__device__ __forceinline__ void warp_reduce_scatter(float (&v)[K],
-                                                    int lane) {
-#pragma unroll
-  for (int off = K / 2; off >= 1; off >>= 1) {
-    const bool up = lane & off;
-#pragma unroll
-    for (int j = 0; j < off; ++j)
-      v[j] = (up ? v[j + off] : v[j]) +
-             __shfl_xor_sync(kFull, up ? v[j] : v[j + off], off);
-  }
-#pragma unroll
-  for (int off = K; off < 32; off <<= 1)
-    v[0] += __shfl_xor_sync(kFull, v[0], off);
+// f(p) for each p < P of the form tid + i * kBwdThreads: a thread's share
+// of P pieces, with a trip count the compiler knows (kept rolled: unrolled,
+// the f32 N = 8 kernel's copies spill)
+template <int P, typename F>
+__device__ __forceinline__ void each_piece(unsigned tid, F&& f) {
+#pragma unroll 1
+  for (unsigned i = 0; i < (P + kBwdThreads - 1) / kBwdThreads; ++i)
+    if (P % kBwdThreads == 0 || tid + i * kBwdThreads < P)
+      f(tid + i * kBwdThreads);
 }
 
 // Per step t, from the last to the first, with G_t the adjoint of h_t:
@@ -399,111 +417,198 @@ __device__ __forceinline__ void warp_reduce_scatter(float (&v)[K],
 //   ddt_t = sum_n G_t (A a_t h_{t-1} + u_t B_t)
 //   du_t = dt_t sum_n G_t B_t + D dy_t
 //   dA += G_t dt_t a_t h_{t-1},  dD += u_t dy_t
-//   dB_t, dC_t: sum over d of G_t dt_t u_t and of h_t dy_t, over the
-//   warp by `warp_reduce_scatter`, then over the block's warps into
-//   `part` (a second kernel sums the blocks).  dh0 = a_0 G_0.
-template <typename U, int N>
-__global__ void __launch_bounds__(kBwdBlock) ssm_bwd_kernel(
+//   dB_t, dC_t: sum over d of G_t dt_t u_t and of h_t dy_t.  dh0 = a_0 G_0.
+// A chunk's 8 steps: the forward from the chunk's saved state with the
+// forward kernel's own arithmetic (never dividing by a decay), h_t in
+// registers; then the walk back with G in registers, a_t taken again on
+// the SFU.  ddt and du join over the channel's lanes by two shuffles and
+// wait in shared memory with the lanes' dB/dC terms; after the chunk's
+// barrier the block writes the chunk's ddt and du rows (coalesced) and
+// sums the terms over its channels in a fixed order into `part`.  Rows
+// past T and channels past Di stage as zeros: such a step has a_t = 1 and
+// adds nothing, so the walk needs no bound inside a chunk.  Indices are
+// unsigned, so 64-bit offsets take no sign words.
+template <typename U, int N, bool kAsync>
+__global__ void __launch_bounds__(kBwdThreads, 2) ssm_bwd_kernel(
     const SsmBwdArgs a) {
-  __shared__ __align__(16) SsmBwdSmem<N> sm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int d = blockIdx.x * kBwdBlock + tid;
-  const long long b = blockIdx.y;
-  const bool live = d < a.di;
-  const int T = a.t_len, Di = a.di;
-  const U* up = static_cast<const U*>(a.u) + b * a.ub + d;
-  const float* dtp = a.dt + b * a.db + d;
-  const float* dyp = a.dy + b * a.yb + d;
-  float A[N], a2[N], carry[N], dA[N];
+  constexpr unsigned kLanes = N / 4, kCh = kBwdThreads / kLanes;
+  constexpr unsigned kUVec = 16 / sizeof(U);
+  constexpr unsigned kUPieces = kCh / kUVec, kFPieces = kCh / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  SsmBwdSmem<U, N>& sm = *reinterpret_cast<SsmBwdSmem<U, N>*>(smem);
+  const unsigned tid = threadIdx.x, ch = tid / kLanes, q = tid % kLanes;
+  const unsigned d0 = blockIdx.x * kCh, d = d0 + ch;
+  const unsigned T = a.t_len, Di = a.di;
+  const size_t b = blockIdx.y;
+  const bool live = d < Di;
+  float A[4], a2[4], carry[4], dA[4];
   float Dd = 0.f, dD = 0.f;
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    A[n] = live ? a.A[d * a.ad + n] : 0.f;
-    a2[n] = A[n] * kLog2e;
-    carry[n] = live && a.dh != nullptr ? a.dh[b * a.hb + d * a.hd + n] : 0.f;
-    dA[n] = 0.f;
+  for (unsigned e = 0; e < 4; ++e) {
+    const unsigned n = 4 * q + e;
+    A[e] = live ? a.A[d * a.ad + n] : 0.f;
+    a2[e] = A[e] * kLog2e;
+    carry[e] = live && a.dh != nullptr ? a.dh[b * a.hb + d * a.hd + n]
+                                       : 0.f;
+    dA[e] = 0.f;
   }
   if (live) Dd = a.D[d];
-  float* part = a.part + (b * gridDim.x + blockIdx.x) * T * (2 * N);
 
-  for (int t0 = (T - 1) / kChunk * kChunk; t0 >= 0; t0 -= kChunk) {
-    const int nc = min(kChunk, T - t0);
-    __syncthreads();            // the last chunk's partials are out
+  // copy the chunk at t0 into `stage` (rows past T, channels past Di read
+  // as zeros), one commit group a chunk
+  auto fetch = [&](unsigned t0, unsigned stage) {
+    const U* ub = static_cast<const U*>(a.u) + b * a.ub + d0;
+    const float* dtb = a.dt + b * a.db + d0;
+    const float* dyb = a.dy + b * a.yb + d0;
+    const float* bp = a.B + b * a.bb;
+    const float* cp = a.C + b * a.cb;
+    const float* xb = a.states + b * a.xb + d0 * a.xd;
+    // bytes of a 16-byte piece of a row from channel d0 + c0 on
+    auto bytes = [&](unsigned c0, int size) {
+      return min(16, max(0, (static_cast<int>(Di) -
+                             static_cast<int>(d0 + c0)) * size));
+    };
+    each_piece<kChunk * kUPieces>(tid, [&](unsigned p) {
+      const unsigned row = p / kUPieces, c0 = p % kUPieces * kUVec;
+      const int valid = t0 + row < T ? bytes(c0, sizeof(U)) : 0;
+      stage_piece<U, kAsync>(&sm.u[stage][row][c0],
+                             valid ? ub + (t0 + row) * a.ut + c0 : ub,
+                             valid);
+    });
+    each_piece<2 * kChunk * kFPieces>(tid, [&](unsigned p) {
+      const bool isdt = p < kChunk * kFPieces;
+      const unsigned pp = isdt ? p : p - kChunk * kFPieces;
+      const unsigned row = pp / kFPieces, c0 = pp % kFPieces * 4;
+      const int valid = t0 + row < T ? bytes(c0, 4) : 0;
+      const float* src = isdt ? dtb + (t0 + row) * a.dtt
+                              : dyb + (t0 + row) * a.yt;
+      stage_piece<float, kAsync>(
+          isdt ? &sm.dt[stage][row][c0] : &sm.dy[stage][row][c0],
+          valid ? src + c0 : (isdt ? dtb : dyb), valid);
+    });
+    each_piece<2 * kChunk * kLanes>(tid, [&](unsigned p) {
+      const bool isb = p < kChunk * kLanes;
+      const unsigned pp = isb ? p : p - kChunk * kLanes;
+      const unsigned row = pp / kLanes, n4 = pp % kLanes * 4;
+      const bool ok = t0 + row < T;
+      const float* src = isb ? bp + (t0 + row) * a.bt : cp + (t0 + row) * a.ct;
+      stage_piece<float, kAsync>(
+          isb ? &sm.B[stage][row][n4] : &sm.C[stage][row][n4],
+          ok ? src + n4 : (isb ? bp : cp), ok ? 16 : 0);
+    });
+    const float* xs = xb + t0 / kChunk * a.xc;
+    each_piece<kCh * kLanes>(tid, [&](unsigned p) {
+      const unsigned j = p / kLanes, n4 = p % kLanes * 4;
+      const bool ok = d0 + j < Di;
+      stage_piece<float, kAsync>(&sm.x[stage][j * N + n4],
+                                 ok ? xs + j * a.xd + n4 : xb, ok ? 16 : 0);
+    });
+    if constexpr (kAsync) asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  // a walked chunk out: its rows of ddt and du, and its dB and dC over
+  // the block's channels (four running sums over the channels ch = r mod
+  // 4 in order, then added pairwise)
+  auto write_chunk = [&](unsigned t0) {
+    float* ddt = a.ddt + (b * T + t0) * Di + d0;
+    U* du = static_cast<U*>(a.du) + (b * T + t0) * Di + d0;
+    each_piece<kChunk * kCh>(tid, [&](unsigned x) {
+      const unsigned c = x / kCh, j = x % kCh;
+      if (t0 + c < T && d0 + j < Di) {
+        ddt[c * Di + j] = sm.ddt[c][j];
+        du[c * Di + j] = sm.du[c][j];
+      }
+    });
+    float* part = a.part + ((b * gridDim.x + blockIdx.x) * T + t0) * (2 * N);
+    each_piece<kChunk * 2 * N>(tid, [&](unsigned x) {
+      const unsigned c = x / (2 * N), col = x % (2 * N);
+      if (t0 + c >= T) return;
+      const unsigned n = col % N;      // lane n / 4's term n % 4
+      const float* src = &sm.terms[c][col / N][n];
+      float s[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 8
+      for (unsigned j = 0; j < kCh; ++j) s[j % 4] += src[j * kLanes * 4];
+      part[x] = (s[0] + s[1]) + (s[2] + s[3]);
+    });
+  };
+
+  const int chunks = (T + kChunk - 1) / kChunk;
+  fetch((chunks - 1) * kChunk, 0);
+  for (int k = chunks - 1, s = 0; k >= 0; --k, s ^= 1) {
+    const unsigned t0 = k * kChunk;
+    if constexpr (kAsync)
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();            // chunk k landed; chunk k + 1 written out
+    if (k > 0) fetch(t0 - kChunk, s ^ 1);
+
+    // the chunk forward, as the forward kernel computes it: h[c] is h
+    // after step c; h before the chunk is read from the ring (c = 0)
+    const float4* x4 = reinterpret_cast<const float4*>(
+        &sm.x[s][ch * N + 4 * q]);
+    float h[kChunk][4];
 #pragma unroll
     for (int c = 0; c < kChunk; ++c) {
-      const bool ok = live && c < nc;
-      sm.u[c][tid] = ok ? to_f(up[(t0 + c) * a.ut]) : 0.f;
-      sm.dt[c][tid] = ok ? dtp[(t0 + c) * a.dtt] : 0.f;
-      sm.dy[c][tid] = ok ? dyp[(t0 + c) * a.yt] : 0.f;
-    }
-    for (int x = tid; x < kChunk * N; x += kBwdBlock) {
-      const int c = x / N, n = x % N;
-      const long long t = t0 + c;
-      sm.B[c][n] = c < nc ? a.B[b * a.bb + t * a.bt + n] : 0.f;
-      sm.C[c][n] = c < nc ? a.C[b * a.cb + t * a.ct + n] : 0.f;
-    }
-    float h[N];
-    const float* xp = a.states + b * a.xb + (t0 / kChunk) * a.xc + d * a.xd;
+      const float dtc = sm.dt[s][c][ch];
+      const float du = dtc * to_f(sm.u[s][c][ch]);
+      const float4 b4 = *reinterpret_cast<const float4*>(
+          &sm.B[s][c][4 * q]);
+      const float bs[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float4 x = *x4;
+      const float hp[4] = {c > 0 ? h[c - 1][0] : x.x, c > 0 ? h[c - 1][1] : x.y,
+                           c > 0 ? h[c - 1][2] : x.z, c > 0 ? h[c - 1][3] : x.w};
 #pragma unroll
-    for (int n = 0; n < N; ++n) {
-      h[n] = live ? xp[n] : 0.f;
-      sm.hist[0][n][tid] = h[n];
-    }
-    __syncthreads();            // B and C staged
-    // the chunk forward, as the forward kernel computes it
-    for (int c = 0; c < nc; ++c) {
-      const float dtc = sm.dt[c][tid], du = dtc * sm.u[c][tid];
-#pragma unroll
-      for (int n = 0; n < N; ++n) {
-        h[n] = fmaf(ex2(dtc * a2[n]), h[n], du * sm.B[c][n]);
-        sm.hist[c + 1][n][tid] = h[n];
-      }
+      for (int e = 0; e < 4; ++e)
+        h[c][e] = fmaf(ex2(dtc * a2[e]), hp[e], du * bs[e]);
     }
     // and back
-    for (int c = nc - 1; c >= 0; --c) {
-      const float uc = sm.u[c][tid], dtc = sm.dt[c][tid];
-      const float dyc = sm.dy[c][tid], dtu = dtc * uc;
-      float red[2 * N];
+#pragma unroll
+    for (int c = kChunk - 1; c >= 0; --c) {
+      const float uc = to_f(sm.u[s][c][ch]), dtc = sm.dt[s][c][ch];
+      const float dyc = sm.dy[s][c][ch], dtu = dtc * uc;
+      const float4 b4 = *reinterpret_cast<const float4*>(&sm.B[s][c][4 * q]);
+      const float4 c4 = *reinterpret_cast<const float4*>(&sm.C[s][c][4 * q]);
+      const float bs[4] = {b4.x, b4.y, b4.z, b4.w};
+      const float cs[4] = {c4.x, c4.y, c4.z, c4.w};
+      const float4 x = *x4;
+      const float hp[4] = {c > 0 ? h[c - 1][0] : x.x, c > 0 ? h[c - 1][1] : x.y,
+                           c > 0 ? h[c - 1][2] : x.z, c > 0 ? h[c - 1][3] : x.w};
+      float v[8];
       float sddt = 0.f, sgb = 0.f;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float an = ex2(dtc * a2[n]);
-        const float ahp = an * sm.hist[c][n][tid];
-        const float bn = sm.B[c][n];
-        const float g = fmaf(dyc, sm.C[c][n], carry[n]);
-        red[n] = g * dtu;
-        red[N + n] = sm.hist[c + 1][n][tid] * dyc;
-        sddt = fmaf(g, fmaf(A[n], ahp, uc * bn), sddt);
-        sgb = fmaf(g, bn, sgb);
-        dA[n] = fmaf(g * dtc, ahp, dA[n]);
-        carry[n] = an * g;
+      for (int e = 0; e < 4; ++e) {
+        const float an = ex2(dtc * a2[e]), ahp = an * hp[e];
+        const float g = fmaf(dyc, cs[e], carry[e]);
+        v[e] = g * dtu;
+        v[4 + e] = h[c][e] * dyc;
+        sddt = fmaf(g, fmaf(A[e], ahp, uc * bs[e]), sddt);
+        sgb = fmaf(g, bs[e], sgb);
+        dA[e] = fmaf(g * dtc, ahp, dA[e]);
+        carry[e] = an * g;
       }
       dD = fmaf(uc, dyc, dD);
-      if (live) {
-        const long long off = (b * T + t0 + c) * Di + d;
-        a.ddt[off] = sddt;
-        static_cast<U*>(a.du)[off] = from_f<U>(fmaf(dtc, sgb, Dd * dyc));
-      }
-      warp_reduce_scatter<2 * N>(red, lane);
-      if (lane < 2 * N) sm.red[c][warp][lane] = red[0];
-    }
-    __syncthreads();
-    for (int x = tid; x < nc * 2 * N; x += kBwdBlock) {
-      const int c = x / (2 * N), q = x % (2 * N);
-      float s = 0.f;
 #pragma unroll
-      for (int w = 0; w < kBwdBlock / 32; ++w) s += sm.red[c][w][q];
-      part[(t0 + c) * (2 * N) + q] = s;
+      for (unsigned off = 1; off < kLanes; off <<= 1) {
+        sddt += __shfl_xor_sync(kFull, sddt, off);
+        sgb += __shfl_xor_sync(kFull, sgb, off);
+      }
+      if (q == 0) sm.ddt[c][ch] = sddt;
+      if (q == kLanes - 1) sm.du[c][ch] = from_f<U>(fmaf(dtc, sgb, Dd * dyc));
+      *reinterpret_cast<float4*>(&sm.terms[c][0][tid * 4]) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      *reinterpret_cast<float4*>(&sm.terms[c][1][tid * 4]) =
+          make_float4(v[4], v[5], v[6], v[7]);
     }
+    __syncthreads();            // the chunk's outputs are in
+    write_chunk(t0);
   }
   if (live) {
-    const long long bd = b * Di + d;
-#pragma unroll
-    for (int n = 0; n < N; ++n) {
-      a.dA_part[bd * N + n] = dA[n];
-      if (a.dh0 != nullptr) a.dh0[bd * N + n] = carry[n];
-    }
-    a.dD_part[bd] = dD;
+    const size_t bd = (b * Di + d) * N + 4 * q;
+    *reinterpret_cast<float4*>(a.dA_part + bd) =
+        make_float4(dA[0], dA[1], dA[2], dA[3]);
+    if (a.dh0 != nullptr)
+      *reinterpret_cast<float4*>(a.dh0 + bd) =
+          make_float4(carry[0], carry[1], carry[2], carry[3]);
+    if (q == 0) a.dD_part[b * Di + d] = dD;
   }
 }
 
@@ -518,6 +623,23 @@ __global__ void sum_leading_kernel(const float* in, float* out, int q,
   float s = 0.f;
   for (int p = 0; p < q; ++p) s += src[p * len];
   out[blockIdx.y * len + x] = s;
+}
+
+// the backward kernel of (U, N, kAsync) on `stream`, with its shared
+// memory (above the 48 KB a launch gets without asking) and the largest
+// carveout, so two blocks fit an SM
+template <typename U, int N, bool kAsync>
+cudaError_t launch_bwd(const SsmBwdArgs& a, dim3 grid, cudaStream_t s) {
+  constexpr int kBytes = sizeof(SsmBwdSmem<U, N>);
+  const auto kern = ssm_bwd_kernel<U, N, kAsync>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kern,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess) kern<<<grid, kBwdThreads, kBytes, s>>>(a);
+  return e;
 }
 
 // route codes, as the wrapper passes them
@@ -617,18 +739,21 @@ extern "C" int ssm_forward(const void* u, const float* dt, const float* B,
 }
 
 // The backward: four launches on `stream` (the reverse scan over
-// ceil(Di / 64) x Bb blocks of 64 threads, then the sums of its
-// per-block and per-row partials over blocks or b); returns
-// cudaGetLastError() (0 = launched), cudaErrorInvalidValue for an N or
-// dtype it does not take, or cudaErrorInvalidConfiguration when the grid
-// or block the wrapper chose is not ceil(Di / 64) blocks of 64.  Inputs
-// as the forward's (u f32 or bf16: dtype 0 or 1), dy f32, dh f32 or null,
-// `states` the forward's chunk-boundary states.  Outputs: du [Bb, T, Di]
-// in u's dtype, ddt [Bb, T, Di], dBC [Bb, T, 2N] (dB then dC), dA
-// [Di, N], dD [Di], dh0 [Bb, Di, N] or null, all f32 and contiguous;
-// part [Bb, blocks, T, 2N], dA_part [Bb, Di, N] and dD_part [Bb, Di] f32
-// scratch.  strides: u, dt, B, C, dy (b, t); A (d); dh (b, d); states
-// (b, chunk, d): 16 values.  No atomics: two calls give the same bits.
+// ceil(Di / (1,024 / N)) x Bb blocks of 256 threads, four lanes a channel
+// (two at N = 8), then the sums of its per-block and per-row partials
+// over blocks or b); returns cudaGetLastError() (0 = launched),
+// cudaErrorInvalidValue for an N or dtype it does not take, or
+// cudaErrorInvalidConfiguration when the grid or block the wrapper chose
+// is not that.  vec: u, dt, dy, B, C and the states move by 16-byte
+// cp.async pieces (their rows and strides on 16 bytes), else by element
+// loads.  Inputs as the forward's (u f32 or bf16: dtype 0 or 1), dy f32,
+// dh f32 or null, `states` the forward's chunk-boundary states (the last
+// dim contiguous).  Outputs: du [Bb, T, Di] in u's dtype, ddt [Bb, T,
+// Di], dBC [Bb, T, 2N] (dB then dC), dA [Di, N], dD [Di], dh0 [Bb, Di,
+// N] or null, all f32 and contiguous; part [Bb, blocks, T, 2N], dA_part
+// [Bb, Di, N] and dD_part [Bb, Di] f32 scratch (dA_part and dh0 on 16
+// bytes).  strides: u, dt, B, C, dy (b, t); A (d); dh (b, d); states (b,
+// chunk, d): 16 values.  No atomics: two calls give the same bits.
 extern "C" int ssm_backward(const void* u, const float* dt, const float* B,
                             const float* C, const float* A, const float* D,
                             const float* dy, const float* dh,
@@ -637,10 +762,11 @@ extern "C" int ssm_backward(const void* u, const float* dt, const float* B,
                             float* part, float* dA_part, float* dD_part,
                             const long long* st, int batch, int di,
                             int t_len, int n, int dtype, long long grid,
-                            int block, void* stream) {
+                            int block, int vec, void* stream) {
   if ((n != 8 && n != 16) || (dtype != 0 && dtype != 1) || t_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (block != kBwdBlock || grid != (di + kBwdBlock - 1) / kBwdBlock)
+  const int ch = kBwdThreads / (n / 4);       // channels a block
+  if (block != kBwdThreads || grid != (di + ch - 1) / ch)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const SsmBwdArgs a{u, dt, B, C, A, D, dy, dh, states, du, ddt, part,
                      dA_part, dD_part, dh0,
@@ -649,13 +775,16 @@ extern "C" int ssm_backward(const void* u, const float* dt, const float* B,
                      st[15], batch, di, t_len};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const dim3 g(static_cast<unsigned>(grid), static_cast<unsigned>(batch));
-  using BwdKernel = void (*)(SsmBwdArgs);
-  const BwdKernel kern =
-      dtype == 0 ? (n == 8 ? ssm_bwd_kernel<float, 8>
-                           : ssm_bwd_kernel<float, 16>)
-                 : (n == 8 ? ssm_bwd_kernel<__nv_bfloat16, 8>
-                           : ssm_bwd_kernel<__nv_bfloat16, 16>);
-  kern<<<g, kBwdBlock, 0, s>>>(a);
+  using Launcher = cudaError_t (*)(const SsmBwdArgs&, dim3, cudaStream_t);
+  const Launcher launchers[2][2][2] = {
+      {{launch_bwd<float, 8, false>, launch_bwd<float, 8, true>},
+       {launch_bwd<float, 16, false>, launch_bwd<float, 16, true>}},
+      {{launch_bwd<__nv_bfloat16, 8, false>,
+        launch_bwd<__nv_bfloat16, 8, true>},
+       {launch_bwd<__nv_bfloat16, 16, false>,
+        launch_bwd<__nv_bfloat16, 16, true>}}};
+  const cudaError_t e = launchers[dtype][n == 16][vec != 0](a, g, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
   const long long bc = static_cast<long long>(t_len) * 2 * n;
   sum_leading_kernel<<<dim3(static_cast<unsigned>((bc + 255) / 256),
                             static_cast<unsigned>(batch)), 256, 0, s>>>(

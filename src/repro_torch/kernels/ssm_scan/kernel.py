@@ -40,9 +40,12 @@ the chunked route, whose kernel is instantiated a second time with the
 store, so the serving kernel's code stays as it was.
 
 `ssm_scan_bwd` binds `ssm_backward` of the same source: the gradients of
-(y, h) in four launches (the reverse scan over ceil(Di / 64) x Bb blocks
-of 64 channels, then the deterministic sums over blocks and batch rows
-of its partials of dB, dC, dA and dD), no atomics.  The Pallas package
+(y, h) in four launches (the reverse scan over ceil(Di / (1,024 / N)) x
+Bb blocks of 256 threads, four lanes a channel (two at N = 8), its chunk
+inputs staged by cp.async when u, dt, dy, B, C and the states sit on 16
+bytes (`vector`), else by element loads; then the deterministic sums
+over blocks and batch rows of its partials of dB, dC, dA and dD), no
+atomics.  The Pallas package
 has no backward kernel; its gradients come from autodiff of the XLA
 twin `repro.models.layers._mamba_scan_chunked`.
 
@@ -72,7 +75,7 @@ ROUTES = ("chunked", "step")        # the routes `plan` chooses from
 CHUNK_BLOCK = 256                   # channels per chunked block
 STEP_BLOCK = 256                    # threads per step block
 BWD_ROUTES = ("reverse",)           # the backward's one route
-BWD_BLOCK = 64                      # channels per backward block
+BWD_BLOCK = 256                     # threads per backward block
 _GRID_Y_MAX = 65535                 # batch rows are the grid's y axis
 
 
@@ -80,7 +83,7 @@ def _bind(lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssm_forward.argtypes = [p] * 11 + [i] * 6 + [ll, i, i, p]
     lib.ssm_forward.restype = ctypes.c_int
-    lib.ssm_backward.argtypes = [p] * 19 + [i] * 5 + [ll, i, p]
+    lib.ssm_backward.argtypes = [p] * 19 + [i] * 5 + [ll, i, i, p]
     lib.ssm_backward.restype = ctypes.c_int
 
 
@@ -203,10 +206,13 @@ def ssm_scan(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return (y, h, states) if return_states else (y, h)
 
 
-def plan_bwd(Bb: int, Di: int) -> Launch:
-    """The backward's launch as the C entry checks it: ceil(Di / 64) x Bb
-    blocks of 64 threads, one channel each."""
-    return Launch("reverse", (-(-Di // BWD_BLOCK), Bb), BWD_BLOCK, False)
+def plan_bwd(Bb: int, Di: int, N: int, vector: bool) -> Launch:
+    """The backward's launch as the C entry checks it: blocks of 256
+    threads, N / 4 lanes a channel (1,024 / N channels a block), ceil(Di /
+    (1,024 / N)) x Bb of them; `vector`: u, dt, dy, B, C and the states
+    sit on 16 bytes (cp.async staging)."""
+    ch = BWD_BLOCK // (N // 4)
+    return Launch("reverse", (-(-Di // ch), Bb), BWD_BLOCK, vector)
 
 
 def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
@@ -249,12 +255,14 @@ def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     if Bb * Di == 0:
         return (du, ddt.zero_(), dBC[..., :N].zero_(), dBC[..., N:].zero_(),
                 dA.zero_(), dD.zero_(), None if dh0 is None else dh0.zero_())
-    launch = plan_bwd(Bb, Di)
+    bt = (0, 1)
+    vector = all(on_16b(x, bt) for x in (u, dt, dy, B, C)) and \
+        on_16b(states, (0, 1, 2))
+    launch = plan_bwd(Bb, Di, N, vector)
     blocks = launch.grid[0]
     part = torch.empty((Bb, blocks, T, 2 * N), **f32)
     dA_part, dD_part = torch.empty((Bb, Di, N), **f32), \
         torch.empty((Bb, Di), **f32)
-    bt = (0, 1)
     st = strides((u, bt), (dt, bt), (B, bt), (C, bt), (A, (0,)), (dy, bt),
                  (states if dh is None else dh, bt), (states, (0, 1, 2)))
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -263,7 +271,8 @@ def ssm_scan_bwd(u: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
         states.data_ptr(), du.data_ptr(), ddt.data_ptr(), dBC.data_ptr(),
         dA.data_ptr(), dD.data_ptr(), ptr(dh0), part.data_ptr(),
         dA_part.data_ptr(), dD_part.data_ptr(), st, Bb, Di, T, N,
-        U_DTYPES[u.dtype], blocks, launch.block, stream()), "ssm_scan_bwd")
+        U_DTYPES[u.dtype], blocks, launch.block, int(vector), stream()),
+        "ssm_scan_bwd")
     ssm_scan_bwd.route_launches[launch.route] += 1
     ssm_scan_bwd.last_route = launch
     return du, ddt, dBC[..., :N], dBC[..., N:], dA, dD, dh0

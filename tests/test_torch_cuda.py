@@ -1970,12 +1970,14 @@ SSM_GRADS = ("du", "ddt", "dB", "dC", "dA", "dD", "dh0")
 
 @pytest.mark.parametrize("u_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("Bb,T,Di,N", [(2, 1, 300, 16), (2, 37, 1000, 8),
-                                       (3, 200, 300, 16), (1, 64, 64, 16)])
+                                       (3, 200, 300, 16), (1, 64, 64, 16),
+                                       (4, 130, 1100, 8)])
 def test_ssm_scan_bwd_equals_plain(no_tf32, u_dtype, Bb, T, Di, N):
-    """T = 1, ragged T and Di (not multiples of the 8-step chunk or the
-    64-channel block), both state sizes, f32 and bf16 u (du in u's
-    dtype); from a zero state with no dh, and from h0 with dh (and
-    dh0)."""
+    """T = 1, ragged T and Di (not multiples of the 8-step chunk or of the
+    block's 64 channels at N 16, 128 at N 8), batch rows over several
+    blocks each, both state sizes, f32 and bf16 u (du in u's dtype; rows
+    on 16 bytes or not: cp.async or element staging); from a zero state
+    with no dh, and from h0 with dh (and dh0)."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
 
@@ -1993,8 +1995,9 @@ def test_ssm_scan_bwd_equals_plain(no_tf32, u_dtype, Bb, T, Di, N):
 
 def test_ssm_scan_bwd_at_the_train_shape_is_deterministic(no_tf32):
     """Jamba's train microbatch (Bb 1, T 1,024, Di 16,384, N 16, bf16 u):
-    256 blocks of 64 channels; equal to the plain backward, and two
-    launches give the same bits (no atomics)."""
+    256 blocks of 256 threads, four lanes a channel, cp.async staging;
+    equal to the plain backward, and two launches give the same bits (no
+    atomics)."""
     from repro_torch.kernels.cuda_build import Launch
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_bwd_ref
@@ -2002,8 +2005,8 @@ def test_ssm_scan_bwd_at_the_train_shape_is_deterministic(no_tf32):
     x, h0, states, dy, dh = _ssm_bwd_case(no_tf32, 1, 1024, 16384, 16,
                                           "bfloat16", 3)
     got = SK.ssm_scan_bwd(*x, dy, dh, h0, states)
-    assert SK.ssm_scan_bwd.last_route == Launch("reverse", (256, 1), 64,
-                                                False)
+    assert SK.ssm_scan_bwd.last_route == Launch("reverse", (256, 1), 256,
+                                                True)
     again = SK.ssm_scan_bwd(*x, dy, dh, h0, states)
     for a, b in zip(got[:6], again[:6]):
         assert torch.equal(a, b)
