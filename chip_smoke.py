@@ -62,11 +62,16 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    shape (bf16, B = 8, S = T = 1,024, H = K = 16, hd = 64, causal), at a
    GQA + window shape (H = 32, K = 8, hd = 128, window 256), at Jamba's
    prefill shape (H = 64, K = 8, hd = 128), at ragged S = T = 1,000
-   (bf16, and f32 with TF32 off), and `decode_attention` at B = 8,
-   T = 1,088, valid_len in {1, 600, 1,088}, G = 1 (hd 64), G = 4 and
-   G = 8 (hd 128, Jamba's), and at the long-context run's B = 1,
-   T = 8,256 (G = 1), each against its plain PyTorch version on the card
-   (bf16 rtol = atol = 3e-2, f32 2e-5); prints the kernel each flash
+   (bf16, and f32 with TF32 off), at Whisper-tiny's encoder (bf16,
+   B = 32, S = T = 1,500, H = K = 6, hd = 64, non-causal) and its
+   cross-attention prefill (S = 4 over T = 1,500), and `decode_attention`
+   at B = 8, T = 1,088, valid_len in {1, 600, 1,088}, G = 1 (hd 64),
+   G = 4 and G = 8 (hd 128, Jamba's), at the long-context run's B = 1,
+   T = 8,256 (G = 1) and at Whisper's cross decode (B = 32 over
+   T = 1,500, G = 1, hd 64), each against its plain PyTorch version on
+   the card
+   (bf16 rtol = atol = 3e-2, f32 2e-5, and every element within that
+   tol of the output's max-abs); prints the kernel each flash
    call ran and the split each decode call took (as the wrappers report
    them), kernel, plain, bound and `scaled_dot_product_attention`
    (library) times, decode's kernel and library times again after a
@@ -120,7 +125,14 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    from the saved states with each segment's state from zero beside it,
    and runs the adjoint twice, see `_wkv_bwd_cost`);
 11. serve phase, once per architecture: Qwen1.5-0.5B, RWKV6-3B, then
-   Jamba-1.5-Large, then Qwen1.5-0.5B again at one long conversation
+   Jamba-1.5-Large, then Whisper-tiny (full size: 4 encoder and 4
+   decoder layers; 32 clips of 1,500 frames from seeded `enc_embeds` as
+   `data.pipeline` makes them, the 4-token start-of-transcript prompt,
+   124 decode steps: `SERVE_SHAPE`, `SERVE_PROMPT`), then Qwen2-VL-72B
+   (the first 32 of 80 layers at the published widths, ~61 GB:
+   `SERVE_DEPTH`; 8 prompts of 1,024 tokens whose first 256 are the
+   vision stub, on a 16 x 16 grid in `mrope_positions`), then
+   Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
    launch splits the cache, which (c) checks) (`repro_torch.configs`, bf16, random weights from
    torch.Generator seed 0; Qwen and RWKV at full width and depth, Jamba
@@ -149,13 +161,19 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    full-width Mamba block in f32 (1e-3); (c) each kernel's launches per
    request: Qwen 24 flash in prefill and 24 x 64 decode attention, RWKV
    32 `wkv_scan` in prefill and 32 x 64 in decode, Jamba 7 `ssm_scan` in
-   prefill and 7 x 64 in decode, 1 flash and 64 decode attention; the
+   prefill and 7 x 64 in decode, 1 flash and 64 decode attention,
+   Whisper 12 flash in prefill (4 encoder, 4 self, 4 cross) and 8 x 124
+   decode attention (4 self, 4 cross), Qwen2-VL 32 flash and 32 x 64
+   decode attention, and the launches at the kernel rows' own shapes
+   (`ATTN_ROWS`: the Whisper encoder, cross prefill and cross decode);
+   the
    decode attention launches that split: all 24 x 64 in the long run,
    none in the others; the scans' launches by route: every prefill
    launch chunked, every decode launch a step; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
-   v1 alone; then one more request under torch.profiler for the device's
-   busy time, idle share, peak memory and time by kernel kind;
+   v1 alone; the phase's peak memory; then one more request under
+   torch.profiler for the device's busy time, idle share, peak memory
+   and time by kernel kind;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
    full width and depth, RWKV6-3B at full width and depth (32 layers,
    d 2,560, f32 moments, batch 4: `TRAIN_BATCH`), and Jamba-1.5-Large's
@@ -189,7 +207,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
 It prints one `{"kernels": [...]}` JSON line (a row per kernel: the
 scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
 chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
-each with its route's launches), the card line, and last
+each with its route's launches; the attention kernels have a row more
+for each shape of `ATTN_ROWS`, with the serve phases' launches at that
+shape), the card line, and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
 launches in the train phase's steps, the scans' backwards theirs
 (`wkv_scan bwd`, `ssm_scan bwd`).  It imports neither jax nor the JAX
@@ -233,6 +253,15 @@ ATTN_BWD_TPU = {
 # redesigned it (CHANGES.md, PR 16 and its follow-up; H100 80GB HBM3,
 # 700 W): the lse output must not slow serving
 FLASH_PR16_MS = {"prefill": 0.0641, "jamba prefill": 0.4108}
+# kernel-phase shapes with a row of their own in the JSON line: label ->
+# (row name, shape).  A row's launches are those the serve phases make at
+# its shape (`record_attention_shapes`'s key)
+ATTN_ROWS = {
+    "whisper encoder": ("flash_attention encoder",
+                        ("flash_attention", 1500, 1500, False)),
+    "cross prefill": ("flash_attention cross",
+                      ("flash_attention", 4, 1500, False)),
+    "cross": ("decode_attention cross", ("decode_attention", 1500))}
 WKV_SRC = "src/repro_torch/csrc/wkv.cu"
 WKV_TPU = {"wkv_scan": "src/repro/kernels/wkv_scan/kernel.py:64"}
 SSM_SRC = "src/repro_torch/csrc/ssm.cu"
@@ -257,11 +286,15 @@ EMBED_P, EMBED_K, EMBED_E = 151_936, 2, 1024
 # serve phase, per architecture: the kernels its path launches, each with
 # its launches per layer of the kernel's mixer (KERNEL_MIXER) in a prefill
 # and per such layer in a decode step
+# (a cross-attention layer counts as an attention layer; the encoder's
+# layers add a flash launch each to the prefill)
 SERVE_KERNELS = {
     "qwen1.5-0.5b": {"flash_attention": (1, 0), "decode_attention": (0, 1)},
     "rwkv6-3b": {"wkv_scan": (1, 1)},
     "jamba-1.5-large-398b": {"ssm_scan": (1, 1), "flash_attention": (1, 0),
-                             "decode_attention": (0, 1)}}
+                             "decode_attention": (0, 1)},
+    "whisper-tiny": {"flash_attention": (1, 0), "decode_attention": (0, 1)},
+    "qwen2-vl-72b": {"flash_attention": (1, 0), "decode_attention": (0, 1)}}
 KERNEL_MIXER = {"flash_attention": "attn", "decode_attention": "attn",
                 "wkv_scan": "rwkv", "ssm_scan": "mamba"}
 # checks (a) and (b) on the served bf16 logits: max |d| within this share
@@ -270,7 +303,8 @@ KERNEL_MIXER = {"flash_attention": "attn", "decode_attention": "attn",
 # for a 1e-6 relative change of the WKV output (PERF.md), so there the
 # kernel is held per launch and in f32 instead (`_wkv_checks`)
 SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
-                  "jamba-1.5-large-398b": 3e-2}
+                  "jamba-1.5-large-398b": 3e-2, "whisper-tiny": 3e-2,
+                  "qwen2-vl-72b": 3e-2}
 # Jamba-1.5-Large does not fit one card (one period at full width is
 # 45.2 B parameters, 90.5 GB in bf16).  The card holds its share of a
 # deployment that places each MoE layer's 16 experts on 2 cards by expert
@@ -278,9 +312,17 @@ SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
 # 72 layers) at the published widths, experts 0-7 of each MoE layer (the
 # router keeps all 16 outputs and top-2).  The CPU rehearsal cuts the
 # smoke variant the same way.
-SERVE_DEPTH = {"jamba-1.5-large-398b": 8}
+# Qwen2-VL-72B (80 layers, 145 GB in bf16) does not fit one card either:
+# a layer is 877.8 M parameters (1.756 GB), the embedding and lm_head
+# 4.98 GB, so 32 layers (61.2 GB, 66.2 GB with the writer's v2 embedding
+# and lm_head) at the published widths: one pipeline stage of a
+# deployment over 3 cards
+SERVE_DEPTH = {"jamba-1.5-large-398b": 8, "qwen2-vl-72b": 32}
 SERVE_EXPERT_CARDS = {"jamba-1.5-large-398b": 2}
 SERVE_SMOKE = False
+# the plain path's keys a chunk: its f32 scores are [B, S, H, PLAIN_CHUNK]
+# (Qwen2-VL's prefill at 256: 0.54 GB a copy, beside 66 GB of weights)
+PLAIN_CHUNK = 256
 # 8 prompts of 1,024 tokens, 64 decode steps (cache of 1,088); the writer
 # publishes v2 after this decode step
 SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
@@ -289,6 +331,12 @@ SERVE_B, SERVE_S, SERVE_STEPS, SERVE_PUBLISH_AT = 8, 1024, 64, 8
 # Its decode grid is 16 blocks, so every decode_attention launch splits
 # the cache over a cluster; the batch-8 runs never split
 SERVE_LONG = {"qwen1.5-0.5b": (1, 8192, 64)}
+# Whisper-tiny's traffic (batch, prompt, decode steps): 32 clips of 30 s
+# (1,500 encoder frames each), the start-of-transcript prompt
+# (<|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>) and 124
+# decode steps: a 128-token transcript window of its 448-token context
+SERVE_SHAPE = {"whisper-tiny": (32, 4, 124)}
+SERVE_PROMPT = {"whisper-tiny": (50258, 50259, 50359, 50363)}
 # train phase, once per architecture: bf16, TRAIN_B x TRAIN_S tokens a
 # step, TRAIN_STEPS steps published while a request of TRAIN_SERVE
 # (batch, prompt, decode steps) is served between steps
@@ -619,22 +667,39 @@ FOLD_SHAPES = ((64, 256), (8, 256), (8, 1024), (8, 2048), (8, 4096),
                (16_384, 256))
 
 
-def _device_ops(torch, fn) -> int:
+def _device_ops(torch, fn, traces: int = 3, tries: int = 12) -> int:
     """Device operations (kernels, copies, fills) of one `fn()` call in a
-    torch.profiler trace: the most of three traces, since a trace may
+    torch.profiler trace: the most of `traces` traces, since a trace may
     drop an event (a two-operation call once showed one) but never adds
-    one."""
+    one.  Each trace ends with a marker, `torch.cuda._sleep`'s spin
+    kernel, launched on the call's stream after it and not counted: a
+    trace without its marker lost its events (a run once gave three empty
+    traces in a row of a one-kernel call) and is taken again, up to
+    `tries` traces in all.  Raises if none kept its marker."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    seen = []
-    for _ in range(3):
+    seen, lost = [], 0
+    while len(seen) < traces and lost + len(seen) < tries:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        seen.append(sum(e.device_type == DeviceType.CUDA
-                        for e in prof.events()))
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        marks = sum("spin_kernel" in n for n in names)
+        if marks:
+            seen.append(len(names) - marks)
+        else:
+            lost += 1
+            time.sleep(0.05 * lost)
+    if lost:
+        print(f"profiler: {lost} of {lost + len(seen)} traces lost their "
+              "marker and were taken again", flush=True)
+    if not seen:
+        raise RuntimeError(f"torch.profiler recorded no marker in {tries} "
+                           "traces: device operations not counted")
     return max(seen)
 
 
@@ -1064,6 +1129,44 @@ def record_scan_shapes(K_mod):
             setattr(ops, name, fn)
 
 
+@contextlib.contextmanager
+def record_attention_shapes():
+    """Count the launches of the two attention kernels by shape:
+    ("flash_attention", S, T, causal) and ("decode_attention", T) (the
+    cache's slots).  Wraps the names the attention ops call; a call counts
+    only where its kernel launched (not for CPU tensors).  Yields the
+    Counter."""
+    from collections import Counter
+
+    from repro_torch.kernels.decode_attention import ops as DO
+    from repro_torch.kernels.flash_attention import ops as FO
+
+    shapes = Counter()
+    flash, decode = FO.flash_attention, DO.decode_attention
+
+    def flash_call(q, k, v, *, causal=True, window=0, return_lse=False):
+        n = flash.launches
+        out = flash(q, k, v, causal=causal, window=window,
+                    return_lse=return_lse)
+        if flash.launches > n:
+            shapes[("flash_attention", q.shape[2], k.shape[2],
+                    bool(causal))] += flash.launches - n
+        return out
+
+    def decode_call(q, k, v, valid_len):
+        n = decode.launches
+        out = decode(q, k, v, valid_len)
+        if decode.launches > n:
+            shapes[("decode_attention", k.shape[2])] += decode.launches - n
+        return out
+
+    FO.flash_attention, DO.decode_attention = flash_call, decode_call
+    try:
+        yield shapes
+    finally:
+        FO.flash_attention, DO.decode_attention = flash, decode
+
+
 def driver_phase(torch, K_mod, rounds: int,
                  profile_dir: Path | None = None) -> dict:
     from repro_torch.kernels.cuda_build import launch_count
@@ -1338,7 +1441,9 @@ def attention_kernel_phase(torch, np, flush) -> dict:
     [B,S,H,hd], k/v or the cache [B,T,K,hd]), timed beside their bound
     and `scaled_dot_product_attention` on the same work (GQA heads
     expanded and masks built outside the timed region).  Returns
-    {name: {"max_abs_err", "times": (ms, plain, bound, library, by)}}."""
+    {name: {"max_abs_err", "times": (ms, plain, bound, library, by)}}, and
+    for each shape of `ATTN_ROWS` a row of its own under its key: its
+    "times" and its shape's "max_abs_err"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -1362,15 +1467,28 @@ def attention_kernel_phase(torch, np, flush) -> dict:
             getattr(torch, dtype))
 
     def check(name, label, got, want, dtype):
+        """Each element within tol of 1 + |want|, and every one within
+        tol of the output's max-abs: outputs averaged over many keys
+        (Whisper's 1,500 frames) lie well under 1, where the first bound
+        alone would be as large as a value."""
         torch.cuda.synchronize()
         got, want = got.float(), want.float()
         err = (got - want).abs()
-        bad = ~(err <= tol[dtype] * (1 + want.abs()))
+        bad = ~(err <= tol[dtype] * torch.clamp(
+            1 + want.abs(), max=want.abs().max().item()))
         if not torch.isfinite(got).all() or bad.any():
             raise AssertionError(f"{name} {label}: kernel != plain "
                                  f"(max |d| {err.max().item()})")
         res = results[name]
         res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
+        return err.max().item()
+
+    def row(key, err, times):
+        """A row of its own for a shape of ATTN_ROWS."""
+        res = results.setdefault(key, {"max_abs_err": 0.0})
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if times is not None:
+            res["times"] = times
 
     def report(name, label, fn, plain, library, nbytes, flops, dtype):
         ms = time_ms(torch, fn, flush)
@@ -1407,7 +1525,13 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         ("jamba prefill", "bfloat16", 8, 1024, 1024, 64, 8, 128, True, 0,
          True),
         ("ragged", "bfloat16", 2, 1000, 1000, 16, 16, 64, True, 0, False),
-        ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False)]
+        ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False),
+        # Whisper-tiny's encoder (32 clips of 1,500 frames) and its
+        # cross-attention prefill (the 4-token prompt over the frames)
+        ("whisper encoder", "bfloat16", 32, 1500, 1500, 6, 6, 64, False, 0,
+         True),
+        ("cross prefill", "bfloat16", 32, 4, 1500, 6, 6, 64, False, 0,
+         True)]
     for (label, dt, B, S, T, H, K, hd, causal, window, timed) in flash_cases:
         q = randn((B, S, H, hd), dt)
         k, v = randn((B, T, K, hd), dt), randn((B, T, K, hd), dt)
@@ -1419,7 +1543,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         shape = (f"{dt} B={B} S={S} T={T} H={H} K={K} hd={hd} "
                  f"causal={causal} window={window} "
                  f"route={FK.flash_attention.last_route}")
-        check("flash_attention", shape, got, plain(), dt)
+        err = check("flash_attention", shape, got, plain(), dt)
+        t = None
         if timed:
             esz = q.element_size()
             nbytes = esz * (2 * B * S * H * hd + 2 * B * T * K * hd)
@@ -1432,6 +1557,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                       f"(PR 16: {FLASH_PR16_MS[label]} ms)", flush=True)
             if label == "prefill":
                 results["flash_attention"]["times"] = t
+        if label in ATTN_ROWS:
+            row(ATTN_ROWS[label][0], err, t)
         del q, k, v
 
     # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies; the
@@ -1440,7 +1567,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
     for label, B, T, H, K, hd in (("G=1", 8, 1088, 16, 16, 64),
                                   ("G=4", 8, 1088, 32, 8, 128),
                                   ("G=8 jamba", 8, 1088, 64, 8, 128),
-                                  ("G=1 long", 1, 8256, 16, 16, 64)):
+                                  ("G=1 long", 1, 8256, 16, 16, 64),
+                                  ("cross", 32, 1500, 6, 6, 64)):
         q = randn((B, H, hd), "bfloat16")
         kc, vc = (randn((B, T, K, hd), "bfloat16") for _ in range(2))
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)
@@ -1451,7 +1579,9 @@ def attention_kernel_phase(torch, np, flush) -> dict:
             chosen = DK.decode_attention.last_split
             shape = (f"bf16 B={B} T={T} H={H} K={K} hd={hd} valid_len={vl} "
                      f"n_split={chosen}")
-            check("decode_attention", shape, got, plain(), "bfloat16")
+            err = check("decode_attention", shape, got, plain(), "bfloat16")
+            if label in ATTN_ROWS:
+                row(ATTN_ROWS[label][0], err, None)
             if vl != T:
                 continue
             kx, vx = (x[:, :, :vl].repeat_interleave(H // K, 1).contiguous()
@@ -1468,6 +1598,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                   flush=True)
             if label == "G=1":
                 results["decode_attention"]["times"] = t
+            if label in ATTN_ROWS:
+                row(ATTN_ROWS[label][0], 0.0, t)
             # every split of the bf16 route on this shape, each held
             # against plain (launches outside the main path)
             want, ms = plain(), {}
@@ -2098,15 +2230,16 @@ def scan_bwd_phase(torch, np, flush) -> dict:
 @contextlib.contextmanager
 def plain_attention():
     """Inside the block, the layers' attention runs on the plain PyTorch
-    versions (the chunked online softmax and `decode_attention_ref`) on
-    the tensors' own device: the plain path that check (a) holds the
-    kernels against."""
+    versions (the chunked online softmax over PLAIN_CHUNK keys at a time,
+    and `decode_attention_ref`) on the tensors' own device: the plain
+    path that check (a) holds the kernels against."""
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models import layers
 
     saved = layers.attention_bshd, layers.decode_gqa
     layers.attention_bshd = lambda q, k, v, *, causal, window: \
-        layers.flash_attention_chunked(q, k, v, causal=causal, window=window)
+        layers.flash_attention_chunked(q, k, v, causal=causal, window=window,
+                                       chunk=PLAIN_CHUNK)
     layers.decode_gqa = decode_attention_ref
     try:
         yield
@@ -2218,13 +2351,13 @@ def _logits_close(torch, what: str, got, want, rel) -> float:
     return ratio
 
 
-def _teacher_forced(cfg, params, prompts, toks, S: int, N: int) -> list:
-    """Logits of a prefill of `prompts` and N decode steps fed `toks`
-    (a request replayed with its own tokens)."""
+def _teacher_forced(cfg, params, batch, toks, S: int, N: int) -> list:
+    """Logits of a prefill of `batch` (its tokens, the prompts, and any
+    frontend inputs) and N decode steps fed `toks` (a request replayed
+    with its own tokens)."""
     from repro_torch.models import decode_step, prefill
 
-    logits, cache = prefill(params, cfg, {"tokens": prompts},
-                            cache_len=S + N)
+    logits, cache = prefill(params, cfg, batch, cache_len=S + N)
     out = [logits]
     for k in range(N):
         logits, cache = decode_step(params, cfg, toks[:, k:k + 1], cache,
@@ -2233,7 +2366,26 @@ def _teacher_forced(cfg, params, prompts, toks, S: int, N: int) -> list:
     return out
 
 
-def _check_a(torch, cfg, params, prompts, toks, logits, S, N, rel,
+def _whole(torch, batch, toks, b: int) -> dict:
+    """Prompt b's batch over the whole sequence (`forward`'s input): its
+    tokens followed by `toks`, its frontend inputs, and for M-RoPE its
+    positions followed by the decode steps' (pos, pos, pos) (the decode
+    rotates the token at position pos on all three streams)."""
+    S, N = batch["tokens"].shape[1], toks.shape[1]
+    out = {"tokens": torch.cat([batch["tokens"][b:b + 1], toks[b:b + 1]],
+                               dim=1)}
+    for k in ("enc_embeds", "vision_embeds"):
+        if k in batch:
+            out[k] = batch[k][b:b + 1]
+    if "mrope_positions" in batch:
+        pos = batch["mrope_positions"]
+        dec = torch.arange(S, S + N, device=pos.device, dtype=pos.dtype)
+        out["mrope_positions"] = torch.cat(
+            [pos[:, b:b + 1], dec.expand(3, 1, N)], dim=2)
+    return out
+
+
+def _check_a(torch, cfg, params, batch, toks, logits, S, N, rel,
              routing=None) -> tuple[float, int]:
     """(a): a request's logits against the plain path's on the same
     params, teacher-forced with the request's tokens (and, for a MoE
@@ -2241,29 +2393,29 @@ def _check_a(torch, cfg, params, prompts, toks, logits, S, N, rel,
     ratio and the routing decisions the plain path would have flipped."""
     with plain_attention(), plain_wkv(), plain_ssm(), \
             replay_routing(torch, routing) as st:
-        want = _teacher_forced(cfg, params, prompts, toks, S, N)
+        want = _teacher_forced(cfg, params, batch, toks, S, N)
     return max(_logits_close(torch, f"(a) step {k}", got, w, rel)
                for k, (got, w) in enumerate(zip(logits, want))), \
         st["differ"]
 
 
-def _check_b(torch, cfg, params, prompts, toks, logits, S, N, rel,
+def _check_b(torch, cfg, params, batch, toks, logits, S, N, rel,
              routing=None) -> tuple[float, int]:
     """(b): prefill + decode logits against `forward` over the whole
     sequence, one prompt at a time, so [B, S + N, V] logits are never
-    held at once.  For a MoE model, `routing` holds each MoE layer's
+    held at once (each prompt's [S + N, V] slice compared alone).  For a
+    MoE model, `routing` holds each MoE layer's
     recorded choices over the whole sequence ([B, S + N, K]), replayed
     into the forward.  Returns the worst ratio and the routing decisions
     the forward would have flipped."""
     from repro_torch.models import forward
 
-    full = torch.cat([prompts, toks], dim=1)
     got = torch.stack(logits, dim=1)                   # [B, N + 1, V]
     worst, differ = 0.0, 0
-    for b in range(full.shape[0]):
+    for b in range(got.shape[0]):
         calls = None if routing is None else [c[b:b + 1] for c in routing]
         with replay_routing(torch, calls) as st:
-            fwd = forward(params, cfg, {"tokens": full[b:b + 1]})[
+            fwd = forward(params, cfg, _whole(torch, batch, toks, b))[
                 0, S - 1:S + N]
         differ += st["differ"]
         worst = max(worst, _logits_close(torch, f"(b) prompt {b}", got[b],
@@ -2278,7 +2430,7 @@ def _n_layers(cfg, **spec) -> int:
                                for s in cfg.pattern)
 
 
-def _check_b_dropfree(torch, cfg, params, prompts, toks, S, N, rel):
+def _check_b_dropfree(torch, cfg, params, batch, toks, S, N, rel):
     """(b) for a MoE model.  Its capacity depends on the sequence length
     (at 1.25: 160 slots per expert for the 1,024-token prefill, 170 for
     the 1,088-token forward, 1 in a decode step), so at the configured
@@ -2289,7 +2441,7 @@ def _check_b_dropfree(torch, cfg, params, prompts, toks, S, N, rel):
     kernel path records its routing, and the forward replays it."""
     cfg8 = dataclasses.replace(cfg, moe_capacity_factor=8.0)
     with record_routing() as calls:
-        logits = _teacher_forced(cfg8, params, prompts, toks, S, N)
+        logits = _teacher_forced(cfg8, params, batch, toks, S, N)
     n_moe = _n_layers(cfg, mlp="moe")
     if len(calls) != n_moe * (N + 1):
         raise AssertionError(f"{len(calls)} MoE calls, expected "
@@ -2298,11 +2450,11 @@ def _check_b_dropfree(torch, cfg, params, prompts, toks, S, N, rel):
                                              for k in range(N)], dim=1)
                  for layer in range(n_moe)]
     del calls
-    return _check_b(torch, cfg8, params, prompts, toks, logits, S, N, rel,
+    return _check_b(torch, cfg8, params, batch, toks, logits, S, N, rel,
                     per_layer)
 
 
-def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
+def _wkv_checks(torch, cfg, params, batch, toks, S: int, N: int) -> str:
     """RWKV6's checks of the kernel in its path, where the bf16 logits
     cannot hold it at 3e-2 (the model's 32 bf16 layers turn f32-level
     differences of the WKV output into ~8% of the logits' max-abs):
@@ -2331,17 +2483,17 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
 
     layers.wkv = checked
     try:
-        _teacher_forced(cfg, params, prompts, toks, S, N)
+        _teacher_forced(cfg, params, batch, toks, S, N)
     finally:
         layers.wkv = kernel_wkv
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     p32 = tree_map(lambda x: x.float(), params)
-    got = _teacher_forced(cfg32, p32, prompts, toks, S, N)
-    a32 = _check_a(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)[0]
-    b32 = _check_b(torch, cfg32, p32, prompts, toks, got, S, N, 1e-3)[0]
+    got = _teacher_forced(cfg32, p32, batch, toks, S, N)
+    a32 = _check_a(torch, cfg32, p32, batch, toks, got, S, N, 1e-3)[0]
+    b32 = _check_b(torch, cfg32, p32, batch, toks, got, S, N, 1e-3)[0]
     del p32, got
-    g = torch.Generator(device=prompts.device)
+    g = torch.Generator(device=batch["tokens"].device)
     g.manual_seed(5)
 
     def noisy(r, k, v, w_log, u, s0=None, *, state_out=None):
@@ -2350,9 +2502,9 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
         return o * (1 + 1e-6 * z), S_
 
     with plain_wkv():
-        plain = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+        plain = _teacher_forced(cfg, params, batch, toks, S, 0)[0]
         layers.wkv = noisy
-        perturbed = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+        perturbed = _teacher_forced(cfg, params, batch, toks, S, 0)[0]
     floor = _logits_close(torch, "noise floor", perturbed, plain, None)
     return (f"bf16 noise floor (plain prefill vs itself with its WKV output "
             f"x (1 + 1e-6 z)) {floor:.3g}; (a) per wkv_scan launch max |d| "
@@ -2360,7 +2512,7 @@ def _wkv_checks(torch, cfg, params, prompts, toks, S: int, N: int) -> str:
             f"(b) {b32:.3g} (<= 1e-3)")
 
 
-def _ssm_checks(torch, cfg, params, prompts, toks, S: int, N: int,
+def _ssm_checks(torch, cfg, params, batch, toks, S: int, N: int,
                 routing) -> str:
     """Jamba's further checks of the kernel in its path: (a) per launch:
     every `ssm_scan` launch of a teacher-forced replay of request 1 (its
@@ -2393,10 +2545,10 @@ def _ssm_checks(torch, cfg, params, prompts, toks, S: int, N: int,
     layers.selective_scan = checked
     try:
         with replay_routing(torch, routing):
-            _teacher_forced(cfg, params, prompts, toks, S, N)
+            _teacher_forced(cfg, params, batch, toks, S, N)
     finally:
         layers.selective_scan = kernel_scan
-    g = torch.Generator(device=prompts.device)
+    g = torch.Generator(device=batch["tokens"].device)
     g.manual_seed(5)
 
     def noisy(u, dt, B, C, A, D, h0=None, *, state_out=None):
@@ -2407,17 +2559,17 @@ def _ssm_checks(torch, cfg, params, prompts, toks, S: int, N: int,
     n_pre = _n_layers(cfg, mlp="moe")            # the prefill's MoE calls
     with plain_attention(), plain_ssm():
         with replay_routing(torch, routing[:n_pre]):
-            plain = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+            plain = _teacher_forced(cfg, params, batch, toks, S, 0)[0]
         layers.selective_scan = noisy
         with replay_routing(torch, routing[:n_pre]):
-            perturbed = _teacher_forced(cfg, params, prompts, toks, S, 0)[0]
+            perturbed = _teacher_forced(cfg, params, batch, toks, S, 0)[0]
     floor = _logits_close(torch, "noise floor", perturbed, plain, None)
     del plain, perturbed
-    block = f"{_mamba_block_f32(torch, cfg, params, prompts, toks):.3g}"
+    block = _mamba_block_f32(torch, cfg, params, batch["tokens"], toks)
     return (f"bf16 noise floor (plain prefill vs itself with its SSM output "
             f"x (1 + 1e-6 z)) {floor:.3g}; (a) {n} ssm_scan launches, max "
             f"|d| / max {worst:.3g} (<= 1e-4); f32 Mamba block kernel vs "
-            f"plain {block} (<= 1e-3)")
+            f"plain {block:.3g} (<= 1e-3)")
 
 
 def _mamba_block_f32(torch, cfg, params, prompts, toks) -> float:
@@ -2464,15 +2616,75 @@ def _kernel_wrappers() -> dict:
             "wkv_scan": WK.wkv_scan, "ssm_scan": SK.ssm_scan}
 
 
+def mrope_grid(torch, B: int, S: int, n_vision: int, device):
+    """[3, B, S] M-RoPE positions of prompts that open with `n_vision`
+    vision rows: those on a square grid (t = 0, h = i // w, w = i % w,
+    w = isqrt(n_vision)), every later row its index on all three
+    streams."""
+    pos = torch.arange(S, device=device).expand(3, B, S).clone()
+    i = torch.arange(n_vision, device=device)
+    width = math.isqrt(n_vision)
+    for stream, val in enumerate((0 * i, i // width, i % width)):
+        pos[stream, :, :n_vision] = val
+    return pos
+
+
+def serve_batch(torch, np, cfg, arch: str, B: int, S: int, dev) -> dict:
+    """A request's batch: B prompts of S tokens (SERVE_PROMPT's sequence
+    where the architecture has one, else uniform draws of numpy seed 0)
+    and the frontend inputs its config takes, as `data.pipeline` makes
+    them (seed 0, step 0): an encoder-decoder's `enc_embeds`
+    [B, encoder_len, D], rounded to the parameter dtype (the encoder's
+    input dtype, as the reference's serve launcher hands it); an M-RoPE
+    config's `vision_embeds` [B, S//4, D] and `mrope_positions` with
+    those rows on a grid (`mrope_grid`)."""
+    from repro_torch.data import SyntheticPipeline
+
+    if arch in SERVE_PROMPT:
+        tokens = torch.tensor(SERVE_PROMPT[arch], device=dev).repeat(B, 1)
+    else:
+        tokens = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, S))).to(dev)
+    batch = {"tokens": tokens}
+    if cfg.is_encoder_decoder or cfg.mrope_sections:
+        stub = SyntheticPipeline(cfg, batch=B, seq_len=S, seed=0,
+                                 device=dev).batch_at(0)
+        batch.update({k: stub[k] for k in ("enc_embeds", "vision_embeds")
+                      if k in stub})
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = batch["enc_embeds"].to(
+            getattr(torch, cfg.param_dtype))
+    if cfg.mrope_sections:
+        batch["mrope_positions"] = mrope_grid(
+            torch, B, S, batch["vision_embeds"].shape[1], dev)
+    return batch
+
+
+def _serve_launches(cfg, arch: str, N: int) -> dict:
+    """(c)'s launches per request of each kernel of the architecture's
+    path: (prefill, decode) for a request of N decode steps."""
+    want = {}
+    for name, (pre, dec) in SERVE_KERNELS[arch].items():
+        n_layers = _n_layers(cfg, mixer=KERNEL_MIXER[name])
+        enc = 0
+        if KERNEL_MIXER[name] == "attn":
+            n_layers += _n_layers(cfg, cross_attn=True)
+            enc = cfg.n_encoder_layers if pre else 0
+        want[name] = (pre * (n_layers + enc), dec * n_layers * N)
+    return want
+
+
 def serve_phase(torch, np, device: str = "cuda",
                 arch: str = "qwen1.5-0.5b", long: bool = False) -> dict:
     """`arch` served from RSS-pinned parameter snapshots, with checks
     (a)-(d) (see the module docstring), at the batch shape (SERVE_B x
     SERVE_S, SERVE_STEPS steps) or, with `long`, at its SERVE_LONG
-    shape.  Returns the launches of the architecture's kernels over both
-    requests, counted from 0 just before request 1.  (`device="cpu"`
-    runs the plain versions, where no kernel launches: a rehearsal off
-    the card.)"""
+    shape, or SERVE_SHAPE's where the architecture has one; the batch
+    from `serve_batch`.  Returns the launches of the architecture's
+    kernels over both requests, counted from 0 just before request 1, and
+    under a row name of ATTN_ROWS those at its shape, where any.
+    (`device="cpu"` runs the plain versions, where no kernel launches: a
+    rehearsal off the card.)"""
     from repro_torch.configs import get_config, smoke_variant
     from repro_torch.kernels.cuda_build import launch_count, reset_counts
     from repro_torch.models import init_params
@@ -2483,7 +2695,8 @@ def serve_phase(torch, np, device: str = "cuda",
     cfg = get_config(arch)
     cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
     if arch in SERVE_DEPTH:
-        cfg = cfg.with_overrides(n_layers=SERVE_DEPTH[arch])
+        cfg = cfg.with_overrides(n_layers=min(SERVE_DEPTH[arch],
+                                              cfg.n_layers))
     experts = None
     cut = f"{cfg.n_layers} of {get_config(arch).n_layers} layers"
     if arch in SERVE_EXPERT_CARDS:
@@ -2497,9 +2710,12 @@ def serve_phase(torch, np, device: str = "cuda",
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    B, S, N = SERVE_LONG[arch] if long else (SERVE_B, SERVE_S, SERVE_STEPS)
+    B, S, N = SERVE_LONG[arch] if long else SERVE_SHAPE.get(
+        arch, (SERVE_B, SERVE_S, SERVE_STEPS))
     run = cfg.name + (" long context" if long else "")
     t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     v1 = init_params(cfg, g, dev, experts=experts)
@@ -2515,8 +2731,7 @@ def serve_phase(torch, np, device: str = "cuda",
     store.publish(v1)
     eng = ServingEngine(cfg, store, max_seq=S + N, device=dev)
     eng.refresh()
-    prompts = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (B, S))).to(dev)
+    batch = serve_batch(torch, np, cfg, arch, B, S, dev)
     sync()
     mem = (f", {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated"
            if on_card else "")
@@ -2569,8 +2784,7 @@ def serve_phase(torch, np, device: str = "cuda",
         t = time.perf_counter()
         with record_routing() if writer and moe else \
                 contextlib.nullcontext() as calls:
-            res = eng.generate({"tokens": prompts}, N,
-                               refresh_between_steps=True)
+            res = eng.generate(batch, N, refresh_between_steps=True)
         log["routing"] = calls
         sync()
         t_end = time.perf_counter()
@@ -2585,13 +2799,16 @@ def serve_phase(torch, np, device: str = "cuda",
     reset_counts(wrappers.values())
     if dattn:
         dattn.split_launches = 0
-    res1, per1, logits1, pinned1, t1 = request(writer=True)
-    routing1, split1 = log["routing"], log["split"]
-    visible_after_1 = store.visible_lsn()
-    eng.refresh()
-    res2, per2, _, pinned2, t2 = request(writer=False)
+    with record_attention_shapes() as shapes:
+        res1, per1, logits1, pinned1, t1 = request(writer=True)
+        routing1, split1 = log["routing"], log["split"]
+        visible_after_1 = store.visible_lsn()
+        eng.refresh()
+        res2, per2, _, pinned2, t2 = request(writer=False)
     split2 = log["split"]
     launches = counts()
+    launches.update({row: shapes[key] for row, key in ATTN_ROWS.values()
+                     if shapes[key]})
     routes = {name: dict(fn.route_launches) for name, fn in wrappers.items()
               if hasattr(fn, "route_launches")}
     for name, by_route in routes.items():
@@ -2605,10 +2822,7 @@ def serve_phase(torch, np, device: str = "cuda",
 
     # (c) launches: each kernel's launches per layer of its mixer in the
     # prefill and in every decode step, in each request
-    want = {}
-    for name, (pre, dec) in SERVE_KERNELS[arch].items():
-        n_layers = _n_layers(cfg, mixer=KERNEL_MIXER[name])
-        want[name] = (pre * n_layers, dec * n_layers * N)
+    want = _serve_launches(cfg, arch, N)
     if on_card and not per1 == per2 == want:
         raise AssertionError(f"launches per request {per1}, {per2} != "
                              f"{want}")
@@ -2646,19 +2860,19 @@ def serve_phase(torch, np, device: str = "cuda",
     # served bf16 model, bounded where its rounding noise allows
     # (SERVE_BF16_TOL); for RWKV6 the kernel is held by `_wkv_checks`
     tok1, rel = res1.tokens, SERVE_BF16_TOL[arch]
-    worst_a, flips_a = _check_a(torch, cfg, v1, prompts, tok1, logits1, S,
+    worst_a, flips_a = _check_a(torch, cfg, v1, batch, tok1, logits1, S,
                                 N, rel, routing1)
     if moe:
-        worst_b, flips_b = _check_b_dropfree(torch, cfg, v1, prompts, tok1,
+        worst_b, flips_b = _check_b_dropfree(torch, cfg, v1, batch, tok1,
                                              S, N, rel)
     else:
-        worst_b, flips_b = _check_b(torch, cfg, v1, prompts, tok1, logits1,
+        worst_b, flips_b = _check_b(torch, cfg, v1, batch, tok1, logits1,
                                     S, N, rel)
     bound = f"<= {rel}" if rel is not None else "not bounded"
-    extra = f"; {_wkv_checks(torch, cfg, v1, prompts, tok1, S, N)}" \
+    extra = f"; {_wkv_checks(torch, cfg, v1, batch, tok1, S, N)}" \
         if "wkv_scan" in wrappers else ""
     if "ssm_scan" in wrappers:
-        extra += "; " + _ssm_checks(torch, cfg, v1, prompts, tok1, S, N,
+        extra += "; " + _ssm_checks(torch, cfg, v1, batch, tok1, S, N,
                                     routing1)
     if moe:
         n_dec = B * (S + N) * cfg.top_k * _n_layers(cfg, mlp="moe")
@@ -2671,6 +2885,12 @@ def serve_phase(torch, np, device: str = "cuda",
                         for name, (pre, dec) in per1.items())
     if dattn:
         per_txt += f" ({split1} of them split)"
+    if shapes:
+        per_txt += "; by shape over both requests: " + ", ".join(
+            f"{k[0]} {k[1:]} {n}" for k, n in sorted(shapes.items()))
+    peak = (f"; phase peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+            if on_card else "")
     print(f"serve checks: (a) {run} kernel vs plain path max |d| / "
           f"max |logit| {worst_a:.3g}; (b) prefill + decode vs forward "
           f"{worst_b:.3g} (bf16, {bound}){extra}; (c) launches per "
@@ -2678,11 +2898,10 @@ def serve_phase(torch, np, device: str = "cuda",
           f"(txn {log['v2_txn']}) published at step {SERVE_PUBLISH_AT} in "
           f"{log['publish_us']:.1f} us under request 1's pin, request 2 "
           f"lsn {res2.snapshot_lsn} > {res1.snapshot_lsn}, {differ} of "
-          f"{B * N} tokens differ", flush=True)
+          f"{B * N} tokens differ{peak}", flush=True)
     eng._prefill, eng._decode = prefill_fn, decode_fn
     if on_card:
-        serve_profile(torch, lambda: eng.generate({"tokens": prompts}, N),
-                      sum(t2), run)
+        serve_profile(torch, lambda: eng.generate(batch, N), sum(t2), run)
     return launches
 
 
@@ -3328,7 +3547,11 @@ def main() -> int:
             raise AssertionError(f"{name} never launched")
     bwd_rows = [(name, name, "times", launches[name])
                 for name in ("wkv_scan bwd", "ssm_scan bwd")]
-    for row, _, _, n in scan_rows + bwd_rows:
+    # the attention kernels' rows at single shapes, launched at them in
+    # the serve phases
+    shape_rows = [(row, row, "times", launches.get(row, 0))
+                  for row, _ in ATTN_ROWS.values()]
+    for row, _, _, n in scan_rows + bwd_rows + shape_rows:
         if n == 0:
             raise AssertionError(f"{row} never launched")
 
@@ -3346,16 +3569,18 @@ def main() -> int:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
     sources = {**{n: ATTN_SRC for n in (*ATTN_TPU, *ATTN_BWD_TPU)},
+               **{row: ATTN_SRC for row, _ in ATTN_ROWS.values()},
                **{n: WKV_SRC for n in (*WKV_TPU, "wkv_scan bwd")},
                **{n: SSM_SRC for n in (*SSM_TPU, "ssm_scan bwd")}}
     tpu = {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU, **SSM_TPU,
+           **{row: ATTN_TPU[shape[0]] for row, shape in ATTN_ROWS.values()},
            "wkv_scan bwd": WKV_TPU["wkv_scan"],
            "ssm_scan bwd": SSM_TPU["ssm_scan"]}
     # the scans have two kernels each: a row per kernel, with the
     # launches of its route
     rows_of = [(name, name, "times", launches[name])
                for name in (*ATTN_TPU, *ATTN_BWD_TPU)]
-    for row, name, key, n in rows_of + scan_rows + bwd_rows:
+    for row, name, key, n in rows_of + shape_rows + scan_rows + bwd_rows:
         ms, plain_ms, bound_ms, library_ms, by = results[name][key]
         rows.append({"name": row, "route": "cuda",
                      "source": sources[name],

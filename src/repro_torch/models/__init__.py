@@ -1,6 +1,7 @@
-"""Model zoo of the port: config-driven decoder stacks (the dense
-attention path, MoE, Mamba and Jamba's hybrid period, RWKV6; M-RoPE,
-cross-attention and the encoder wait for later slices)."""
+"""Model zoo of the port: config-driven stacks for every config of
+`repro_torch.configs` (the dense attention path with RoPE or M-RoPE, MoE,
+Mamba and Jamba's hybrid period, RWKV6, Whisper's encoder-decoder with
+cross-attention)."""
 
 from .config import LayerSpec, ModelConfig, SHAPES, ShapeConfig
 from .convert import params_from_numpy

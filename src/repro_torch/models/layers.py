@@ -1,5 +1,6 @@
 """Layer math of the dense attention path, RWKV6, Mamba and MoE: norms,
-RoPE, attention (whole-sequence and one-token decode), the dense MLPs,
+RoPE and M-RoPE, attention (whole-sequence, cross-attention and
+one-token decode over a self or a cross cache), the dense MLPs,
 the MoE MLP, the Mamba mixer (causal conv, selective scan), and RWKV6's
 time-mix (ddlerp token shift, WKV recurrence, per-head groupnorm) and
 channel-mix.  Pure functions over parameter dicts of
@@ -52,11 +53,17 @@ combine, while the softmax and the capacity keep the router's width
 capacity slots; the expert products are `torch.bmm` (the reference's
 XLA einsums).
 
-M-RoPE is not ported yet (ROADMAP queue 1 item 7).
+M-RoPE (Qwen2-VL): `apply_mrope` rotates with three position streams
+(temporal, height, width), each owning a section of the frequency pairs;
+the angles are computed in f32 in the reference's order.  Cross-attention
+(Whisper's decoder) takes its K/V from the encoder's output, unrotated,
+and attends without a mask; in decode it reads the immutable cross cache
+that prefill filled.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -155,6 +162,47 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([_rotate(xr, cos, sin), xp], dim=-1)
 
 
+@functools.lru_cache(maxsize=16)
+def _stream_of_pair(sections: tuple[int, ...], device) -> torch.Tensor:
+    """The position stream of each frequency pair (`repeat_interleave`
+    of the stream ids over `sections`), made once per device: built
+    from host values, it would make the device wait for the host at
+    every call."""
+    ids = torch.repeat_interleave(torch.arange(len(sections)),
+                                  torch.tensor(sections))
+    return ids.to(device)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: tuple[int, ...], theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x [B,S,H,hd]; positions3 [3,B,S] gives
+    the (temporal, height, width) position streams; `sections` partitions
+    the hd/2 frequency pairs among the three streams (pair i takes the
+    stream of the section it falls in)."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} do not sum to {half}")
+    inv = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                        device=x.device) / half))
+    sec_id = _stream_of_pair(tuple(sections), x.device)     # [half]
+    pos_sel = positions3.float().index_select(0, sec_id)   # [half,B,S]
+    ang = pos_sel.movedim(0, -1) * inv                      # [B,S,half]
+    return _rotate(x, ang.cos()[:, :, None, :], ang.sin()[:, :, None, :])
+
+
+def _rope_qk(q: torch.Tensor, k: torch.Tensor, cfg, positions,
+             mrope_positions) -> tuple[torch.Tensor, torch.Tensor]:
+    """q and k rotated: M-RoPE where the config has sections and the
+    batch gives `mrope_positions` [3,B,S], else RoPE at `positions`."""
+    if cfg.mrope_sections and mrope_positions is not None:
+        return (apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta),
+                apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                            cfg.rope_theta))
+    return (apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction),
+            apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction))
+
+
 # ----------------------------------------------------------------- attention
 def attn_init(cfg, dtype, generator, device, *, cross: bool = False) \
         -> Params:
@@ -245,31 +293,46 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    chunk=chunk)
 
 
-def _check_rope(cfg) -> None:
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            "M-RoPE is not ported yet (ROADMAP queue 1 item 7)")
-
-
 def attention(p: Params, x: torch.Tensor, cfg, *, positions,
-              causal: bool = True, kv_x: Optional[torch.Tensor] = None,
+              causal: bool = True, mrope_positions=None,
+              kv_x: Optional[torch.Tensor] = None,
               rope: bool = True) -> torch.Tensor:
-    """Full-sequence (train / prefill) attention."""
+    """Full-sequence (train / prefill) attention; with `kv_x` [B,T,D]
+    cross-attention over it (K/V from kv_x, no rotation)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, kv_x)
     chunk = eff_chunk(cfg, 1024, k.shape[1] if kv_x is not None else S)
     if rope and kv_x is None:
-        _check_rope(cfg)
-        q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-        k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window,
                         chunk=chunk)
     return o.reshape(B, S, -1) @ p["wo"]
 
 
-def attention_prefill(p: Params, x: torch.Tensor, cfg, *, positions,
-                      kv_cache: tuple[torch.Tensor, torch.Tensor]) \
+def cross_attention_prefill(p: Params, x: torch.Tensor, cfg,
+                            enc_out: torch.Tensor,
+                            kv_cache: tuple[torch.Tensor, torch.Tensor]) \
         -> torch.Tensor:
+    """Prefill's cross-attention: the K/V of `enc_out` [B,T,D] written IN
+    PLACE into `kv_cache` (the immutable cross cache, [B,T,K,hd] each),
+    then attention of x [B,S,D] over that cache, without a mask.  The
+    reference computes the same K/V twice (once inside `attention`, once
+    for the cache); the values are equal.  Returns y."""
+    B, S, _ = x.shape
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    T = enc_out.shape[1]
+    xk, xv = kv_cache
+    xk.copy_((enc_out @ p["wk"]).reshape(B, T, nkv, hd))
+    xv.copy_((enc_out @ p["wv"]).reshape(B, T, nkv, hd))
+    q = (x @ p["wq"]).reshape(B, S, nh, hd)
+    o = flash_attention(q, xk, xv, causal=False, window=cfg.sliding_window,
+                        chunk=eff_chunk(cfg, 1024, T))
+    return o.reshape(B, S, -1) @ p["wo"]
+
+
+def attention_prefill(p: Params, x: torch.Tensor, cfg, *, positions,
+                      kv_cache: tuple[torch.Tensor, torch.Tensor],
+                      mrope_positions=None) -> torch.Tensor:
     """Prefill: full attention over the prompt, and its K/V written IN
     PLACE into `kv_cache` ([B, T_cache, K, hd] each, allocated once at the
     serving length).  Slot for slot the cache then equals the reference's
@@ -278,10 +341,8 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg, *, positions,
     holds), the last T_cache positions at slots [0, T_cache) for a
     sliding-window rolling buffer.  Returns y."""
     B, S, _ = x.shape
-    _check_rope(cfg)
     q, k, v = _qkv(p, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    q, k = _rope_qk(q, k, cfg, positions, mrope_positions)
     o = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
                         chunk=eff_chunk(cfg, 1024, S))
     y = o.reshape(B, S, -1) @ p["wo"]
@@ -294,34 +355,42 @@ def attention_prefill(p: Params, x: torch.Tensor, cfg, *, positions,
 
 def attention_decode(p: Params, x: torch.Tensor, cfg,
                      kv_cache: tuple[torch.Tensor, torch.Tensor], *,
-                     pos: int, cache_len: int) -> torch.Tensor:
+                     pos: int, cache_len: int,
+                     cross: bool = False) -> torch.Tensor:
     """One-token decode.  x [B,1,D]; kv_cache ([B,T,K,hd], [B,T,K,hd]).
 
-    `pos` is the absolute position of the new token (for RoPE),
-    `cache_len` the number of valid cache entries (plain ints).  The new
-    K/V is written IN PLACE at slot `cache_len % T` (rolling buffer —
-    exact for SWA, and for full attention T is sized to hold the max
-    sequence); attention then runs over the first min(cache_len + 1, T)
-    slots.  Returns y.  (Cross-attention decode is not ported yet.)"""
+    `pos` is the absolute position of the new token (for RoPE, or M-RoPE
+    with `pos` on all three streams), `cache_len` the number of valid
+    cache entries (plain ints).  For self-attention the new K/V is
+    written IN PLACE at slot `cache_len % T` (rolling buffer — exact for
+    SWA, and for full attention T is sized to hold the max sequence);
+    attention then runs over the first min(cache_len + 1, T) slots.
+    Cross-attention (`cross=True`) reads the immutable cross cache over
+    its first `cache_len` slots and writes and rotates nothing.
+    Returns y."""
     B = x.shape[0]
     kc, vc = kv_cache
     T = kc.shape[1]
     hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    _check_rope(cfg)
     q = x @ p["wq"]
-    k = x @ p["wk"]
-    v = x @ p["wv"]
     if "bq" in p:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    posb = torch.full((B, 1), pos, device=x.device)
-    q = apply_rope(q.reshape(B, 1, nh, hd), posb, cfg.rope_theta,
-                   cfg.rope_fraction)
-    k = apply_rope(k.reshape(B, 1, nkv, hd), posb, cfg.rope_theta,
-                   cfg.rope_fraction)
-    slot = cache_len % T
-    kc[:, slot] = k[:, 0].to(kc.dtype)
-    vc[:, slot] = v.reshape(B, nkv, hd).to(vc.dtype)
-    valid = min(cache_len + 1, T)
+        q = q + p["bq"]
+    q = q.reshape(B, 1, nh, hd)
+    if cross:
+        valid = cache_len
+    else:
+        k = x @ p["wk"]
+        v = x @ p["wv"]
+        if "bk" in p:
+            k, v = k + p["bk"], v + p["bv"]
+        k = k.reshape(B, 1, nkv, hd)
+        posb = torch.full((B, 1), pos, device=x.device)
+        pos3 = posb[None].expand(3, B, 1) if cfg.mrope_sections else None
+        q, k = _rope_qk(q, k, cfg, posb, pos3)
+        slot = cache_len % T
+        kc[:, slot] = k[:, 0].to(kc.dtype)
+        vc[:, slot] = v.reshape(B, nkv, hd).to(vc.dtype)
+        valid = min(cache_len + 1, T)
     o = decode_gqa(q.reshape(B, nh, hd), kc.transpose(1, 2),
                    vc.transpose(1, 2), valid)
     return o.reshape(B, 1, nh * hd).to(x.dtype) @ p["wo"]

@@ -1,15 +1,19 @@
-"""Model assembly for the dense attention path, MoE, Mamba (and so
-Jamba's hybrid period) and RWKV6: init / forward / prefill / decode,
-driven by `ModelConfig`, ported from `repro.models.transformer`.
+"""Model assembly for every family of `repro_torch.configs`: the dense
+attention path (with M-RoPE for Qwen2-VL), MoE, Mamba (and so Jamba's
+hybrid period), RWKV6 and Whisper's encoder-decoder: init / forward /
+prefill / decode, driven by `ModelConfig`, ported from
+`repro.models.transformer`.
 
 The parameter tree is the reference's: a nested dict of tensors,
 `{"embed", "lm_head", "final_norm", "blocks"}`, where `blocks` holds one
 dict per pattern position whose leaves are stacked over periods
-(leading dim `cfg.n_periods`).  A MoE layer may hold a share of the
-experts (`init_params(..., experts=)`): its expert leaves hold those
-experts only, and its int32 leaf `expert_ids` names them (the one leaf
-the reference's tree lacks).  The reference applies the stack with
-`lax.scan`; here a Python loop runs over periods.  The sharding `hint`
+(leading dim `cfg.n_periods`); an encoder-decoder adds `enc_blocks`
+(stacked over `cfg.n_encoder_layers`) and `enc_final_norm`, and each of
+its cross-attention blocks `norm_x` and `cross`.  A MoE layer may hold
+a share of the experts (`init_params(..., experts=)`): its expert leaves
+hold those experts only, and its int32 leaf `expert_ids` names them
+(the one leaf the reference's tree lacks).  The reference applies the
+stack with `lax.scan`; here a Python loop runs over periods.  The sharding `hint`
 is not ported: it is the identity on one device.
 
 Training: `loss_fn` is the reference's causal-LM cross entropy (f32
@@ -33,12 +37,21 @@ Caches, per pattern position, stacked over periods:
                "conv": [n_periods, B, d_conv-1, Di]}
   rwkv      -> {"shift": [n_periods, B, D], "wkv": [n_periods, B, H, N, N]
                (f32), "cmix_shift": [n_periods, B, D]}
+  cross-attention -> "xk", "xv" [n_periods, B, encoder_len, K, hd], the
+               encoder output's K/V, written once by `prefill`
 allocated once per request (at the serving length for attention) and
 written IN PLACE by `prefill` and by each `decode_step` (the reference
 returns new arrays; the values are equal slot for slot).
 
-Patterns with cross-attention or an encoder, and M-RoPE, raise
-NotImplementedError: they are not ported yet (ROADMAP queue 1 item 7).
+Inputs beside `tokens`: `positions` [S] or [B,S]; `mrope_positions`
+[3,B,S] (M-RoPE configs); `vision_embeds` [B,S_v,D], zero-padded to S
+and added to the token embeddings (the VLM merge stub); `embeds` [B,S,D]
+in place of `tokens`; `enc_embeds` [B,encoder_len,D], the encoder's
+input (the stubbed audio frontend's frames).
+
+Every config runs; `check_trainable` refuses training the encoder-decoder
+and the M-RoPE config (ROADMAP queue 1 item 7f): their backward runs the
+flash backward at non-causal S != T, which is not yet held on the card.
 """
 
 from __future__ import annotations
@@ -53,12 +66,14 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels.config import resolve_device
-from ..tree import leaves
+from ..tree import leaves, tree_map
 from . import layers as L
 from .config import LayerSpec, ModelConfig
 
 Params = dict
-ROADMAP_ITEM = "ROADMAP queue 1 item 7"
+# the encoder's blocks: bidirectional attention and a dense MLP
+ENC_SPEC = LayerSpec(mixer="attn", mlp="dense", causal=False)
+ROADMAP_ITEM = "ROADMAP queue 1 item 7f"
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -66,31 +81,16 @@ def torch_dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for what the port does not run yet."""
-    why = []
-    for spec in cfg.pattern:
-        if spec.mixer not in ("attn", "mamba", "rwkv"):
-            why.append(f"{spec.mixer} mixer")
-        if spec.mlp not in ("dense", "moe", "rwkv_cmix"):
-            why.append(f"{spec.mlp} mlp")
-        if spec.cross_attn:
-            why.append("cross-attention")
-    if cfg.is_encoder_decoder:
-        why.append("encoder")
-    if cfg.mrope_sections:
-        why.append("M-RoPE")
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for a config the port cannot train yet:
+    an encoder-decoder or M-RoPE config, whose gradient would run the
+    flash backward at non-causal S != T, not yet held on the card."""
+    why = (["encoder, cross-attention"] if cfg.is_encoder_decoder else []) \
+        + (["M-RoPE"] if cfg.mrope_sections else [])
     if why:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(sorted(set(why)))} not ported yet "
+            f"{cfg.name}: training with {', '.join(why)} not ported yet "
             f"({ROADMAP_ITEM})")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot train: what
-    it cannot run at all (`check_supported`).  Every mixer it runs has a
-    backward kernel on the card."""
-    check_supported(cfg)
 
 
 def _device(device) -> torch.device:
@@ -101,13 +101,20 @@ def _device(device) -> torch.device:
     return resolve_device(device)
 
 
-def _stack(trees: list) -> Params:
-    """Stack a list of same-shaped nested dicts leaf by leaf (dim 0); one
-    tree becomes views with a leading dim of 1 (no copy)."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _stack([t[k] for t in trees]) for k in first}
-    return first[None] if len(trees) == 1 else torch.stack(trees)
+def _stacked(n: int, draw) -> Params:
+    """n trees from `draw()`, stacked leaf by leaf (dim 0).  One tree
+    becomes views with a leading dim of 1 (no copy); more are drawn in
+    order, each copied into the stacked leaves and dropped before the
+    next is drawn, so no more than one tree is held beside the stack."""
+    first = draw()
+    if n == 1:
+        return tree_map(lambda t: t[None], first)
+    out = tree_map(lambda t: t.new_empty((n, *t.shape)), first)
+    tree_map(lambda dst, src: dst[0].copy_(src), out, first)
+    del first
+    for i in range(1, n):
+        tree_map(lambda dst, src: dst[i].copy_(src), out, draw())
+    return out
 
 
 def _index(tree, i: int):
@@ -127,6 +134,9 @@ def _block_init(spec: LayerSpec, cfg: ModelConfig, dtype, generator,
         p["mixer"] = L.mamba_init(cfg, dtype, generator, device)
     else:
         p["mixer"] = L.rwkv_init(cfg, dtype, generator, device)
+    if spec.cross_attn:
+        p["norm_x"] = L.norm_init(cfg.d_model, cfg.norm, dtype, device)
+        p["cross"] = L.attn_init(cfg, dtype, generator, device, cross=True)
     p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, dtype, device)
     if spec.mlp == "dense":
         p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
@@ -147,7 +157,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     global ids of the experts every MoE layer holds (None: all of
     `cfg.n_experts`), e.g. this card's share of an expert-parallel
     deployment."""
-    check_supported(cfg)
     dev = _device(device)
     dtype = torch_dtype(cfg.param_dtype)
     d, v = cfg.d_model, cfg.vocab_size
@@ -158,9 +167,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
         "final_norm": L.norm_init(d, cfg.norm, dtype, dev),
     }
     params["blocks"] = tuple(
-        _stack([_block_init(spec, cfg, dtype, generator, dev, experts)
-                for _ in range(cfg.n_periods)])
+        _stacked(cfg.n_periods, lambda spec=spec: _block_init(
+            spec, cfg, dtype, generator, dev, experts))
         for spec in cfg.pattern)
+    if cfg.is_encoder_decoder:
+        params["enc_blocks"] = _stacked(
+            cfg.n_encoder_layers, lambda: _block_init(
+                ENC_SPEC, cfg, dtype, generator, dev, None))
+        params["enc_final_norm"] = L.norm_init(d, cfg.norm, dtype, dev)
     return params
 
 
@@ -189,16 +203,21 @@ def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
 
 
 def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
-                x: torch.Tensor, positions) -> torch.Tensor:
+                x: torch.Tensor, positions, mrope_positions=None,
+                enc_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     h = L.norm_apply(pp["norm1"], x, cfg.norm)
     if spec.mixer == "attn":
         y = L.attention(pp["mixer"], h, cfg, positions=positions,
-                        causal=spec.causal)
+                        causal=spec.causal, mrope_positions=mrope_positions)
     elif spec.mixer == "mamba":
         y, _ = L.mamba_apply(pp["mixer"], h, cfg)
     else:
         y, _ = L.rwkv_apply(pp["mixer"], h, cfg)
     x = x + y.to(x.dtype)
+    if spec.cross_attn and enc_out is not None:
+        h = L.norm_apply(pp["norm_x"], x, cfg.norm)
+        x = x + L.attention(pp["cross"], h, cfg, positions=positions,
+                            causal=False, kv_x=enc_out, rope=False)
     return _apply_mlp(pp, spec, cfg, x)
 
 
@@ -215,13 +234,49 @@ def _layers(params: Params, cfg: ModelConfig):
             yield i, j, spec, _index(params["blocks"][j], i)
 
 
+# --------------------------------------------------------------------- encoder
+def _encode(params: Params, cfg: ModelConfig,
+            enc_embeds: torch.Tensor) -> torch.Tensor:
+    """Whisper-style encoder over stub frontend embeddings [B,T,D]:
+    bidirectional attention blocks with RoPE at positions 0..T-1, then
+    `enc_final_norm`.  The frames come in the parameter dtype, as the
+    reference's serve launcher hands them (bf16); other frames are
+    refused: the reference would promote f32 frames against bf16 weights
+    to an f32 encoder, or keep an f32 model's residual stream in bf16
+    frames' dtype, neither of which the port runs."""
+    dtype = params["enc_final_norm"]["w"].dtype
+    if enc_embeds.dtype != dtype:
+        raise TypeError(f"enc_embeds are {enc_embeds.dtype}; the encoder "
+                        f"takes frames in the parameter dtype {dtype}")
+    x = enc_embeds
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_encoder_layers):
+        x = _block_full(_index(params["enc_blocks"], i), ENC_SPEC, cfg, x,
+                        positions)
+    return L.norm_apply(params["enc_final_norm"], x, cfg.norm)
+
+
+def _enc_out(params: Params, cfg: ModelConfig, batch: dict):
+    """The encoder's output for an encoder-decoder config, else None."""
+    if not cfg.is_encoder_decoder:
+        return None
+    return _encode(params, cfg, batch["enc_embeds"])
+
+
 # --------------------------------------------------------------------- forward
 def embed_inputs(params: Params, cfg: ModelConfig, batch: dict) \
         -> torch.Tensor:
-    """Token embedding of batch["tokens"] [B, S].  (The reference's
-    frontend stubs, `vision_embeds` and `embeds`, belong to the M-RoPE and
-    encoder configs, which are not ported yet.)"""
-    return params["embed"][batch["tokens"]]
+    """Token / stub-frontend embedding: the embedding of batch["tokens"]
+    [B, S], plus batch["vision_embeds"] [B, S_v, D] (cast to its dtype,
+    zero-padded to S: the VLM merge stub) where given; without tokens,
+    batch["embeds"] [B, S, D] cast to the parameter dtype."""
+    if "tokens" not in batch:
+        return batch["embeds"].to(torch_dtype(cfg.param_dtype))
+    x = params["embed"][batch["tokens"]]
+    ve = batch.get("vision_embeds")
+    if ve is not None:
+        x = x + F.pad(ve.to(x.dtype), (0, 0, 0, x.shape[1] - ve.shape[1]))
+    return x
 
 
 def _positions(batch: dict, S: int, device) -> torch.Tensor:
@@ -261,13 +316,15 @@ def _remat(fn, cfg: ModelConfig, params=None):
 
 def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Training / scoring forward -> logits [B,S,V]."""
-    check_supported(cfg)
     x = embed_inputs(params, cfg, batch)
     positions = _positions(batch, x.shape[1], x.device)
+    mrope_positions = batch.get("mrope_positions")
+    enc_out = _enc_out(params, cfg, batch)
 
     def period(x, *pps):
         for spec, pp in zip(cfg.pattern, pps):
-            x = _block_full(pp, spec, cfg, x, positions)
+            x = _block_full(pp, spec, cfg, x, positions, mrope_positions,
+                            enc_out)
         return x
 
     period = _remat(period, cfg, params)
@@ -295,8 +352,8 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
     of name -> (shape, dtype): "k", "v" for attention (for SWA archs the
     rolling window, for full attention `seq_len` entries); "ssm" (f32)
     and "conv" for Mamba; "shift", "wkv" (f32) for RWKV's time-mix,
-    "cmix_shift" for its channel-mix."""
-    check_supported(cfg)
+    "cmix_shift" for its channel-mix; "xk", "xv" (`encoder_len`
+    entries) for cross-attention."""
     d, hd, nkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
     T = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
     cdt = torch_dtype(cfg.compute_dtype)
@@ -317,6 +374,9 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
             entry["wkv"] = ((np_, batch, d // N, N, N), torch.float32)
         if spec.mlp == "rwkv_cmix":
             entry["cmix_shift"] = ((np_, batch, d), cdt)
+        if spec.cross_attn:
+            entry["xk"] = ((np_, batch, cfg.encoder_len, nkv, hd), cdt)
+            entry["xv"] = ((np_, batch, cfg.encoder_len, nkv, hd), cdt)
         per_pos.append(entry)
     return {"blocks": tuple(per_pos)}
 
@@ -339,18 +399,22 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
     cache_len: capacity of the per-layer attention cache (>= prompt len
     for full attention; the SWA window for sliding-window archs; RWKV's
     and Mamba's states do not grow with it).  The cache is allocated
-    here, on the embedding's device, and filled in place."""
-    check_supported(cfg)
+    here, on the embedding's device, and filled in place; a
+    cross-attention layer's "xk"/"xv" take the encoder output's K/V
+    once, and its attention runs over them."""
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = _positions(batch, S, x.device)
+    mrope_positions = batch.get("mrope_positions")
+    enc_out = _enc_out(params, cfg, batch)
     cache = init_cache(cfg, B, cache_len, x.device)
     for i, j, spec, pp in _layers(params, cfg):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
         if spec.mixer == "attn":
             y = L.attention_prefill(pp["mixer"], h, cfg, positions=positions,
-                                    kv_cache=(ce["k"][i], ce["v"][i]))
+                                    kv_cache=(ce["k"][i], ce["v"][i]),
+                                    mrope_positions=mrope_positions)
         elif spec.mixer == "mamba":
             y, _ = L.mamba_apply(pp["mixer"], h, cfg, state={
                 "ssm": ce["ssm"][i], "conv": ce["conv"][i]})
@@ -358,6 +422,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
             y, _ = L.rwkv_apply(pp["mixer"], h, cfg, state={
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
         x = x + y.to(x.dtype)
+        if spec.cross_attn and enc_out is not None:
+            h = L.norm_apply(pp["norm_x"], x, cfg.norm)
+            x = x + L.cross_attention_prefill(
+                pp["cross"], h, cfg, enc_out, (ce["xk"][i], ce["xv"][i]))
         x = _apply_mlp(pp, spec, cfg, x, _cmix_shift(spec, ce, i))
     x = L.norm_apply(params["final_norm"], x[:, -1:], cfg.norm)
     logits = x @ params["lm_head"]
@@ -369,8 +437,9 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     """One decode step.  tokens [B,1]; cache from `prefill` /
     `init_cache`, updated in place; cache_len: number of tokens already
     in the cache (a plain int, so the step makes no host-device sync).
-    Returns (logits [B,V], cache)."""
-    check_supported(cfg)
+    The new token sits at position cache_len (on all three M-RoPE
+    streams); a cross-attention layer reads its "xk"/"xv" over
+    `encoder_len` slots.  Returns (logits [B,V], cache)."""
     x = params["embed"][tokens]
     for i, j, spec, pp in _layers(params, cfg):
         ce = cache["blocks"][j]
@@ -386,6 +455,12 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
             y, _ = L.rwkv_decode(pp["mixer"], h, cfg, {
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
         x = x + y.to(x.dtype)
+        if spec.cross_attn:
+            h = L.norm_apply(pp["norm_x"], x, cfg.norm)
+            y = L.attention_decode(pp["cross"], h, cfg,
+                                   (ce["xk"][i], ce["xv"][i]), pos=cache_len,
+                                   cache_len=cfg.encoder_len, cross=True)
+            x = x + y.to(x.dtype)
         x = _apply_mlp(pp, spec, cfg, x, _cmix_shift(spec, ce, i),
                        decode=True)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)

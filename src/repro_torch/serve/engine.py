@@ -9,14 +9,17 @@ architecture).
 
 Ported from `repro.serve.engine`.  The reference jit-compiles prefill and
 decode; here they run eagerly, with the attention (dense models, Jamba's
-attention layers), the WKV recurrence (RWKV6) and the selective scan
-(Jamba's Mamba layers) in the Hopper kernels on "cuda".  The request's
-cache is allocated once and written in place: for attention a KV cache
-of `max_seq` slots; for RWKV6 the recurrent state — per layer a
-[B, H, N, N] f32 WKV state and the two token shifts; for Mamba per layer
-a [B, Di, N] f32 scan state and the last d_conv-1 conv inputs — the
-recurrent states a fixed size whatever the length.  The cache length stays a Python int, so the decode
-loop makes no host-device sync (the argmax it feeds back stays on the
+attention layers, Whisper's encoder, self- and cross-attention), the WKV
+recurrence (RWKV6) and the selective scan (Jamba's Mamba layers) in the
+Hopper kernels on "cuda"; Whisper's encoder runs once a request, in
+prefill.  The request's cache is allocated once and written in place:
+for attention a KV cache of `max_seq` slots, and for cross-attention the
+encoder output's K/V (`encoder_len` slots, written once); for RWKV6 the
+recurrent state — per layer a [B, H, N, N] f32 WKV state and the two
+token shifts; for Mamba per layer a [B, Di, N] f32 scan state and the
+last d_conv-1 conv inputs — the recurrent states a fixed size whatever
+the length.  The cache length stays a Python int, so the decode loop
+makes no host-device sync (the argmax it feeds back stays on the
 device).  The reference's page-versioned KV cache option is not carried
 over (it has no code in the reference engine either).
 """
@@ -30,7 +33,7 @@ import torch
 
 from ..kernels.config import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import check_supported, decode_step, prefill
+from ..models.transformer import decode_step, prefill
 from ..tensorstore.versioned import VersionedParamStore
 from ..tree import leaves
 
@@ -47,7 +50,6 @@ class ServingEngine:
                  max_seq: int = 256, device=None):
         """`device=None` means "cuda" and raises without a GPU; the
         published parameter versions must live on that device."""
-        check_supported(cfg)
         self.cfg = cfg
         self.store = store
         self.max_seq = max_seq
@@ -70,14 +72,17 @@ class ServingEngine:
         """Prefill the prompt then decode `n_steps` tokens against ONE
         pinned snapshot (a protected read-only transaction: all reads
         observe the same consistent version even while the trainer keeps
-        publishing).  batch["tokens"]: [B, S] token ids (a tensor or an
-        array), with S + n_steps <= max_seq."""
-        tokens = torch.as_tensor(batch["tokens"], device=self.device)
+        publishing).  batch["tokens"]: [B, S] token ids, with S + n_steps
+        <= max_seq; beside it the model's other inputs
+        (`mrope_positions`, `vision_embeds`, `enc_embeds`).  Every entry
+        (a tensor or an array) is moved to the engine's device."""
+        batch = {k: torch.as_tensor(x, device=self.device)
+                 for k, x in batch.items()}
+        tokens = batch["tokens"]
         S = tokens.shape[1]
         if S + n_steps > self.max_seq:
             raise ValueError(f"prompt {S} + {n_steps} steps exceeds "
                              f"max_seq {self.max_seq}")
-        batch = {**batch, "tokens": tokens}
         pin, params = self.store.pin_snapshot()
         lsn = self.store.visible_lsn()
         try:

@@ -184,6 +184,78 @@ def test_rwkv_serve_phase_on_cpu(smoke, capsys):
     assert "serve checks: (a) rwkv6-3b-smoke" in out
 
 
+def test_whisper_serve_phase_on_cpu(smoke, capsys, monkeypatch):
+    """Whisper-tiny's smoke variant (bf16, its 64-frame encoder) through
+    the serve phase at a tiny traffic (2 clips, a 4-token prompt, 6
+    decode steps): the writer under the pin, (a) against the plain path,
+    (b) against `forward` with the same frames, (d); no kernel launches
+    off the card."""
+    import numpy as np
+
+    monkeypatch.setitem(smoke.SERVE_SHAPE, "whisper-tiny", (2, 4, 6))
+    monkeypatch.setitem(smoke.SERVE_PROMPT, "whisper-tiny", (1, 2, 3, 4))
+    launches = smoke.serve_phase(torch, np, device="cpu",
+                                 arch="whisper-tiny")
+    assert launches == {"flash_attention": 0, "decode_attention": 0}
+    out = capsys.readouterr().out
+    assert "serve request 2 (whisper-tiny-smoke)" in out
+    assert "(2x4 tokens)" in out and "(2x6)" in out
+    assert "serve checks: (a) whisper-tiny-smoke" in out
+
+
+def test_qwen2_vl_serve_phase_on_cpu(smoke, capsys):
+    """Qwen2-VL-72B's smoke variant (bf16, M-RoPE sections (4, 6, 6))
+    through the serve phase: prompts that open with a vision stub of S//4
+    rows on a grid, (a), (b) against `forward` over the same positions
+    followed by the decode steps', (d); no kernel launches off the
+    card."""
+    import numpy as np
+
+    launches = smoke.serve_phase(torch, np, device="cpu",
+                                 arch="qwen2-vl-72b")
+    assert launches == {"flash_attention": 0, "decode_attention": 0}
+    out = capsys.readouterr().out
+    assert "serve request 2 (qwen2-vl-72b-smoke)" in out
+    assert "2 of 80 layers" in out
+    assert "serve checks: (a) qwen2-vl-72b-smoke" in out
+
+
+def test_serve_batch_and_launches_of_the_stub_configs(smoke):
+    """The batch a request of each stub config gets (frames as the
+    pipeline makes them, rounded to the parameter dtype; the grid
+    positions) and (c)'s launches per
+    request: Whisper 12 flash in prefill and 8 decode attention a step,
+    Qwen2-VL one of each a layer."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticPipeline
+
+    cfg = get_config("whisper-tiny")
+    assert smoke._serve_launches(cfg, "whisper-tiny", 124) == {
+        "flash_attention": (12, 0), "decode_attention": (0, 8 * 124)}
+    cut = get_config("qwen2-vl-72b").with_overrides(n_layers=32)
+    assert smoke._serve_launches(cut, "qwen2-vl-72b", 64) == {
+        "flash_attention": (32, 0), "decode_attention": (0, 32 * 64)}
+    small = cfg.with_overrides(encoder_len=10, d_model=8, n_heads=2,
+                               n_kv_heads=2, head_dim=4)
+    b = smoke.serve_batch(torch, np, small, "whisper-tiny", 3, 4, "cpu")
+    assert b["tokens"].tolist() == [list(smoke.SERVE_PROMPT[
+        "whisper-tiny"])] * 3
+    want = SyntheticPipeline(small, batch=3, seq_len=4, seed=0,
+                             device="cpu").batch_at(0)["enc_embeds"]
+    assert torch.equal(b["enc_embeds"], want.to(torch.bfloat16))
+    pos = smoke.mrope_grid(torch, 2, 20, 16, "cpu")
+    assert pos.shape == (3, 2, 20)
+    assert pos[:, 0, 5].tolist() == [0, 1, 1]            # row 1, column 1
+    assert pos[:, 1, 17].tolist() == [17, 17, 17]        # a text token
+    whole = smoke._whole(torch, {"tokens": torch.zeros((2, 20), dtype=int),
+                                 "mrope_positions": pos},
+                         torch.ones((2, 3), dtype=int), 1)
+    assert whole["tokens"].shape == (1, 23)
+    assert whole["mrope_positions"][:, 0, 20:].tolist() == [[20, 21, 22]] * 3
+
+
 def test_plain_wkv_swaps_the_layers_and_restores_them(smoke):
     from repro_torch.models import layers
 
@@ -372,6 +444,62 @@ def test_grouped_and_fold_on_cpu(smoke, monkeypatch, capsys):
     assert "sector_only_ms=0.0" in out and "fill_only_ms=0.0" in out
     assert list(times) == ["rss_delta_fold"]     # Lp 64, Dp 256
     assert times["rss_delta_fold"][:2] == (0.0, 0.0)
+
+
+K1, K2, MARK = "fold_kernel", "fill_kernel", "at::cuda::spin_kernel(long)"
+
+
+@pytest.mark.parametrize("traces, ops, lost", [
+    ([[K1, MARK]] * 3, 1, 0),
+    ([[], [], [K1, MARK], [K1, MARK], [K1, MARK]], 1, 2),
+    ([[K1, MARK], [MARK], [K1, MARK]], 1, 0),      # one event dropped
+    ([[K1, K2, MARK], [K1, MARK], [], [K1, MARK]], 2, 1),
+    ([[MARK]] * 3, 0, 0),                          # no operation: read 0
+    ([[]] * 12, None, 12),                         # the profiler lost all
+])
+def test_device_ops_retakes_traces_that_lost_the_marker(
+        smoke, monkeypatch, capsys, traces, ops, lost):
+    """`_device_ops` (profiler stubbed with the given device events a
+    trace): the marker is not counted, a trace without it is taken again
+    up to 12 in all, the most of three kept traces is returned, and none
+    kept raises."""
+    from torch.autograd import DeviceType
+
+    feed = iter(traces)
+
+    class Event:
+        def __init__(self, name):
+            self.name, self.device_type = name, DeviceType.CUDA
+
+    class Profile:
+        def __init__(self, activities):
+            self.names = next(feed)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [Event(n) for n in self.names]
+
+    class Cuda:
+        synchronize = staticmethod(lambda: None)
+        _sleep = staticmethod(lambda cycles: None)
+
+    calls = []
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(smoke.time, "sleep", lambda s: None)
+    fake = type("FakeTorch", (), {"cuda": Cuda})
+    if ops is None:
+        with pytest.raises(RuntimeError, match="no marker in 12 traces"):
+            smoke._device_ops(fake, lambda: calls.append(1))
+    else:
+        assert smoke._device_ops(fake, lambda: calls.append(1)) == ops
+    assert len(calls) == len(traces)
+    out = capsys.readouterr().out
+    assert (f"{lost} of {len(traces)} traces lost" in out) == bool(lost)
 
 
 def test_attention_bwd_phase_on_cpu(smoke, capsys, monkeypatch):

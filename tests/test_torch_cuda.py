@@ -890,6 +890,16 @@ def _attn_close(got, want, dtype):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+def _attn_close_spread(got, want, dtype):
+    """`_attn_close`, and every element within tol of the output's
+    max-abs: an output averaged over many keys (T = 1,500, unit-normal
+    q, k, v) lies well under 1, where atol = tol would be as large as a
+    value."""
+    _attn_close(got, want, dtype)
+    err = (got.float() - want.float()).abs().max()
+    assert err <= ATTN_TOL[dtype] * want.float().abs().max(), err.item()
+
+
 def _randn(dev, shape, dtype, seed):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -947,6 +957,47 @@ def test_decode_kernel_equals_plain(no_tf32, dtype, G, hd):
             _attn_close(decode_gqa(q, k, v, vl), want, dtype)
             _attn_close(DK.decode_attention(q, k.contiguous(), v.contiguous(),
                                             vl), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("S", [4, 77])
+def test_flash_cross_attention_equals_plain(no_tf32, dtype, S):
+    """Whisper's cross-attention prefill: S query rows (less than one
+    64-row tile, and one ragged tile past it) non-causal over T = 1,500
+    keys (ragged against the key tiles), H = K = 6, hd 64, in the
+    model's layout (the cross cache [B, T, K, hd] read through
+    strides)."""
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.flash_attention.ops import attention_bshd
+
+    dev, T = no_tf32, 1500
+    q = _randn(dev, (4, S, 6, 64), dtype, S)
+    k = _randn(dev, (4, T, 6, 64), dtype, S + 1)
+    v = _randn(dev, (4, T, 6, 64), dtype, S + 2)
+    got = attention_bshd(q, k, v, causal=False)
+    want = FR.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=False)
+    _attn_close_spread(got.transpose(1, 2), want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+def test_decode_over_the_cross_cache_equals_plain(no_tf32, dtype):
+    """Whisper's cross-attention decode: B 32 over the immutable cache of
+    T = valid_len = 1,500 slots (not a multiple of a block), G 1, hd 64,
+    unsplit (B 32 x K 6 = 192 blocks), and at shorter valid lengths."""
+    from repro_torch.kernels.decode_attention import kernel as DK
+    from repro_torch.kernels.decode_attention import ref as DR
+    from repro_torch.kernels.decode_attention.ops import decode_gqa
+
+    dev, T = no_tf32, 1500
+    q = _randn(dev, (32, 6, 64), dtype, 7)
+    kc = _randn(dev, (32, T, 6, 64), dtype, 8)
+    vc = _randn(dev, (32, T, 6, 64), dtype, 9)
+    k, v = kc.transpose(1, 2), vc.transpose(1, 2)
+    for vl in (T, T - 1, 1, 750):
+        _attn_close_spread(decode_gqa(q, k, v, vl),
+                           DR.decode_attention_ref(q, k, v, vl), dtype)
+        assert DK.decode_attention.last_split == 1
 
 
 def test_attention_kernels_on_large_gqa_and_sliced_heads(no_tf32):

@@ -83,11 +83,23 @@ def test_cells_and_shapes_equal_the_reference():
         {k: dataclasses.asdict(v) for k, v in JC.SHAPES.items()}
 
 
+def test_every_config_builds():
+    """Every config's tree and cache layout build (on "meta"); all but
+    the two stub-frontend configs also train."""
+    for arch in TC.list_archs():
+        for cfg in (TC.get_config(arch),
+                    TC.smoke_variant(TC.get_config(arch))):
+            TM.init_params(cfg, None, "meta")
+            TM.init_cache(cfg, 2, 16, "meta")
+            if arch not in ("whisper-tiny", "qwen2-vl-72b"):
+                TM.check_trainable(cfg)
+
+
 @pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
-def test_unported_layers_are_refused(arch):
+def test_check_trainable_refuses_the_stub_configs(arch):
     cfg = TC.smoke_variant(TC.get_config(arch))
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        TM.init_params(cfg, None, "meta")
+    with pytest.raises(NotImplementedError, match="queue 1 item 7f"):
+        TM.check_trainable(cfg)
 
 
 # -------------------------------------------------------------- param tree
