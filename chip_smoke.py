@@ -82,7 +82,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    numpy-seeded inputs at `BWD_CASES` (Qwen's train shape bf16 B = 8,
    S = T = 1,024, H = K = 16, hd = 64, causal; GQA + window 256 at H 32,
    K 8, hd 128; MQA at H 48, K 1, hd 128; ragged S = T = 1,000 in bf16
-   and f32), from the forward kernel's o and lse, against
+   and f32; Whisper-tiny's encoder, B = 32, S = T = 1,500, H = K = 6,
+   hd 64, non-causal, and its cross-attention, S = 448 over T = 1,500,
+   each a row of its own: `BWD_ROWS`), from the forward kernel's o and
+   lse, against
    `attention_bwd_ref` on the same inputs (bf16 within 3e-2 of each
    gradient's max-abs, f32 2e-5), two launches bitwise equal, timed
    beside plain, the bound and SDPA's backward on its flash route
@@ -171,16 +174,27 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    none in the others; the scans' launches by route: every prefill
    launch chunked, every decode launch a step; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
-   v1 alone; the phase's peak memory; then one more request under
+   v1 alone; the phase's peak memory; for Qwen2-VL-72B
+   (`SERVE_NOISE_FLOOR`) the bf16 model's noise floor (its plain prefill
+   against itself with every attention output, computed in f32, times
+   (1 + 1e-6 z) before its rounding), printed; then one more request under
    torch.profiler for the device's busy time, idle share, peak memory
    and time by kernel kind;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
    full width and depth, RWKV6-3B at full width and depth (32 layers,
-   d 2,560, f32 moments, batch 4: `TRAIN_BATCH`), and Jamba-1.5-Large's
+   d 2,560, f32 moments, batch 4: `TRAIN_BATCH`), Jamba-1.5-Large's
    Mamba layers (`TRAIN_CUT`: the period's first position, Mamba with a
    dense MLP, 2 layers at the published widths, bf16 moments, 8
-   microbatches), each bf16 from torch.Generator seed 0 with remat
-   "dots" as its config says.  RWKV6 and Jamba run checks (a)-(c) as
+   microbatches), Whisper-tiny whole (32 clips of 1,500 seeded frames,
+   f32 from the pipeline and rounded to bf16 by the train step, and a
+   448-token decoder window: `TRAIN_BATCH`, `TRAIN_SEQ`; 12 flash
+   forward and 12 backward launches a step: encoder, self and cross)
+   and Qwen2-VL-72B at the published widths cut to one layer
+   (`TRAIN_CUT`; 8 x 1,024 tokens in 4 microbatches, bf16 moments, the
+   pipeline's vision stub and M-RoPE positions), each bf16 from
+   torch.Generator seed 0 with remat as its config says (the request
+   served between steps carries the architecture's frontend inputs,
+   `serve_batch`).  RWKV6 and Jamba run checks (a)-(c) as
    below (check (a) at 2 layers, the plain path the plain forwards and
    the plain backwards' explicit reverse scans), and (a) also holds every
    scan backward launch of one full-depth bf16 step against the plain
@@ -202,7 +216,16 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    and idle share, peak memory, time by kind and the top kernels); (d)
    `run(6, inject_failure_at=4)` with a save every 2 steps lands on an
    uninterrupted `run(6)`'s parameters (rtol 1e-5, atol 1e-6) at 2 of
-   the 24 layers (`TRAIN_CRASH_LAYERS`), full width.
+   the 24 layers (`TRAIN_CRASH_LAYERS`), full width.  Whisper-tiny and
+   Qwen2-VL run (a) to (c) as Qwen1.5-0.5B does, with the flash
+   backward's launches at Whisper's encoder and cross shapes counted for
+   the rows of `BWD_ROWS`;
+13. launch phase: `repro_torch.launch.train` (3 steps of 4 x 64
+   tokens, a save every 2 steps under build/launch_ckpt, removed after,
+   publishing) and `repro_torch.launch.serve` (2 trainer steps, then 2
+   prompts and 8 decode steps) on Whisper-tiny at full size, each
+   `main` called in the process (`launch_phase`: output lines checked,
+   the attention kernels launched).
 
 It prints one `{"kernels": [...]}` JSON line (a row per kernel: the
 scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
@@ -211,8 +234,9 @@ each with its route's launches; the attention kernels have a row more
 for each shape of `ATTN_ROWS`, with the serve phases' launches at that
 shape), the card line, and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
-launches in the train phase's steps, the scans' backwards theirs
-(`wkv_scan bwd`, `ssm_scan bwd`).  It imports neither jax nor the JAX
+launches in the train and launch phases' steps (`flash_attention_bwd
+encoder` and `... cross` those at Whisper's two shapes), the scans'
+backwards theirs (`wkv_scan bwd`, `ssm_scan bwd`).  It imports neither jax nor the JAX
 package `repro`.  Without a card, or outside a checkout (no
 `src/repro_torch` beside it), it exits 2 and prints nothing on stdout.
 """
@@ -223,6 +247,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
@@ -318,6 +343,11 @@ SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
 # and lm_head) at the published widths: one pipeline stage of a
 # deployment over 3 cards
 SERVE_DEPTH = {"jamba-1.5-large-398b": 8, "qwen2-vl-72b": 32}
+# the architectures whose serve phase measures the bf16 model's own noise
+# floor under attention (`_attn_noise_floor`): Qwen2-VL-72B's checks read
+# 0.0218 and 0.0203 of their 3e-2 bound (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6)
+SERVE_NOISE_FLOOR = ("qwen2-vl-72b",)
 SERVE_EXPERT_CARDS = {"jamba-1.5-large-398b": 2}
 SERVE_SMOKE = False
 # the plain path's keys a chunk: its f32 scores are [B, S, H, PLAIN_CHUNK]
@@ -340,20 +370,32 @@ SERVE_PROMPT = {"whisper-tiny": (50258, 50259, 50359, 50363)}
 # train phase, once per architecture: bf16, TRAIN_B x TRAIN_S tokens a
 # step, TRAIN_STEPS steps published while a request of TRAIN_SERVE
 # (batch, prompt, decode steps) is served between steps
-TRAIN_ARCH = ("qwen1.5-0.5b", "rwkv6-3b", "jamba-1.5-large-398b")
+TRAIN_ARCH = ("qwen1.5-0.5b", "rwkv6-3b", "jamba-1.5-large-398b",
+              "whisper-tiny", "qwen2-vl-72b")
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 1024, 8
 TRAIN_SERVE = (1, 64, 8)
 # RWKV6-3B at batch 8: parameters, AdamW's f32 moments, the pinned v1
 # and the gradients take ~50 GB before activations, and remat "dots"
 # keeps ~1.4 GB of f32 product outputs a layer at batch 8 (45 GB over
 # 32 layers): the card forces a cut of the batch to 4 (widths and depth
-# as published)
-TRAIN_BATCH = {"rwkv6-3b": 4}
+# as published).  Whisper-tiny trains on 32 clips of 30 s (1,500 frames
+# each) with a 448-token decoder window, its published text context
+# (arXiv:2212.04356): TRAIN_S's 1,024 tokens are longer than the model's
+# context
+TRAIN_BATCH = {"rwkv6-3b": 4, "whisper-tiny": 32}
+TRAIN_SEQ = {"whisper-tiny": 448}
 # Jamba-1.5-Large cannot train a period on one card (one MoE layer is
 # 9.7 B parameters, ~78 GB at 8 bytes a parameter): its cut is the
 # period's first position alone (Mamba with a dense MLP, as positions 0
-# and 2 are), this many layers deep, at the published widths
-TRAIN_CUT = {"jamba-1.5-large-398b": 2}
+# and 2 are), this many layers deep, at the published widths.
+# Qwen2-VL-72B at the published widths: the embedding and lm_head are
+# 2.49 B parameters, a layer 0.878 B; at the ~21 bytes a parameter
+# Jamba's cut peaked at (65.27 GB over 3.122 B parameters on an NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md §5: bf16 weights, moments and
+# gradient sums, f32 gradients, the pinned v1 and the update's new
+# version) one layer is ~70 GB, two ~89 GB: one layer, 4 microbatches of
+# 2 x 1,024 (the config's)
+TRAIN_CUT = {"jamba-1.5-large-398b": 2, "qwen2-vl-72b": 1}
 # check (a)'s depth where it is not the whole model: 2 layers at full
 # width (the plain backwards' explicit reverse scans at full length)
 TRAIN_CHECK_LAYERS = {"rwkv6-3b": 2}
@@ -367,6 +409,15 @@ TRAIN_CHECK_B = 2
 TRAIN_CRASH_LAYERS = 2
 TRAIN_CKPT = ROOT / "build" / "train_ckpt"
 TRAIN_SMOKE = False
+# launch phase: the two launchers' command lines, run once each in this
+# process at full size on Whisper-tiny (its train steps run the flash
+# backward non-causal and at S != T, its serving the cross cache), the
+# train launcher's checkpoints under LAUNCH_CKPT (removed after)
+LAUNCH_CKPT = ROOT / "build" / "launch_ckpt"
+LAUNCH_TRAIN = ["--arch", "whisper-tiny", "--steps", "3", "--batch", "4",
+                "--seq", "64", "--ckpt-dir", str(LAUNCH_CKPT),
+                "--ckpt-every", "2", "--publish"]
+LAUNCH_SERVE = ["--arch", "whisper-tiny", "--train-steps", "2"]
 
 
 def card_line() -> str:
@@ -1131,11 +1182,11 @@ def record_scan_shapes(K_mod):
 
 @contextlib.contextmanager
 def record_attention_shapes():
-    """Count the launches of the two attention kernels by shape:
-    ("flash_attention", S, T, causal) and ("decode_attention", T) (the
-    cache's slots).  Wraps the names the attention ops call; a call counts
-    only where its kernel launched (not for CPU tensors).  Yields the
-    Counter."""
+    """Count the launches of the attention kernels by shape:
+    ("flash_attention", S, T, causal), ("flash_attention_bwd", S, T,
+    causal) and ("decode_attention", T) (the cache's slots).  Wraps the
+    names the attention ops call; a call counts only where its kernel
+    launched (not for CPU tensors).  Yields the Counter."""
     from collections import Counter
 
     from repro_torch.kernels.decode_attention import ops as DO
@@ -1143,6 +1194,7 @@ def record_attention_shapes():
 
     shapes = Counter()
     flash, decode = FO.flash_attention, DO.decode_attention
+    flash_bwd = FO.flash_attention_bwd
 
     def flash_call(q, k, v, *, causal=True, window=0, return_lse=False):
         n = flash.launches
@@ -1153,6 +1205,14 @@ def record_attention_shapes():
                     bool(causal))] += flash.launches - n
         return out
 
+    def bwd_call(q, k, v, o, lse, do, *, causal=True, window=0):
+        n = flash_bwd.launches
+        out = flash_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        if flash_bwd.launches > n:
+            shapes[("flash_attention_bwd", q.shape[2], k.shape[2],
+                    bool(causal))] += flash_bwd.launches - n
+        return out
+
     def decode_call(q, k, v, valid_len):
         n = decode.launches
         out = decode(q, k, v, valid_len)
@@ -1161,10 +1221,12 @@ def record_attention_shapes():
         return out
 
     FO.flash_attention, DO.decode_attention = flash_call, decode_call
+    FO.flash_attention_bwd = bwd_call
     try:
         yield shapes
     finally:
         FO.flash_attention, DO.decode_attention = flash, decode
+        FO.flash_attention_bwd = flash_bwd
 
 
 def driver_phase(torch, K_mod, rounds: int,
@@ -1619,13 +1681,28 @@ def attention_kernel_phase(torch, np, flush) -> dict:
 
 # flash backward phase: (label, dtype, B, S, T, H, K, hd, causal, window,
 # timed): Qwen1.5-0.5B's train shape, GQA + window, MQA (granite-34b's
-# 48 heads on one KV head), ragged S = T = 1,000 in bf16 and f32
+# 48 heads on one KV head), ragged S = T = 1,000 in bf16 and f32, and
+# Whisper-tiny's train shapes: its encoder (32 clips of 1,500 frames,
+# non-causal: 23 full 64-key tiles and a ragged one of 28) and its
+# cross-attention (448 decoder queries over the 1,500 frames: dQ, dK and
+# dV all ragged against their 64-row tiles)
 BWD_CASES = [
     ("train", "bfloat16", 8, 1024, 1024, 16, 16, 64, True, 0, True),
     ("gqa+window", "bfloat16", 2, 2048, 2048, 32, 8, 128, True, 256, True),
     ("mqa", "bfloat16", 2, 1024, 1024, 48, 1, 128, True, 0, True),
     ("ragged", "bfloat16", 2, 1000, 1000, 16, 16, 64, True, 0, False),
-    ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False)]
+    ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False),
+    ("whisper encoder", "bfloat16", 32, 1500, 1500, 6, 6, 64, False, 0,
+     True),
+    ("whisper cross", "bfloat16", 32, 448, 1500, 6, 6, 64, False, 0, True)]
+# backward shapes with a row of their own in the JSON line: label -> (row
+# name, the key of `record_attention_shapes` whose launches the train
+# phases make at that shape)
+BWD_ROWS = {
+    "whisper encoder": ("flash_attention_bwd encoder",
+                        ("flash_attention_bwd", 1500, 1500, False)),
+    "whisper cross": ("flash_attention_bwd cross",
+                      ("flash_attention_bwd", 448, 1500, False))}
 
 
 def _sdpa_bwd(torch, q, k, v, do, causal: bool, window: int):
@@ -1657,7 +1734,9 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
     bitwise equal, and the timed shapes timed beside the plain version,
     the bound (10·pairs·hd·B·H operations against the bytes of q, k, v,
     o, dO, dq, dk, dv) and SDPA's backward on its flash route.  Returns
-    {"max_abs_err", "times" (the train shape's)}.  Off the card the
+    {"flash_attention_bwd": {"max_abs_err" (over every case), "times"
+    (the train shape's)}} and, for each shape of BWD_ROWS, its row name
+    with that case's {"max_abs_err", "times"}.  Off the card the
     wrapper is the plain version and nothing is timed."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -1668,6 +1747,7 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
     rng = np.random.default_rng(21)
     tol = {"bfloat16": 3e-2, "float32": 2e-5}
     res = {"max_abs_err": 0.0}
+    out = {"flash_attention_bwd": res}
     for (label, dt, B, S, T, H, K, hd, causal, window, timed) in BWD_CASES:
         def arr(*shape):
             x = rng.standard_normal(shape, dtype=np.float32)
@@ -1686,7 +1766,7 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"flash_attention_bwd {label} {dt}: two "
                                  "launches differ")
-        ratios = []
+        ratios, case_err = [], 0.0
         for name, a, b in zip("qkv", got, plain()):
             a, b = a.float(), b.float()
             err = (a - b).abs().max().item()
@@ -1696,12 +1776,15 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
                     f"flash_attention_bwd {label} {dt} d{name}: kernel != "
                     f"plain (max |d| {err:.4g}, max-abs {scale:.4g})")
             res["max_abs_err"] = max(res["max_abs_err"], err)
+            case_err = max(case_err, err)
             ratios.append(f"d{name} {err / scale:.3g}")
         shape = (f"{dt} B={B} S={S} T={T} H={H} K={K} hd={hd} causal={causal}"
                  f" window={window} route={FK.flash_attention_bwd.last_route}")
         print(f"kernel flash_attention_bwd {label} {shape}: within "
               f"{tol[dt]} of plain (max |d| / max-abs {', '.join(ratios)}), "
               "two launches bitwise equal", flush=True)
+        if label in BWD_ROWS:
+            out[BWD_ROWS[label][0]] = {"max_abs_err": case_err}
         if timed and on_card:
             ms = time_ms(torch, fn, flush)
             plain_ms = time_ms(torch, plain, flush, reps=5)
@@ -1718,8 +1801,11 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
                   f"{flops / 1e9:.2f} GFLOP)", flush=True)
             if label == "train":
                 res["times"] = (ms, plain_ms, bound_ms, library_ms, by)
+            if label in BWD_ROWS:
+                out[BWD_ROWS[label][0]]["times"] = (ms, plain_ms, bound_ms,
+                                                    library_ms, by)
         del q, k, v, o, lse, do, got, again
-    return res
+    return out
 
 
 # -------------------------------------------------------------- WKV kernel
@@ -2572,6 +2658,44 @@ def _ssm_checks(torch, cfg, params, batch, toks, S: int, N: int,
             f"plain {block:.3g} (<= 1e-3)")
 
 
+def _attn_noise_floor(torch, cfg, params, batch, S: int) -> str:
+    """The bf16 model's own noise floor, measured as `_ssm_checks` and
+    `_wkv_checks` measure it: the plain prefill against itself with every
+    attention output times (1 + 1e-6 z), z standard normal from a
+    seeded generator.  Both prefills compute each attention output in
+    f32 (the plain version on the inputs widened; exact) and round it to
+    the model's dtype, so the perturbation moves the output only where
+    it turns a rounding: the floor is what f32-level differences of the
+    kernel's output do to the logits.  Returns the report."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=batch["tokens"].device)
+    g.manual_seed(5)
+
+    def widened(scale):
+        def attn(q, k, v, *, causal, window):
+            o = layers.flash_attention_chunked(
+                q.float(), k.float(), v.float(), causal=causal,
+                window=window, chunk=PLAIN_CHUNK)
+            if scale:
+                o = o * (1 + scale * torch.randn(o.shape, generator=g,
+                                                 device=o.device))
+            return o.to(q.dtype)
+        return attn
+
+    saved = layers.attention_bshd
+    try:
+        layers.attention_bshd = widened(0.0)
+        plain = _teacher_forced(cfg, params, batch, None, S, 0)[0]
+        layers.attention_bshd = widened(1e-6)
+        perturbed = _teacher_forced(cfg, params, batch, None, S, 0)[0]
+    finally:
+        layers.attention_bshd = saved
+    floor = _logits_close(torch, "noise floor", perturbed, plain, None)
+    return (f"bf16 noise floor (plain prefill vs itself with its attention "
+            f"output x (1 + 1e-6 z), each in f32 and rounded) {floor:.3g}")
+
+
 def _mamba_block_f32(torch, cfg, params, prompts, toks) -> float:
     """One full-width Mamba block in f32 (norm1 and the mixer of period 0,
     position 0, weights widened): prefill on the prompts' embeddings and
@@ -2874,6 +2998,8 @@ def serve_phase(torch, np, device: str = "cuda",
     if "ssm_scan" in wrappers:
         extra += "; " + _ssm_checks(torch, cfg, v1, batch, tok1, S, N,
                                     routing1)
+    if arch in SERVE_NOISE_FLOOR and not long:
+        extra += "; " + _attn_noise_floor(torch, cfg, v1, batch, S)
     if moe:
         n_dec = B * (S + N) * cfg.top_k * _n_layers(cfg, mlp="moe")
         extra += (f"; MoE routing replayed: of {n_dec} routing decisions "
@@ -3116,7 +3242,7 @@ def train_config(arch: str):
     return cfg
 
 
-def _train_check_a(torch, cfg, device) -> str:
+def _train_check_a(torch, cfg, device, S: int) -> str:
     """Check (a): one step's loss and gradients on the kernels against
     the plain path (`plain_attention`, `plain_train_scans`: the plain
     forwards and the plain backwards) on the card, at TRAIN_CHECK_B x
@@ -3124,10 +3250,12 @@ def _train_check_a(torch, cfg, device) -> str:
     1e-3 of its max-abs), and in bf16 on the same weights rounded to the
     bf16 model's dtypes (loss
     3e-2 relative; each leaf's ratio printed beside the bf16 model's own
-    distance from the f32 one, the noise floor)."""
+    distance from the f32 one, the noise floor).  An encoder-decoder's
+    frames go in as the train step hands them: in each model's parameter
+    dtype."""
     from repro_torch.data import SyntheticPipeline
     from repro_torch.models import init_params
-    from repro_torch.train.step import _value_and_grad
+    from repro_torch.train.step import _value_and_grad, frames_in_param_dtype
     from repro_torch.tree import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3140,13 +3268,14 @@ def _train_check_a(torch, cfg, device) -> str:
     # Mamba's A_log, D and dt_bias among them, stay f32)
     p16 = tree_map(lambda x, like: x.to(like.dtype), p32,
                    init_params(cfg, None, "meta"))
-    batch = SyntheticPipeline(cfg, batch=TRAIN_CHECK_B, seq_len=TRAIN_S,
+    batch = SyntheticPipeline(cfg, batch=TRAIN_CHECK_B, seq_len=S,
                               device=device).batch_at(0)
 
     def run(c, p, plain):
         with plain_attention() if plain else contextlib.nullcontext(), \
                 plain_train_scans() if plain else contextlib.nullcontext():
-            loss, grads = _value_and_grad(p, c, batch)
+            loss, grads = _value_and_grad(p, c,
+                                          frames_in_param_dtype(c, batch))
         return loss.item(), grads
 
     out = []
@@ -3181,7 +3310,7 @@ def _train_check_a(torch, cfg, device) -> str:
     return "; ".join(out)
 
 
-def _train_profile(torch, tr, B: int, at: int) -> None:
+def _train_profile(torch, tr, B: int, S: int, at: int) -> None:
     """One more step (of the trainer's state, on batch `at`) timed on the
     host clock, then again under torch.profiler: step ms, tokens/s,
     device busy time and idle share (against the unprofiled step), peak
@@ -3221,7 +3350,6 @@ def _train_profile(torch, tr, B: int, at: int) -> None:
                 else "other")
         kinds[kind] = kinds.get(kind, 0.0) + us
     busy = sum(kinds.values()) / 1e6
-    S = TRAIN_S
     print(f"train profile {tr.cfg.name}: step {step_s * 1e3:.1f} ms, "
           f"{B * S / step_s:.1f} tokens/s ({B}x{S}); device busy "
           f"{busy * 1e3:.1f} ms, idle share {1 - busy / step_s:.4f}; peak "
@@ -3253,22 +3381,26 @@ def _train_wrappers(cfg):
     if "mamba" in mixers:
         return (SK.ssm_scan, SK.ssm_scan_bwd, "ssm_scan chunked",
                 "ssm_scan bwd", _n_layers(cfg, mixer="mamba"))
+    # an encoder-decoder adds its cross-attention and encoder layers
     return (FK.flash_attention, FK.flash_attention_bwd, "flash_attention",
-            "flash_attention_bwd", _n_layers(cfg, mixer="attn"))
+            "flash_attention_bwd", _n_layers(cfg, mixer="attn")
+            + _n_layers(cfg, cross_attn=True) + cfg.n_encoder_layers)
 
 
 def train_phase(torch, np, device: str = "cuda",
                 arch: str = "qwen1.5-0.5b") -> dict:
     """`arch` trained at full width (`train_config`: Jamba cut to its
-    Mamba layers; bf16, random weights from torch.Generator seed 0,
-    TRAIN_B (or TRAIN_BATCH) x TRAIN_S tokens a step; remat and
-    microbatches as its config says), with checks (a)-(c), (d) for
-    TRAIN_CRASH_ARCH, and a profiled step (see the module docstring).
-    Returns the launches of its kernel's forward and backward over the
-    TRAIN_STEPS steps of (b), counted from 0 before each step and read
-    after it, under the kernels line's keys.  (`device="cpu"` is a
-    rehearsal: the plain versions run, nothing launches, nothing is
-    profiled.)"""
+    Mamba layers, Qwen2-VL to one layer; bf16, random weights from
+    torch.Generator seed 0, TRAIN_B (or TRAIN_BATCH) x TRAIN_S (or
+    TRAIN_SEQ) tokens a step; remat and microbatches as its config
+    says), with checks (a)-(c), (d) for TRAIN_CRASH_ARCH, and a profiled
+    step (see the module docstring).  Returns the launches of its
+    kernel's forward and backward over the TRAIN_STEPS steps of (b),
+    counted from 0 before each step and read after it, under the kernels
+    line's keys, and under a row name of ATTN_ROWS or BWD_ROWS those at
+    its shape over (b) (the requests served between steps included),
+    where any.  (`device="cpu"` is a rehearsal: the plain versions run,
+    nothing launches, nothing is profiled.)"""
     from repro_torch.kernels.cuda_build import launch_count, reset_counts
     from repro_torch.serve import ServingEngine
     from repro_torch.tensorstore import VersionedParamStore
@@ -3277,11 +3409,11 @@ def train_phase(torch, np, device: str = "cuda",
 
     on_card = device == "cuda"
     cfg = train_config(arch)
-    B = TRAIN_BATCH.get(arch, TRAIN_B)
+    B, S = TRAIN_BATCH.get(arch, TRAIN_B), TRAIN_SEQ.get(arch, TRAIN_S)
     t0 = time.perf_counter()
     cfg_a = cfg.with_overrides(n_layers=TRAIN_CHECK_LAYERS[arch]) \
         if arch in TRAIN_CHECK_LAYERS else cfg
-    print(f"train (a) {arch}: {_train_check_a(torch, cfg_a, device)}; "
+    print(f"train (a) {arch}: {_train_check_a(torch, cfg_a, device, S)}; "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     if on_card:
         torch.cuda.empty_cache()
@@ -3293,7 +3425,7 @@ def train_phase(torch, np, device: str = "cuda",
     want = {fwd_key: n * A * (2 if cfg.remat == "full" else 1),
             bwd_key: n * A}
     store = VersionedParamStore(slots=2)
-    tr = Trainer(cfg, batch=B, seq_len=TRAIN_S, seed=0, store=store,
+    tr = Trainer(cfg, batch=B, seq_len=S, seed=0, store=store,
                  publish_every=1, device=device)
     pin_us, pin_fn = [], store.pin_snapshot
 
@@ -3310,20 +3442,21 @@ def train_phase(torch, np, device: str = "cuda",
     v1_copy = [x.to("cpu", copy=True) for x in leaves(v1)]
     Bq, Sq, Nq = TRAIN_SERVE
     eng = ServingEngine(cfg, store, max_seq=Sq + Nq, device=device)
-    prompts = torch.from_numpy(np.random.default_rng(5).integers(
-        0, cfg.vocab_size, (Bq, Sq))).to(device)
+    # the request's prompts and any frontend inputs (Whisper's frames,
+    # Qwen2-VL's vision stub on its M-RoPE grid)
+    request = serve_batch(torch, np, cfg, arch, Bq, Sq, device)
     per_step, lsns = [], []
 
     def after_step(i, metrics):
         per_step.append({fwd_key: launch_count(fwd),
                          bwd_key: launch_count(bwd)})
         eng.refresh()
-        lsns.append(eng.generate({"tokens": prompts}, Nq).snapshot_lsn)
+        lsns.append(eng.generate(request, Nq).snapshot_lsn)
         reset_counts(wrappers)                     # serving is not the step
 
     reset_counts(wrappers)
     t0 = time.perf_counter()
-    with count_plain() as plain:
+    with count_plain() as plain, record_attention_shapes() as shapes:
         log = tr.run(TRAIN_STEPS, after_step=after_step)
     wall = time.perf_counter() - t0
     losses = [m["loss"] for m in log]
@@ -3345,7 +3478,8 @@ def train_phase(torch, np, device: str = "cuda",
     n_params = sum(x.numel() for x in leaves(tr.state["params"]))
     print(f"train (b) {arch}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B "
           f"parameters, {A} microbatch(es); {TRAIN_STEPS} steps of "
-          f"{B}x{TRAIN_S} in {wall:.1f} s with a {Bq}x{Sq} + {Nq}-step "
+          f"{B}x{S} in {wall:.1f} s with a {Bq}x"
+          f"{request['tokens'].shape[1]} + {Nq}-step "
           f"request served between steps; losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}; reader "
           f"pinned at v1 reads v1 bitwise after step {TRAIN_STEPS}; snapshot "
@@ -3354,11 +3488,17 @@ def train_phase(torch, np, device: str = "cuda",
           f"waiting; {len(pin_us)} reader pins, the longest "
           f"{max(pin_us):.1f} us (a pin selects a slot: no wait path); "
           f"{aborts} aborts in the WAL", flush=True)
+    by_shape = ", ".join(f"{k[0]} {k[1:]} {n}"
+                         for k, n in sorted(shapes.items()))
     print(f"train (c) {arch}: launches per step {per_step[0]} (remat "
           f"{cfg.remat!r}, {A} microbatch(es): {want}), plain calls "
-          f"{plain['calls']}", flush=True)
+          f"{plain['calls']}; by shape over the steps and requests: "
+          f"{by_shape or 'none'}", flush=True)
     del store.pin_snapshot         # the timed pin holds the store: a cycle
     launches = {k: sum(c[k] for c in per_step) for k in want}
+    launches.update({row: shapes[key] for row, key in
+                     (*ATTN_ROWS.values(), *BWD_ROWS.values())
+                     if shapes[key]})
     del eng, v1, v1_copy
     if on_card:
         torch.cuda.empty_cache()
@@ -3377,7 +3517,7 @@ def train_phase(torch, np, device: str = "cuda",
               f"1e-4 of its max-abs of the plain backward (bf16 du: + "
               f"2^-7), worst {seen['worst']:.3g}", flush=True)
     if on_card:
-        _train_profile(torch, tr, B, TRAIN_STEPS)
+        _train_profile(torch, tr, B, S, TRAIN_STEPS)
     del tr, store
     gc.collect()                   # the trainer's closures hold cycles
     if on_card:
@@ -3411,6 +3551,63 @@ def train_phase(torch, np, device: str = "cuda",
           f"inject_failure_at=4) with a save every 2 steps ({len(saves)} "
           f"saves, {', '.join(f'{s:.1f}' for s in saves)} s) == run(6) "
           f"(rtol 1e-5, atol 1e-6); {wall:.1f} s", flush=True)
+    return launches
+
+
+def launch_phase(torch, device: str = "cuda") -> dict:
+    """`python -m repro_torch.launch.train` and `... .serve` with
+    LAUNCH_TRAIN / LAUNCH_SERVE (plus `--device`), each `main` called
+    in this process with its output
+    captured: train's metrics lines finite, its last step 2, 4
+    published versions and a checkpoint at step 2 under LAUNCH_CKPT
+    (removed after); serve's line with (2, 8) tokens at lag 0.  Returns
+    the attention kernels' launches over both, counted from 0 before and
+    read after, and under a row name of ATTN_ROWS or BWD_ROWS those at
+    its shape, where any."""
+    from repro_torch.checkpoint import manager
+    from repro_torch.kernels.cuda_build import launch_count, reset_counts
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch import serve, train
+
+    wrappers = {name: _kernel_wrappers()[name] for name in
+                ("flash_attention", "decode_attention")}
+    wrappers["flash_attention_bwd"] = FK.flash_attention_bwd
+    extra = ["--device", device]
+    shutil.rmtree(LAUNCH_CKPT, ignore_errors=True)
+    reset_counts(wrappers.values())
+    out = {}
+    t0 = time.perf_counter()
+    with record_attention_shapes() as shapes:
+        for name, mod, argv in (("train", train, LAUNCH_TRAIN),
+                                ("serve", serve, LAUNCH_SERVE)):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rc = mod.main(argv + extra)
+            out[name] = buf.getvalue().splitlines()
+            if rc != 0:
+                raise AssertionError(f"launch {name}: exit {rc}")
+            for line in out[name]:
+                print(f"launch {name}: {line}", flush=True)
+    saved = manager.latest_step(str(LAUNCH_CKPT))
+    shutil.rmtree(LAUNCH_CKPT, ignore_errors=True)
+    steps = [json.loads(x) for x in out["train"] if x.startswith("{")]
+    if not (steps and all(math.isfinite(m["loss"]) for m in steps)
+            and steps[-1]["step"] == 2 and saved == 2
+            and "published versions: 4" in out["train"]):
+        raise AssertionError(f"launch train: {out['train']}, checkpoint "
+                             f"at step {saved}")
+    if not re.fullmatch(r"arch=\S+ generated \(2, 8\) tokens @snapshot "
+                        r"lsn \d+ \(lag 0\)", out["serve"][-1]):
+        raise AssertionError(f"launch serve: {out['serve']}")
+    launches = {name: launch_count(fn) for name, fn in wrappers.items()}
+    if device == "cuda" and not all(launches.values()):
+        raise AssertionError(f"launch: a kernel never launched {launches}")
+    launches.update({row: shapes[key] for row, key in
+                     (*ATTN_ROWS.values(), *BWD_ROWS.values())
+                     if shapes[key]})
+    print(f"launch phase: train and serve launchers on {device}, checkpoint "
+          f"at step {saved}, launches {launches}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -3486,7 +3683,7 @@ def main() -> int:
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
     results = kernel_phase(torch, np, K_mod, flush)
     results.update(attention_kernel_phase(torch, np, flush))
-    results["flash_attention_bwd"] = attention_bwd_phase(torch, np, flush)
+    results.update(attention_bwd_phase(torch, np, flush))
     results["wkv_scan"] = wkv_kernel_phase(torch, np, flush)
     results["ssm_scan"] = ssm_kernel_phase(torch, np, flush)
     results.update(scan_bwd_phase(torch, np, flush))
@@ -3538,6 +3735,10 @@ def main() -> int:
         print(f"train phase {arch}: {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
+    # the launchers, as a user starts them
+    for name, n in launch_phase(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    torch.cuda.empty_cache()
     scan_rows = [(f"{name}{suffix}", name, key, launches[f"{name} {route}"])
                  for name in (*WKV_TPU, *SSM_TPU)
                  for suffix, key, route in (("", "times", "chunked"),
@@ -3550,7 +3751,7 @@ def main() -> int:
     # the attention kernels' rows at single shapes, launched at them in
     # the serve phases
     shape_rows = [(row, row, "times", launches.get(row, 0))
-                  for row, _ in ATTN_ROWS.values()]
+                  for row, _ in (*ATTN_ROWS.values(), *BWD_ROWS.values())]
     for row, _, _, n in scan_rows + bwd_rows + shape_rows:
         if n == 0:
             raise AssertionError(f"{row} never launched")
@@ -3569,11 +3770,13 @@ def main() -> int:
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": "bytes", "library_ms": None})
     sources = {**{n: ATTN_SRC for n in (*ATTN_TPU, *ATTN_BWD_TPU)},
-               **{row: ATTN_SRC for row, _ in ATTN_ROWS.values()},
+               **{row: ATTN_SRC for row, _ in (*ATTN_ROWS.values(),
+                                                *BWD_ROWS.values())},
                **{n: WKV_SRC for n in (*WKV_TPU, "wkv_scan bwd")},
                **{n: SSM_SRC for n in (*SSM_TPU, "ssm_scan bwd")}}
     tpu = {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU, **SSM_TPU,
            **{row: ATTN_TPU[shape[0]] for row, shape in ATTN_ROWS.values()},
+           **{row: ATTN_BWD_TPU[shape[0]] for row, shape in BWD_ROWS.values()},
            "wkv_scan bwd": WKV_TPU["wkv_scan"],
            "ssm_scan bwd": SSM_TPU["ssm_scan"]}
     # the scans have two kernels each: a row per kernel, with the

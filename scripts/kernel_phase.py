@@ -198,8 +198,12 @@ def backwards_phase(torch, np, tree: Path) -> None:
             print(f"ptxas {name}: {line}", flush=True)
     sass_mix(cuda_build.library_path("ssm"), "ssm_bwd_kernel")
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    res = chip_smoke.attention_bwd_phase(torch, np, flush)
-    print(f"result flash_attention_bwd: {res}", flush=True)
+    rows = chip_smoke.attention_bwd_phase(torch, np, flush)
+    # an older tree returns the one row's result, a newer one its rows
+    rows = rows if "flash_attention_bwd" in rows else {
+        "flash_attention_bwd": rows}
+    for name, res in rows.items():
+        print(f"result {name}: {res}", flush=True)
     for name, res in _here().scan_bwd_phase(torch, np, flush).items():
         print(f"result {name}: {res}", flush=True)
 

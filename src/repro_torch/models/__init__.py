@@ -5,13 +5,11 @@ cross-attention)."""
 
 from .config import LayerSpec, ModelConfig, SHAPES, ShapeConfig
 from .convert import params_from_numpy
-from .transformer import (cache_spec, check_trainable, decode_step,
-                          embed_inputs, forward, init_cache, init_params,
-                          loss_fn, prefill)
+from .transformer import (cache_spec, decode_step, embed_inputs, forward,
+                          init_cache, init_params, loss_fn, prefill)
 
 __all__ = [
     "LayerSpec", "ModelConfig", "ShapeConfig", "SHAPES",
     "init_params", "forward", "prefill", "decode_step", "init_cache",
     "cache_spec", "embed_inputs", "params_from_numpy", "loss_fn",
-    "check_trainable",
 ]

@@ -13,8 +13,9 @@ its cross-attention blocks `norm_x` and `cross`.  A MoE layer may hold
 a share of the experts (`init_params(..., experts=)`): its expert leaves
 hold those experts only, and its int32 leaf `expert_ids` names them
 (the one leaf the reference's tree lacks).  The reference applies the
-stack with `lax.scan`; here a Python loop runs over periods.  The sharding `hint`
-is not ported: it is the identity on one device.
+stack with `lax.scan`; here a Python loop runs over periods.  The
+sharding `hint` (`models.sharding`) is the identity on one card, so the
+stack does not call it.
 
 Training: `loss_fn` is the reference's causal-LM cross entropy (f32
 logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period as
@@ -49,9 +50,10 @@ and added to the token embeddings (the VLM merge stub); `embeds` [B,S,D]
 in place of `tokens`; `enc_embeds` [B,encoder_len,D], the encoder's
 input (the stubbed audio frontend's frames).
 
-Every config runs; `check_trainable` refuses training the encoder-decoder
-and the M-RoPE config (ROADMAP queue 1 item 7f): their backward runs the
-flash backward at non-causal S != T, which is not yet held on the card.
+Every config runs and trains: an encoder-decoder's gradient runs the
+flash backward non-causal over the encoder's frames and at S != T over
+the cross-attention's keys, an M-RoPE config's rotates through
+`layers.apply_mrope` under autograd.
 """
 
 from __future__ import annotations
@@ -73,24 +75,11 @@ from .config import LayerSpec, ModelConfig
 Params = dict
 # the encoder's blocks: bidirectional attention and a dense MLP
 ENC_SPEC = LayerSpec(mixer="attn", mlp="dense", causal=False)
-ROADMAP_ITEM = "ROADMAP queue 1 item 7f"
 
 
 def torch_dtype(name: str) -> torch.dtype:
     """The torch dtype of a config dtype name ('bfloat16', 'float32')."""
     return getattr(torch, name)
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a config the port cannot train yet:
-    an encoder-decoder or M-RoPE config, whose gradient would run the
-    flash backward at non-causal S != T, not yet held on the card."""
-    why = (["encoder, cross-attention"] if cfg.is_encoder_decoder else []) \
-        + (["M-RoPE"] if cfg.mrope_sections else [])
-    if why:
-        raise NotImplementedError(
-            f"{cfg.name}: training with {', '.join(why)} not ported yet "
-            f"({ROADMAP_ITEM})")
 
 
 def _device(device) -> torch.device:
@@ -268,14 +257,19 @@ def embed_inputs(params: Params, cfg: ModelConfig, batch: dict) \
         -> torch.Tensor:
     """Token / stub-frontend embedding: the embedding of batch["tokens"]
     [B, S], plus batch["vision_embeds"] [B, S_v, D] (cast to its dtype,
-    zero-padded to S: the VLM merge stub) where given; without tokens,
-    batch["embeds"] [B, S, D] cast to the parameter dtype."""
+    zero-padded to S: the VLM merge stub) where given, S_v > S refused
+    with a ValueError; without tokens, batch["embeds"] [B, S, D] cast to
+    the parameter dtype."""
     if "tokens" not in batch:
         return batch["embeds"].to(torch_dtype(cfg.param_dtype))
     x = params["embed"][batch["tokens"]]
     ve = batch.get("vision_embeds")
     if ve is not None:
-        x = x + F.pad(ve.to(x.dtype), (0, 0, 0, x.shape[1] - ve.shape[1]))
+        pad = x.shape[1] - ve.shape[1]
+        if pad < 0:          # the reference's add fails to broadcast there
+            raise ValueError(f"vision_embeds {tuple(ve.shape)} are longer "
+                             f"than the token embeddings {tuple(x.shape)}")
+        x = x + F.pad(ve.to(x.dtype), (0, 0, 0, pad))
     return x
 
 

@@ -21,7 +21,6 @@ from ..checkpoint import manager as ckpt
 from ..data.pipeline import SyntheticPipeline
 from ..kernels.config import resolve_device
 from ..models.config import ModelConfig
-from ..models.transformer import check_trainable
 from ..optim.adamw import AdamWConfig
 from ..tensorstore.versioned import VersionedParamStore
 from .step import init_state, make_train_step
@@ -56,7 +55,6 @@ class Trainer:
         """`device=None` means "cuda" and raises without a GPU.  The
         parameters are drawn from a `torch.Generator` on the device seeded
         with `seed`; with a `store`, they are published as version 1."""
-        check_trainable(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.opt_cfg = opt or AdamWConfig(moment_dtype=cfg.moment_dtype)

@@ -10,6 +10,12 @@ split along its batch dim and the A gradients are summed in
 `opt_cfg.moment_dtype`, then divided by A, as the reference's `lax.scan`
 does; the loss is the mean of the A losses.  The step returns new
 tensors and leaves `state` as it was (see `optim.adamw`).
+
+An encoder-decoder's frames (`enc_embeds`) are rounded to the parameter
+dtype at the step's entry (`frames_in_param_dtype`), before the
+microbatch split: the encoder takes them in that dtype, as the
+reference's serve launcher hands them (its trainer would promote the
+pipeline's f32 frames against bf16 weights to an f32 encoder).
 """
 
 from __future__ import annotations
@@ -48,6 +54,16 @@ def _split_microbatches(batch: dict, A: int) -> dict:
     return out
 
 
+def frames_in_param_dtype(cfg: ModelConfig, batch: dict) -> dict:
+    """`batch` with its `enc_embeds` (an encoder-decoder's frames) in the
+    parameter dtype; as it is otherwise."""
+    x = batch.get("enc_embeds")
+    dtype = torch_dtype(cfg.param_dtype)
+    if x is None or x.dtype == dtype:
+        return batch
+    return dict(batch, enc_embeds=x.to(dtype))
+
+
 def _value_and_grad(params, cfg: ModelConfig, batch: dict):
     """(loss, grads): grads in each leaf's dtype, f32 zeros for a leaf
     that is not floating point (a MoE layer's `expert_ids`)."""
@@ -66,6 +82,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
+        batch = frames_in_param_dtype(cfg, batch)
         if A == 1:
             loss, grads = _value_and_grad(params, cfg, batch)
         else:

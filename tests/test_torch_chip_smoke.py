@@ -143,6 +143,53 @@ def test_kernel_phase_script_refuses_without_cuda():
     assert out.returncode == 2 and out.stdout == ""
 
 
+def _run_witness(argv, prelude=""):
+    import subprocess
+
+    path = str(ROOT / "scripts" / "train_witness.py")
+    code = (f"import runpy, sys\n{prelude}"
+            f"sys.argv = ['train_witness.py', *{argv!r}]\n"
+            "try:\n"
+            f"    runpy.run_path({path!r}, run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    rc = e.code\n"
+            "print('jax loaded:', 'jax' in sys.modules)\n"
+            "sys.exit(rc)\n")
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+
+
+def test_train_witness_rehearses_on_cpu():
+    """scripts/train_witness.py at the smoke variant on the CPU: each of
+    its five runs prints its losses (the kernels' run equals the plain
+    attention's here, where both are plain; lr 0 starts where lr 3e-4
+    does), no run launches a kernel, nothing imports jax, and it exits
+    0."""
+    out = _run_witness(["--device", "cpu", "--smoke", "--batch", "2",
+                        "--seq", "16", "--steps", "2"])
+    assert out.returncode == 0, out.stderr
+    runs = {}
+    for line in out.stdout.splitlines():
+        if line.startswith("witness ") and ": losses " in line:
+            head, rest = line.split(": losses ", 1)
+            runs[head] = [float(x) for x in rest.split(";")[0].split(", ")]
+            assert "flash_attention 0, flash_attention_bwd 0" in rest
+    kern = "witness kernels lr 0.0003 moments bfloat16"
+    assert len(runs) == 5 and all(len(v) == 2 for v in runs.values())
+    assert runs[kern] == runs["witness plain lr 0.0003 moments bfloat16"]
+    assert runs["witness kernels lr 0 moments bfloat16"][0] == runs[kern][0]
+    assert "jax loaded: False" in out.stdout
+
+
+def test_train_witness_refuses_without_cuda():
+    """On its default device, "cuda", the witness needs a card: without
+    one it exits 2 before printing a result."""
+    out = _run_witness([], "import torch\n"
+                       "torch.cuda.is_available = lambda: False\n")
+    assert out.returncode == 2
+    assert "witness" not in out.stdout
+
+
 def test_record_scan_shapes_counts_the_ops_calls_by_shape(smoke):
     """A small driver run on the CPU under the recorder: every one of the
     four kernels is called through `ops`, each call counted by its shape;
@@ -218,6 +265,8 @@ def test_qwen2_vl_serve_phase_on_cpu(smoke, capsys):
     assert "serve request 2 (qwen2-vl-72b-smoke)" in out
     assert "2 of 80 layers" in out
     assert "serve checks: (a) qwen2-vl-72b-smoke" in out
+    assert "bf16 noise floor (plain prefill vs itself with its attention" \
+        in out
 
 
 def test_serve_batch_and_launches_of_the_stub_configs(smoke):
@@ -504,16 +553,25 @@ def test_device_ops_retakes_traces_that_lost_the_marker(
 
 def test_attention_bwd_phase_on_cpu(smoke, capsys, monkeypatch):
     """The flash-backward phase's checks at small shapes (every mask and
-    head layout of the card's cases), the plain version standing in."""
+    head layout of the card's cases, and Whisper's non-causal encoder
+    and S != T cross-attention, each a row of its own), the plain
+    version standing in."""
     monkeypatch.setattr(smoke, "BWD_CASES", [
         ("train", "bfloat16", 2, 40, 40, 4, 4, 64, True, 0, True),
         ("gqa+window", "bfloat16", 1, 50, 50, 8, 2, 128, True, 8, True),
         ("mqa", "bfloat16", 1, 30, 30, 6, 1, 128, True, 0, True),
-        ("ragged", "float32", 1, 37, 37, 4, 2, 32, False, 0, False)])
-    res = smoke.attention_bwd_phase(torch, np, None, device="cpu")
+        ("ragged", "float32", 1, 37, 37, 4, 2, 32, False, 0, False),
+        ("whisper encoder", "bfloat16", 2, 70, 70, 6, 6, 64, False, 0,
+         True),
+        ("whisper cross", "bfloat16", 2, 9, 70, 6, 6, 64, False, 0, True)])
+    out_rows = smoke.attention_bwd_phase(torch, np, None, device="cpu")
+    rows = [row for row, _ in smoke.BWD_ROWS.values()]
+    assert sorted(out_rows) == sorted(["flash_attention_bwd", *rows])
+    res = out_rows["flash_attention_bwd"]
     assert res["max_abs_err"] == 0.0 and "times" not in res
+    assert all(out_rows[r] == {"max_abs_err": 0.0} for r in rows)
     out = capsys.readouterr().out
-    assert out.count("two launches bitwise equal") == 4
+    assert out.count("two launches bitwise equal") == 6
 
 
 def test_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
@@ -581,6 +639,50 @@ def test_plain_train_scans_and_checked_bwd_swap_and_restore(smoke):
     assert seen["launches"] == 1 and seen["worst"] < 1e-5   # f32 vs f64
     assert (WK.wkv_scan, WK.wkv_scan_bwd, SK.ssm_scan,
             SK.ssm_scan_bwd) == before
+
+
+@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-72b"])
+def test_stub_train_phase_on_cpu(smoke, capsys, monkeypatch, arch):
+    """Whisper-tiny's smoke variant (its 64-frame encoder, f32 frames
+    from the pipeline that the step rounds to bf16) and Qwen2-VL's cut to
+    one layer (its vision stub and M-RoPE positions) through the train
+    phase: (a) against the plain path in f32 and bf16, (b) training
+    while a reader pinned at v1 keeps it and a request with the
+    architecture's frontend inputs is served between steps, (c) no
+    kernel launches off the card."""
+    monkeypatch.setattr(smoke, "TRAIN_SEQ", {})
+    monkeypatch.setattr(smoke, "TRAIN_BATCH", {})
+    monkeypatch.setitem(smoke.SERVE_PROMPT, "whisper-tiny", (1, 2, 3, 4))
+    launches = smoke.train_phase(torch, np, device="cpu", arch=arch)
+    assert launches == {"flash_attention": 0, "flash_attention_bwd": 0}
+    out = capsys.readouterr().out
+    layers = 1 if arch == "qwen2-vl-72b" else 2
+    for part in (f"train (a) {arch}: f32 loss",
+                 f"train (b) {arch}: {layers} layers", "3 steps of 2x16",
+                 "reads v1 bitwise", f"train (c) {arch}"):
+        assert part in out, part
+    assert "train (d)" not in out
+
+
+def test_launch_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """The launch phase on the smoke variant: both launchers' `main` run
+    in the process, their lines checked; nothing launches off the
+    card and the checkpoints are removed."""
+    monkeypatch.setattr(smoke, "LAUNCH_CKPT", tmp_path / "ckpt")
+    monkeypatch.setattr(smoke, "LAUNCH_TRAIN", [
+        "--arch", "whisper-tiny", "--smoke", "--steps", "3", "--batch", "2",
+        "--seq", "16", "--ckpt-dir", str(tmp_path / "ckpt"),
+        "--ckpt-every", "2", "--publish"])
+    monkeypatch.setattr(smoke, "LAUNCH_SERVE", [*smoke.LAUNCH_SERVE,
+                                                "--smoke"])
+    launches = smoke.launch_phase(torch, device="cpu")
+    assert launches == {"flash_attention": 0, "decode_attention": 0,
+                        "flash_attention_bwd": 0}
+    out = capsys.readouterr().out
+    assert "launch train: published versions: 4" in out
+    assert "launch serve: arch=whisper-tiny-smoke generated (2, 8)" in out
+    assert "checkpoint at step 2" in out
+    assert not (tmp_path / "ckpt").exists()
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "jamba-1.5-large-398b"])

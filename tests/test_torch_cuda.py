@@ -1786,6 +1786,38 @@ def test_flash_bwd_kernel_equals_plain(no_tf32, dtype, G, hd):
     assert FK.flash_attention_bwd.launches == calls
 
 
+@pytest.mark.parametrize("dtype", ATTN_DTYPES)
+@pytest.mark.parametrize("S,T", [(1500, 1500), (448, 1500), (4, 1500)])
+def test_flash_cross_and_encoder_bwd_equals_plain(no_tf32, dtype, S, T):
+    """Whisper's training shapes through autograd in the model's layout:
+    the encoder (S = T = 1,500, non-causal: 23 full 64-key tiles and a
+    ragged one of 28) and the cross-attention (448 or 4 decoder queries
+    over 1,500 frames: dQ, dK and dV all ragged against their tiles),
+    H = K = 6, hd 64; each gradient within ATTN_TOL of its max-abs
+    (`_bwd_close`), one forward and one backward launch on `plan_bwd`'s
+    launch."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention import ref as FR
+    from repro_torch.kernels.flash_attention.ops import attention_bshd
+
+    dev = no_tf32
+    q = _randn(dev, (4, S, 6, 64), dtype, S).requires_grad_()
+    k = _randn(dev, (4, T, 6, 64), dtype, S + 1).requires_grad_()
+    v = _randn(dev, (4, T, 6, 64), dtype, S + 2).requires_grad_()
+    do = _randn(dev, (4, S, 6, 64), dtype, S + 3)
+    FK.reset_launches()
+    got = torch.autograd.grad(attention_bshd(q, k, v, causal=False),
+                              (q, k, v), do)
+    assert FK.flash_attention.launches == FK.flash_attention_bwd.launches == 1
+    assert FK.flash_attention_bwd.last_route == FK.plan_bwd(
+        4, 6, 6, S, T, 64, causal=False, f32=dtype == "float32")
+    qt, kt, vt = (x.detach().transpose(1, 2) for x in (q, k, v))
+    o, lse = FK.flash_attention(qt, kt, vt, causal=False, return_lse=True)
+    want = FR.attention_bwd_ref(qt, kt, vt, o, lse, do.transpose(1, 2),
+                                causal=False)
+    _bwd_close([g.transpose(1, 2) for g in got], want, dtype)
+
+
 def test_flash_bwd_through_autograd_in_the_model_layout(no_tf32):
     """`attention_bshd` on CUDA tensors that require grad: the Function
     launches the forward once and the backward once; dO arrives through

@@ -149,6 +149,34 @@ def test_frames_outside_the_parameter_dtype_are_refused():
             TM.forward(tp, tcfg, batch)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_vision_embeds_longer_than_the_prompt_are_refused(dtype):
+    """S_v > S: the reference pads only a shorter stub and then fails to
+    add [B, S_v, D] to [B, S, D]; the port refuses it with a ValueError
+    that names both shapes (it cropped the stub's tail before).  S_v = S
+    and S_v < S still run in both."""
+    j = _cfg("qwen2-vl-72b", dtype)
+    tcfg = _port_cfg(j)
+    jp = JM.init_params(jax.random.PRNGKey(2), j)
+    tp = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    rng = np.random.default_rng(3)
+    tokens = rng.integers(0, j.vocab_size, (B, 4))
+    for s_v in (6, 4, 2):
+        ve = rng.standard_normal((B, s_v, j.d_model), dtype=np.float32)
+        jb = {"tokens": jnp.asarray(tokens), "vision_embeds": jnp.asarray(ve)}
+        tb = {"tokens": torch.from_numpy(tokens),
+              "vision_embeds": torch.from_numpy(ve)}
+        if s_v > tokens.shape[1]:
+            with pytest.raises((TypeError, ValueError)):
+                JM.embed_inputs(jp, j, jb)
+            with pytest.raises(ValueError, match=r"\(2, 6, 128\).*"
+                               r"\(2, 4, 128\)"):
+                TM.embed_inputs(tp, tcfg, tb)
+        else:
+            _close(TM.embed_inputs(tp, tcfg, tb),
+                   JM.embed_inputs(jp, j, jb), dtype)
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_param_tree_and_cache_spec_match_the_reference(arch):
     """The tree (Whisper's enc_blocks, enc_final_norm, norm_x and the

@@ -39,7 +39,11 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "repro_torch.models.transformer",
                  "repro_torch.configs.qwen1_5_0_5b",
                  "repro_torch.train.loop", "repro_torch.checkpoint.manager",
-                 "repro_torch.optim.adamw", "repro_torch.data.pipeline"):
+                 "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+                 "repro_torch.launch.train", "repro_torch.launch.serve",
+                 "repro_torch.launch.mesh", "repro_torch.launch.shardings",
+                 "repro_torch.launch.specs", "repro_torch.launch.dryrun",
+                 "repro_torch.models.sharding"):
         assert name in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"

@@ -2,7 +2,8 @@
 cross-attention, against the JAX package's `repro.models.layers`, on the
 CPU: `apply_mrope` at Qwen2-VL's smoke sections (4, 6, 6) with hd 32 and
 its published sections (16, 24, 24) with hd 128, theta 1e6, with three
-distinct position streams, within 1e-6 in f32; with the three streams
+distinct position streams, within 1e-6 in f32, and its gradient against
+`jax.vjp` of the reference's at 1e-6; with the three streams
 equal it is `apply_rope` bit for bit.  Then `attention` /
 `attention_prefill` / `attention_decode` under M-RoPE, and
 cross-attention (`attention(kv_x=)`, `cross_attention_prefill` and
@@ -50,6 +51,27 @@ def test_apply_mrope_matches_the_reference(sections, hd):
     pos3 = _positions3(rng, B, S)
     want = JL.apply_mrope(jnp.asarray(x), jnp.asarray(pos3), sections, 1e6)
     got = TL.apply_mrope(_t(x), _t(pos3), sections, 1e6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("sections,hd", [((4, 6, 6), 32),
+                                         ((16, 24, 24), 128)])
+def test_apply_mrope_gradient_matches_the_reference(sections, hd):
+    """Under autograd (training Qwen2-VL): the gradient of apply_mrope's
+    output against a seeded cotangent equals `jax.vjp` of the
+    reference's within 1e-6 (the rotation's transpose)."""
+    rng = np.random.default_rng(hd + 1)
+    B, S, H = 2, 24, 3
+    x = rng.standard_normal((B, S, H, hd), dtype=np.float32)
+    ct = rng.standard_normal((B, S, H, hd), dtype=np.float32)
+    pos3 = _positions3(rng, B, S)
+    _, vjp = jax.vjp(lambda a: JL.apply_mrope(a, jnp.asarray(pos3), sections,
+                                              1e6), jnp.asarray(x))
+    want = vjp(jnp.asarray(ct))[0]
+    xt = _t(x).requires_grad_()
+    out = TL.apply_mrope(xt, _t(pos3), sections, 1e6)
+    got, = torch.autograd.grad(out, xt, _t(ct))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-6)
 

@@ -21,6 +21,13 @@ ported.
   (3.1e-5 at lr 1e-3, measured on codeqwen1.5-7b's embedding); the
   optimizer itself is held at the default eps above.  Mixtral's routing
   is asserted equal to the reference's first.
+  Whisper-tiny (encoder, cross-attention) and Qwen2-VL-72B (M-RoPE,
+  the vision stub) are among them; Whisper also in bf16, where the port's
+  step takes the pipeline's f32 frames and rounds them to bf16 at its
+  entry and the reference's step gets the same frames rounded (its own
+  trainer would run the encoder in f32 by promotion): loss, grad_norm
+  and every gradient leaf within 3e-2 of its max-abs (the bf16
+  tolerance of tests/test_torch_models.py).
 - Equivalences of the port: 2 microbatches == 1, and remat none, dots and
   full give equal gradients.
 """
@@ -55,14 +62,14 @@ from repro_torch.serve import ServingEngine
 from repro_torch.tensorstore import VersionedParamStore
 from repro_torch.train import (StragglerMonitor, Trainer, init_state,
                                make_train_step)
-from repro_torch.train.step import _value_and_grad
+from repro_torch.train.step import _value_and_grad, frames_in_param_dtype
 from repro_torch.tree import leaves, leaves_with_path
 
 CFG = smoke_variant(get_config("qwen1.5-0.5b"))
 F32 = dict(param_dtype="float32", compute_dtype="float32")
 STEP_ARCHS = ["qwen1.5-0.5b", "granite-34b", "nemotron-4-15b",
               "codeqwen1.5-7b", "mixtral-8x7b", "rwkv6-3b",
-              "jamba-1.5-large-398b"]
+              "jamba-1.5-large-398b", "whisper-tiny", "qwen2-vl-72b"]
 # the step parity's tolerance where it is not 1e-5: the scans' recorded
 # deviation from the reference (ROADMAP), whose associative chunked
 # scans (`_wkv_chunked`, `_mamba_scan_chunked`) sum in another order than
@@ -273,6 +280,40 @@ def test_train_step_matches_the_reference(arch):
                 np.testing.assert_allclose(a.numpy(), np.asarray(b),
                                            rtol=tol, atol=tol)
     assert int(ts["step"]) == int(js["step"]) == 3
+
+
+def test_whisper_bf16_step_on_rounded_frames_matches_the_reference():
+    jcfg = JC.smoke_variant(JC.get_config("whisper-tiny"))
+    tcfg = _port_cfg(jcfg)
+    jp = JM.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = TM.params_from_numpy(tcfg, jax.tree.map(np.asarray, jp), "cpu")
+    tb = SyntheticPipeline(tcfg, batch=4, seq_len=16,
+                           device="cpu").batch_at(0)
+    jb = dict(JPipeline(jcfg, batch=4, seq_len=16).batch_at(0))
+    assert tb["enc_embeds"].dtype == torch.float32
+    jb["enc_embeds"] = jb["enc_embeds"].astype(jnp.bfloat16)
+    rounded = frames_in_param_dtype(tcfg, tb)
+    assert rounded["enc_embeds"].dtype == torch.bfloat16
+    assert torch.equal(rounded["enc_embeds"], _t(np.asarray(jb["enc_embeds"])))
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p, b: JM.loss_fn(p, jcfg, b)))(jp, jb)
+    tl, tg = _value_and_grad(tp, tcfg, rounded)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=3e-2)
+    for (path, a), b in zip(leaves_with_path(tg), jax.tree.leaves(jg)):
+        assert a.dtype == torch.bfloat16, path
+        b = np.asarray(b, np.float32)
+        assert np.abs(a.float().numpy() - b).max() <= \
+            3e-2 * np.abs(b).max(), path
+    # the whole step: the port's on the f32 frames it rounds itself
+    jopt, topt = JAdamWConfig(lr=1e-3, eps=1e-4), AdamWConfig(lr=1e-3,
+                                                              eps=1e-4)
+    _, jm = jax.jit(j_make_train_step(jcfg, jopt))(
+        j_init_state(None, jcfg, jopt, params=jp), jb)
+    _, tm = make_train_step(tcfg, topt)(
+        init_state(None, tcfg, topt, params=tp), tb)
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=3e-2,
+                                   err_msg=k)
 
 
 def _f32_state(cfg, opt, seed=0):
