@@ -74,7 +74,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    tol of the output's max-abs); prints the kernel each flash
    call ran and the split each decode call took (as the wrappers report
    them), kernel, plain, bound and `scaled_dot_product_attention`
-   (library) times, decode's kernel and library times again after a
+   (library) times (also at one rank's shapes of the sharded serve
+   phase: flash 8 x 1,024 at 16 query and 2 KV heads, hd 128, causal,
+   and decode B 8 over 1,040 slots at G 8, hd 128, the ranks' cache of
+   `TP_S` + `TP_STEPS`: `TP_ROWS`),
+   decode's kernel and library times again after a
    flush that leaves L2 clean, and decode at every split of the bf16
    route at each timed shape (each held against plain); the flash times
    at Qwen's and Jamba's prefill beside PR 16's (`FLASH_PR16_MS`); then
@@ -180,6 +184,28 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    (1 + 1e-6 z) before its rounding), printed; then one more request under
    torch.profiler for the device's busy time, idle share, peak memory
    and time by kernel kind;
+11b. sharded serve phase (`tp_serve_phase`): Qwen2-VL-72B at the
+   published widths cut to 8 of 80 layers (`TP_DEPTH`, ~19 GB
+   unsharded) over a mesh of (data 1, model 4) (`TP_MESH`): the
+   unsharded kernel path's prefill and 16 teacher-forced decode logits
+   first, here, freed before the ranks start; then four ranks
+   (`parallel.spawn`), all on the one card over gloo (collectives pass
+   through the host), each drawing its pieces of v1 from seed 0
+   (`init_local_params`: a quarter of every layer's heads and d_ff and
+   of the vocabulary) into its own `VersionedParamStore(slots=2)` and
+   serving two requests of 8 x 1,024 tokens (the vision stub on a
+   16 x 16 grid, as `serve_batch` makes it) and 16 decode steps through
+   `ServingEngine(group=)`, v2 (the embedding negated) published
+   on every rank under request 1's pin.  Checks: (s1) each rank's
+   prefill and decode logits, gathered over "model", within 3e-2 of
+   max-abs of the unsharded ones, printed beside Qwen2-VL's bf16 noise
+   floor (`TP_NOISE_FLOOR`); (s2) each request's snapshot LSN equal on
+   every rank, request 1 served from v1 alone, request 2 from v2,
+   every rank's tokens equal; each rank's flash and decode launches
+   (16 and 256), summed into rows `flash_attention tp4` and
+   `decode_attention tp4`; per rank the prefill and decode times, peak
+   memory and backend.  With two cards or more it runs again over NCCL,
+   one rank a card; else it prints that this route was not run;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
    full width and depth, RWKV6-3B at full width and depth (32 layers,
    d 2,560, f32 moments, batch 4: `TRAIN_BATCH`), Jamba-1.5-Large's
@@ -232,7 +258,8 @@ scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
 chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches; the attention kernels have a row more
 for each shape of `ATTN_ROWS`, with the serve phases' launches at that
-shape), the card line, and last
+shape, and for each of `TP_ROWS`, with the sharded serve phase's
+launches summed over its ranks), the card line, and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
 launches in the train and launch phases' steps (`flash_attention_bwd
 encoder` and `... cross` those at Whisper's two shapes), the scans'
@@ -350,6 +377,25 @@ SERVE_DEPTH = {"jamba-1.5-large-398b": 8, "qwen2-vl-72b": 32}
 SERVE_NOISE_FLOOR = ("qwen2-vl-72b",)
 SERVE_EXPERT_CARDS = {"jamba-1.5-large-398b": 2}
 SERVE_SMOKE = False
+# sharded serve phase: Qwen2-VL-72B at the published widths over a mesh
+# of (data 1, model 4), each rank holding a quarter of every layer's
+# heads and d_ff and of the vocabulary: TP_DEPTH of its 80 layers (8:
+# ~19 GB unsharded, ~4.8 GB a rank), cut only because the four ranks
+# share the one card after the parent's unsharded reference of that
+# depth; 2 requests of 8 prompts x 1,024 tokens (Qwen2-VL's vision stub
+# as `serve_batch` makes it), 16 decode steps, v2 published after step 8
+TP_ARCH, TP_MESH, TP_DEPTH = "qwen2-vl-72b", (1, 4), 8
+TP_B, TP_S, TP_STEPS, TP_PUBLISH_AT = 8, 1024, 16, 8
+# Qwen2-VL-72B's bf16 noise floor under attention (`_attn_noise_floor`
+# at 32 layers on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6),
+# printed beside check (s1)
+TP_NOISE_FLOOR = 0.0177
+TP_DIR = ROOT / "build" / "tp_serve"
+# the kernel phase's shapes of one rank of that mesh (16 query and 2 KV
+# heads, hd 128), rows of their own in the JSON line, their launches
+# those of the sharded serve phase's ranks
+TP_ROWS = {"tp prefill": "flash_attention tp4",
+           "tp decode": "decode_attention tp4"}
 # the plain path's keys a chunk: its f32 scores are [B, S, H, PLAIN_CHUNK]
 # (Qwen2-VL's prefill at 256: 0.54 GB a copy, beside 66 GB of weights)
 PLAIN_CHUNK = 256
@@ -1504,8 +1550,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
     and `scaled_dot_product_attention` on the same work (GQA heads
     expanded and masks built outside the timed region).  Returns
     {name: {"max_abs_err", "times": (ms, plain, bound, library, by)}}, and
-    for each shape of `ATTN_ROWS` a row of its own under its key: its
-    "times" and its shape's "max_abs_err"."""
+    for each shape of `ATTN_ROWS` and `TP_ROWS` a row of its own under
+    its key: its "times" and its shape's "max_abs_err"."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import kernel as DK
@@ -1545,8 +1591,11 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         res["max_abs_err"] = max(res["max_abs_err"], err.max().item())
         return err.max().item()
 
+    # the labels with a row of their own
+    own = {**{label: r for label, (r, _) in ATTN_ROWS.items()}, **TP_ROWS}
+
     def row(key, err, times):
-        """A row of its own for a shape of ATTN_ROWS."""
+        """A row of its own for a shape of ATTN_ROWS or TP_ROWS."""
         res = results.setdefault(key, {"max_abs_err": 0.0})
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if times is not None:
@@ -1593,6 +1642,9 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         ("whisper encoder", "bfloat16", 32, 1500, 1500, 6, 6, 64, False, 0,
          True),
         ("cross prefill", "bfloat16", 32, 4, 1500, 6, 6, 64, False, 0,
+         True),
+        # one rank's prefill of Qwen2-VL-72B at model 4 (TP_ROWS)
+        ("tp prefill", "bfloat16", TP_B, TP_S, TP_S, 16, 2, 128, True, 0,
          True)]
     for (label, dt, B, S, T, H, K, hd, causal, window, timed) in flash_cases:
         q = randn((B, S, H, hd), dt)
@@ -1619,18 +1671,21 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                       f"(PR 16: {FLASH_PR16_MS[label]} ms)", flush=True)
             if label == "prefill":
                 results["flash_attention"]["times"] = t
-        if label in ATTN_ROWS:
-            row(ATTN_ROWS[label][0], err, t)
+        if label in own:
+            row(own[label], err, t)
         del q, k, v
 
-    # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies; the
-    # last is the long-context serve run's (one sequence, 8,256 slots)
+    # (label, B, T, H, K, hd): the cache [B,T,K,hd] read as it lies;
+    # "G=1 long" is the long-context serve run's (one sequence, 8,256
+    # slots), "tp decode" a rank's cache in the sharded serve phase
     clean = torch.empty_like(flush)
     for label, B, T, H, K, hd in (("G=1", 8, 1088, 16, 16, 64),
                                   ("G=4", 8, 1088, 32, 8, 128),
                                   ("G=8 jamba", 8, 1088, 64, 8, 128),
                                   ("G=1 long", 1, 8256, 16, 16, 64),
-                                  ("cross", 32, 1500, 6, 6, 64)):
+                                  ("cross", 32, 1500, 6, 6, 64),
+                                  ("tp decode", TP_B, TP_S + TP_STEPS,
+                                   16, 2, 128)):
         q = randn((B, H, hd), "bfloat16")
         kc, vc = (randn((B, T, K, hd), "bfloat16") for _ in range(2))
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)
@@ -1642,8 +1697,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
             shape = (f"bf16 B={B} T={T} H={H} K={K} hd={hd} valid_len={vl} "
                      f"n_split={chosen}")
             err = check("decode_attention", shape, got, plain(), "bfloat16")
-            if label in ATTN_ROWS:
-                row(ATTN_ROWS[label][0], err, None)
+            if label in own:
+                row(own[label], err, None)
             if vl != T:
                 continue
             kx, vx = (x[:, :, :vl].repeat_interleave(H // K, 1).contiguous()
@@ -1660,8 +1715,8 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                   flush=True)
             if label == "G=1":
                 results["decode_attention"]["times"] = t
-            if label in ATTN_ROWS:
-                row(ATTN_ROWS[label][0], 0.0, t)
+            if label in own:
+                row(own[label], 0.0, t)
             # every split of the bf16 route on this shape, each held
             # against plain (launches outside the main path)
             want, ms = plain(), {}
@@ -3078,6 +3133,239 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
               f"{name[:80]}", flush=True)
 
 
+# ----------------------------------------------------------- sharded serving
+def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
+            publish_at: int) -> dict:
+    """One rank of the sharded serve phase (`parallel.spawn` runs it in a
+    process of its own): its pieces of v1 drawn by
+    `init_local_params` (torch.Generator seed 0 on its device, the
+    parent's draws), published into its own `VersionedParamStore(slots=2)`
+    and served by a `ServingEngine` over the mesh: request 1 with v2
+    (v1 with its embedding negated) published under its pin after decode
+    step `publish_at`, then request 2; the attention kernels' launches
+    counted from 0 just before request 1 and read after request 2; then
+    check (s1): the rank's prefill and teacher-forced decode logits
+    (`toks`), gathered over "model", against the parent's unsharded ones
+    at `ref_path`.  Returns what the parent checks and prints."""
+    import torch
+
+    from repro_torch.kernels import cuda_build
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.sharding import with_mesh
+    from repro_torch.parallel import init_local_params
+    from repro_torch.parallel.tensor import gather_vocab, split_batch
+    from repro_torch.serve import ServingEngine
+    from repro_torch.tensorstore import VersionedParamStore
+
+    dev = group.device
+    on_card = dev.type == "cuda"
+    if on_card and not cuda_build.library_path("attention").exists():
+        raise RuntimeError("the parent builds the kernels before the ranks "
+                           "start; a rank never runs nvcc")
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else \
+        (lambda: None)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    t0 = time.perf_counter()
+    v1 = init_local_params(cfg, g, group.mesh, group.coords, dev)
+    v2 = dict(v1, embed=-v1["embed"])
+    if on_card:
+        torch.cuda.empty_cache()            # the draws' transient memory
+        torch.cuda.reset_peak_memory_stats(dev)
+    store = VersionedParamStore(slots=2)
+    store.publish(v1)
+    batch = {k: x.to(dev) for k, x in batch.items()}
+    S, N = batch["tokens"].shape[1], toks.shape[1]
+    eng = ServingEngine(cfg, store, max_seq=S + N, device=dev, group=group)
+    eng.refresh()
+    init_s = time.perf_counter() - t0
+
+    log: dict = {}
+    prefill_fn, decode_fn = eng._prefill, eng._decode
+
+    def rec_prefill(p, b):
+        out = prefill_fn(p, b)
+        sync()
+        log["t_prefill"] = time.perf_counter()
+        log["read"].append(p)
+        return out
+
+    def rec_decode(p, t, c, n):
+        out = decode_fn(p, t, c, n)
+        log["read"].append(p)
+        if log["writer"] and len(log["read"]) == 1 + publish_at:
+            log["v2_lsn_before"] = store.visible_lsn()
+            store.publish(v2)                 # commit, never waits
+        return out
+
+    eng._prefill, eng._decode = rec_prefill, rec_decode
+    wrappers = {n: _kernel_wrappers()[n] for n in ("flash_attention",
+                                                   "decode_attention")}
+    cuda_build.reset_counts(wrappers.values())
+    wrappers["decode_attention"].split_launches = 0
+    requests = []
+    for writer in (True, False):
+        log.update(read=[], writer=writer)
+        sync()
+        t = time.perf_counter()
+        res = eng.generate(batch, N, refresh_between_steps=True)
+        sync()
+        requests.append({
+            "lsn": res.snapshot_lsn, "tokens": res.tokens.cpu(),
+            "read": ["v1" if p is v1 else "v2" if p is v2 else "?"
+                     for p in log["read"]],
+            "prefill_ms": (log["t_prefill"] - t) * 1e3,
+            "decode_ms": (time.perf_counter() - log["t_prefill"]) / N * 1e3})
+        eng.refresh()
+    launches = {n: cuda_build.launch_count(fn)
+                for n, fn in wrappers.items()}
+    split = wrappers["decode_attention"].split_launches
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+
+    # (s1) against the parent's unsharded kernel path
+    want = torch.load(ref_path)
+    b = split_batch(batch, group)
+    t = split_batch({"tokens": toks.to(dev)}, group)["tokens"]
+    rows = slice(group.data_rank * t.shape[0], (group.data_rank + 1)
+                 * t.shape[0])
+    ratios = []
+    with torch.no_grad(), with_mesh(group):
+        lg, cache = prefill(v1, cfg, b, cache_len=S + N)
+        for k in range(N + 1):
+            got = gather_vocab(lg, group).float().cpu()
+            w = want[k][rows].float()
+            ratios.append(((got - w).abs().max() / w.abs().max()).item())
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"rank {group.rank}: non-finite logits")
+            if k < N:
+                lg, cache = decode_step(v1, cfg, t[:, k:k + 1], cache, S + k)
+    return {"rank": group.rank, "coords": group.coords, "init_s": init_s,
+            "requests": requests, "v2_lsn_before": log["v2_lsn_before"],
+            "launches": launches, "split": split, "peak_gb": peak,
+            "s1": max(ratios),
+            "cache": tuple(cache["blocks"][0]["k"].shape)}
+
+
+def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
+                   mesh_shape: tuple = TP_MESH) -> dict:
+    """The sharded serve phase (see the module docstring): TP_ARCH cut to
+    TP_DEPTH layers at the published widths on a mesh of `mesh_shape`, its
+    ranks spawned on `backend`, all on the one `device` (gloo: the
+    ranks share the card) or one card a rank (nccl); the unsharded
+    kernel path's teacher-forced logits computed here first, on the same
+    weights and tokens, and freed before the ranks start.  Checks (s1)
+    and (s2), the launches in every rank; returns the launches of the
+    two per-rank shape rows (TP_ROWS), summed over the ranks."""
+    import tempfile
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_params
+    from repro_torch.parallel import check_tp, spawn
+
+    cfg = get_config(TP_ARCH)
+    cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
+    cfg = cfg.with_overrides(n_layers=min(TP_DEPTH, cfg.n_layers))
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    check_tp(cfg, mesh)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if backend == "nccl":
+        devices = [f"cuda:{r}" for r in range(mesh.size)]
+    else:
+        devices = [f"cuda:{dev.index or 0}" if on_card else "cpu"] \
+            * mesh.size
+    B, S, N = TP_B, TP_S, TP_STEPS
+    batch = serve_batch(torch, np, cfg, TP_ARCH, B, S, dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (B, N))).to(dev)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    want = _teacher_forced(cfg, params, batch, toks, S, N)
+    del params
+    TP_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=TP_DIR) as tmp:
+        ref_path = os.path.join(tmp, "reference.pt")
+        torch.save([x.cpu() for x in want], ref_path)
+        del want
+        if on_card:
+            torch.cuda.empty_cache()
+        ref_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = spawn(tp_rank, mesh, backend=backend, devices=devices,
+                    tmpdir=tmp, args=(cfg, {k: x.cpu() for k, x in
+                                            batch.items()},
+                                      toks.cpu(), ref_path, TP_PUBLISH_AT))
+        ranks_s = time.perf_counter() - t0
+    how = (f"{mesh.size} ranks on one card over gloo: collectives pass "
+           f"through the host" if backend == "gloo" and on_card else
+           f"{mesh.size} ranks, one card each, over nccl" if on_card else
+           f"{mesh.size} ranks on the CPU over gloo")
+    run = f"{cfg.name} {cfg.n_layers} of {get_config(TP_ARCH).n_layers} " \
+          f"layers, mesh {mesh.shape}, {backend}"
+    print(f"tp serve: {run}: unsharded reference {ref_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s ({how})", flush=True)
+    for r in out:
+        req = r["requests"]
+        peak = (f"{r['peak_gb']:.2f} GB peak" if r["peak_gb"] is not None
+                else "peak not measured (CPU)")
+        print(f"tp serve rank {r['rank']} {r['coords']}: init "
+              f"{r['init_s']:.1f} s; request 1 prefill "
+              f"{req[0]['prefill_ms']:.1f} ms ({B}x{S}), decode "
+              f"{req[0]['decode_ms']:.2f} ms a step; request 2 prefill "
+              f"{req[1]['prefill_ms']:.1f} ms, decode "
+              f"{req[1]['decode_ms']:.2f} ms a step; {peak}; cache "
+              f"{r['cache']}; launches {r['launches']} ({r['split']} decode "
+              f"launches split); backend {backend} "
+              f"({how})", flush=True)
+    # (s1) each rank's logits against the unsharded kernel path
+    worst = max(r["s1"] for r in out)
+    if not worst <= SERVE_BF16_TOL[TP_ARCH]:
+        raise AssertionError(f"(s1) sharded vs unsharded max |d| / max "
+                             f"|logit| {[r['s1'] for r in out]} > "
+                             f"{SERVE_BF16_TOL[TP_ARCH]}")
+    # (s2) one snapshot on every rank: request 1 read v1 in every call,
+    # v2 published under its pin; request 2 read v2
+    lsn1 = {r["requests"][0]["lsn"] for r in out}
+    lsn2 = {r["requests"][1]["lsn"] for r in out}
+    if not (len(lsn1) == len(lsn2) == 1 and min(lsn2) > min(lsn1)):
+        raise AssertionError(f"(s2) snapshot lsns by rank: request 1 "
+                             f"{lsn1}, request 2 {lsn2}")
+    for r in out:
+        reads = [q["read"] for q in r["requests"]]
+        if reads != [["v1"] * (N + 1), ["v2"] * (N + 1)] \
+                or r["v2_lsn_before"] != min(lsn1):
+            raise AssertionError(f"(s2) rank {r['rank']} read {reads}")
+    for i in (0, 1):
+        first = out[0]["requests"][i]["tokens"]
+        if tuple(first.shape) != (B, N) or not all(
+                torch.equal(r["requests"][i]["tokens"], first) for r in out):
+            raise AssertionError(f"request {i + 1}: ranks differ in tokens")
+    # launches in every rank: the prefill's flash, one decode a step, a
+    # layer each
+    per = {"flash_attention": 2 * cfg.n_layers,
+           "decode_attention": 2 * cfg.n_layers * N}
+    for r in out:
+        if on_card and r["launches"] != per:
+            raise AssertionError(f"rank {r['rank']} launches "
+                                 f"{r['launches']} != {per}")
+    print(f"tp serve checks ({run}): (s1) sharded vs unsharded kernel path "
+          f"max |d| / max |logit| {worst:.4g} (<= "
+          f"{SERVE_BF16_TOL[TP_ARCH]}; by rank "
+          f"{[round(r['s1'], 5) for r in out]}), beside Qwen2-VL's bf16 "
+          f"noise floor under attention {TP_NOISE_FLOOR}; (s2) one snapshot "
+          f"a request on all {mesh.size} ranks: lsn {min(lsn1)} then "
+          f"{min(lsn2)}, request 1 read v1 in all {N + 1} calls with v2 "
+          f"published after step {TP_PUBLISH_AT}; every rank's tokens equal;"
+          f" launches a rank over both requests {per}", flush=True)
+    return {TP_ROWS["tp prefill"]: sum(r["launches"]["flash_attention"]
+                                       for r in out),
+            TP_ROWS["tp decode"]: sum(r["launches"]["decode_attention"]
+                                      for r in out)}
+
+
 # ------------------------------------------------------------------ training
 @contextlib.contextmanager
 def count_plain():
@@ -3725,6 +4013,24 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
+    # the sharded serve path: its ranks' launches at the per-rank shapes;
+    # the nccl route where the machine has a card a rank
+    t0 = time.perf_counter()
+    launches.update(tp_serve_phase(torch, np))
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh = (1, 4 if cards >= 4 else 2)
+        nccl = tp_serve_phase(torch, np, backend="nccl", mesh_shape=mesh)
+        if mesh == TP_MESH:             # launches at the rows' shapes
+            for row, n in nccl.items():
+                launches[row] += n
+    else:
+        print(f"tp serve: the nccl route (one card a rank) was not run: "
+              f"{cards} card on this machine", flush=True)
+    torch.cuda.empty_cache()
+    print(f"tp serve phase: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
+          flush=True)
     # the train paths: launches of each one's kernels over its steps
     for arch in TRAIN_ARCH:
         t0 = time.perf_counter()
@@ -3751,7 +4057,9 @@ def main() -> int:
     # the attention kernels' rows at single shapes, launched at them in
     # the serve phases
     shape_rows = [(row, row, "times", launches.get(row, 0))
-                  for row, _ in (*ATTN_ROWS.values(), *BWD_ROWS.values())]
+                  for row in (*(r for r, _ in ATTN_ROWS.values()),
+                              *TP_ROWS.values(),
+                              *(r for r, _ in BWD_ROWS.values()))]
     for row, _, _, n in scan_rows + bwd_rows + shape_rows:
         if n == 0:
             raise AssertionError(f"{row} never launched")
@@ -3772,10 +4080,12 @@ def main() -> int:
     sources = {**{n: ATTN_SRC for n in (*ATTN_TPU, *ATTN_BWD_TPU)},
                **{row: ATTN_SRC for row, _ in (*ATTN_ROWS.values(),
                                                 *BWD_ROWS.values())},
+               **{row: ATTN_SRC for row in TP_ROWS.values()},
                **{n: WKV_SRC for n in (*WKV_TPU, "wkv_scan bwd")},
                **{n: SSM_SRC for n in (*SSM_TPU, "ssm_scan bwd")}}
     tpu = {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU, **SSM_TPU,
            **{row: ATTN_TPU[shape[0]] for row, shape in ATTN_ROWS.values()},
+           **{row: ATTN_TPU[row.split()[0]] for row in TP_ROWS.values()},
            **{row: ATTN_BWD_TPU[shape[0]] for row, shape in BWD_ROWS.values()},
            "wkv_scan bwd": WKV_TPU["wkv_scan"],
            "ssm_scan bwd": SSM_TPU["ssm_scan"]}

@@ -59,6 +59,12 @@ the angles are computed in f32 in the reference's order.  Cross-attention
 (Whisper's decoder) takes its K/V from the encoder's output, unrotated,
 and attends without a mask; in decode it reads the immutable cross cache
 that prefill filled.
+
+Tensor parallel: an attention layer may hold a rank's columns of
+`wq`/`wk`/`wv` and rows of `wo` (`parallel.tensor`); the layers read
+their head counts from those widths (the QKV biases come cut to the
+same columns) and return the rank's partial output, which the model
+stack sums over "model".
 """
 
 from __future__ import annotations
@@ -218,10 +224,19 @@ def attn_init(cfg, dtype, generator, device, *, cross: bool = False) \
     return p
 
 
+def _heads(p: Params, cfg) -> tuple[int, int]:
+    """(query heads, KV heads) of an attention layer's weights: the
+    config's, or a rank's share of them when `wq` / `wk` hold its
+    columns (tensor parallel over heads)."""
+    hd = cfg.head_dim
+    return p["wq"].shape[-1] // hd, p["wk"].shape[-1] // hd
+
+
 def _qkv(p: Params, x: torch.Tensor, cfg,
          kv_x: Optional[torch.Tensor] = None):
     B, S, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nh, nkv = _heads(p, cfg)
     xkv = x if kv_x is None else kv_x
     T = xkv.shape[1]
     q = x @ p["wq"]
@@ -319,7 +334,8 @@ def cross_attention_prefill(p: Params, x: torch.Tensor, cfg,
     reference computes the same K/V twice (once inside `attention`, once
     for the cache); the values are equal.  Returns y."""
     B, S, _ = x.shape
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nh, nkv = _heads(p, cfg)
     T = enc_out.shape[1]
     xk, xv = kv_cache
     xk.copy_((enc_out @ p["wk"]).reshape(B, T, nkv, hd))
@@ -371,7 +387,8 @@ def attention_decode(p: Params, x: torch.Tensor, cfg,
     B = x.shape[0]
     kc, vc = kv_cache
     T = kc.shape[1]
-    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    hd = cfg.head_dim
+    nh, nkv = _heads(p, cfg)
     q = x @ p["wq"]
     if "bq" in p:
         q = q + p["bq"]

@@ -13,9 +13,18 @@ its cross-attention blocks `norm_x` and `cross`.  A MoE layer may hold
 a share of the experts (`init_params(..., experts=)`): its expert leaves
 hold those experts only, and its int32 leaf `expert_ids` names them
 (the one leaf the reference's tree lacks).  The reference applies the
-stack with `lax.scan`; here a Python loop runs over periods.  The
-sharding `hint` (`models.sharding`) is the identity on one card, so the
-stack does not call it.
+stack with `lax.scan`; here a Python loop runs over periods.
+
+Tensor parallel (serving): under `models.sharding.with_mesh(mesh,
+group)` a rank holds its pieces of the weights (`parallel.tensor`:
+heads, d_ff and vocab over "model") and the stack sums the partial
+outputs of the row-parallel products over "model" (`psum`) where the
+reference's `hint` makes GSPMD reduce: the mixer's and cross-attention's
+output, the MLP's, and the embedding of a vocab-sharded table
+(`embed_tokens`); the layers read their local head counts from the
+weights, the cache holds the rank's KV heads, and the logits stay
+vocab-sharded (the reference's `hint(logits, "data", None, "model")`).
+On one device `psum` is the identity.
 
 Training: `loss_fn` is the reference's causal-LM cross entropy (f32
 logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period as
@@ -68,9 +77,11 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ..kernels.config import resolve_device
-from ..tree import leaves, tree_map
+from ..tree import (leaves, leaves_with_path, path_key, replace_leaves,
+                    tree_map)
 from . import layers as L
 from .config import LayerSpec, ModelConfig
+from .sharding import model_index, psum
 
 Params = dict
 # the encoder's blocks: bidirectional attention and a dense MLP
@@ -137,33 +148,48 @@ def _block_init(spec: LayerSpec, cfg: ModelConfig, dtype, generator,
     return p
 
 
+def _pieces(piece, prefix: str, tree) -> Params:
+    """`tree` with each leaf replaced by `piece(path, leaf)` (path the
+    "/"-joined path under `prefix`)."""
+    return replace_leaves(tree, {
+        p: piece(path_key((prefix, *p)), t)
+        for p, t in leaves_with_path(tree)})
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
-                device=None, *, experts=None) -> Params:
+                device=None, *, experts=None, piece=None) -> Params:
     """Random parameters at the reference's scales, drawn from
     `generator` (a torch.Generator on `device`).  `device=None` means
     "cuda" and raises without a GPU; "meta" gives the tree's shapes
     and dtypes without storage (pass generator=None).  `experts`: the
     global ids of the experts every MoE layer holds (None: all of
     `cfg.n_experts`), e.g. this card's share of an expert-parallel
-    deployment."""
+    deployment.  `piece(path, t)`: what to keep of each leaf as it is
+    drawn (a rank's slice: `parallel.tensor.init_local_params`), the
+    draws unchanged; a stacked leaf is handed one period at a time."""
     dev = _device(device)
     dtype = torch_dtype(cfg.param_dtype)
     d, v = cfg.d_model, cfg.vocab_size
+    keep = piece or (lambda path, t: t)
     params: Params = {
-        "embed": L._normal((v, d), 0.02, dtype, generator, dev),
-        "lm_head": L._normal((d, v), 1.0 / math.sqrt(d), dtype, generator,
-                             dev),
-        "final_norm": L.norm_init(d, cfg.norm, dtype, dev),
+        "embed": keep("embed", L._normal((v, d), 0.02, dtype, generator,
+                                         dev)),
+        "lm_head": keep("lm_head", L._normal(
+            (d, v), 1.0 / math.sqrt(d), dtype, generator, dev)),
+        "final_norm": _pieces(keep, "final_norm",
+                              L.norm_init(d, cfg.norm, dtype, dev)),
     }
     params["blocks"] = tuple(
-        _stacked(cfg.n_periods, lambda spec=spec: _block_init(
-            spec, cfg, dtype, generator, dev, experts))
-        for spec in cfg.pattern)
+        _stacked(cfg.n_periods, lambda j=j, spec=spec: _pieces(
+            keep, f"blocks/{j}", _block_init(spec, cfg, dtype, generator,
+                                             dev, experts)))
+        for j, spec in enumerate(cfg.pattern))
     if cfg.is_encoder_decoder:
         params["enc_blocks"] = _stacked(
-            cfg.n_encoder_layers, lambda: _block_init(
-                ENC_SPEC, cfg, dtype, generator, dev, None))
-        params["enc_final_norm"] = L.norm_init(d, cfg.norm, dtype, dev)
+            cfg.n_encoder_layers, lambda: _pieces(keep, "enc_blocks", (
+                _block_init(ENC_SPEC, cfg, dtype, generator, dev, None))))
+        params["enc_final_norm"] = _pieces(
+            keep, "enc_final_norm", L.norm_init(d, cfg.norm, dtype, dev))
     return params
 
 
@@ -188,7 +214,7 @@ def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
         y = L.rwkv_cmix_apply(pp["mlp"], h, h_prev)
         if cmix_shift is not None:
             cmix_shift.copy_(h[:, -1])
-    return x + y.to(x.dtype)
+    return x + psum(y.to(x.dtype))
 
 
 def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
@@ -202,11 +228,11 @@ def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
         y, _ = L.mamba_apply(pp["mixer"], h, cfg)
     else:
         y, _ = L.rwkv_apply(pp["mixer"], h, cfg)
-    x = x + y.to(x.dtype)
+    x = x + psum(y.to(x.dtype))
     if spec.cross_attn and enc_out is not None:
         h = L.norm_apply(pp["norm_x"], x, cfg.norm)
-        x = x + L.attention(pp["cross"], h, cfg, positions=positions,
-                            causal=False, kv_x=enc_out, rope=False)
+        x = x + psum(L.attention(pp["cross"], h, cfg, positions=positions,
+                                 causal=False, kv_x=enc_out, rope=False))
     return _apply_mlp(pp, spec, cfg, x)
 
 
@@ -253,6 +279,26 @@ def _enc_out(params: Params, cfg: ModelConfig, batch: dict):
 
 
 # --------------------------------------------------------------------- forward
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor,
+                 vocab: int) -> torch.Tensor:
+    """The rows of `table` at `tokens`.  A table of fewer than `vocab`
+    rows is a rank's piece of a vocab-sharded one (rows [m * Vl,
+    (m + 1) * Vl) for its piece m of the model axis): the rank looks up
+    the tokens in its rows, gives zeros for the others, and the pieces
+    are summed over "model" (exact: one piece is nonzero)."""
+    rows = table.shape[0]
+    if rows == vocab:
+        return table[tokens]
+    m, n = model_index()
+    if rows * n != vocab:
+        raise ValueError(f"an embedding of {rows} rows on a model axis of "
+                         f"{n} for a vocabulary of {vocab}")
+    local = tokens - m * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].masked_fill(~mine[..., None], 0)
+    return psum(x)
+
+
 def embed_inputs(params: Params, cfg: ModelConfig, batch: dict) \
         -> torch.Tensor:
     """Token / stub-frontend embedding: the embedding of batch["tokens"]
@@ -262,7 +308,7 @@ def embed_inputs(params: Params, cfg: ModelConfig, batch: dict) \
     the parameter dtype."""
     if "tokens" not in batch:
         return batch["embeds"].to(torch_dtype(cfg.param_dtype))
-    x = params["embed"][batch["tokens"]]
+    x = embed_tokens(params["embed"], batch["tokens"], cfg.vocab_size)
     ve = batch.get("vision_embeds")
     if ve is not None:
         pad = x.shape[1] - ve.shape[1]
@@ -341,14 +387,20 @@ def loss_fn(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- serving
-def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
+def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
+               model: int = 1) -> dict:
     """Cache layout for a serving session: per pattern position, a dict
     of name -> (shape, dtype): "k", "v" for attention (for SWA archs the
     rolling window, for full attention `seq_len` entries); "ssm" (f32)
     and "conv" for Mamba; "shift", "wkv" (f32) for RWKV's time-mix,
     "cmix_shift" for its channel-mix; "xk", "xv" (`encoder_len`
-    entries) for cross-attention."""
-    d, hd, nkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    entries) for cross-attention.  `model`: the size of the model axis
+    a rank's cache is cut over, its KV heads over it (as
+    `launch.shardings.cache_shardings` places them)."""
+    if cfg.n_kv_heads % model:
+        raise ValueError(f"{cfg.n_kv_heads} KV heads over a model axis of "
+                         f"{model}")
+    d, hd, nkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads // model
     T = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
     cdt = torch_dtype(cfg.compute_dtype)
     np_, N = cfg.n_periods, cfg.rwkv_head_dim
@@ -376,10 +428,10 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device=None) -> dict:
+               device=None, *, model: int = 1) -> dict:
     """Zeroed caches of `cache_spec` on `device` (None: "cuda")."""
     dev = _device(device)
-    spec = cache_spec(cfg, batch, seq_len)
+    spec = cache_spec(cfg, batch, seq_len, model=model)
     return {"blocks": tuple(
         {k: torch.zeros(shape, dtype=dt, device=dev)
          for k, (shape, dt) in entry.items()}
@@ -401,7 +453,8 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
     positions = _positions(batch, S, x.device)
     mrope_positions = batch.get("mrope_positions")
     enc_out = _enc_out(params, cfg, batch)
-    cache = init_cache(cfg, B, cache_len, x.device)
+    cache = init_cache(cfg, B, cache_len, x.device,
+                       model=model_index()[1])
     for i, j, spec, pp in _layers(params, cfg):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
@@ -415,11 +468,11 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
         else:
             y, _ = L.rwkv_apply(pp["mixer"], h, cfg, state={
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
-        x = x + y.to(x.dtype)
+        x = x + psum(y.to(x.dtype))
         if spec.cross_attn and enc_out is not None:
             h = L.norm_apply(pp["norm_x"], x, cfg.norm)
-            x = x + L.cross_attention_prefill(
-                pp["cross"], h, cfg, enc_out, (ce["xk"][i], ce["xv"][i]))
+            x = x + psum(L.cross_attention_prefill(
+                pp["cross"], h, cfg, enc_out, (ce["xk"][i], ce["xv"][i])))
         x = _apply_mlp(pp, spec, cfg, x, _cmix_shift(spec, ce, i))
     x = L.norm_apply(params["final_norm"], x[:, -1:], cfg.norm)
     logits = x @ params["lm_head"]
@@ -434,7 +487,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     The new token sits at position cache_len (on all three M-RoPE
     streams); a cross-attention layer reads its "xk"/"xv" over
     `encoder_len` slots.  Returns (logits [B,V], cache)."""
-    x = params["embed"][tokens]
+    x = embed_tokens(params["embed"], tokens, cfg.vocab_size)
     for i, j, spec, pp in _layers(params, cfg):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
@@ -448,13 +501,13 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             y, _ = L.rwkv_decode(pp["mixer"], h, cfg, {
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
-        x = x + y.to(x.dtype)
+        x = x + psum(y.to(x.dtype))
         if spec.cross_attn:
             h = L.norm_apply(pp["norm_x"], x, cfg.norm)
             y = L.attention_decode(pp["cross"], h, cfg,
                                    (ce["xk"][i], ce["xv"][i]), pos=cache_len,
                                    cache_len=cfg.encoder_len, cross=True)
-            x = x + y.to(x.dtype)
+            x = x + psum(y.to(x.dtype))
         x = _apply_mlp(pp, spec, cfg, x, _cmix_shift(spec, ce, i),
                        decode=True)
     x = L.norm_apply(params["final_norm"], x, cfg.norm)

@@ -1,0 +1,226 @@
+"""Process groups over a `launch.mesh.Mesh`: the ranks that execute a
+sharded model, one process a rank.
+
+A rank's coordinates on the mesh follow the reference's device order:
+row-major over the mesh's axes, the last axis ("model") fastest, so on a
+("data", "model") mesh of (2, 2) rank 1 is (data 0, model 1) and rank 2
+is (data 1, model 0).  `MeshGroup` holds a rank's coordinates, its
+device and a sub-group for each of two axes: "model" (tensor parallel:
+the ranks that hold the other pieces of the same weights) and "data"
+(the batch: the ranks over `launch.mesh.dp_axes`); "mesh" names all the
+ranks.
+
+Nothing is chosen behind the caller's back: the backend and every rank's
+device are arguments.  "nccl" needs one card a rank and refuses two ranks
+on one device before any NCCL call; "gloo" serves the CPU and ranks that
+share a card, its collectives on a card's tensors passing through host
+memory (gloo reduces and gathers host buffers).  A rank on the CPU runs
+`CPU_THREADS` intra-op threads, so several ranks fit the cores of one
+machine.
+
+`spawn(fn, mesh, backend=, devices=, args=, tmpdir=)` starts one process
+a rank (the "spawn" start method), each running `fn(group, *args)` once
+its group is up; the rendezvous is a file in a new directory under
+`tmpdir` (`init_method="file://..."`), so concurrent spawns never race
+for a port.  `fn` must be importable at module level (it is pickled by name),
+and its result is saved by the rank and returned to the caller in rank
+order.  A rank that raises ends the others and the error reaches the
+caller.
+"""
+
+from __future__ import annotations
+
+import datetime
+import math
+import tempfile
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+from ..launch.mesh import Mesh, dp_axes
+
+BACKENDS = ("gloo", "nccl")
+CPU_THREADS = 1
+# how long a collective may wait for its peers before the group fails
+TIMEOUT_S = 600
+
+
+def coords_of(mesh: Mesh, rank: int) -> dict:
+    """{axis: coordinate} of `rank` (row-major, the last axis fastest)."""
+    if not 0 <= rank < mesh.size:
+        raise ValueError(f"rank {rank} outside a mesh of {mesh.size}")
+    out = {}
+    for name, size in reversed(tuple(zip(mesh.axis_names,
+                                         mesh.axis_sizes))):
+        out[name] = rank % size
+        rank //= size
+    return {name: out[name] for name in mesh.axis_names}
+
+
+def axis_ranks(mesh: Mesh, axes: Sequence[str]) -> list[list[int]]:
+    """The partition of the mesh's ranks into groups that differ only in
+    `axes` (each group in rank order, the groups in order of their first
+    rank)."""
+    groups: dict = {}
+    for rank in range(mesh.size):
+        c = coords_of(mesh, rank)
+        key = tuple(v for a, v in c.items() if a not in axes)
+        groups.setdefault(key, []).append(rank)
+    return list(groups.values())
+
+
+def check_devices(mesh: Mesh, backend: str, devices) -> list:
+    """The ranks' devices, one a rank, as `torch.device`s; raises
+    ValueError for an unknown backend, a count that is not the mesh's, a
+    card without its index, and under "nccl" a rank off the card or two
+    ranks on one card."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: use one of {BACKENDS}")
+    devs = [torch.device(d) for d in devices]
+    if len(devs) != mesh.size:
+        raise ValueError(f"{len(devs)} devices for a mesh of {mesh.size} "
+                         f"ranks {mesh.shape}: give one a rank")
+    for r, d in enumerate(devs):
+        if d.type not in ("cpu", "cuda"):
+            raise ValueError(f"rank {r}: device {d} is neither cpu nor cuda")
+        if d.type == "cuda" and d.index is None:
+            raise ValueError(f"rank {r}: name the card (cuda:N), not {d}")
+    if backend == "nccl":
+        off = [r for r, d in enumerate(devs) if d.type != "cuda"]
+        if off:
+            raise ValueError(f"nccl runs on cards: ranks {off} are on "
+                             f"{[str(devs[r]) for r in off]}")
+        seen: dict = {}
+        for r, d in enumerate(devs):
+            if d in seen:
+                raise ValueError(
+                    f"nccl needs one card a rank: ranks {seen[d]} and {r} "
+                    f"share {d} (use gloo for ranks that share a card)")
+            seen[d] = r
+    return devs
+
+
+@dataclass
+class MeshGroup:
+    """One rank's view of the mesh: its coordinates, device and the
+    process groups of its "model" and "data" axes (None where the axis
+    has one rank)."""
+    mesh: Mesh
+    rank: int
+    backend: str
+    device: torch.device
+    coords: dict = field(default_factory=dict)
+    groups: dict = field(default_factory=dict)
+
+    @property
+    def model_size(self) -> int:
+        return self.mesh.shape.get("model", 1)
+
+    @property
+    def model_rank(self) -> int:
+        return self.coords.get("model", 0)
+
+    @property
+    def data_size(self) -> int:
+        return math.prod(self.mesh.shape[a] for a in dp_axes(self.mesh)
+                         if a in self.mesh.shape)
+
+    @property
+    def data_rank(self) -> int:
+        rank = 0
+        for a in dp_axes(self.mesh):
+            if a in self.mesh.shape:
+                rank = rank * self.mesh.shape[a] + self.coords[a]
+        return rank
+
+    def _group(self, axis: str):
+        """The process group of `axis` ("model", "data" or "mesh"), None
+        where it has one rank."""
+        if axis == "mesh":
+            return dist.group.WORLD if self.mesh.size > 1 else None
+        return self.groups[axis]
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        """The buffer a collective runs on: gloo reduces and gathers
+        host memory, so a card's tensor is copied there."""
+        return x.cpu() if self.backend == "gloo" and x.is_cuda else x
+
+    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """Sum `x` over the ranks of `axis`, IN PLACE; returns x."""
+        g = self._group(axis)
+        if g is None:
+            return x
+        buf = self._host(x)
+        dist.all_reduce(buf, group=g)
+        if buf is not x:
+            x.copy_(buf)
+        return x
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) \
+            -> torch.Tensor:
+        """The ranks' `x` of `axis` concatenated along `dim`, in the
+        order of their coordinate on the axis."""
+        g = self._group(axis)
+        if g is None:
+            return x
+        buf = self._host(x.contiguous())
+        parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(g))]
+        dist.all_gather(parts, buf, group=g)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+
+
+def init_group(mesh: Mesh, rank: int, *, backend: str, devices,
+               init_method: str) -> MeshGroup:
+    """Join the process group of `mesh` as `rank` (every rank calls this
+    with the same mesh, backend, devices and `init_method`) and make the
+    sub-groups of its axes.  Returns the rank's `MeshGroup`."""
+    devs = check_devices(mesh, backend, devices)
+    dev = devs[rank]
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(CPU_THREADS)
+    dist.init_process_group(
+        backend, init_method=init_method, world_size=mesh.size, rank=rank,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    coords = coords_of(mesh, rank)
+    groups = {}
+    # every rank creates every sub-group, in one order
+    for axis, axes in (("model", ("model",)), ("data", dp_axes(mesh))):
+        size = math.prod(mesh.shape.get(a, 1) for a in axes)
+        for ranks in axis_ranks(mesh, axes):
+            g = dist.new_group(ranks) if size > 1 else None
+            if rank in ranks:
+                groups[axis] = g
+    return MeshGroup(mesh, rank, backend, dev, coords, groups)
+
+
+def _worker(rank: int, fn: Callable, mesh: Mesh, backend: str, devices,
+            init_method: str, args: tuple, out_dir: str) -> None:
+    group = init_group(mesh, rank, backend=backend, devices=devices,
+                       init_method=init_method)
+    try:
+        result = fn(group, *args)
+        torch.save(result, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, mesh: Mesh, *, backend: str, devices,
+          tmpdir, args: tuple = ()) -> list[Any]:
+    """Run `fn(group, *args)` in one process a rank of `mesh` (see the
+    module docstring); returns the ranks' results in rank order."""
+    check_devices(mesh, backend, devices)
+    out = Path(tempfile.mkdtemp(prefix="spawn", dir=tmpdir))
+    init = f"file://{(out / 'rendezvous').resolve()}"
+    torch.multiprocessing.start_processes(
+        _worker, args=(fn, mesh, backend, [str(d) for d in devices], init,
+                       args, str(out)),
+        nprocs=mesh.size, start_method="spawn", join=True)
+    # the ranks' own results, written by `_worker`
+    return [torch.load(out / f"rank{r}.pt", weights_only=False)
+            for r in range(mesh.size)]

@@ -22,6 +22,21 @@ the length.  The cache length stays a Python int, so the decode loop
 makes no host-device sync (the argmax it feeds back stays on the
 device).  The reference's page-versioned KV cache option is not carried
 over (it has no code in the reference engine either).
+
+On a mesh of ranks (`group=`: this rank's `parallel.MeshGroup`; one
+engine a rank, each over a store of the rank's pieces of every version,
+`parallel.tensor`), the reference's single controller becomes a
+protocol: rank 0 pins its newest visible version and every rank pins
+that same commit (`VersionedParamStore.pin_version`), so a request
+reads one consistent snapshot on every rank.  A commit LSN names one
+version on every rank only while the ranks' stores take the same
+writes, so every rank raises, naming the LSNs, and none serves another
+version, where a rank's store lacks the commit or its WAL head is not
+rank 0's (a rank that took a write more or fewer).  The batch, prompt inputs included, splits over "data"; the
+model runs tensor parallel over "model" (`models.sharding`); the greedy
+choice over the vocab-sharded logits is gathered over "model"
+(`parallel.tensor.greedy`); and the tokens of the whole batch are
+gathered over "data", so every rank returns the same result.
 """
 
 from __future__ import annotations
@@ -33,7 +48,9 @@ import torch
 
 from ..kernels.config import resolve_device
 from ..models.config import ModelConfig
+from ..models.sharding import with_mesh
 from ..models.transformer import decode_step, prefill
+from ..parallel.tensor import check_tp, greedy, split_batch
 from ..tensorstore.versioned import VersionedParamStore
 from ..tree import leaves
 
@@ -47,13 +64,23 @@ class GenerationResult:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, store: VersionedParamStore, *,
-                 max_seq: int = 256, device=None):
+                 max_seq: int = 256, device=None, group=None):
         """`device=None` means "cuda" and raises without a GPU; the
-        published parameter versions must live on that device."""
+        published parameter versions must live on that device.  `group`:
+        this rank's `MeshGroup`, on `device` (ValueError otherwise, and
+        for a config `parallel.tensor.check_tp` refuses on its mesh);
+        None, or a mesh of one device, serves on the one device."""
         self.cfg = cfg
         self.store = store
         self.max_seq = max_seq
         self.device = resolve_device(device)
+        self.group = None
+        if group is not None and group.mesh.size > 1:
+            if group.device != self.device:
+                raise ValueError(f"rank {group.rank} is on {group.device}, "
+                                 f"the engine on {self.device}")
+            check_tp(cfg, group.mesh)
+            self.group = group
         self._prefill = lambda p, b: prefill(p, cfg, b, cache_len=max_seq)
         self._decode = lambda p, t, c, n: decode_step(p, cfg, t, c, n)
 
@@ -83,25 +110,78 @@ class ServingEngine:
         if S + n_steps > self.max_seq:
             raise ValueError(f"prompt {S} + {n_steps} steps exceeds "
                              f"max_seq {self.max_seq}")
-        pin, params = self.store.pin_snapshot()
-        lsn = self.store.visible_lsn()
+        g = self.group
+        if g is not None:
+            batch = split_batch(batch, g)
+            tokens = batch["tokens"]
+        pin, params, lsn = self._pin()
         try:
             self._check_params(params)
-            logits, cache = self._prefill(params, batch)
-            toks = []
-            tok = logits.argmax(dim=-1)[:, None]
-            n = S
-            for _ in range(n_steps):
-                toks.append(tok)
-                logits, cache = self._decode(params, tok, cache, n)
-                tok = logits.argmax(dim=-1)[:, None]
-                n += 1
-                if refresh_between_steps:
-                    # watermark may advance; THIS transaction stays pinned
-                    self.refresh()
+            with with_mesh(g):
+                logits, cache = self._prefill(params, batch)
+                toks = []
+                tok = greedy(logits, g)[:, None]
+                n = S
+                for _ in range(n_steps):
+                    toks.append(tok)
+                    logits, cache = self._decode(params, tok, cache, n)
+                    tok = greedy(logits, g)[:, None]
+                    n += 1
+                    if refresh_between_steps:
+                        # watermark may advance; THIS transaction stays
+                        # pinned
+                        self.refresh()
             out = torch.cat(toks, dim=1) if toks else \
                 tokens.new_zeros((tokens.shape[0], 0))
+            if g is not None:
+                out = g.all_gather(out, "data", dim=0)
         finally:
             self.store.release(pin)
         return GenerationResult(tokens=out, snapshot_lsn=lsn,
                                 freshness_lag=self.store.freshness_lag())
+
+    def _pin(self) -> tuple[int, Any, int]:
+        """(pin id, params, commit LSN) of the version this request
+        reads: the store's newest visible one, or on a mesh the one rank
+        0 pinned (see the module docstring)."""
+        g = self.group
+        if g is None:
+            pin, params = self.store.pin_snapshot()
+            return pin, params, self.store.pinned_lsn(pin)
+        pin, params, chosen = None, None, -1
+        if g.rank == 0:
+            try:
+                pin, params = self.store.pin_snapshot()
+                chosen = self.store.pinned_lsn(pin)
+            except RuntimeError:            # nothing visible: all raise
+                pass
+        mine = torch.tensor([[chosen, self.store.visible_lsn(),
+                              self.store.wal.head_lsn]], device=g.device)
+        lsns = g.all_gather(mine, "mesh", dim=0).tolist()     # [ranks, 3]
+        lsn = lsns[0][0]
+        if lsn < 0:
+            raise RuntimeError("rank 0 has no committed version inside RSS "
+                               "yet; refresh() after the first publish")
+        if g.rank != 0:
+            try:
+                pin, params = self.store.pin_version(lsn)
+            except LookupError:
+                pass
+        held = g.all_gather(torch.tensor([pin is not None], dtype=torch.int64,
+                                         device=g.device), "mesh").tolist()
+        lacking = [r for r, ok in enumerate(held) if not ok]
+        other = [r for r, row in enumerate(lsns) if row[2] != lsns[0][2]]
+        if lacking or other:
+            if pin is not None:
+                self.store.release(pin)
+            why = (f"ranks {lacking} hold no version there (their newest "
+                   f"visible lsn {[lsns[r][1] for r in lacking]})"
+                   if lacking else
+                   f"the WALs of ranks {other} end at lsn "
+                   f"{[lsns[r][2] for r in other]}, rank 0's at "
+                   f"{lsns[0][2]}, so that lsn may name another version "
+                   f"there")
+            raise ValueError(f"rank 0 pinned the version committed at lsn "
+                             f"{lsn}; {why}: no rank serves another "
+                             f"version")
+        return pin, params, lsn

@@ -124,11 +124,30 @@ class VersionedParamStore:
         if slot is None:
             raise RuntimeError("no committed version inside RSS yet; "
                                "call refresh() after the first publish")
+        return self._pin(slot)
+
+    def _pin(self, slot: _Slot) -> tuple[int, Any]:
         slot.pins += 1
         pid = next(self._pin_ids)
         self._pins[pid] = self.slots.index(slot)
         self.stats["pins"] += 1
         return pid, slot.params
+
+    def pin_version(self, lsn: int) -> tuple[int, Any]:
+        """Pin the committed version at WAL position `lsn`, another
+        store's choice (the version rank 0 of a mesh pinned: every rank
+        serves one snapshot).  Returns (pin_id, params); raises
+        LookupError, naming both LSNs, where no slot holds that commit."""
+        for slot in self.slots:
+            if slot.valid and slot.commit_lsn == lsn:
+                return self._pin(slot)
+        raise LookupError(f"no version committed at lsn {lsn} in this "
+                          f"store (its newest visible lsn "
+                          f"{self.visible_lsn()})")
+
+    def pinned_lsn(self, pin_id: int) -> int:
+        """The commit LSN of the version `pin_id` holds."""
+        return self.slots[self._pins[pin_id]].commit_lsn
 
     def release(self, pin_id: int) -> None:
         idx = self._pins.pop(pin_id, None)

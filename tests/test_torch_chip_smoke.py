@@ -76,6 +76,26 @@ def test_long_context_serve_phase_on_cpu(smoke, capsys, monkeypatch):
     assert "(1x40 tokens)" in out and "(0 of them split)" in out
 
 
+def test_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """The sharded serve phase at the smoke size: Qwen2-VL's smoke config
+    (2 KV heads) on a mesh of (1, 2), two ranks over gloo on the CPU,
+    checks (s1) and (s2); no kernel launches off the card."""
+    import numpy as np
+
+    for name, value in (("TP_B", 2), ("TP_S", 24), ("TP_STEPS", 4),
+                        ("TP_PUBLISH_AT", 2), ("TP_DIR", tmp_path)):
+        monkeypatch.setattr(smoke, name, value)
+    launches = smoke.tp_serve_phase(torch, np, device="cpu",
+                                    mesh_shape=(1, 2))
+    assert launches == {"flash_attention tp4": 0, "decode_attention tp4": 0}
+    out = capsys.readouterr().out
+    assert "2 ranks on the CPU over gloo" in out
+    assert "tp serve rank 1 {'data': 0, 'model': 1}" in out
+    assert "(s1) sharded vs unsharded kernel path" in out
+    assert "request 1 read v1 in all 5 calls" in out
+    assert not list(tmp_path.iterdir())         # the reference removed
+
+
 def test_plain_attention_swaps_the_layers_and_restores_them(smoke):
     from repro_torch.models import layers
 
@@ -143,12 +163,12 @@ def test_kernel_phase_script_refuses_without_cuda():
     assert out.returncode == 2 and out.stdout == ""
 
 
-def _run_witness(argv, prelude=""):
+def _run_witness(argv, prelude="", script="train_witness.py"):
     import subprocess
 
-    path = str(ROOT / "scripts" / "train_witness.py")
+    path = str(ROOT / "scripts" / script)
     code = (f"import runpy, sys\n{prelude}"
-            f"sys.argv = ['train_witness.py', *{argv!r}]\n"
+            f"sys.argv = [{script!r}, *{argv!r}]\n"
             "try:\n"
             f"    runpy.run_path({path!r}, run_name='__main__')\n"
             "except SystemExit as e:\n"
@@ -186,6 +206,31 @@ def test_train_witness_refuses_without_cuda():
     one it exits 2 before printing a result."""
     out = _run_witness([], "import torch\n"
                        "torch.cuda.is_available = lambda: False\n")
+    assert out.returncode == 2
+    assert "witness" not in out.stdout
+
+
+def test_tp_witness_rehearses_on_cpu():
+    """scripts/tp_witness.py at the smoke variant on the CPU (mesh (1, 2)):
+    the noise floor, then the sharded serve phase with its sums over
+    "model" in bf16 and in f32, each with its checks held; two ranks sum
+    two bf16 pieces with one rounding either way, so both (s1) readings
+    are equal; nothing imports jax, and it exits 0."""
+    out = _run_witness(["--device", "cpu", "--smoke"], script="tp_witness.py")
+    assert out.returncode == 0, out.stderr
+    assert "witness floor: qwen2-vl-72b-smoke 2 layers" in out.stdout
+    s1 = [line.split("max |d| / max |logit| ")[1].split(" ")[0]
+          for line in out.stdout.splitlines()
+          if line.startswith("tp serve checks")]
+    assert len(s1) == 2 and s1[0] == s1[1] and float(s1[0]) <= 3e-2
+    assert "witness f32 psum:" in out.stdout and "failed" not in out.stdout
+    assert "jax loaded: False" in out.stdout
+
+
+def test_tp_witness_refuses_without_cuda():
+    out = _run_witness([], "import torch\n"
+                       "torch.cuda.is_available = lambda: False\n",
+                       script="tp_witness.py")
     assert out.returncode == 2
     assert "witness" not in out.stdout
 

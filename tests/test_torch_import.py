@@ -43,7 +43,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                  "repro_torch.launch.train", "repro_torch.launch.serve",
                  "repro_torch.launch.mesh", "repro_torch.launch.shardings",
                  "repro_torch.launch.specs", "repro_torch.launch.dryrun",
-                 "repro_torch.models.sharding"):
+                 "repro_torch.models.sharding",
+                 "repro_torch.parallel.group", "repro_torch.parallel.tensor"):
         assert name in names
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
