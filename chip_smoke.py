@@ -88,7 +88,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    K 8, hd 128; MQA at H 48, K 1, hd 128; ragged S = T = 1,000 in bf16
    and f32; Whisper-tiny's encoder, B = 32, S = T = 1,500, H = K = 6,
    hd 64, non-causal, and its cross-attention, S = 448 over T = 1,500,
-   each a row of its own: `BWD_ROWS`), from the forward kernel's o and
+   each a row of its own: `BWD_ROWS`; one rank's share of the sharded
+   train phase, B = 2 at Qwen's train shape, a row of its own:
+   `FSDP_ROWS`), from the forward kernel's o and
    lse, against
    `attention_bwd_ref` on the same inputs (bf16 within 3e-2 of each
    gradient's max-abs, f32 2e-5), two launches bitwise equal, timed
@@ -142,7 +144,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
    launch splits the cache, which (c) checks) (`repro_torch.configs`, bf16, random weights from
-   torch.Generator seed 0; Qwen and RWKV at full width and depth, Jamba
+   torch.Generator seed 0; Qwen at full width and depth, RWKV at full
+   width, 4 of 32 layers (`SERVE_DEPTH`: the script's time), Jamba
    at full width, one period deep (8 of 72 layers), each MoE layer
    holding experts 0-7 of 16: one card's share of an expert-parallel
    deployment, ~54 GB) published into a `VersionedParamStore` and served
@@ -158,9 +161,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    factor 8.0, drop-free, with routing replayed: at 1.25 the capacity
    depends on the length, so prefill + decode drops choices the forward
    keeps, in the reference too); both within 3e-2 of the logits'
-   max-abs for Qwen and Jamba.  RWKV6-3B's 32 bf16 layers amplify a
-   1e-6 relative change of the WKV output to ~8% of the logits (the
-   phase prints this noise floor), so there (a) holds every `wkv_scan`
+   max-abs for Qwen and Jamba.  RWKV6-3B's bf16 layers amplify a
+   1e-6 relative change of the WKV output to ~8% of the logits at 32
+   layers (the phase prints this noise floor), so there (a) holds every
+   `wkv_scan`
    launch of request 1's replay against the plain version on the same
    inputs (1e-4), and (a) and (b) run end to end on the same weights in
    f32 (1e-3); the bf16 ratios are printed.  Jamba adds the same
@@ -207,8 +211,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    memory and backend.  With two cards or more it runs again over NCCL,
    one rank a card; else it prints that this route was not run;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
-   full width and depth, RWKV6-3B at full width and depth (32 layers,
-   d 2,560, f32 moments, batch 4: `TRAIN_BATCH`), Jamba-1.5-Large's
+   full width and depth, RWKV6-3B at full width, 4 of 32 layers
+   (`TRAIN_CUT`: the script's time; d 2,560, f32 moments, batch 4:
+   `TRAIN_BATCH`), Jamba-1.5-Large's
    Mamba layers (`TRAIN_CUT`: the period's first position, Mamba with a
    dense MLP, 2 layers at the published widths, bf16 moments, 8
    microbatches), Whisper-tiny whole (32 clips of 1,500 seeded frames,
@@ -246,6 +251,35 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    Qwen2-VL run (a) to (c) as Qwen1.5-0.5B does, with the flash
    backward's launches at Whisper's encoder and cross shapes counted for
    the rows of `BWD_ROWS`;
+12b. sharded train phase (`fsdp_train_phase`): Qwen1.5-0.5B whole (24
+   layers at the published widths, bf16) under its fsdp2d placement
+   over a mesh of (data 2, model 2) (`FSDP_MESH`): the unsharded step's
+   loss, gradients and grad norm on the same weights (torch.Generator
+   seed 0) and batch (the pipeline's 8 x 1,024 of seed 0) first, here,
+   freed before the ranks start; then four ranks (`parallel.spawn`), all
+   on the one card over gloo, each a `Trainer(group=)` drawing its
+   pieces (`parallel.fsdp.init_local_state`: a quarter of every layer's
+   weights and moments, the embedding and lm_head whole), training on
+   its 2 rows of each batch and publishing into its own
+   `VersionedParamStore(slots=2)`: FSDP_STEPS steps with a reader
+   pinned at v1, a save after them.  Checks, on every rank: (f1) step
+   1's loss within 3e-2 of the unsharded one (relative); (f2) every
+   gradient leaf of step 1, gathered, within 3e-2 of its max-abs, and
+   grad_norm within 3e-2 (the worst leaf printed beside both steps'
+   distances from the same weights' f32 gradients, TF32 off); (f3)
+   the rank's resident parameter and optimizer bytes equal to
+   `launch.dryrun.residency` of this mesh and
+   config, to the byte; (f4) the pinned v1 read bitwise after the
+   publishes; (f5) the saved state restored onto the mesh (each rank's
+   pieces) and onto one device (rank 0, against every gathered leaf),
+   bitwise; each rank's 24 flash forward and 24 backward launches a
+   step under remat "dots" and 2 x 24 + 1 gathers a step; per rank the
+   step times, peak memory, gathers and reduce-scatters a step, the
+   launches (summed into rows `flash_attention`,
+   `flash_attention_bwd` and `flash_attention_bwd fsdp4`), each line
+   beside the card's name and power limit.  With four cards or more it
+   runs again over NCCL, one rank a card; else it prints that this route
+   was not run;
 13. launch phase: `repro_torch.launch.train` (3 steps of 4 x 64
    tokens, a save every 2 steps under build/launch_ckpt, removed after,
    publishing) and `repro_torch.launch.serve` (2 trainer steps, then 2
@@ -258,8 +292,10 @@ scans' two routes are two kernels each, `wkv_scan` / `ssm_scan` for the
 chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches; the attention kernels have a row more
 for each shape of `ATTN_ROWS`, with the serve phases' launches at that
-shape, and for each of `TP_ROWS`, with the sharded serve phase's
-launches summed over its ranks), the card line, and last
+shape, for each of `TP_ROWS`, with the sharded serve phase's
+launches summed over its ranks, and for `FSDP_ROWS`, with the sharded
+train phase's backward launches summed over its ranks), the card line,
+and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
 launches in the train and launch phases' steps (`flash_attention_bwd
 encoder` and `... cross` those at Whisper's two shapes), the scans'
@@ -351,8 +387,9 @@ KERNEL_MIXER = {"flash_attention": "attn", "decode_attention": "attn",
                 "wkv_scan": "rwkv", "ssm_scan": "mamba"}
 # checks (a) and (b) on the served bf16 logits: max |d| within this share
 # of the logits' max-abs (the CPU tests' bf16 tolerance).  None for
-# RWKV6-3B: its 32 bf16 layers move the logits by ~8% of their max-abs
-# for a 1e-6 relative change of the WKV output (PERF.md), so there the
+# RWKV6-3B: its bf16 layers move the logits by ~8% of their max-abs
+# for a 1e-6 relative change of the WKV output at 32 layers (PERF.md),
+# at any depth the phase runs, so there the
 # kernel is held per launch and in f32 instead (`_wkv_checks`)
 SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
                   "jamba-1.5-large-398b": 3e-2, "whisper-tiny": 3e-2,
@@ -368,8 +405,16 @@ SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
 # a layer is 877.8 M parameters (1.756 GB), the embedding and lm_head
 # 4.98 GB, so 32 layers (61.2 GB, 66.2 GB with the writer's v2 embedding
 # and lm_head) at the published widths: one pipeline stage of a
-# deployment over 3 cards
-SERVE_DEPTH = {"jamba-1.5-large-398b": 8, "qwen2-vl-72b": 32}
+# deployment over 3 cards.
+# RWKV6-3B fits the card whole, and served whole (32 layers) in
+# 111.5-167.2 s; cut to 4 of its 32 identical layers at the published
+# widths so that `chip_smoke.py` with the sharded train phase stays
+# inside its time limit (it took 1,185.0 s with RWKV whole on an NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md §6): every `wkv_scan` launch is
+# still held against the plain version, and (a), (b) run end to end in
+# f32 at that depth
+SERVE_DEPTH = {"rwkv6-3b": 4, "jamba-1.5-large-398b": 8,
+               "qwen2-vl-72b": 32}
 # the architectures whose serve phase measures the bf16 model's own noise
 # floor under attention (`_attn_noise_floor`): Qwen2-VL-72B's checks read
 # 0.0218 and 0.0203 of their 3e-2 bound (NVIDIA H100 80GB HBM3, 700.00 W;
@@ -386,16 +431,39 @@ SERVE_SMOKE = False
 # as `serve_batch` makes it), 16 decode steps, v2 published after step 8
 TP_ARCH, TP_MESH, TP_DEPTH = "qwen2-vl-72b", (1, 4), 8
 TP_B, TP_S, TP_STEPS, TP_PUBLISH_AT = 8, 1024, 16, 8
-# Qwen2-VL-72B's bf16 noise floor under attention (`_attn_noise_floor`
-# at 32 layers on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6),
-# printed beside check (s1)
-TP_NOISE_FLOOR = 0.0177
+# Qwen2-VL-72B's bf16 noise floor under attention at the phase's own
+# depth, TP_DEPTH layers (`scripts/tp_witness.py`, which runs
+# `_attn_noise_floor` on the phase's config, batch and weights, on an
+# NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), printed beside check (s1)
+TP_NOISE_FLOOR = 0.0126
+TP_NOISE_FLOOR_FROM = ("scripts/tp_witness.py at 8 layers, NVIDIA H100 "
+                       "80GB HBM3, 700.00 W")
 TP_DIR = ROOT / "build" / "tp_serve"
 # the kernel phase's shapes of one rank of that mesh (16 query and 2 KV
 # heads, hd 128), rows of their own in the JSON line, their launches
 # those of the sharded serve phase's ranks
 TP_ROWS = {"tp prefill": "flash_attention tp4",
            "tp decode": "decode_attention tp4"}
+# sharded train phase: Qwen1.5-0.5B whole (24 layers at the published
+# widths, bf16) under its own placement, fsdp2d, over a mesh of (data 2,
+# model 2): every layer's weights and their moments cut four ways, the
+# embedding and lm_head replicated, the batch over both axes (TRAIN_B x
+# TRAIN_S tokens a step, 2 rows a rank), four ranks on the one card over
+# gloo; FSDP_STEPS steps published into each rank's store with a reader
+# pinned at v1, the state saved after them under FSDP_DIR (removed
+# after).  Qwen1.5-0.5B is the one published config whose sharded
+# training fits the card with four ranks on it: fsdp2d keeps a whole
+# embedding and lm_head, their f32 gradients and moments on every rank
+# (~3.7 GB a rank), where Qwen2-VL-72B's would take ~20 GB a rank
+FSDP_ARCH, FSDP_MESH, FSDP_STEPS = "qwen1.5-0.5b", (2, 2), 2
+FSDP_DIR = ROOT / "build" / "fsdp_train"
+# checks (f1) and (f2): the bf16 loss bound of the train phase (PERF.md
+# §2), also for each gathered gradient leaf against its max-abs
+FSDP_TOL = 3e-2
+# the backward kernel phase's shape of one rank of that mesh (2 x 1,024,
+# Qwen's heads), a row of its own in the JSON line, its launches those of
+# the sharded train phase's ranks
+FSDP_ROWS = {"fsdp rank": "flash_attention_bwd fsdp4"}
 # the plain path's keys a chunk: its f32 scores are [B, S, H, PLAIN_CHUNK]
 # (Qwen2-VL's prefill at 256: 0.54 GB a copy, beside 66 GB of weights)
 PLAIN_CHUNK = 256
@@ -424,7 +492,8 @@ TRAIN_SERVE = (1, 64, 8)
 # and the gradients take ~50 GB before activations, and remat "dots"
 # keeps ~1.4 GB of f32 product outputs a layer at batch 8 (45 GB over
 # 32 layers): the card forces a cut of the batch to 4 (widths and depth
-# as published).  Whisper-tiny trains on 32 clips of 30 s (1,500 frames
+# as published; the depth is cut for time since, TRAIN_CUT, and the
+# batch stays 4).  Whisper-tiny trains on 32 clips of 30 s (1,500 frames
 # each) with a 448-token decoder window, its published text context
 # (arXiv:2212.04356): TRAIN_S's 1,024 tokens are longer than the model's
 # context
@@ -440,8 +509,11 @@ TRAIN_SEQ = {"whisper-tiny": 448}
 # H100 80GB HBM3, 700.00 W; PERF.md §5: bf16 weights, moments and
 # gradient sums, f32 gradients, the pinned v1 and the update's new
 # version) one layer is ~70 GB, two ~89 GB: one layer, 4 microbatches of
-# 2 x 1,024 (the config's)
-TRAIN_CUT = {"jamba-1.5-large-398b": 2, "qwen2-vl-72b": 1}
+# 2 x 1,024 (the config's).
+# RWKV6-3B trains whole on the card (32 layers, 95.0 s for the phase);
+# cut to 4 layers at the published widths for the script's time, as its
+# serve phase is (SERVE_DEPTH)
+TRAIN_CUT = {"rwkv6-3b": 4, "jamba-1.5-large-398b": 2, "qwen2-vl-72b": 1}
 # check (a)'s depth where it is not the whole model: 2 layers at full
 # width (the plain backwards' explicit reverse scans at full length)
 TRAIN_CHECK_LAYERS = {"rwkv6-3b": 2}
@@ -1749,7 +1821,8 @@ BWD_CASES = [
     ("ragged", "float32", 2, 1000, 1000, 8, 2, 32, False, 0, False),
     ("whisper encoder", "bfloat16", 32, 1500, 1500, 6, 6, 64, False, 0,
      True),
-    ("whisper cross", "bfloat16", 32, 448, 1500, 6, 6, 64, False, 0, True)]
+    ("whisper cross", "bfloat16", 32, 448, 1500, 6, 6, 64, False, 0, True),
+    ("fsdp rank", "bfloat16", 2, 1024, 1024, 16, 16, 64, True, 0, True)]
 # backward shapes with a row of their own in the JSON line: label -> (row
 # name, the key of `record_attention_shapes` whose launches the train
 # phases make at that shape)
@@ -1790,8 +1863,8 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
     the bound (10·pairs·hd·B·H operations against the bytes of q, k, v,
     o, dO, dq, dk, dv) and SDPA's backward on its flash route.  Returns
     {"flash_attention_bwd": {"max_abs_err" (over every case), "times"
-    (the train shape's)}} and, for each shape of BWD_ROWS, its row name
-    with that case's {"max_abs_err", "times"}.  Off the card the
+    (the train shape's)}} and, for each shape of BWD_ROWS and FSDP_ROWS,
+    its row name with that case's {"max_abs_err", "times"}.  Off the card the
     wrapper is the plain version and nothing is timed."""
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -1838,8 +1911,10 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
         print(f"kernel flash_attention_bwd {label} {shape}: within "
               f"{tol[dt]} of plain (max |d| / max-abs {', '.join(ratios)}), "
               "two launches bitwise equal", flush=True)
-        if label in BWD_ROWS:
-            out[BWD_ROWS[label][0]] = {"max_abs_err": case_err}
+        row = BWD_ROWS[label][0] if label in BWD_ROWS else \
+            FSDP_ROWS.get(label)
+        if row:
+            out[row] = {"max_abs_err": case_err}
         if timed and on_card:
             ms = time_ms(torch, fn, flush)
             plain_ms = time_ms(torch, plain, flush, reps=5)
@@ -1856,9 +1931,8 @@ def attention_bwd_phase(torch, np, flush, device: str = "cuda") -> dict:
                   f"{flops / 1e9:.2f} GFLOP)", flush=True)
             if label == "train":
                 res["times"] = (ms, plain_ms, bound_ms, library_ms, by)
-            if label in BWD_ROWS:
-                out[BWD_ROWS[label][0]]["times"] = (ms, plain_ms, bound_ms,
-                                                    library_ms, by)
+            if row:
+                out[row]["times"] = (ms, plain_ms, bound_ms, library_ms, by)
         del q, k, v, o, lse, do, got, again
     return out
 
@@ -3355,7 +3429,8 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
           f"max |d| / max |logit| {worst:.4g} (<= "
           f"{SERVE_BF16_TOL[TP_ARCH]}; by rank "
           f"{[round(r['s1'], 5) for r in out]}), beside Qwen2-VL's bf16 "
-          f"noise floor under attention {TP_NOISE_FLOOR}; (s2) one snapshot "
+          f"noise floor under attention at {TP_DEPTH} layers "
+          f"{TP_NOISE_FLOOR} ({TP_NOISE_FLOOR_FROM}); (s2) one snapshot "
           f"a request on all {mesh.size} ranks: lsn {min(lsn1)} then "
           f"{min(lsn2)}, request 1 read v1 in all {N + 1} calls with v2 "
           f"published after step {TP_PUBLISH_AT}; every rank's tokens equal;"
@@ -3364,6 +3439,292 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
                                        for r in out),
             TP_ROWS["tp decode"]: sum(r["launches"]["decode_attention"]
                                       for r in out)}
+
+
+def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
+              n_steps: int) -> dict:
+    """One rank of the sharded train phase (`parallel.spawn` runs it in a
+    process of its own): a `Trainer(group=)` drawing the rank's pieces of
+    the state from seed 0 (the parent's draws) and publishing into its
+    own `VersionedParamStore(slots=2)`, B x S tokens a step; (f3) its
+    resident parameter and
+    optimizer bytes against `launch.dryrun.residency`; (f2) step 1's
+    gradients (`value_and_grad` on the rank's rows of the same batch),
+    each leaf gathered against the parent's unsharded ones at `ref_path`;
+    a reader pinned at v1, then `n_steps` steps (the kernels' launches
+    and the layout's gathers counted from 0 just before them and read
+    after); (f4) the pinned read against v1; (f5) the state saved under
+    the group into `ckpt_dir`, restored as the rank's pieces (bitwise)
+    and, on rank 0, onto its one device whole (bitwise against every
+    gathered leaf).  Returns what the parent checks and prints."""
+    import torch
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.launch.dryrun import residency
+    from repro_torch.launch.specs import batch_specs, state_specs
+    from repro_torch.parallel.tensor import gather_piece
+    from repro_torch.tensorstore import VersionedParamStore
+    from repro_torch.train import Trainer
+    from repro_torch.tree import leaves, leaves_with_path, path_key
+
+    dev = group.device
+    on_card = dev.type == "cuda"
+    if on_card and not cuda_build.library_path("attention").exists():
+        raise RuntimeError("the parent builds the kernels before the ranks "
+                           "start; a rank never runs nvcc")
+    sync = (lambda: torch.cuda.synchronize(dev)) if on_card else \
+        (lambda: None)
+    t0 = time.perf_counter()
+    store = VersionedParamStore(slots=2)
+    tr = Trainer(cfg, batch=B, seq_len=S, seed=0, store=store, device=dev,
+                 group=group)
+    layout, specs = tr.layout, tr.layout.specs.state
+    sync()
+    init_s = time.perf_counter() - t0
+
+    # (f3) resident bytes against the dry-run's plan of this mesh
+    nbytes = lambda tree: sum(x.numel() * x.element_size()
+                              for x in leaves(tree))
+    have = {"params": nbytes(tr.state["params"]),
+            "opt": nbytes(tr.state["opt"]) + nbytes(tr.state["step"])}
+    placed, _ = state_specs(group.mesh, cfg, tr.opt_cfg)
+    plan = residency(group.mesh, "train", {
+        "state": placed, "batch": batch_specs(group.mesh, cfg, B, S,
+                                              train=True)})
+
+    # (f2) step 1's gradients, gathered leaf by leaf
+    want = torch.load(ref_path, mmap=True)
+    _, grads = tr.step_fn.value_and_grad(tr.state["params"], tr.batch_at(0))
+    f2, f32 = {}, {}
+    ratio = lambda a, b: ((a - b).abs().max() / b.abs().max()
+                          .clamp_min(1e-30)).item()
+    for path, g in leaves_with_path(grads):
+        key = path_key(path)
+        whole = gather_piece(g, layout.spec(f"opt/m/{key}"), group)
+        if not torch.isfinite(whole).all():
+            raise AssertionError(f"rank {group.rank}: non-finite {key}")
+        f2[key] = ratio(whole, want["grads"][key].to(dev).float())
+        f32[key] = ratio(whole, want["grads32"][key].to(dev))
+    del grads, whole
+
+    # the main path: n_steps published steps, a reader pinned at v1
+    v1 = [x.clone() for x in leaves(tr.state["params"])]
+    pin, pinned = store.pin_snapshot()
+    wrappers = {"flash_attention": FK.flash_attention,
+                "flash_attention_bwd": FK.flash_attention_bwd}
+    cuda_build.reset_counts(wrappers.values())
+    gathers, scatters = layout.gathers, layout.reduce_scatters
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    ends = []
+
+    def after(i, metrics):
+        sync()
+        ends.append(time.perf_counter())
+
+    sync()
+    start = time.perf_counter()
+    log = tr.run(n_steps, after_step=after)
+    launches = {n: cuda_build.launch_count(fn) for n, fn in wrappers.items()}
+    gathers = (layout.gathers - gathers) / n_steps
+    scatters = (layout.reduce_scatters - scatters) / n_steps
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    step_ms = [(b - a) * 1e3 for a, b in zip([start] + ends, ends)]
+    store.refresh()
+    f4 = len(v1) == len(leaves(pinned)) and all(
+        torch.equal(a, b) for a, b in zip(leaves(pinned), v1))
+    lsns = (store.pinned_lsn(pin), store.visible_lsn())
+    store.release(pin)
+    del v1, pinned
+
+    # (f5) saved under the group, restored onto the mesh and onto one
+    # device
+    t0 = time.perf_counter()
+    ckpt.save(tr.state, n_steps, ckpt_dir, group=group, specs=specs)
+    save_s = time.perf_counter() - t0
+    mine = ckpt.restore(ckpt_dir, tr.state, device=dev, group=group,
+                        specs=specs)
+    f5_pieces = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                    zip(leaves(mine), leaves(tr.state)))
+    del mine
+    one = None
+    if group.rank == 0:
+        template = dict(layout.meta, step=torch.zeros(
+            (), dtype=torch.int32, device="meta"))
+        one = dict(leaves_with_path(ckpt.restore(ckpt_dir, template,
+                                                 device=dev)))
+    f5_whole = True
+    for path, x in leaves_with_path(tr.state):
+        whole = gather_piece(x, specs[path_key(path)], group)
+        if one is not None:
+            got = one.pop(path)
+            f5_whole &= got.dtype == whole.dtype and torch.equal(got,
+                                                                 whole)
+    del one
+    return {"rank": group.rank, "coords": group.coords, "init_s": init_s,
+            "losses": [m["loss"] for m in log],
+            "grad_norm": log[0]["grad_norm"], "step_ms": step_ms,
+            "peak_gb": peak, "gathers": gathers, "reduce_scatters": scatters,
+            "launches": launches, "f2": f2, "f32": f32, "have": have,
+            "plan": {k: plan[k] for k in have}, "f4": f4, "lsns": lsns,
+            "f5": (f5_pieces, f5_whole if group.rank == 0 else None),
+            "save_s": save_s}
+
+
+def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
+                     mesh_shape: tuple = FSDP_MESH) -> dict:
+    """The sharded train phase (see the module docstring): FSDP_ARCH
+    whole at the published widths under its fsdp2d placement on a mesh of
+    `mesh_shape`, its ranks spawned on `backend`, all on the one
+    `device` (gloo: the ranks share the card) or one card a rank
+    (nccl); the unsharded step's loss, gradients and grad norm computed
+    here first, on the same weights and batch (and the gradients of the
+    same weights in f32, TF32 off: the bf16 noise floor printed beside
+    (f2)), and freed before the ranks start.  Checks (f1)-(f5) on every
+    rank; returns the ranks'
+    flash forward and backward launches, summed, under the kernels
+    line's keys and FSDP_ROWS' row."""
+    import tempfile
+
+    from repro_torch.data import SyntheticPipeline
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import global_norm
+    from repro_torch.parallel import check_train, spawn
+    from repro_torch.train import make_train_step
+    from repro_torch.tree import leaves_with_path, path_key, tree_map
+
+    cfg = train_config(FSDP_ARCH)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    check_train(cfg, mesh)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    card = card_line() if on_card else "the CPU"
+    if backend == "nccl":
+        devices = [f"cuda:{r}" for r in range(mesh.size)]
+    else:
+        devices = [f"cuda:{dev.index or 0}" if on_card else "cpu"] \
+            * mesh.size
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    batch = SyntheticPipeline(cfg, batch=TRAIN_B, seq_len=TRAIN_S, seed=0,
+                              device=dev).batch_at(0)
+    opt = AdamWConfig(moment_dtype=cfg.moment_dtype)
+    loss, grads = make_train_step(cfg, opt).value_and_grad(params, batch)
+    # the same weights in f32 (TF32 off): each leaf's gradient, and the
+    # bf16 step's own distance from it (the noise floor of (f2))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = cfg.with_overrides(param_dtype="float32", compute_dtype="float32")
+    _, g32 = make_train_step(f32, opt).value_and_grad(
+        tree_map(lambda x: x.float(), params), batch)
+    ref = {"loss": float(loss), "grad_norm": float(global_norm(grads)),
+           "grads": {}, "grads32": {}, "floor": {}}
+    for (p, g), (_, w) in zip(leaves_with_path(grads),
+                              leaves_with_path(g32)):
+        key = path_key(p)
+        ref["grads"][key], ref["grads32"][key] = g.cpu(), w.cpu()
+        ref["floor"][key] = ((g.float() - w).abs().max()
+                             / w.abs().max().clamp_min(1e-30)).item()
+    del params, batch, loss, grads, g32
+    if on_card:
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    FSDP_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=FSDP_DIR) as tmp:
+        ref_path = os.path.join(tmp, "reference.pt")
+        torch.save(ref, ref_path)
+        t0 = time.perf_counter()
+        out = spawn(fsdp_rank, mesh, backend=backend, devices=devices,
+                    tmpdir=tmp, args=(cfg, TRAIN_B, TRAIN_S, ref_path,
+                                      os.path.join(tmp, "ckpt"),
+                                      FSDP_STEPS))
+        ranks_s = time.perf_counter() - t0
+    how = (f"{mesh.size} ranks on one card over gloo: collectives pass "
+           f"through the host" if backend == "gloo" and on_card else
+           f"{mesh.size} ranks, one card each, over nccl" if on_card else
+           f"{mesh.size} ranks on the CPU over gloo")
+    run = (f"{cfg.name} {cfg.n_layers} layers, {cfg.train_sharding}, mesh "
+           f"{mesh.shape}, {backend}, {TRAIN_B}x{TRAIN_S} tokens a step")
+    print(f"fsdp train: {run}: unsharded reference {ref_s:.1f} s, ranks "
+          f"{ranks_s:.1f} s ({how}); {card}", flush=True)
+    for r in out:
+        peak = (f"{r['peak_gb']:.2f} GB peak" if r["peak_gb"] is not None
+                else "peak not measured (CPU)")
+        print(f"fsdp train rank {r['rank']} {r['coords']}: init "
+              f"{r['init_s']:.1f} s; steps "
+              f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms; {peak}; "
+              f"{r['gathers']:g} gathers and {r['reduce_scatters']:g} "
+              f"reduce-scatters a step; launches {r['launches']} over "
+              f"{FSDP_STEPS} steps; resident params {r['have']['params']} "
+              f"B, opt {r['have']['opt']} B; save {r['save_s']:.1f} s; "
+              f"backend {backend}; {card}", flush=True)
+    # (f1) step 1's loss, (f2) its gradients and grad norm
+    for r in out:
+        d = abs(r["losses"][0] - ref["loss"]) / abs(ref["loss"])
+        if not d <= FSDP_TOL:
+            raise AssertionError(f"(f1) rank {r['rank']} loss "
+                                 f"{r['losses'][0]} vs {ref['loss']}")
+        d = abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        worst = max(r["f2"].values())
+        if not (d <= FSDP_TOL and worst <= FSDP_TOL):
+            raise AssertionError(f"(f2) rank {r['rank']} grad_norm "
+                                 f"{r['grad_norm']} vs {ref['grad_norm']}, "
+                                 f"worst leaf {worst:.4g}")
+    # (f3) to the byte, (f4) bitwise, (f5) bitwise
+    for r in out:
+        if r["have"] != r["plan"]:
+            raise AssertionError(f"(f3) rank {r['rank']} holds {r['have']},"
+                                 f" the dry-run plans {r['plan']}")
+        if not r["f4"]:
+            raise AssertionError(f"(f4) rank {r['rank']}: the pinned v1 "
+                                 "read changed")
+        if not r["f5"][0] or r["f5"][1] is False:
+            raise AssertionError(f"(f5) rank {r['rank']}: restored "
+                                 f"{r['f5']}")
+    if len({r["lsns"] for r in out}) != 1:
+        raise AssertionError(f"store lsns by rank {[r['lsns'] for r in out]}")
+    layers = cfg.n_layers
+    for r in out:
+        if on_card and r["launches"] != {"flash_attention": layers
+                                         * FSDP_STEPS,
+                                         "flash_attention_bwd": layers
+                                         * FSDP_STEPS}:
+            raise AssertionError(f"rank {r['rank']} launches "
+                                 f"{r['launches']}")
+        if cfg.remat != "none" and r["gathers"] != 2 * cfg.n_periods + 1:
+            raise AssertionError(f"rank {r['rank']}: {r['gathers']} gathers"
+                                 " a step")
+    worst = max(max(r["f2"].values()) for r in out)
+    leaf = max(out[0]["f2"], key=out[0]["f2"].get)
+    pinned, visible = out[0]["lsns"]
+    print(f"fsdp train checks ({run}): (f1) step 1's loss on every rank "
+          f"{[round(r['losses'][0], 5) for r in out]} vs unsharded "
+          f"{ref['loss']:.5f} (<= {FSDP_TOL} relative); (f2) every gathered "
+          f"gradient leaf within {worst:.4g} of its max-abs (the worst, "
+          f"{leaf}: against the same weights' f32 gradient the unsharded "
+          f"bf16 step reads {ref['floor'][leaf]:.4g}, the sharded "
+          f"{out[0]['f32'][leaf]:.4g}; worst over the leaves "
+          f"{max(ref['floor'].values()):.4g} and "
+          f"{max(out[0]['f32'].values()):.4g}), grad_norm "
+          f"{[round(r['grad_norm'], 5) for r in out]} vs "
+          f"{ref['grad_norm']:.5f} (<= {FSDP_TOL}); (f3) resident params "
+          f"{out[0]['plan']['params']} B and opt {out[0]['plan']['opt']} B "
+          f"a rank == launch.dryrun.residency; (f4) the reader pinned at "
+          f"lsn {pinned} read v1 bitwise after {FSDP_STEPS} publishes "
+          f"(visible lsn {visible}) on every rank; (f5) the state saved "
+          f"after step {FSDP_STEPS} restored bitwise onto the mesh and onto "
+          f"one device; losses {[round(x, 5) for x in out[0]['losses']]}; "
+          f"{card}", flush=True)
+    fwd = sum(r["launches"]["flash_attention"] for r in out)
+    bwd = sum(r["launches"]["flash_attention_bwd"] for r in out)
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
+            FSDP_ROWS["fsdp rank"]: bwd}
 
 
 # ------------------------------------------------------------------ training
@@ -3526,7 +3887,8 @@ def train_config(arch: str):
     cfg = smoke_variant(cfg) if TRAIN_SMOKE else cfg
     if arch in TRAIN_CUT:
         cfg = cfg.with_overrides(pattern=cfg.pattern[:1],
-                                 n_layers=TRAIN_CUT[arch])
+                                 n_layers=min(TRAIN_CUT[arch],
+                                              cfg.n_layers))
     return cfg
 
 
@@ -4041,6 +4403,24 @@ def main() -> int:
         print(f"train phase {arch}: {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
+    # the sharded train path: its ranks' flash launches, the backward's
+    # also in the per-rank row; the nccl route where the machine has a
+    # card a rank
+    t0 = time.perf_counter()
+    runs = [fsdp_train_phase(torch, np)]
+    if cards >= FSDP_MESH[0] * FSDP_MESH[1]:
+        runs.append(fsdp_train_phase(torch, np, backend="nccl"))
+    else:
+        print(f"fsdp train: the nccl route (one card a rank) was not run: "
+              f"{cards} card on this machine", flush=True)
+    for got in runs:
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"fsdp train phase: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
+          flush=True)
     # the launchers, as a user starts them
     for name, n in launch_phase(torch).items():
         launches[name] = launches.get(name, 0) + n
@@ -4059,7 +4439,8 @@ def main() -> int:
     shape_rows = [(row, row, "times", launches.get(row, 0))
                   for row in (*(r for r, _ in ATTN_ROWS.values()),
                               *TP_ROWS.values(),
-                              *(r for r, _ in BWD_ROWS.values()))]
+                              *(r for r, _ in BWD_ROWS.values()),
+                              *FSDP_ROWS.values())]
     for row, _, _, n in scan_rows + bwd_rows + shape_rows:
         if n == 0:
             raise AssertionError(f"{row} never launched")
@@ -4080,13 +4461,16 @@ def main() -> int:
     sources = {**{n: ATTN_SRC for n in (*ATTN_TPU, *ATTN_BWD_TPU)},
                **{row: ATTN_SRC for row, _ in (*ATTN_ROWS.values(),
                                                 *BWD_ROWS.values())},
-               **{row: ATTN_SRC for row in TP_ROWS.values()},
+               **{row: ATTN_SRC for row in (*TP_ROWS.values(),
+                                            *FSDP_ROWS.values())},
                **{n: WKV_SRC for n in (*WKV_TPU, "wkv_scan bwd")},
                **{n: SSM_SRC for n in (*SSM_TPU, "ssm_scan bwd")}}
     tpu = {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU, **SSM_TPU,
            **{row: ATTN_TPU[shape[0]] for row, shape in ATTN_ROWS.values()},
            **{row: ATTN_TPU[row.split()[0]] for row in TP_ROWS.values()},
            **{row: ATTN_BWD_TPU[shape[0]] for row, shape in BWD_ROWS.values()},
+           **{row: ATTN_BWD_TPU["flash_attention_bwd"]
+              for row in FSDP_ROWS.values()},
            "wkv_scan bwd": WKV_TPU["wkv_scan"],
            "ssm_scan bwd": SSM_TPU["ssm_scan"]}
     # the scans have two kernels each: a row per kernel, with the

@@ -7,6 +7,7 @@
     python3 scripts/kernel_phase.py TREE --attention
     python3 scripts/kernel_phase.py TREE --scans
     python3 scripts/kernel_phase.py TREE --backwards
+    python3 scripts/kernel_phase.py TREE --fsdp
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -56,6 +57,11 @@ kernel from a profiler trace): run on an earlier tree and on this one in
 turns, it times the three backward kernels of each in one call.  It also
 prints each `ssm_bwd_kernel` instantiation's instruction count and mix
 from `cuobjdump -sass` of the built library, where the toolkit has it.
+
+With `--fsdp` it builds the tree's `attention.cu` and runs the tree's own
+`chip_smoke.fsdp_train_phase` (Qwen1.5-0.5B whole under fsdp2d, four
+ranks on the card over gloo, checks (f1)-(f5), per-rank step times,
+memory, gathers and launches), timing it.
 """
 
 import collections
@@ -208,6 +214,18 @@ def backwards_phase(torch, np, tree: Path) -> None:
         print(f"result {name}: {res}", flush=True)
 
 
+def fsdp_phase(torch, np, tree: Path) -> None:
+    """The tree's `chip_smoke.fsdp_train_phase`."""
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+
+    print(f"tree {tree}, fsdp: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["attention"])
+    t0 = time.perf_counter()
+    print(f"result: {chip_smoke.fsdp_train_phase(torch, np)}", flush=True)
+    print(f"fsdp train phase: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
     groups = None
@@ -227,6 +245,9 @@ def main() -> int:
     backwards = "--backwards" in args
     if backwards:
         args.remove("--backwards")
+    fsdp = "--fsdp" in args
+    if fsdp:
+        args.remove("--fsdp")
     tree = Path(args[0] if args else ".").resolve()
     sys.path[:0] = [str(tree), str(tree / "src")]
     import numpy as np
@@ -250,6 +271,9 @@ def main() -> int:
         return 0
     if backwards:
         backwards_phase(torch, np, tree)
+        return 0
+    if fsdp:
+        fsdp_phase(torch, np, tree)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

@@ -10,6 +10,14 @@ stored through an unsigned view of their bits (uint16 / uint8) with the
 type's name in the manifest, as the reference stores them: a checkpoint
 either package writes restores in the other.  Optional async save runs
 in a daemon thread off a host copy.
+
+A sharded state (`group=`, this rank's `parallel.MeshGroup`, and
+`specs=`, {leaf path: spec} of its pieces, `parallel.fsdp.Layout
+.specs.state`): `save`, called by every rank, gathers each leaf whole and
+rank 0 writes the format above, so any mesh, or either package on one
+device, restores it; `restore(..., group=, specs=)` keeps the rank's
+piece of each leaf under the specs of its own mesh, which need not be
+the saver's (the reference's elastic `restore(..., shardings=)`).
 """
 
 from __future__ import annotations
@@ -24,6 +32,7 @@ import numpy as np
 import torch
 
 from ..kernels.config import resolve_device
+from ..parallel.tensor import gather_piece, local_slice
 from ..tree import leaves_with_path, path_key, replace_leaves, tree_map
 
 # dtype name -> (torch dtype, the signed integer view torch and numpy
@@ -46,7 +55,14 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def save(state, step: int, ckpt_dir: str, *, keep: int = 3) -> str:
+def save(state, step: int, ckpt_dir: str, *, keep: int = 3, group=None,
+         specs: Optional[dict] = None) -> Optional[str]:
+    """Write `state` as step `step` (atomic), keeping the newest `keep`;
+    returns the step's directory.  With `group` and `specs` (a sharded
+    state: module docstring) every rank calls it, rank 0 writes and
+    returns the directory, the others None once it is written."""
+    if group is not None and group.mesh.size > 1:
+        return _save_sharded(state, step, ckpt_dir, keep, group, specs)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -73,6 +89,21 @@ def save(state, step: int, ckpt_dir: str, *, keep: int = 3) -> str:
     return final
 
 
+def _save_sharded(state, step, ckpt_dir, keep, group, specs):
+    """Each leaf gathered whole on every rank, kept on rank 0's host
+    only; rank 0 writes; every rank waits for the write."""
+    host = {}
+    for p, x in leaves_with_path(state):
+        whole = gather_piece(x, specs[path_key(p)], group)
+        if group.rank == 0:
+            host[p] = whole.detach().to("cpu", copy=True)
+    out = None
+    if group.rank == 0:
+        out = save(replace_leaves(state, host), step, ckpt_dir, keep=keep)
+    group.barrier()
+    return out
+
+
 def save_async(state, step: int, ckpt_dir: str, *,
                keep: int = 3) -> threading.Thread:
     """Copy to host memory synchronously, write to disk in background."""
@@ -92,11 +123,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
-            device=None):
+            device=None, group=None, specs: Optional[dict] = None):
     """Restore into the structure of `template` (a tree of tensors, e.g.
     on the "meta" device), each leaf converted to its template leaf's
     dtype and placed on `device` (None means "cuda" and raises without a
-    GPU)."""
+    GPU).  With `group` and `specs` each leaf is the rank's piece under
+    its spec (the template's leaves whole or pieces: only their dtypes
+    are read)."""
+    cut = group is not None and group.mesh.size > 1
     dev = resolve_device(device)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -116,6 +150,8 @@ def restore(ckpt_dir: str, template, *, step: Optional[int] = None,
             t = torch.from_numpy(arr.view(stored)).view(signed).view(dt)
         else:
             t = torch.from_numpy(arr)
+        if cut:
+            t = local_slice(t, specs[key], group.mesh, group.coords)
         return t.to(device=dev, dtype=like.dtype)
 
     return replace_leaves(template, {

@@ -14,12 +14,21 @@ where the reference's hint makes GSPMD reduce, summing the bf16 (or
 f32) partial outputs over the "model" axis.  `model_index()` gives the
 rank's piece of that axis, for the rows of a vocab-sharded embedding.
 
+Training on a mesh (`with_mesh(layout)`, this rank's
+`parallel.fsdp.Layout`) runs no tensor parallelism: under fsdp2d "model"
+is a batch axis, and every weight is whole once gathered.  There `psum`
+and `model_index` are the identity, `gatherer` hands the model stack
+the whole leaves of its pieces (the layout's `Gather`: all-gathered in
+the forward, the gradient reduce-scattered into the piece in the
+backward), and `batch_sum` sums a count over the batch ranks (the loss's
+masked positions of the global batch).
+
 Without an active mesh, or on a mesh of one device, every function here
 is the identity (one card).  A mesh of more devices activated as a
 `launch.mesh.Mesh`, with no process group executing it, is a plan (`launch.dryrun`), not an execution: `hint`
-and `psum` refuse it with a ValueError.  `psum` also refuses a tensor
-that requires a gradient: sharded training is a later slice
-(`ROADMAP_ITEM`).
+and `psum` refuse it with a ValueError.  `psum` under a serving group
+also refuses a tensor that requires a gradient: tensor-parallel training
+is a later slice (`ROADMAP_ITEM`).
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import torch
 
 from ..launch.mesh import Mesh
 
-ROADMAP_ITEM = 'ROADMAP queue 1, "Sharded execution, later slices"'
+ROADMAP_ITEM = 'ROADMAP queue 1, "Tensor-parallel training"'
 
 _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
                                                        default=None)
@@ -40,13 +49,17 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
 @contextlib.contextmanager
 def with_mesh(mesh):
     """Activate `mesh`: a `launch.mesh.Mesh` to plan on, this rank's
-    `parallel.MeshGroup` to execute on its mesh, or None (one device)."""
+    `parallel.MeshGroup` to serve on its mesh (tensor parallel over
+    "model"), this rank's `parallel.fsdp.Layout` to train on its mesh
+    (no tensor parallelism), or None (one device)."""
     if mesh is None:
         active = None
     elif isinstance(mesh, Mesh):
-        active = (mesh, None)
+        active = (mesh, None, None)
+    elif getattr(mesh, "trains", False):
+        active = (mesh.group.mesh, mesh.group, mesh)
     else:
-        active = (mesh.mesh, mesh)
+        active = (mesh.mesh, mesh, None)
     tok = _MESH.set(active)
     try:
         yield mesh
@@ -68,10 +81,40 @@ def active_group():
     active = _MESH.get()
     if active is None or active[0].size == 1:
         return None
-    mesh, group = active
+    mesh, group, _ = active
     if group is None:
         raise _planning("a sharded model", (), mesh)
     return group
+
+
+def training():
+    """The rank's training `Layout` under an active training mesh of
+    several devices, else None."""
+    active = _MESH.get()
+    if active is None or active[0].size == 1:
+        return None
+    return active[2]
+
+
+def gatherer():
+    """`gather(units, period=None)`, bound to the training layout active
+    now: {path prefix: subtree of this rank's pieces} as the whole
+    leaves under a training mesh, in one gather (`period`: the index of
+    the period of stacked leaves the subtrees are, None for unstacked
+    leaves); `units` itself otherwise.  Bound at the call, so the
+    backward's recompute, which the autograd engine runs on a card's own
+    thread outside this context, gathers too."""
+    layout = training()
+    if layout is None:
+        return lambda units, period=None: units
+    return layout.gather
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of `x` (no gradient) over the batch ranks under a
+    training mesh, a new tensor; `x` itself otherwise."""
+    layout = training()
+    return x if layout is None else layout.batch_sum(x)
 
 
 def hint(x: torch.Tensor, *spec) -> torch.Tensor:
@@ -88,18 +131,22 @@ def model_index() -> tuple[int, int]:
     """(this rank's coordinate on "model", the axis' size): (0, 1) on one
     device."""
     group = active_group()
-    return (0, 1) if group is None else (group.model_rank, group.model_size)
+    if group is None or training() is not None:
+        return (0, 1)
+    return (group.model_rank, group.model_size)
 
 
 def psum(x: torch.Tensor) -> torch.Tensor:
     """The sum of `x` over the ranks of "model" (the partial outputs of a
-    row-parallel product), IN PLACE; `x` itself on one device."""
+    row-parallel product), IN PLACE; `x` itself on one device and under
+    a training mesh (no tensor parallelism)."""
     group = active_group()
-    if group is None or group.model_size == 1:
+    if group is None or group.model_size == 1 or training() is not None:
         return x
     if x.requires_grad:
         raise ValueError(f"psum of {tuple(x.shape)} under autograd: the "
-                         f"port serves on a mesh; sharded training is a "
-                         f"later slice ({ROADMAP_ITEM})")
+                         f"port serves tensor parallel on a mesh; "
+                         f"tensor-parallel training is a later slice "
+                         f"({ROADMAP_ITEM})")
     return group.all_reduce(x, "model")
 

@@ -26,6 +26,20 @@ weights, the cache holds the rank's KV heads, and the logits stay
 vocab-sharded (the reference's `hint(logits, "data", None, "model")`).
 On one device `psum` is the identity.
 
+Sharded training: under `with_mesh(layout)` (this rank's
+`parallel.fsdp.Layout`) a rank holds its pieces of every leaf under the
+reference's training placement, and `forward` asks `gatherer` for whole
+leaves: the top-level leaves (embedding, lm_head, final norms) once, and
+each period's leaves (every pattern position's, one gather) inside the
+function that `_remat` checkpoints, as the encoder's layers are.  Under
+remat "dots" or "full" the backward's recompute gathers the period
+again, so a rank holds one period's whole weights at a time (FSDP's
+reshard after the forward) and a step gathers each period twice; under
+"none" (Whisper) the gathered weights stay for the backward, one gather
+a period.  `loss_fn` divides the rank's NLL sum by the count of
+unmasked positions over the whole batch (`batch_sum`), so the ranks'
+losses sum to the reference's masked mean.
+
 Training: `loss_fn` is the reference's causal-LM cross entropy (f32
 logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period as
 the reference's `_remat` wraps its scan body: "none"; "full", one
@@ -81,7 +95,7 @@ from ..tree import (leaves, leaves_with_path, path_key, replace_leaves,
                     tree_map)
 from . import layers as L
 from .config import LayerSpec, ModelConfig
-from .sharding import model_index, psum
+from .sharding import batch_sum, gatherer, model_index, psum
 
 Params = dict
 # the encoder's blocks: bidirectional attention and a dense MLP
@@ -265,9 +279,15 @@ def _encode(params: Params, cfg: ModelConfig,
                         f"takes frames in the parameter dtype {dtype}")
     x = enc_embeds
     positions = torch.arange(x.shape[1], device=x.device)
+    gather = gatherer()
+
+    def layer(x, i, pp):
+        pp = gather({"enc_blocks": pp}, i)["enc_blocks"]
+        return _block_full(pp, ENC_SPEC, cfg, x, positions)
+
+    layer = _remat(layer, cfg, params["enc_blocks"])
     for i in range(cfg.n_encoder_layers):
-        x = _block_full(_index(params["enc_blocks"], i), ENC_SPEC, cfg, x,
-                        positions)
+        x = layer(x, i, _index(params["enc_blocks"], i))
     return L.norm_apply(params["enc_final_norm"], x, cfg.norm)
 
 
@@ -356,12 +376,17 @@ def _remat(fn, cfg: ModelConfig, params=None):
 
 def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Training / scoring forward -> logits [B,S,V]."""
+    gather = gatherer()
+    params = dict(params, **gather({k: v for k, v in params.items()
+                                    if k not in ("blocks", "enc_blocks")}))
     x = embed_inputs(params, cfg, batch)
     positions = _positions(batch, x.shape[1], x.device)
     mrope_positions = batch.get("mrope_positions")
     enc_out = _enc_out(params, cfg, batch)
 
-    def period(x, *pps):
+    def period(x, i, *pps):
+        pps = gather({f"blocks/{j}": pp for j, pp in enumerate(pps)}, i)
+        pps = [pps[f"blocks/{j}"] for j in range(len(cfg.pattern))]
         for spec, pp in zip(cfg.pattern, pps):
             x = _block_full(pp, spec, cfg, x, positions, mrope_positions,
                             enc_out)
@@ -369,21 +394,23 @@ def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
 
     period = _remat(period, cfg, params)
     for i in range(cfg.n_periods):
-        x = period(x, *(_index(b, i) for b in params["blocks"]))
+        x = period(x, i, *(_index(b, i) for b in params["blocks"]))
     x = L.norm_apply(params["final_norm"], x, cfg.norm)
     return x @ params["lm_head"]
 
 
 def loss_fn(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Causal-LM cross entropy: f32 logsumexp over the vocabulary, the
-    mean NLL of the positions whose label is >= 0."""
+    mean NLL of the positions whose label is >= 0.  Under a training mesh
+    a rank's rows' NLL sum over the whole batch's count of such
+    positions: the ranks' losses sum to the mean."""
     logits = forward(params, cfg, batch).float()
     labels = batch["labels"]
     lse = torch.logsumexp(logits, dim=-1)
     picked = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     nll = (lse - picked) * mask
-    return nll.sum() / mask.sum().clamp_min(1.0)
+    return nll.sum() / batch_sum(mask.sum()).clamp_min(1.0)
 
 
 # --------------------------------------------------------------------- serving

@@ -15,6 +15,14 @@ elements, each written into the new tensors: the arithmetic is
 elementwise, so the result is the same, and a stacked leaf's f32
 temporaries (RWKV6-3B's channel-mix keys: 734 M elements, 2.9 GB each)
 stay a slice's size on a card that holds two versions of the moments.
+
+On a mesh of ranks (`layout=`, this rank's `parallel.fsdp.Layout`) the
+trees hold the rank's pieces: the global norm is the whole tree's (each
+piece's squared sum summed over the mesh, a piece that several ranks
+hold counted once), the int8 compression scales each leaf by the whole
+leaf's max (the pieces' maxima, max-reduced over the mesh), and the
+update runs on the pieces (under ZeRO-2 on the slice of the whole
+parameter beside the moments' pieces, all-gathered back after).
 """
 
 from __future__ import annotations
@@ -24,8 +32,8 @@ from dataclasses import dataclass
 import torch
 
 from ..models.transformer import torch_dtype
-from ..tree import leaves, leaves_with_path, replace_leaves, tree_map, \
-    tree_unzip
+from ..tree import leaves, leaves_with_path, path_key, replace_leaves, \
+    tree_map, tree_unzip
 
 UPDATE_SLICE = 1 << 24              # elements of a leaf updated at once
 
@@ -57,18 +65,27 @@ def init(params, cfg: AdamWConfig) -> dict:
     return state
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves of their f32 sums of squares."""
-    return torch.sqrt(sum(x.float().square().sum() for x in leaves(tree)))
+def global_norm(tree, layout=None) -> torch.Tensor:
+    """sqrt of the sum over leaves of their f32 sums of squares (under a
+    `layout`, of the whole tree's: see the module docstring)."""
+    if layout is None:
+        return torch.sqrt(sum(x.float().square().sum()
+                              for x in leaves(tree)))
+    sq = torch.stack([x.float().square().sum()
+                      * layout.norm_weight(path_key(p))
+                      for p, x in leaves_with_path(tree)])
+    return torch.sqrt(layout.mesh_sum(sq).sum())
 
 
-def _compress_int8(g: torch.Tensor, ef: torch.Tensor):
+def _compress_int8(g: torch.Tensor, ef: torch.Tensor, amax=None):
     """Simulated int8 compression with error feedback: the value that
     crosses the DP boundary is the dequantized int8; the quantization
     error stays in `ef` and is added to the next step's gradient.
+    `amax`: the whole leaf's max |g + ef| where `g` is a piece.
     Returns (dequantized, new residual)."""
     gf = g.float() + ef
-    scale = gf.abs().max().clamp_min(1e-12) / 127.0
+    amax = gf.abs().max() if amax is None else amax
+    scale = amax.clamp_min(1e-12) / 127.0
     q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
     deq = q.float() * scale
     return deq, gf - deq
@@ -82,25 +99,37 @@ def _take(tree, path: tuple):
     return tree.pop(path[-1]) if isinstance(tree, dict) else tree[path[-1]]
 
 
-def update(grads, state: dict, params, cfg: AdamWConfig):
+def update(grads, state: dict, params, cfg: AdamWConfig, *, layout=None):
     """Returns (new_params, new_state, {"grad_norm": ...}); `params` and
     `state` are left as they are, `grads` is taken over (its leaves are
-    removed as they are used)."""
+    removed as they are used).  `layout`: the rank's training layout,
+    the trees its pieces (module docstring)."""
     count = state["count"] + 1
     new_ef = None
     if cfg.compress:
+        amax = ()
+        if layout is not None:
+            local = torch.stack([
+                (g.float() + e).abs().max()
+                for g, e in zip(leaves(grads), leaves(state["ef"]))])
+            amax = (replace_leaves(grads, dict(zip(
+                [p for p, _ in leaves_with_path(grads)],
+                layout.mesh_max(local).unbind()))),)
         grads, new_ef = tree_unzip(
-            tree_map(_compress_int8, grads, state["ef"]), grads, 2)
-    gnorm = global_norm(grads)
+            tree_map(_compress_int8, grads, state["ef"], *amax), grads, 2)
+    gnorm = global_norm(grads, layout)
     clip_scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
     mdt = torch_dtype(cfg.moment_dtype)
     b1c = 1.0 - cfg.b1 ** count.float()
     b2c = 1.0 - cfg.b2 ** count.float()
 
-    def upd(p, g, m, v):
+    def upd(path, p, g, m, v):
         if not p.is_floating_point():
             return p, m, v
+        key = path_key(path)
+        if layout is not None:
+            p = layout.param_in(key, p)
         out = tuple(torch.empty(p.shape, dtype=dt, device=p.device)
                     for dt in (p.dtype, mdt, mdt))   # contiguous
         flat = [x.reshape(-1) for x in (p, g, m, v, *out)]
@@ -117,10 +146,12 @@ def update(grads, state: dict, params, cfg: AdamWConfig):
             po.copy_(p_.float() - step)
             mo.copy_(m32)
             vo.copy_(v32)
+        if layout is not None:
+            out = (layout.param_out(key, out[0]),) + out[1:]
         return out
 
     moments = {k: dict(leaves_with_path(state[k])) for k in ("m", "v")}
-    new = {path: upd(p, _take(grads, path), moments["m"][path],
+    new = {path: upd(path, p, _take(grads, path), moments["m"][path],
                      moments["v"][path])
            for path, p in leaves_with_path(params)}
     new_params, m, v = (replace_leaves(params, {k: t[i] for k, t in

@@ -1,13 +1,23 @@
 """Sharded execution over a mesh of ranks: the process groups
-(`group`: a rank's coordinates, device and axis sub-groups; `spawn`) and
-tensor-parallel placement (`tensor`: the ported partition rules applied
-to parameter trees, the batch over "data", greedy decoding over
-vocab-sharded logits).  The model stack reduces its partial sums through
-`models.sharding`; `serve.ServingEngine(group=)` serves on it."""
+(`group`: a rank's coordinates, device and axis sub-groups, the
+collectives over one axis or several; `spawn`), tensor-parallel
+placement (`tensor`: the ported partition rules applied to parameter
+trees, the batch over "data", greedy decoding over vocab-sharded
+logits) and sharded training (`fsdp`: the reference's training
+placements as a storage layout, each layer gathered before its compute
+and its gradient reduce-scattered into the rank's piece).  The model
+stack reduces its partial sums and gathers its pieces through
+`models.sharding`; `serve.ServingEngine(group=)` serves on it,
+`train.make_train_step(group=)` and `train.Trainer(group=)` train on
+it."""
 
+from .fsdp import (Layout, gather_state, init_local_state, shard_state,
+                   train_specs)
 from .group import MeshGroup, init_group, spawn
-from .tensor import (check_tp, init_local_params, serve_specs,
+from .tensor import (check_tp, check_train, init_local_params, serve_specs,
                      shard_params)
 
-__all__ = ["MeshGroup", "init_group", "spawn", "check_tp",
-           "init_local_params", "serve_specs", "shard_params"]
+__all__ = ["MeshGroup", "init_group", "spawn", "check_tp", "check_train",
+           "init_local_params", "serve_specs", "shard_params", "Layout",
+           "gather_state", "init_local_state", "shard_state",
+           "train_specs"]

@@ -1,0 +1,385 @@
+"""Sharded training over a mesh of ranks: the reference's training
+placements (`launch.shardings.param_shardings` / `opt_shardings` /
+`launch.mesh.train_dp_axes`) run with torch.distributed, one process a
+rank.
+
+The reference jits its train step over a mesh and lets GSPMD place it;
+a GSPMD program equals its unsharded program, so the port's sharded step
+gives the unsharded step's loss, `grad_norm` and, once the pieces are
+gathered, its parameters and moments.  The placement is a *storage*
+layout:
+
+- a rank keeps its piece of each parameter, moment and error-feedback
+  leaf (`TrainSpecs.state`, the spec tree of `launch.specs.state_specs`);
+- before a layer's compute it all-gathers that layer's whole weights
+  (`Gather`, called by the model stack through `models.sharding
+  .gatherer`): the top-level leaves once a microbatch, a period's leaves
+  inside the period's remat, one collective for every leaf cut over the
+  same axes;
+- each rank computes whole layers on its rows of the batch: its rows of
+  every microbatch (`Layout.rows`), every rank in every microbatch;
+- in the backward, `Gather` sums the whole gradient over the batch ranks
+  in f32 whatever the leaf's dtype (the reference widens its summed
+  gradients to f32 before AdamW) and keeps the rank's piece under the
+  optimizer's spec: reduce-scattered where the leaf is cut (always over
+  the batch axes, on one dim), all-reduced where it is whole (fsdp2d's
+  `embed` and `lm_head`, a leaf `sanitize` left whole);
+- AdamW updates the pieces (`optim.adamw.update(..., layout=)`), its
+  global norm the pieces' squared sums all-reduced with each piece
+  counted once, its int8 compression scaled by the whole leaf's max.
+
+This covers fsdp2d ("model" folded into the batch axes) and the "tp"
+placement on a mesh whose model axis is 1: FSDP over "data" with
+`fsdp=True`, ZeRO-2 with `zero2=True` (parameters replicated, moments
+and gradients cut over "data", each updated piece all-gathered back into
+the replicated parameter) and plain data parallelism (Whisper-tiny's).
+`parallel.tensor.check_train` refuses the rest.
+
+`init_local_state` draws a rank's state without holding the whole model
+(equal to `shard_state` of `train.step.init_state` of the same seed);
+`shard_state` / `gather_state` cut a whole state into the rank's pieces
+and put it back together.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from ..kernels.config import resolve_device
+from ..launch.mesh import Mesh, train_dp_axes
+from ..launch.shardings import opt_shardings, param_shardings
+from ..models.config import ModelConfig
+from ..models.transformer import init_params
+from ..optim import adamw
+from ..tree import leaves_with_path, path_key, replace_leaves
+from .group import piece_index
+from .tensor import (_batch_dim, check_train, gather_piece,
+                     init_local_params, local_slice)
+
+# the batch cut's one rule the reference does not have
+ROWS_ITEM = 'ROADMAP queue 3, "Every rank in every microbatch"'
+
+
+class TrainSpecs(NamedTuple):
+    """{state leaf path: spec} ("params/...", "opt/m/...", "opt/v/...",
+    "opt/ef/...", "opt/count", "step") and the axes that cut the batch."""
+    state: dict
+    batch: tuple
+
+
+def train_specs(mesh: Mesh, cfg: ModelConfig, params, opt) -> TrainSpecs:
+    """The reference's training placement over trees shaped like
+    `params` and `opt` ("meta" trees will do)."""
+    specs = {f"params/{p}": s
+             for p, s in param_shardings(mesh, cfg, params).items()}
+    specs.update({f"opt/{p}": s
+                  for p, s in opt_shardings(mesh, cfg, opt, params).items()})
+    specs["step"] = ()
+    return TrainSpecs(specs, train_dp_axes(mesh, cfg))
+
+
+def _cuts(spec: tuple, mesh: Mesh) -> list:
+    """[(dim, axes)] of the dims `spec` cuts, axes of one rank left out."""
+    out = []
+    for dim, axis in enumerate(spec):
+        if axis is None:
+            continue
+        axes = tuple(a for a in (axis if isinstance(axis, tuple)
+                                 else (axis,)) if mesh.shape[a] > 1)
+        if axes:
+            out.append((dim, axes))
+    return out
+
+
+def piece_shape(shape: tuple, spec: tuple, mesh: Mesh) -> tuple:
+    """The shape of a rank's piece of a leaf of `shape` under `spec`."""
+    out = list(shape)
+    for dim, axes in _cuts(spec, mesh):
+        out[dim] //= math.prod(mesh.shape[a] for a in axes)
+    return tuple(out)
+
+
+class Gather(torch.autograd.Function):
+    """Forward: the whole leaves of a rank's pieces (`Layout._gather`).
+    Backward: the whole gradients summed over the batch ranks in f32,
+    the rank's pieces kept in the layout (`Layout._reduce`, read by
+    `Layout.take_grads`); the pieces themselves get no gradient, so an
+    f32 sum is never rounded back to a bf16 leaf's dtype."""
+
+    @staticmethod
+    def forward(ctx, layout, keys, period, *pieces):
+        ctx.layout, ctx.keys, ctx.period = layout, keys, period
+        ctx.trained = [x.is_floating_point() for x in pieces]
+        layout.gathers += 1
+        out = layout._gather(keys, period is not None, pieces)
+        ctx.mark_non_differentiable(*[o for o, t in zip(out, ctx.trained)
+                                      if not t])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        layout = ctx.layout
+        layout.reduce_scatters += 1
+        layout._reduce([k for k, t in zip(ctx.keys, ctx.trained) if t],
+                       ctx.period,
+                       [g for g, t in zip(grads, ctx.trained) if t])
+        return (None, None, None) + (None,) * len(grads)
+
+
+class Layout:
+    """A rank's training placement: its `MeshGroup`, the specs of its
+    pieces (`train_specs` of `cfg` and `opt_cfg`), and the counts of its
+    gathers and reduce-scatters (`Gather` calls, forward and backward;
+    the step reads them).  `models.sharding.with_mesh(layout)` runs the
+    model stack on it."""
+    trains = True
+
+    def __init__(self, group, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
+        check_train(cfg, group.mesh)
+        self.group, self.cfg, self.opt_cfg = group, cfg, opt_cfg
+        self.mesh = group.mesh
+        meta = init_params(cfg, None, "meta")
+        self.meta = {"params": meta, "opt": adamw.init(meta, opt_cfg)}
+        self._shapes = {path_key(p): tuple(x.shape)
+                        for p, x in leaves_with_path(self.meta)}
+        self.specs = train_specs(self.mesh, cfg, meta, self.meta["opt"])
+        # the batch axes of more than one rank
+        self._batch = tuple(a for a in self.specs.batch
+                            if self.mesh.shape.get(a, 1) > 1)
+        self.batch_size = math.prod(self.mesh.shape[a] for a in self._batch)
+        self.batch_rank = piece_index(group.coords, self._batch, self.mesh)
+        self.gathers = self.reduce_scatters = 0
+        self._grads: dict = {}
+
+    # ----------------------------------------------------------- specs
+    def spec(self, key: str, stacked: bool = False) -> tuple:
+        """The spec of state leaf `key`; `stacked`: of one period."""
+        spec = self.specs.state[key]
+        return spec[1:] if stacked else spec
+
+    def piece_shape(self, key: str) -> tuple:
+        """The shape of this rank's piece of state leaf `key`."""
+        return piece_shape(self._shapes[key], self.spec(key), self.mesh)
+
+    # ------------------------------------------------------- the model
+    def gather(self, units: dict, period=None) -> dict:
+        """{prefix: subtree of pieces} as whole leaves, one `Gather`
+        (`period`: the index of the period of stacked leaves the pieces
+        are, None for unstacked leaves)."""
+        paths, keys, pieces = [], [], []
+        for prefix, tree in units.items():
+            for p, x in leaves_with_path(tree):
+                paths.append((prefix, p))
+                keys.append(path_key((prefix, *p)))
+                pieces.append(x)
+        whole = Gather.apply(self, tuple(keys), period, *pieces)
+        out = {}
+        for prefix, tree in units.items():
+            got = {p: w for (q, p), w in zip(paths, whole) if q == prefix}
+            out[prefix] = got[()] if () in got else replace_leaves(tree, got)
+        return out
+
+    def _cut(self, spec: tuple):
+        """(dim, axes) of the one dim `spec` cuts, None for a whole leaf.
+        The placements the port trains cut a leaf on one dim at most,
+        over the batch axes (module docstring); ValueError otherwise."""
+        cuts = _cuts(spec, self.mesh)
+        if not cuts:
+            return None
+        if len(cuts) > 1 or set(cuts[0][1]) != set(self._batch):
+            raise ValueError(f"a leaf cut {spec} on mesh {self.mesh.shape}:"
+                             f" the port cuts one dim over the batch axes "
+                             f"{self._batch}")
+        return cuts[0]
+
+    def _gather(self, keys, stacked, pieces) -> list:
+        out = list(pieces)
+        buckets: dict = {}
+        for i, (key, x) in enumerate(zip(keys, pieces)):
+            cut = self._cut(self.spec(f"params/{key}", stacked))
+            if cut is not None:
+                buckets.setdefault((cut[1], x.dtype), []).append((i, cut[0]))
+        for (axes, _), members in buckets.items():
+            flat = torch.cat([pieces[i].reshape(-1) for i, _ in members])
+            every = self.group.all_gather(flat, axes).view(
+                self.batch_size, -1)
+            off = 0
+            for i, dim in members:
+                x = pieces[i]
+                p = every[:, off:off + x.numel()].reshape(-1, *x.shape)
+                out[i] = p.movedim(0, dim).flatten(dim, dim + 1)
+                off += x.numel()
+        return out
+
+    def _reduce(self, keys, period, grads) -> None:
+        """Each whole gradient summed over the batch ranks in f32, the
+        rank's piece under the optimizer's spec added to `_grads` (at
+        `period` of a stacked leaf)."""
+        whole, buckets = [], {}
+        for key, g in zip(keys, grads):
+            cut = self._cut(self.spec(f"opt/m/{key}", period is not None))
+            g = g.float()
+            if cut is None:
+                whole.append((key, g))
+                continue
+            dim, axes = cut
+            # [n, the piece's elements]: row k is piece k
+            rows = g.unflatten(dim, (self.batch_size, -1)).movedim(dim, 0) \
+                .reshape(self.batch_size, -1)
+            buckets.setdefault(axes, []).append((key, g, dim, rows))
+        for axes, members in buckets.items():
+            flat = torch.cat([rows for *_, rows in members], dim=1)
+            mine = self.group.reduce_scatter(flat, axes, dim=0)[0]
+            off = 0
+            for key, g, dim, rows in members:
+                shape = list(g.shape)
+                shape[dim] //= self.batch_size
+                self._add(key, period,
+                          mine[off:off + rows.shape[1]].view(shape))
+                off += rows.shape[1]
+        if whole:
+            flat = torch.cat([g.reshape(-1) for _, g in whole])
+            self.group.all_reduce(flat, self._batch)
+            off = 0
+            for key, g in whole:
+                self._add(key, period,
+                          flat[off:off + g.numel()].view(g.shape))
+                off += g.numel()
+
+    def _add(self, key: str, period, g: torch.Tensor) -> None:
+        got = self._grads.setdefault(key, {})
+        got[period] = g if period not in got else got[period] + g
+
+    def take_grads(self) -> dict:
+        """{leaf path: the rank's f32 gradient piece} since the last
+        call, a stacked leaf's periods stacked."""
+        out = {}
+        for key, got in self._grads.items():
+            if None in got:
+                out[key] = got[None]
+                continue
+            if sorted(got) != list(range(len(got))):
+                raise RuntimeError(f"{key}: gradients of periods "
+                                   f"{sorted(got)}")
+            out[key] = torch.stack([got[i] for i in range(len(got))])
+        self._grads = {}
+        return out
+
+    def batch_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """`x` (no gradient) summed over the batch ranks, a new tensor."""
+        return self.group.all_reduce(x.detach().clone(), self._batch)
+
+    # --------------------------------------------------------- the batch
+    def rows(self, batch: dict, microbatches: int = 1) -> dict:
+        """The rank's rows of a global batch: each of the `microbatches`
+        contiguous blocks of rows (the reference's split) cut over the
+        batch ranks in piece order, the rank's rows of the blocks in
+        block order (so the step's split of them gives its rows of each
+        block).  ValueError where the ranks do not divide a block."""
+        A, n, r = max(microbatches, 1), self.batch_size, self.batch_rank
+        out = {}
+        for k, x in batch.items():
+            dim = _batch_dim(k, x)
+            if dim is None or n == 1:
+                out[k] = x
+                continue
+            B = x.shape[dim]
+            if B % A or (B // A) % n:
+                raise ValueError(
+                    f"{k} {tuple(x.shape)}: {A} microbatches of {B / A:g} "
+                    f"rows over {n} batch ranks; the port runs every rank "
+                    f"in every microbatch ({ROWS_ITEM})")
+            out[k] = x.unflatten(dim, (A, n, B // A // n)).select(
+                dim + 1, r).flatten(dim, dim + 1).contiguous()
+        return out
+
+    # -------------------------------------------------------- the optimizer
+    def norm_weight(self, key: str) -> float:
+        """1 where this rank is the first of the ranks that hold the same
+        piece of gradient leaf `key` (its coordinate 0 on every axis that
+        does not cut it), else 0: summed over the mesh, each piece counts
+        once."""
+        cut = self._cut(self.spec(f"opt/m/{key}"))
+        axes = () if cut is None else cut[1]
+        return float(all(c == 0 for a, c in self.group.coords.items()
+                         if a not in axes))
+
+    def mesh_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self.group.all_reduce(x, "mesh")
+
+    def mesh_max(self, x: torch.Tensor) -> torch.Tensor:
+        return self.group.all_reduce(x, "mesh", op="max")
+
+    def param_in(self, key: str, p: torch.Tensor) -> torch.Tensor:
+        """The piece of parameter `p` that AdamW updates beside the
+        moments' pieces: `p` itself, or under ZeRO-2 (a whole parameter,
+        cut moments) its slice under the moments' spec."""
+        pspec, mspec = self.spec(f"params/{key}"), self.spec(f"opt/m/{key}")
+        pcut, mcut = self._cut(pspec), self._cut(mspec)
+        if pcut == mcut:
+            return p
+        if pcut is not None:
+            raise ValueError(f"{key}: parameter cut {pspec}, moments "
+                             f"{mspec}; the port updates a piece of a whole "
+                             f"parameter only")
+        return local_slice(p, mspec, self.mesh, self.group.coords)
+
+    def param_out(self, key: str, p: torch.Tensor) -> torch.Tensor:
+        """The updated piece of `param_in` back in the parameter's
+        layout (under ZeRO-2 all-gathered into the whole parameter)."""
+        pspec, mspec = self.spec(f"params/{key}"), self.spec(f"opt/m/{key}")
+        if self._cut(pspec) == self._cut(mspec):
+            return p
+        return gather_piece(p, mspec, self.group)
+
+
+def rank_device(group, device=None) -> torch.device:
+    """The group's device, or `device` where they agree (ValueError
+    otherwise); a card raises without a GPU."""
+    dev = resolve_device(group.device if device is None else device)
+    if dev.type == group.device.type and dev.index is None:
+        dev = group.device
+    if dev != group.device:
+        raise ValueError(f"rank {group.rank} is on {group.device}, the "
+                         f"state asked for on {dev}")
+    return dev
+
+
+def init_local_state(cfg: ModelConfig, generator: torch.Generator, group,
+                     opt_cfg: adamw.AdamWConfig = None, device=None) -> dict:
+    """This rank's pieces of `train.step.init_state(generator, cfg,
+    opt_cfg)`: the parameters drawn as `init_params` draws them, each
+    leaf cut as it is drawn (`parallel.tensor.init_local_params`), zero
+    moment pieces and step; on the group's device."""
+    opt_cfg = opt_cfg or adamw.AdamWConfig(moment_dtype=cfg.moment_dtype)
+    layout = Layout(group, cfg, opt_cfg)
+    dev = rank_device(group, device)
+    pspecs = {k.removeprefix("params/"): s for k, s in
+              layout.specs.state.items() if k.startswith("params/")}
+    params = init_local_params(cfg, generator, group.mesh, group.coords,
+                               dev, specs=pspecs)
+    opt = replace_leaves(layout.meta["opt"], {
+        p: torch.zeros(layout.piece_shape(f"opt/{path_key(p)}"),
+                       dtype=x.dtype, device=dev)
+        for p, x in leaves_with_path(layout.meta["opt"])})
+    return {"params": params, "opt": opt,
+            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def shard_state(state: dict, layout: Layout) -> dict:
+    """The rank's pieces of a whole state."""
+    return replace_leaves(state, {
+        p: local_slice(x, layout.spec(path_key(p)), layout.mesh,
+                       layout.group.coords)
+        for p, x in leaves_with_path(state)})
+
+
+def gather_state(state: dict, layout: Layout) -> dict:
+    """The whole state from the ranks' pieces (every rank calls it and
+    gets the whole state)."""
+    return replace_leaves(state, {
+        p: gather_piece(x, layout.spec(path_key(p)), layout.group)
+        for p, x in leaves_with_path(state)})

@@ -8,7 +8,11 @@ is (data 1, model 0).  `MeshGroup` holds a rank's coordinates, its
 device and a sub-group for each of two axes: "model" (tensor parallel:
 the ranks that hold the other pieces of the same weights) and "data"
 (the batch: the ranks over `launch.mesh.dp_axes`); "mesh" names all the
-ranks.
+ranks.  A collective takes one of those names or a tuple of the mesh's
+axis names (the ranks that differ only in those axes); a tuple must
+name the ranks of one of the three groups, or one rank.  Pieces over
+several axes are in GSPMD's order: row-major over the coordinates on
+the axes in the order given (`parallel.tensor.local_slice`'s order).
 
 Nothing is chosen behind the caller's back: the backend and every rank's
 device are arguments.  "nccl" needs one card a rank and refuses two ranks
@@ -114,6 +118,8 @@ class MeshGroup:
     device: torch.device
     coords: dict = field(default_factory=dict)
     groups: dict = field(default_factory=dict)
+    # the ranks of each sub-group in `groups`, in rank order
+    members: dict = field(default_factory=dict)
 
     @property
     def model_size(self) -> int:
@@ -136,41 +142,125 @@ class MeshGroup:
                 rank = rank * self.mesh.shape[a] + self.coords[a]
         return rank
 
-    def _group(self, axis: str):
-        """The process group of `axis` ("model", "data" or "mesh"), None
+    def _axes(self, axis) -> tuple:
+        """The mesh axes a collective runs over: "model", "data" (the
+        batch axes, `dp_axes`) and "mesh" (every axis) by name, or a
+        tuple of axis names as it is."""
+        if isinstance(axis, str):
+            if axis == "mesh":
+                return self.mesh.axis_names
+            if axis == "data":
+                return tuple(a for a in dp_axes(self.mesh)
+                             if a in self.mesh.shape)
+            return (axis,)
+        return tuple(axis)
+
+    def _group(self, axis):
+        """(process group, its ranks in rank order, this rank's piece
+        index over the axes) of `axis` (see `_axes`); the group is None
         where it has one rank."""
-        if axis == "mesh":
-            return dist.group.WORLD if self.mesh.size > 1 else None
-        return self.groups[axis]
+        axes = self._axes(axis)
+        unknown = [a for a in axes if a not in self.mesh.shape]
+        if unknown:
+            raise ValueError(f"axes {unknown} are not in mesh "
+                             f"{self.mesh.shape}")
+        ranks = next(r for r in axis_ranks(self.mesh, axes)
+                     if self.rank in r)
+        index = piece_index(self.coords, axes, self.mesh)
+        if len(ranks) == 1:
+            return None, ranks, index
+        if len(ranks) == self.mesh.size:
+            return dist.group.WORLD, ranks, index
+        for name, g in self.groups.items():
+            if self.members.get(name) == ranks:
+                return g, ranks, index
+        raise ValueError(f"no process group over {axes} on mesh "
+                         f"{self.mesh.shape}: the ranks have groups over "
+                         f"\"model\", \"data\" and the mesh")
+
+    def _order(self, ranks: list, axes) -> list:
+        """Each member's piece index over `axes`, in group order."""
+        axes = self._axes(axes)
+        return [piece_index(coords_of(self.mesh, r), axes, self.mesh)
+                for r in ranks]
 
     def _host(self, x: torch.Tensor) -> torch.Tensor:
         """The buffer a collective runs on: gloo reduces and gathers
         host memory, so a card's tensor is copied there."""
         return x.cpu() if self.backend == "gloo" and x.is_cuda else x
 
-    def all_reduce(self, x: torch.Tensor, axis: str) -> torch.Tensor:
-        """Sum `x` over the ranks of `axis`, IN PLACE; returns x."""
-        g = self._group(axis)
+    def all_reduce(self, x: torch.Tensor, axis, op: str = "sum") \
+            -> torch.Tensor:
+        """Reduce `x` ("sum" or "max") over the ranks of `axis`, IN
+        PLACE; returns x."""
+        g = self._group(axis)[0]
         if g is None:
             return x
         buf = self._host(x)
-        dist.all_reduce(buf, group=g)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX if op == "max"
+                        else dist.ReduceOp.SUM, group=g)
         if buf is not x:
             x.copy_(buf)
         return x
 
-    def all_gather(self, x: torch.Tensor, axis: str, dim: int = 0) \
+    def all_gather(self, x: torch.Tensor, axis, dim: int = 0) \
             -> torch.Tensor:
-        """The ranks' `x` of `axis` concatenated along `dim`, in the
-        order of their coordinate on the axis."""
-        g = self._group(axis)
+        """The ranks' `x` of `axis` (one axis or several) concatenated
+        along `dim` in piece order (row-major over the axes' coordinates,
+        see the module docstring)."""
+        g, ranks, _ = self._group(axis)
         if g is None:
             return x
         buf = self._host(x.contiguous())
-        parts = [torch.empty_like(buf) for _ in range(dist.get_world_size(g))]
+        parts = [torch.empty_like(buf) for _ in ranks]
         dist.all_gather(parts, buf, group=g)
-        return torch.cat(parts, dim=dim).to(x.device)
+        ordered = [None] * len(ranks)
+        for part, k in zip(parts, self._order(ranks, axis)):
+            ordered[k] = part
+        return torch.cat(ordered, dim=dim).to(x.device)
 
+    def reduce_scatter(self, x: torch.Tensor, axis, dim: int = 0) \
+            -> torch.Tensor:
+        """This rank's piece along `dim` of the sum of the ranks' `x`
+        over `axis` (one axis or several; pieces in the order of
+        `all_gather`), a new tensor.  Gloo has no reduce-scatter: there
+        the whole sum is all-reduced and the rank keeps its slice (n
+        times the bytes a reduce-scatter moves); NCCL runs
+        `reduce_scatter_tensor`.  The sum is in `x`'s dtype: a caller
+        that sums gradients passes them in f32."""
+        g, ranks, k = self._group(axis)
+        if g is None:
+            return x
+        n = len(ranks)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not cut "
+                             f"into {n} pieces")
+        size = x.shape[dim] // n
+        if self.backend == "gloo":
+            buf = self._host(x)
+            buf = buf.clone() if buf is x else buf     # x stays as it is
+            dist.all_reduce(buf, group=g)
+            return buf.narrow(dim, k * size, size).contiguous().to(x.device)
+        # chunk j goes to the group's rank j: its piece of the order
+        inp = torch.stack([x.narrow(dim, j * size, size)
+                           for j in self._order(ranks, axis)])
+        out = torch.empty_like(inp[0])
+        dist.reduce_scatter_tensor(out, inp, group=g)
+        return out
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh."""
+        if self.mesh.size > 1:
+            dist.barrier()
+
+
+def piece_index(coords: dict, axes, mesh: Mesh) -> int:
+    """The piece a rank at `coords` holds of a dim cut over `axes`:
+    row-major over its coordinates on them, in their order."""
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.shape[a] + coords[a]
+    return idx
 
 
 def init_group(mesh: Mesh, rank: int, *, backend: str, devices,
@@ -188,15 +278,15 @@ def init_group(mesh: Mesh, rank: int, *, backend: str, devices,
         backend, init_method=init_method, world_size=mesh.size, rank=rank,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
     coords = coords_of(mesh, rank)
-    groups = {}
+    groups, members = {}, {}
     # every rank creates every sub-group, in one order
     for axis, axes in (("model", ("model",)), ("data", dp_axes(mesh))):
         size = math.prod(mesh.shape.get(a, 1) for a in axes)
         for ranks in axis_ranks(mesh, axes):
             g = dist.new_group(ranks) if size > 1 else None
             if rank in ranks:
-                groups[axis] = g
-    return MeshGroup(mesh, rank, backend, dev, coords, groups)
+                groups[axis], members[axis] = g, ranks
+    return MeshGroup(mesh, rank, backend, dev, coords, groups, members)
 
 
 def _worker(rank: int, fn: Callable, mesh: Mesh, backend: str, devices,

@@ -25,13 +25,20 @@ the spec's order of axes, as GSPMD places a `NamedSharding`).
 model: `init_params`' own draws, in its order and from the same
 generator, each leaf cut to the rank's piece as it is drawn (a stacked
 leaf one period at a time), so the rank's tree equals the piece of the
-unsharded tree of the same seed.
+unsharded tree of the same seed.  `shard_params` and `init_local_params`
+cut by the serving layout unless given another {leaf path: spec} tree
+(the training layout of `parallel.fsdp`); `gather_piece` puts a leaf
+back together from the ranks' pieces.
 
 Refused on a mesh of more than one device (`check_tp`, ValueError):
 a model degree that does not divide the KV heads (GSPMD would reshard
 part-heads; the port keeps whole heads on a rank), d_ff or the
 vocabulary; and the families whose sharded slices come later (Mamba,
-MoE, RWKV, encoder-decoder: `LATER`).
+MoE, RWKV, encoder-decoder: `LATER`).  Training (`check_train`) refuses
+tensor-parallel training (a "tp" layout on a model axis of more than one
+rank) and a mesh with a "pod" axis (`TRAIN_LATER`), and nothing else: a
+dim the mesh does not divide is replicated by `sanitize`, as the
+reference places it.
 """
 
 from __future__ import annotations
@@ -56,6 +63,16 @@ LATER = {
               'cross-attention)',
 }
 DEVIATION = 'ROADMAP queue 3, "Whole heads on a rank"'
+# the training placements a mesh does not run yet, each with its later
+# slice
+TRAIN_LATER = {
+    "tp": 'ROADMAP queue 1, "Tensor-parallel training" (train_sharding '
+          '"tp" at model > 1, Whisper\'s encoder and cross-attention '
+          'with it)',
+    "pod": 'ROADMAP queue 1, "Training on a pod mesh" (the batch over '
+           '(pod, data) while fsdp2d cuts the weights over (data, '
+           'model))',
+}
 
 
 def check_tp(cfg: ModelConfig, mesh: Mesh) -> None:
@@ -80,6 +97,23 @@ def check_tp(cfg: ModelConfig, mesh: Mesh) -> None:
                 f"{where}: a model degree of {m} does not divide {name} "
                 f"{n}; GSPMD would cut part-heads or reshard, the port "
                 f"keeps whole pieces on a rank ({DEVIATION})")
+
+
+def check_train(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Raise ValueError where the port does not train `cfg` on `mesh`
+    (see the module docstring); nothing on a mesh of one device."""
+    if mesh.size == 1:
+        return
+    where = f"training {cfg.name} on a mesh of {mesh.size} devices " \
+            f"{mesh.shape}"
+    if "pod" in mesh.axis_names:
+        raise ValueError(f"{where}: a pod axis is a later slice "
+                         f"({TRAIN_LATER['pod']})")
+    if cfg.train_sharding != "fsdp2d" and mesh.shape.get("model", 1) > 1:
+        raise ValueError(f"{where}: train_sharding "
+                         f"{cfg.train_sharding!r} cuts heads and d_ff over "
+                         f"a model axis of {mesh.shape['model']}, a later "
+                         f"slice ({TRAIN_LATER['tp']})")
 
 
 def serve_specs(mesh: Mesh, cfg: ModelConfig, params) -> dict:
@@ -115,23 +149,39 @@ def local_slice(t: torch.Tensor, spec: tuple, mesh: Mesh,
     return piece if piece is t else piece.contiguous().clone()
 
 
-def shard_params(cfg: ModelConfig, params, mesh: Mesh, coords: dict):
-    """The rank at `coords`' tree of `params` (a whole tree) under the
-    serving layout."""
-    check_tp(cfg, mesh)
-    specs = serve_specs(mesh, cfg, params)
+def gather_piece(x: torch.Tensor, spec: tuple, group) -> torch.Tensor:
+    """The whole leaf from the ranks' pieces `x` under `spec` (every
+    rank calls it and gets the whole leaf); `x` itself where nothing is
+    cut."""
+    for dim, axis in enumerate(spec):
+        if axis is not None:
+            x = group.all_gather(x, axis if isinstance(axis, tuple)
+                                 else (axis,), dim=dim)
+    return x
+
+
+def shard_params(cfg: ModelConfig, params, mesh: Mesh, coords: dict,
+                 specs: dict = None):
+    """The rank at `coords`' tree of `params` (a whole tree) under
+    `specs` ({leaf path: spec}), the serving layout by default."""
+    if specs is None:
+        check_tp(cfg, mesh)
+        specs = serve_specs(mesh, cfg, params)
     return replace_leaves(params, {
         p: local_slice(t, specs[path_key(p)], mesh, coords)
         for p, t in leaves_with_path(params)})
 
 
 def init_local_params(cfg: ModelConfig, generator: torch.Generator,
-                      mesh: Mesh, coords: dict, device=None):
+                      mesh: Mesh, coords: dict, device=None,
+                      specs: dict = None):
     """The rank at `coords`' tree of `init_params(cfg, generator,
-    device)` (equal to `shard_params` of it), drawn without holding the
-    whole model (module docstring)."""
-    check_tp(cfg, mesh)
-    specs = serve_specs(mesh, cfg, init_params(cfg, None, "meta"))
+    device)` (equal to `shard_params` of it under the same `specs`, the
+    serving layout by default), drawn without holding the whole model
+    (module docstring)."""
+    if specs is None:
+        check_tp(cfg, mesh)
+        specs = serve_specs(mesh, cfg, init_params(cfg, None, "meta"))
 
     def piece(path: str, t: torch.Tensor) -> torch.Tensor:
         spec = specs[path]

@@ -7,6 +7,14 @@ publishes the new parameter version to the `VersionedParamStore` (which
 appends begin/commit records to the WAL that the serving side replays).
 The store keeps each published tree as given; the step never writes into
 one (`optim.adamw`), so a reader's pinned version stays as published.
+
+On a mesh of ranks (`group=`, this rank's `parallel.MeshGroup`; one
+trainer a rank) the trainer draws the rank's pieces of the state
+(`parallel.fsdp.init_local_state`), cuts each global batch of the
+pipeline to the rank's rows (`Layout.rows`) and runs the sharded step;
+with a `store` each rank publishes its own pieces into its own store,
+so the ranks' versions line up by commit LSN; checkpoints are written
+whole by rank 0 and restored as the rank's pieces.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from ..data.pipeline import SyntheticPipeline
 from ..kernels.config import resolve_device
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamWConfig
+from ..parallel.fsdp import init_local_state, rank_device
 from ..tensorstore.versioned import VersionedParamStore
 from .step import init_state, make_train_step
 
@@ -51,12 +60,18 @@ class Trainer:
                  opt: Optional[AdamWConfig] = None, seed: int = 0,
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 50,
                  publish_every: int = 1,
-                 store: Optional[VersionedParamStore] = None, device=None):
-        """`device=None` means "cuda" and raises without a GPU.  The
+                 store: Optional[VersionedParamStore] = None, device=None,
+                 group=None):
+        """`device=None` means "cuda" and raises without a GPU, or with a
+        `group` (a mesh of several devices) the rank's device, which
+        `device` may only repeat (ValueError otherwise).  The
         parameters are drawn from a `torch.Generator` on the device seeded
         with `seed`; with a `store`, they are published as version 1."""
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.group = group if group is not None and group.mesh.size > 1 \
+            else None
+        self.device = resolve_device(device) if self.group is None else \
+            rank_device(self.group, device)
         self.opt_cfg = opt or AdamWConfig(moment_dtype=cfg.moment_dtype)
         self.pipeline = SyntheticPipeline(cfg, batch=batch, seq_len=seq_len,
                                           seed=seed, device=self.device)
@@ -65,10 +80,16 @@ class Trainer:
         self.publish_every = publish_every
         self.store = store
         self.monitor = StragglerMonitor()
-        self.step_fn = make_train_step(cfg, self.opt_cfg)
+        self.step_fn = make_train_step(cfg, self.opt_cfg, self.group)
+        self.layout = self.step_fn.layout
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        self.state = init_state(gen, cfg, self.opt_cfg, device=self.device)
+        if self.layout is None:
+            self.state = init_state(gen, cfg, self.opt_cfg,
+                                    device=self.device)
+        else:
+            self.state = init_local_state(cfg, gen, self.group,
+                                          self.opt_cfg, self.device)
         self.metrics_log: list[dict] = []
         if store is not None:
             store.publish(self.state["params"])   # version 1 = init
@@ -82,9 +103,22 @@ class Trainer:
         if step is None:
             return False
         self.state = ckpt.restore(self.ckpt_dir, self.state, step=step,
-                                  device=self.device)
+                                  device=self.device, **self._placed())
         self.pipeline.restore_state({"step": int(self.state["step"])})
         return True
+
+    def _placed(self) -> dict:
+        """The checkpoint manager's arguments for a sharded state."""
+        if self.layout is None:
+            return {}
+        return {"group": self.group, "specs": self.layout.specs.state}
+
+    def batch_at(self, i: int) -> dict:
+        """Step i's batch: the pipeline's, or the rank's rows of it."""
+        batch = self.pipeline.batch_at(i)
+        if self.layout is None:
+            return batch
+        return self.layout.rows(batch, self.cfg.microbatches)
 
     # ----------------------------------------------------------------- train
     def run(self, n_steps: int, *, inject_failure_at: Optional[int] = None,
@@ -114,7 +148,7 @@ class Trainer:
             if inject_failure_at is not None and i == inject_failure_at:
                 raise RuntimeError("injected-failure")
             t0 = time.perf_counter()
-            batch = self.pipeline.batch_at(i)
+            batch = self.batch_at(i)
             self.state, metrics = self.step_fn(self.state, batch)
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = time.perf_counter() - t0
@@ -124,7 +158,7 @@ class Trainer:
             if self.store is not None and (i + 1) % self.publish_every == 0:
                 self.store.publish(self.state["params"])
             if self.ckpt_dir and (i + 1) % self.ckpt_every == 0:
-                ckpt.save(self.state, i + 1, self.ckpt_dir)
+                ckpt.save(self.state, i + 1, self.ckpt_dir, **self._placed())
             if after_step is not None:
                 after_step(i, metrics)
         return n_steps

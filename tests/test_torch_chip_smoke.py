@@ -96,6 +96,26 @@ def test_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())         # the reference removed
 
 
+def test_fsdp_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """The sharded train phase at the smoke size: Qwen1.5's smoke config
+    under fsdp2d on a mesh of (1, 2), two ranks over gloo on the CPU,
+    checks (f1)-(f5); no kernel launches off the card."""
+    import numpy as np
+
+    monkeypatch.setattr(smoke, "FSDP_DIR", tmp_path)
+    launches = smoke.fsdp_train_phase(torch, np, device="cpu",
+                                      mesh_shape=(1, 2))
+    assert launches == {"flash_attention": 0, "flash_attention_bwd": 0,
+                        "flash_attention_bwd fsdp4": 0}
+    out = capsys.readouterr().out
+    assert "2 ranks on the CPU over gloo" in out
+    assert "fsdp train rank 1 {'data': 0, 'model': 1}" in out
+    assert "3 gathers and 3 reduce-scatters a step" in out
+    assert "== launch.dryrun.residency" in out
+    assert "restored bitwise onto the mesh and onto one device" in out
+    assert not list(tmp_path.iterdir())         # the state removed
+
+
 def test_plain_attention_swaps_the_layers_and_restores_them(smoke):
     from repro_torch.models import layers
 
