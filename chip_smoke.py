@@ -121,7 +121,10 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    bound times of the
    prefill at Jamba's scales and at the reference test's (A = -exp(z)),
    and of the decode with f32 u and with bf16 u (the served case), the
-   served decode also on the chunked route (forced);
+   served decode also on the chunked route (forced); and at one rank's
+   shape of the sharded serve phase's Jamba (bf16 u, Bb = 8, T = 1,024
+   and T = 1 from its state, Di = 4,096 of 16,384 at model 4, N = 16:
+   `tp_ssm_shape`, rows `TP_SSM_ROWS`);
    then the scans' backward kernels (`scan_bwd_phase`): `wkv_scan_bwd`
    at RWKV6-3B's train shape (f32, B = TRAIN_BATCH 4, T = 1,024, H = 40,
    N = 64, from the forward kernel's chunk states; the reference test's
@@ -188,28 +191,41 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    (1 + 1e-6 z) before its rounding), printed; then one more request under
    torch.profiler for the device's busy time, idle share, peak memory
    and time by kernel kind;
-11b. sharded serve phase (`tp_serve_phase`): Qwen2-VL-72B at the
+11b. sharded serve phase (`tp_serve_phase`), once per architecture of
+   `TP_ARCHS`: Qwen2-VL-72B at the
    published widths cut to 8 of 80 layers (`TP_DEPTH`, ~19 GB
-   unsharded) over a mesh of (data 1, model 4) (`TP_MESH`): the
+   unsharded), then Jamba-1.5-Large at the published widths, one period
+   (8 of 72 layers), experts 0-7 of each MoE layer as the serve phase
+   holds them (`SERVE_EXPERT_CARDS`; 25.9 B parameters, ~52 GB
+   unsharded), each over a mesh of (data 1, model 4) (`TP_MESH`): the
    unsharded kernel path's prefill and 16 teacher-forced decode logits
    first, here, freed before the ranks start; then four ranks
    (`parallel.spawn`), all on the one card over gloo (collectives pass
    through the host), each drawing its pieces of v1 from seed 0
-   (`init_local_params`: a quarter of every layer's heads and d_ff and
-   of the vocabulary) into its own `VersionedParamStore(slots=2)` and
+   (`init_local_params`: a quarter of every layer's heads and d_ff, of
+   each held expert's d_ff, of Mamba's d_inner and of the vocabulary)
+   into its own `VersionedParamStore(slots=2)` and
    serving two requests of 8 x 1,024 tokens (the vision stub on a
    16 x 16 grid, as `serve_batch` makes it) and 16 decode steps through
    `ServingEngine(group=)`, v2 (the embedding negated) published
    on every rank under request 1's pin.  Checks: (s1) each rank's
    prefill and decode logits, gathered over "model", within 3e-2 of
-   max-abs of the unsharded ones, printed beside Qwen2-VL's bf16 noise
-   floor (`TP_NOISE_FLOOR`); (s2) each request's snapshot LSN equal on
-   every rank, request 1 served from v1 alone, request 2 from v2,
-   every rank's tokens equal; each rank's flash and decode launches
-   (16 and 256), summed into rows `flash_attention tp4` and
-   `decode_attention tp4`; per rank the prefill and decode times, peak
-   memory and backend.  With two cards or more it runs again over NCCL,
-   one rank a card; else it prints that this route was not run;
+   max-abs of the unsharded ones, printed beside the bf16 noise floor
+   (Qwen2-VL's `TP_NOISE_FLOOR`; Jamba's measured here as the serve
+   phase measures it, `_ssm_noise_floor`); for Jamba, the unsharded
+   path's MoE routing recorded and replayed into every rank's (s1) run
+   (through a file under `TP_DIR`; the choices a rank would have
+   flipped printed), and every `ssm_scan` launch of that run held
+   against the plain version (1e-4); (s2) each request's snapshot LSN
+   equal on every rank, request 1 served from v1 alone, request 2 from
+   v2, every rank's tokens equal; each rank's launches (Qwen2-VL 16
+   flash and 256 decode; Jamba 14 `ssm_scan` chunked and 224 step, 2
+   flash, 32 decode), summed into rows `flash_attention tp4`,
+   `decode_attention tp4`, `ssm_scan tp4` and `ssm_scan step tp4`;
+   every rank's Mamba cache of Di / 4 channels; per rank the prefill and
+   decode times, peak memory and backend.  With two cards or more
+   Qwen2-VL's runs again over NCCL, one rank a card; else it prints that
+   this route was not run;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
    full width and depth, RWKV6-3B at full width, 4 of 32 layers
    (`TRAIN_CUT`: the script's time; d 2,560, f32 moments, batch 4:
@@ -293,7 +309,8 @@ chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches; the attention kernels have a row more
 for each shape of `ATTN_ROWS`, with the serve phases' launches at that
 shape, for each of `TP_ROWS`, with the sharded serve phase's
-launches summed over its ranks, and for `FSDP_ROWS`, with the sharded
+launches summed over its ranks, `ssm_scan` two more for `TP_SSM_ROWS`
+likewise, and for `FSDP_ROWS`, with the sharded
 train phase's backward launches summed over its ranks), the card line,
 and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
@@ -429,8 +446,16 @@ SERVE_SMOKE = False
 # share the one card after the parent's unsharded reference of that
 # depth; 2 requests of 8 prompts x 1,024 tokens (Qwen2-VL's vision stub
 # as `serve_batch` makes it), 16 decode steps, v2 published after step 8
-TP_ARCH, TP_MESH, TP_DEPTH = "qwen2-vl-72b", (1, 4), 8
+TP_ARCH, TP_MESH = "qwen2-vl-72b", (1, 4)
 TP_B, TP_S, TP_STEPS, TP_PUBLISH_AT = 8, 1024, 16, 8
+# ... then Jamba-1.5-Large as the serve phase cuts it (one period, 8 of
+# 72 layers, at the published widths; experts 0-7 of each MoE layer,
+# SERVE_EXPERT_CARDS; 25.9 B parameters, ~52 GB unsharded, ~13 GB a
+# rank): a rank holds 4,096 of 16,384 Mamba channels, 16 of 64 query
+# and 2 of 8 KV heads, 6,144 of 24,576 d_ff and 16,384 of 65,536
+# vocabulary rows
+TP_ARCHS = ("qwen2-vl-72b", "jamba-1.5-large-398b")
+TP_DEPTH = {"qwen2-vl-72b": 8, "jamba-1.5-large-398b": 8}
 # Qwen2-VL-72B's bf16 noise floor under attention at the phase's own
 # depth, TP_DEPTH layers (`scripts/tp_witness.py`, which runs
 # `_attn_noise_floor` on the phase's config, batch and weights, on an
@@ -444,6 +469,13 @@ TP_DIR = ROOT / "build" / "tp_serve"
 # those of the sharded serve phase's ranks
 TP_ROWS = {"tp prefill": "flash_attention tp4",
            "tp decode": "decode_attention tp4"}
+# ... and `ssm_scan` at one rank's shape of Jamba's (`tp_ssm_shape`):
+# the prefill's chunked route and the decode's step route, rows of their
+# own, their launches the ranks' "ssm_scan chunked" and "ssm_scan step"
+TP_SSM_ROWS = {"chunked": ("times_tp", "ssm_scan tp4"),
+               "step": ("times_tp_step", "ssm_scan step tp4")}
+# the CUDA library of each serve kernel that is not in attention.cu's
+TP_LIBRARY = {"ssm_scan": "ssm", "wkv_scan": "wkv"}
 # sharded train phase: Qwen1.5-0.5B whole (24 layers at the published
 # widths, bf16) under its own placement, fsdp2d, over a mesh of (data 2,
 # model 2): every layer's weights and their moments cut four ways, the
@@ -2118,6 +2150,17 @@ def _ssm_cost(Bb: int, T: int, Di: int, N: int, u_size: int, h0: bool):
     return nbytes, 8 * Bb * T * Di * N + 3 * Bb * T * Di
 
 
+def tp_ssm_shape(T: int) -> tuple:
+    """(Bb, T, Di, N) of one rank's `ssm_scan` in the sharded serve phase
+    of Jamba-1.5-Large: its rows of the batch over "data", its share of
+    `d_inner` over "model" (TP_MESH), the state size."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(TP_ARCHS[1])
+    return (TP_B // TP_MESH[0], T, cfg.mamba_d_inner // TP_MESH[1],
+            cfg.mamba_d_state)
+
+
 def ssm_kernel_phase(torch, np, flush) -> dict:
     """ssm_scan against its plain version on the card, in the model's
     layout as the Mamba layers hand it (u, dt [Bb,T,Di]; B, C [Bb,T,N]),
@@ -2131,7 +2174,10 @@ def ssm_kernel_phase(torch, np, flush) -> dict:
     {"max_abs_err", "times": (ms, plain, bound, None, by)} of the prefill
     at Jamba's scales (the chunked route) and "times_step", the same of
     the bf16-u decode (the step route); that decode is also timed on the
-    chunked route, forced, and printed beside it."""
+    chunked route, forced, and printed beside it.  Then one rank's
+    shape of the sharded serve phase's Jamba (`tp_ssm_shape`, bf16 u as
+    its layers pass it): "times_tp" the prefill, "times_tp_step" a
+    decode step from its state (rows TP_SSM_ROWS)."""
     from repro_torch.kernels.ssm_scan import kernel as SK
     from repro_torch.kernels.ssm_scan.ops import selective_scan
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
@@ -2258,7 +2304,24 @@ def ssm_kernel_phase(torch, np, flush) -> dict:
     print(f"kernel ssm_scan decode {u_dtype} u: step route "
           f"{res['times_step'][0]:.4f} ms, chunked route {ms:.4f} ms",
           flush=True)
-    print(f"kernel ssm_scan: {len(cases) + 3} shapes within {tol} of "
+    # one rank's share of the sharded serve phase's Jamba: the prefill,
+    # then a step from its state, read and written in place
+    h = None
+    for key, T in (("times_tp", TP_S), ("times_tp_step", 1)):
+        Bb, T, Di, N = tp_ssm_shape(T)
+        args = inputs(Bb, T, Di, N, "bfloat16", "jamba")
+        want = ssm_scan_ref(*args, h)
+        got = selective_scan(*args, h, state_out=h)
+        label = (f"tp rank bfloat16 u, Bb={Bb} T={T} Di={Di} N={N} "
+                 f"h0={'state_out (in place)' if h is not None else False} "
+                 f"[{_launch_txt(SK.ssm_scan.last_route)}]")
+        check(label, got, want)
+        res[key] = report(
+            label, lambda: selective_scan(*args, h, state_out=h),
+            lambda: ssm_scan_ref(*args, h, state_out=h),
+            _ssm_cost(Bb, T, Di, N, 2, h is not None), Bb * T * Di * N)
+        h = got[1]
+    print(f"kernel ssm_scan: {len(cases) + 5} shapes within {tol} of "
           f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
     return res
 
@@ -2727,42 +2790,46 @@ def _wkv_checks(torch, cfg, params, batch, toks, S: int, N: int) -> str:
             f"(b) {b32:.3g} (<= 1e-3)")
 
 
-def _ssm_checks(torch, cfg, params, batch, toks, S: int, N: int,
-                routing) -> str:
-    """Jamba's further checks of the kernel in its path: (a) per launch:
-    every `ssm_scan` launch of a teacher-forced replay of request 1 (its
-    routing replayed) against the plain version on the same inputs, y
-    and h within 1e-4 of their max-abs; the bf16 model's own noise
-    floor: its plain prefill against itself with every SSM output times
-    (1 + 1e-6 z); and one full-width Mamba block in f32 (the layer of
-    period 0, position 0, on the prompts' embeddings: a prefill and 4
-    decode steps) through the kernel and the plain path, within 1e-3 of
-    the output's max-abs.  A whole f32 copy of the period (104 GB) does
-    not fit the card.  Returns the report."""
+@contextlib.contextmanager
+def checked_ssm(torch):
+    """Inside the block, every `layers.selective_scan` launch is held
+    against the plain version (`ssm_scan_ref`) on the same inputs, taken
+    before h0 is written: y and h within 1e-4 of their max-abs.  Yields
+    a dict whose "n" and "worst" (read after the block) are the launches
+    checked and the worst ratio."""
     from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
     from repro_torch.models import layers
 
-    kernel_scan, worst, n = layers.selective_scan, 0.0, 0
+    kernel_scan, stats = layers.selective_scan, {"n": 0, "worst": 0.0}
 
     def checked(u, dt, B, C, A, D, h0=None, *, state_out=None):
-        nonlocal worst, n
         want = ssm_scan_ref(u, dt, B, C, A, D, h0)   # before h0 is written
         got = kernel_scan(u, dt, B, C, A, D, h0, state_out=state_out)
         for what, a, b in zip(("y", "h"), got, want):
             ratio = ((a - b).abs().max() / b.abs().max()).item()
             if not ratio <= 1e-4:
-                raise AssertionError(f"(a) ssm_scan launch {n}, {what}: max "
-                                     f"|d| / max = {ratio:.4g} > 1e-4")
-            worst = max(worst, ratio)
-        n += 1
+                raise AssertionError(f"ssm_scan launch {stats['n']}, {what}"
+                                     f": max |d| / max = {ratio:.4g} > 1e-4")
+            stats["worst"] = max(stats["worst"], ratio)
+        stats["n"] += 1
         return got
 
     layers.selective_scan = checked
     try:
-        with replay_routing(torch, routing):
-            _teacher_forced(cfg, params, batch, toks, S, N)
+        yield stats
     finally:
         layers.selective_scan = kernel_scan
+
+
+def _ssm_noise_floor(torch, cfg, params, batch, S: int, routing) -> float:
+    """The bf16 Mamba model's own noise floor: its plain prefill (plain
+    attention and selective scan, the prefill's recorded MoE `routing`
+    replayed) against itself with every SSM output times (1 + 1e-6 z),
+    z standard normal from a seeded generator: what f32-level
+    differences of the scan's output do to the logits."""
+    from repro_torch.kernels.ssm_scan.ref import ssm_scan_ref
+    from repro_torch.models import layers
+
     g = torch.Generator(device=batch["tokens"].device)
     g.manual_seed(5)
 
@@ -2774,17 +2841,32 @@ def _ssm_checks(torch, cfg, params, batch, toks, S: int, N: int,
     n_pre = _n_layers(cfg, mlp="moe")            # the prefill's MoE calls
     with plain_attention(), plain_ssm():
         with replay_routing(torch, routing[:n_pre]):
-            plain = _teacher_forced(cfg, params, batch, toks, S, 0)[0]
+            plain = _teacher_forced(cfg, params, batch, None, S, 0)[0]
         layers.selective_scan = noisy
         with replay_routing(torch, routing[:n_pre]):
-            perturbed = _teacher_forced(cfg, params, batch, toks, S, 0)[0]
-    floor = _logits_close(torch, "noise floor", perturbed, plain, None)
-    del plain, perturbed
+            perturbed = _teacher_forced(cfg, params, batch, None, S, 0)[0]
+    return _logits_close(torch, "noise floor", perturbed, plain, None)
+
+
+def _ssm_checks(torch, cfg, params, batch, toks, S: int, N: int,
+                routing) -> str:
+    """Jamba's further checks of the kernel in its path: (a) per launch:
+    every `ssm_scan` launch of a teacher-forced replay of request 1 (its
+    routing replayed) against the plain version on the same inputs, y
+    and h within 1e-4 of their max-abs (`checked_ssm`); the bf16 model's
+    own noise floor (`_ssm_noise_floor`); and one full-width Mamba block
+    in f32 (the layer of period 0, position 0, on the prompts'
+    embeddings: a prefill and 4 decode steps) through the kernel and the
+    plain path, within 1e-3 of the output's max-abs.  A whole f32 copy
+    of the period (104 GB) does not fit the card.  Returns the report."""
+    with checked_ssm(torch) as st, replay_routing(torch, routing):
+        _teacher_forced(cfg, params, batch, toks, S, N)
+    floor = _ssm_noise_floor(torch, cfg, params, batch, S, routing)
     block = _mamba_block_f32(torch, cfg, params, batch["tokens"], toks)
     return (f"bf16 noise floor (plain prefill vs itself with its SSM output "
-            f"x (1 + 1e-6 z)) {floor:.3g}; (a) {n} ssm_scan launches, max "
-            f"|d| / max {worst:.3g} (<= 1e-4); f32 Mamba block kernel vs "
-            f"plain {block:.3g} (<= 1e-3)")
+            f"x (1 + 1e-6 z)) {floor:.3g}; (a) {st['n']} ssm_scan launches, "
+            f"max |d| / max {st['worst']:.3g} (<= 1e-4); f32 Mamba block "
+            f"kernel vs plain {block:.3g} (<= 1e-3)")
 
 
 def _attn_noise_floor(torch, cfg, params, batch, S: int) -> str:
@@ -3209,18 +3291,23 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
 
 # ----------------------------------------------------------- sharded serving
 def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
-            publish_at: int) -> dict:
+            publish_at: int, arch: str = TP_ARCH, experts=None,
+            routes_path: str = None) -> dict:
     """One rank of the sharded serve phase (`parallel.spawn` runs it in a
     process of its own): its pieces of v1 drawn by
     `init_local_params` (torch.Generator seed 0 on its device, the
-    parent's draws), published into its own `VersionedParamStore(slots=2)`
-    and served by a `ServingEngine` over the mesh: request 1 with v2
-    (v1 with its embedding negated) published under its pin after decode
-    step `publish_at`, then request 2; the attention kernels' launches
-    counted from 0 just before request 1 and read after request 2; then
-    check (s1): the rank's prefill and teacher-forced decode logits
-    (`toks`), gathered over "model", against the parent's unsharded ones
-    at `ref_path`.  Returns what the parent checks and prints."""
+    parent's draws; `experts` the MoE layers' share), published into its
+    own `VersionedParamStore(slots=2)` and served by a `ServingEngine`
+    over the mesh: request 1 with v2 (v1 with its embedding negated)
+    published under its pin after decode step `publish_at`, then request
+    2; the launches of `arch`'s kernels (SERVE_KERNELS; the scans' by
+    route too) counted from 0 just before request 1 and read after
+    request 2; then check (s1): the rank's prefill and teacher-forced
+    decode logits (`toks`), gathered over "model", against the parent's
+    unsharded ones at `ref_path`, with the parent's MoE routing at
+    `routes_path` (None: no MoE) replayed, cut to the rank's rows, and
+    every `ssm_scan` launch held against the plain version
+    (`checked_ssm`).  Returns what the parent checks and prints."""
     import torch
 
     from repro_torch.kernels import cuda_build
@@ -3233,7 +3320,10 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
 
     dev = group.device
     on_card = dev.type == "cuda"
-    if on_card and not cuda_build.library_path("attention").exists():
+    names = tuple(SERVE_KERNELS[arch])
+    libs = {TP_LIBRARY.get(n, "attention") for n in names}
+    if on_card and not all(cuda_build.library_path(lib).exists()
+                           for lib in libs):
         raise RuntimeError("the parent builds the kernels before the ranks "
                            "start; a rank never runs nvcc")
     sync = (lambda: torch.cuda.synchronize(dev)) if on_card else \
@@ -3241,7 +3331,8 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     t0 = time.perf_counter()
-    v1 = init_local_params(cfg, g, group.mesh, group.coords, dev)
+    v1 = init_local_params(cfg, g, group.mesh, group.coords, dev,
+                           experts=experts)
     v2 = dict(v1, embed=-v1["embed"])
     if on_card:
         torch.cuda.empty_cache()            # the draws' transient memory
@@ -3273,10 +3364,11 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
         return out
 
     eng._prefill, eng._decode = rec_prefill, rec_decode
-    wrappers = {n: _kernel_wrappers()[n] for n in ("flash_attention",
-                                                   "decode_attention")}
+    wrappers = {n: _kernel_wrappers()[n] for n in names}
     cuda_build.reset_counts(wrappers.values())
-    wrappers["decode_attention"].split_launches = 0
+    dattn = wrappers.get("decode_attention")
+    if dattn:
+        dattn.split_launches = 0
     requests = []
     for writer in (True, False):
         log.update(read=[], writer=writer)
@@ -3293,17 +3385,24 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
         eng.refresh()
     launches = {n: cuda_build.launch_count(fn)
                 for n, fn in wrappers.items()}
-    split = wrappers["decode_attention"].split_launches
+    launches.update({f"{n} {route}": k for n, fn in wrappers.items()
+                     for route, k in getattr(fn, "route_launches",
+                                             {}).items()})
+    split = dattn.split_launches if dattn else 0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
 
-    # (s1) against the parent's unsharded kernel path
+    # (s1) against the parent's unsharded kernel path, its routing
+    # replayed, each scan launch held against plain
     want = torch.load(ref_path)
     b = split_batch(batch, group)
     t = split_batch({"tokens": toks.to(dev)}, group)["tokens"]
     rows = slice(group.data_rank * t.shape[0], (group.data_rank + 1)
                  * t.shape[0])
+    routing = None if routes_path is None else [
+        c[rows].to(dev) for c in torch.load(routes_path)]
     ratios = []
-    with torch.no_grad(), with_mesh(group):
+    with torch.no_grad(), with_mesh(group), checked_ssm(torch) as scans, \
+            replay_routing(torch, routing) as flips:
         lg, cache = prefill(v1, cfg, b, cache_len=S + N)
         for k in range(N + 1):
             got = gather_vocab(lg, group).float().cpu()
@@ -3316,20 +3415,25 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     return {"rank": group.rank, "coords": group.coords, "init_s": init_s,
             "requests": requests, "v2_lsn_before": log["v2_lsn_before"],
             "launches": launches, "split": split, "peak_gb": peak,
-            "s1": max(ratios),
-            "cache": tuple(cache["blocks"][0]["k"].shape)}
+            "s1": max(ratios), "flips": flips["differ"], "scans": scans,
+            "cache": [{k: tuple(x.shape) for k, x in entry.items()}
+                      for entry in cache["blocks"]]}
 
 
 def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
-                   mesh_shape: tuple = TP_MESH) -> dict:
-    """The sharded serve phase (see the module docstring): TP_ARCH cut to
-    TP_DEPTH layers at the published widths on a mesh of `mesh_shape`, its
-    ranks spawned on `backend`, all on the one `device` (gloo: the
+                   mesh_shape: tuple = TP_MESH,
+                   arch: str = TP_ARCH) -> dict:
+    """The sharded serve phase (see the module docstring): `arch` cut to
+    TP_DEPTH layers at the published widths (a MoE model holding
+    SERVE_EXPERT_CARDS' share of the experts) on a mesh of `mesh_shape`,
+    its ranks spawned on `backend`, all on the one `device` (gloo: the
     ranks share the card) or one card a rank (nccl); the unsharded
-    kernel path's teacher-forced logits computed here first, on the same
-    weights and tokens, and freed before the ranks start.  Checks (s1)
-    and (s2), the launches in every rank; returns the launches of the
-    two per-rank shape rows (TP_ROWS), summed over the ranks."""
+    kernel path's teacher-forced logits (and a MoE model's routing)
+    computed here first, on the same weights and tokens, and freed
+    before the ranks start.  Checks (s1) and (s2), the launches in
+    every rank, a Mamba model's cache and scan launches; returns the
+    launches of the per-rank shape rows (TP_ROWS, and TP_SSM_ROWS for a
+    Mamba model), summed over the ranks."""
     import tempfile
 
     from repro_torch.configs import get_config, smoke_variant
@@ -3337,9 +3441,13 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     from repro_torch.models import init_params
     from repro_torch.parallel import check_tp, spawn
 
-    cfg = get_config(TP_ARCH)
+    cfg = get_config(arch)
     cfg = smoke_variant(cfg) if SERVE_SMOKE else cfg
-    cfg = cfg.with_overrides(n_layers=min(TP_DEPTH, cfg.n_layers))
+    cfg = cfg.with_overrides(n_layers=min(TP_DEPTH[arch], cfg.n_layers))
+    experts = range(cfg.n_experts // SERVE_EXPERT_CARDS[arch]) \
+        if arch in SERVE_EXPERT_CARDS else None
+    moe = any(s.mlp == "moe" for s in cfg.pattern)
+    mamba = "ssm_scan" in SERVE_KERNELS[arch]
     mesh = Mesh(mesh_shape, ("data", "model"))
     check_tp(cfg, mesh)
     dev = torch.device(device)
@@ -3350,20 +3458,33 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
         devices = [f"cuda:{dev.index or 0}" if on_card else "cpu"] \
             * mesh.size
     B, S, N = TP_B, TP_S, TP_STEPS
-    batch = serve_batch(torch, np, cfg, TP_ARCH, B, S, dev)
+    batch = serve_batch(torch, np, cfg, arch, B, S, dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (B, N))).to(dev)
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    params = init_params(cfg, g, dev)
-    want = _teacher_forced(cfg, params, batch, toks, S, N)
+    params = init_params(cfg, g, dev, experts=experts)
+    with record_routing() if moe else contextlib.nullcontext() as calls:
+        want = _teacher_forced(cfg, params, batch, toks, S, N)
+    if mamba:
+        floor = (f"Jamba's bf16 noise floor at {cfg.n_layers} layers "
+                 f"{_ssm_noise_floor(torch, cfg, params, batch, S, calls):.4g}"
+                 f" (measured here, as the serve phase measures it)")
+    else:
+        floor = (f"Qwen2-VL's bf16 noise floor under attention at "
+                 f"{TP_DEPTH[arch]} layers {TP_NOISE_FLOOR} "
+                 f"({TP_NOISE_FLOOR_FROM})")
     del params
     TP_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=TP_DIR) as tmp:
         ref_path = os.path.join(tmp, "reference.pt")
         torch.save([x.cpu() for x in want], ref_path)
-        del want
+        routes_path = None
+        if moe:
+            routes_path = os.path.join(tmp, "routing.pt")
+            torch.save([c.cpu() for c in calls], routes_path)
+        del want, calls
         if on_card:
             torch.cuda.empty_cache()
         ref_s = time.perf_counter() - t0
@@ -3371,14 +3492,17 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
         out = spawn(tp_rank, mesh, backend=backend, devices=devices,
                     tmpdir=tmp, args=(cfg, {k: x.cpu() for k, x in
                                             batch.items()},
-                                      toks.cpu(), ref_path, TP_PUBLISH_AT))
+                                      toks.cpu(), ref_path, TP_PUBLISH_AT,
+                                      arch, experts, routes_path))
         ranks_s = time.perf_counter() - t0
     how = (f"{mesh.size} ranks on one card over gloo: collectives pass "
            f"through the host" if backend == "gloo" and on_card else
            f"{mesh.size} ranks, one card each, over nccl" if on_card else
            f"{mesh.size} ranks on the CPU over gloo")
-    run = f"{cfg.name} {cfg.n_layers} of {get_config(TP_ARCH).n_layers} " \
-          f"layers, mesh {mesh.shape}, {backend}"
+    cut = "" if experts is None else \
+        f", experts 0-{len(experts) - 1} of {cfg.n_experts}"
+    run = f"{cfg.name} {cfg.n_layers} of {get_config(arch).n_layers} " \
+          f"layers{cut}, mesh {mesh.shape}, {backend}"
     print(f"tp serve: {run}: unsharded reference {ref_s:.1f} s, ranks "
           f"{ranks_s:.1f} s ({how})", flush=True)
     for r in out:
@@ -3391,15 +3515,15 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
               f"{req[0]['decode_ms']:.2f} ms a step; request 2 prefill "
               f"{req[1]['prefill_ms']:.1f} ms, decode "
               f"{req[1]['decode_ms']:.2f} ms a step; {peak}; cache "
-              f"{r['cache']}; launches {r['launches']} ({r['split']} decode "
+              f"{ {k: v for e in r['cache'] for k, v in e.items()} }; "
+              f"launches {r['launches']} ({r['split']} decode "
               f"launches split); backend {backend} "
               f"({how})", flush=True)
     # (s1) each rank's logits against the unsharded kernel path
-    worst = max(r["s1"] for r in out)
-    if not worst <= SERVE_BF16_TOL[TP_ARCH]:
+    worst, tol = max(r["s1"] for r in out), SERVE_BF16_TOL[arch]
+    if tol is not None and not worst <= tol:
         raise AssertionError(f"(s1) sharded vs unsharded max |d| / max "
-                             f"|logit| {[r['s1'] for r in out]} > "
-                             f"{SERVE_BF16_TOL[TP_ARCH]}")
+                             f"|logit| {[r['s1'] for r in out]} > {tol}")
     # (s2) one snapshot on every rank: request 1 read v1 in every call,
     # v2 published under its pin; request 2 read v2
     lsn1 = {r["requests"][0]["lsn"] for r in out}
@@ -3417,28 +3541,63 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
         if tuple(first.shape) != (B, N) or not all(
                 torch.equal(r["requests"][i]["tokens"], first) for r in out):
             raise AssertionError(f"request {i + 1}: ranks differ in tokens")
-    # launches in every rank: the prefill's flash, one decode a step, a
-    # layer each
-    per = {"flash_attention": 2 * cfg.n_layers,
-           "decode_attention": 2 * cfg.n_layers * N}
+    # launches in every rank, over both requests: each kernel's per layer
+    # of its mixer, the scans' prefill launches chunked and decode
+    # launches a step
+    per = {}
+    for name, (pre, dec) in _serve_launches(cfg, arch, N).items():
+        per[name] = 2 * (pre + dec)
+        if name in SSM_TPU:
+            per.update({f"{name} chunked": 2 * pre, f"{name} step": 2 * dec})
     for r in out:
         if on_card and r["launches"] != per:
             raise AssertionError(f"rank {r['rank']} launches "
                                  f"{r['launches']} != {per}")
+    extra = ""
+    if mamba:
+        # every rank's Mamba cache holds its share of d_inner; every
+        # scan launch of its (s1) run held against plain
+        di = cfg.mamba_d_inner // mesh.shape["model"]
+        rows = B // mesh.shape["data"]
+        want_cache = {"ssm": (cfg.n_periods, rows, di, cfg.mamba_d_state),
+                      "conv": (cfg.n_periods, rows, cfg.mamba_d_conv - 1,
+                               di)}
+        n_scan = _n_layers(cfg, mixer="mamba") * (N + 1)
+        for r in out:
+            caches = [c for c, s in zip(r["cache"], cfg.pattern)
+                      if s.mixer == "mamba"]
+            if any(c != want_cache for c in caches):
+                raise AssertionError(f"rank {r['rank']} Mamba cache "
+                                     f"{caches} != {want_cache}")
+            if r["scans"]["n"] != n_scan:
+                raise AssertionError(f"rank {r['rank']} checked "
+                                     f"{r['scans']['n']} ssm_scan launches, "
+                                     f"not {n_scan}")
+        extra += (f"; every rank's Mamba cache {want_cache} (Di {di} of "
+                  f"{cfg.mamba_d_inner}); (s1)'s {n_scan} ssm_scan launches "
+                  f"a rank held against plain, max |d| / max "
+                  f"{max(r['scans']['worst'] for r in out):.3g} (<= 1e-4)")
+    if moe:
+        n_dec = (B // mesh.shape["data"]) * (S + N) * cfg.top_k \
+            * _n_layers(cfg, mlp="moe")
+        extra += (f"; MoE routing replayed in (s1): of {n_dec} routing "
+                  f"decisions a rank, the ranks would have flipped "
+                  f"{[r['flips'] for r in out]}")
     print(f"tp serve checks ({run}): (s1) sharded vs unsharded kernel path "
-          f"max |d| / max |logit| {worst:.4g} (<= "
-          f"{SERVE_BF16_TOL[TP_ARCH]}; by rank "
-          f"{[round(r['s1'], 5) for r in out]}), beside Qwen2-VL's bf16 "
-          f"noise floor under attention at {TP_DEPTH} layers "
-          f"{TP_NOISE_FLOOR} ({TP_NOISE_FLOOR_FROM}); (s2) one snapshot "
-          f"a request on all {mesh.size} ranks: lsn {min(lsn1)} then "
-          f"{min(lsn2)}, request 1 read v1 in all {N + 1} calls with v2 "
-          f"published after step {TP_PUBLISH_AT}; every rank's tokens equal;"
-          f" launches a rank over both requests {per}", flush=True)
-    return {TP_ROWS["tp prefill"]: sum(r["launches"]["flash_attention"]
-                                       for r in out),
-            TP_ROWS["tp decode"]: sum(r["launches"]["decode_attention"]
-                                      for r in out)}
+          f"max |d| / max |logit| {worst:.4g} (<= {tol}; by rank "
+          f"{[round(r['s1'], 5) for r in out]}), beside {floor}; (s2) one "
+          f"snapshot a request on all {mesh.size} ranks: lsn {min(lsn1)} "
+          f"then {min(lsn2)}, request 1 read v1 in all {N + 1} calls with "
+          f"v2 published after step {TP_PUBLISH_AT}; every rank's tokens "
+          f"equal; launches a rank over both requests {per}{extra}",
+          flush=True)
+    rows = {TP_ROWS["tp prefill"]: "flash_attention",
+            TP_ROWS["tp decode"]: "decode_attention"}
+    if mamba:
+        rows.update({row: f"ssm_scan {route}"
+                     for route, (_, row) in TP_SSM_ROWS.items()})
+    return {row: sum(r["launches"][name] for r in out)
+            for row, name in rows.items()}
 
 
 def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
@@ -4375,10 +4534,17 @@ def main() -> int:
               f"{time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
-    # the sharded serve path: its ranks' launches at the per-rank shapes;
-    # the nccl route where the machine has a card a rank
-    t0 = time.perf_counter()
-    launches.update(tp_serve_phase(torch, np))
+    # the sharded serve paths, one per architecture: their ranks'
+    # launches at the per-rank shapes; Qwen2-VL's on the nccl route too
+    # where the machine has a card a rank
+    for arch in TP_ARCHS:
+        t0 = time.perf_counter()
+        for row, n in tp_serve_phase(torch, np, arch=arch).items():
+            launches[row] = launches.get(row, 0) + n
+        torch.cuda.empty_cache()
+        print(f"tp serve phase {arch}: {time.perf_counter() - t0:.1f} s, "
+              f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
+              "allocated", flush=True)
     cards = torch.cuda.device_count()
     if cards >= 2:
         mesh = (1, 4 if cards >= 4 else 2)
@@ -4390,9 +4556,6 @@ def main() -> int:
         print(f"tp serve: the nccl route (one card a rank) was not run: "
               f"{cards} card on this machine", flush=True)
     torch.cuda.empty_cache()
-    print(f"tp serve phase: {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
-          flush=True)
     # the train paths: launches of each one's kernels over its steps
     for arch in TRAIN_ARCH:
         t0 = time.perf_counter()
@@ -4429,6 +4592,9 @@ def main() -> int:
                  for name in (*WKV_TPU, *SSM_TPU)
                  for suffix, key, route in (("", "times", "chunked"),
                                             (" step", "times_step", "step"))]
+    # ... and ssm_scan's at one rank's shape of the sharded serve phase
+    scan_rows += [(row, "ssm_scan", key, launches.get(row, 0))
+                  for key, row in TP_SSM_ROWS.values()]
     for name in (*ATTN_TPU, *ATTN_BWD_TPU, *WKV_TPU, *SSM_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")

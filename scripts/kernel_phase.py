@@ -8,6 +8,7 @@
     python3 scripts/kernel_phase.py TREE --scans
     python3 scripts/kernel_phase.py TREE --backwards
     python3 scripts/kernel_phase.py TREE --fsdp
+    python3 scripts/kernel_phase.py TREE --tp ARCH
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -62,6 +63,15 @@ With `--fsdp` it builds the tree's `attention.cu` and runs the tree's own
 `chip_smoke.fsdp_train_phase` (Qwen1.5-0.5B whole under fsdp2d, four
 ranks on the card over gloo, checks (f1)-(f5), per-rank step times,
 memory, gathers and launches), timing it.
+
+With `--tp ARCH` it builds the tree's `attention.cu` and `ssm.cu` and
+runs the tree's own `chip_smoke.tp_serve_phase` for ARCH (one of
+`chip_smoke.TP_ARCHS`: four ranks on the card over gloo, checks (s1)
+and (s2), per-rank times, memory, cache and launches), timing it; for
+an architecture with Mamba layers it runs the tree's
+`chip_smoke.ssm_kernel_phase` first and prints the rows at one rank's
+shape (`TP_SSM_ROWS`).  Like `chip_smoke.py`, it lets the CUDA caching
+allocator grow segments in place.
 """
 
 import collections
@@ -226,8 +236,37 @@ def fsdp_phase(torch, np, tree: Path) -> None:
     print(f"fsdp train phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def tp_phase(torch, np, tree: Path, arch: str) -> None:
+    """The tree's `chip_smoke.tp_serve_phase` for `arch`, after its
+    `ssm_kernel_phase` where `arch` has Mamba layers."""
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+
+    print(f"tree {tree}, tp {arch}: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["attention", "ssm"])
+    if "ssm_scan" in chip_smoke.SERVE_KERNELS[arch]:
+        flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+        res = chip_smoke.ssm_kernel_phase(torch, np, flush)
+        for key, row in chip_smoke.TP_SSM_ROWS.values():
+            print(f"result {row}: {res[key]}", flush=True)
+        del flush
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    print(f"result: {chip_smoke.tp_serve_phase(torch, np, arch=arch)}",
+          flush=True)
+    print(f"tp serve phase {arch}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     args = sys.argv[1:]
+    tp = None
+    if "--tp" in args:
+        i = args.index("--tp")
+        tp = args[i + 1]
+        del args[i:i + 2]
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     groups = None
     if "--groups" in args:
         i = args.index("--groups")
@@ -274,6 +313,9 @@ def main() -> int:
         return 0
     if fsdp:
         fsdp_phase(torch, np, tree)
+        return 0
+    if tp is not None:
+        tp_phase(torch, np, tree, tp)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

@@ -98,7 +98,8 @@ def main(argv=None) -> int:
 
     cfg = get_config(cs.TP_ARCH)
     cfg = smoke_variant(cfg) if cs.SERVE_SMOKE else cfg
-    cfg = cfg.with_overrides(n_layers=min(cs.TP_DEPTH, cfg.n_layers))
+    cfg = cfg.with_overrides(n_layers=min(cs.TP_DEPTH[cs.TP_ARCH],
+                                          cfg.n_layers))
     dev = torch.device(args.device)
     batch = cs.serve_batch(torch, np, cfg, cs.TP_ARCH, cs.TP_B, cs.TP_S,
                            dev)

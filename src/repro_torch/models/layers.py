@@ -64,7 +64,17 @@ Tensor parallel: an attention layer may hold a rank's columns of
 `wq`/`wk`/`wv` and rows of `wo` (`parallel.tensor`); the layers read
 their head counts from those widths (the QKV biases come cut to the
 same columns) and return the rank's partial output, which the model
-stack sums over "model".
+stack sums over "model".  A MoE layer may hold a rank's columns of
+each expert's `w_up`/`w_gate` and rows of its `w_down` (its d_ff); the
+router is whole, so every rank routes alike, and the layer returns the
+rank's partial output.  A Mamba mixer may hold a rank's channels of
+`d_inner` (`in_proj`'s x and z columns of them, `conv_w`, `conv_b`,
+`dt_proj`, `dt_bias`, `A_log`, `D`, the rows of `x_proj` and
+`out_proj`): the conv, the scan and the gate run on those channels,
+`x_proj`'s product over them is a partial sum, which the mixer sums
+over "model" in f32 and rounds once to the compute dtype (the one
+all-reduce inside a layer; GSPMD's in the reference), and the mixer
+returns the rank's partial output.
 """
 
 from __future__ import annotations
@@ -81,6 +91,7 @@ from ..kernels.decode_attention.ops import decode_gqa
 from ..kernels.flash_attention.ops import attention_bshd
 from ..kernels.ssm_scan.ops import selective_scan
 from ..kernels.wkv_scan.ops import wkv
+from .sharding import psum
 
 Params = dict
 
@@ -437,12 +448,16 @@ def mlp_apply(p: Params, x: torch.Tensor, act: str) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------------ MoE
-def moe_init(cfg, dtype, generator, device, experts=None) -> Params:
+def moe_init(cfg, dtype, generator, device, experts=None,
+             keep=None) -> Params:
     """The MoE MLP: the router over all `cfg.n_experts` experts (f32) and
     the weights of the experts this layer holds, `experts` (global ids,
     ascending; None: all), recorded in the int32 leaf `expert_ids`.  Each
     expert's matrices are drawn one expert at a time, so a full-width
-    layer never holds its f32 draws at once."""
+    layer never holds its f32 draws at once.  `keep(name, leaf)`: what to
+    keep of each leaf (a rank's piece), applied as it is drawn, to each
+    expert's matrix as a leaf of one expert ([1, D, F]), so the whole
+    layer is never held."""
     d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
     held = list(range(E)) if experts is None else [int(e) for e in experts]
     if not held or held != sorted(set(held)) or held[0] < 0 \
@@ -450,19 +465,26 @@ def moe_init(cfg, dtype, generator, device, experts=None) -> Params:
         raise ValueError(f"experts {held} must be ascending ids in "
                          f"[0, {E})")
     s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    keep = keep or (lambda name, t: t)
 
-    def per_expert(shape, scale):
-        w = torch.empty((len(held), *shape), dtype=dtype, device=device)
+    def per_expert(name, shape, scale):
+        w = None
         for i in range(len(held)):
-            w[i] = _normal(shape, scale, dtype, generator, device)
+            x = keep(name, _normal(shape, scale, dtype, generator,
+                                   device)[None])[0]
+            if w is None:
+                w = x.new_empty((len(held), *x.shape))
+            w[i] = x
         return w
 
-    p = {"router": _normal((d, E), s_in, torch.float32, generator, device),
-         "w_up": per_expert((d, f), s_in),
-         "w_down": per_expert((f, d), s_out)}
+    p = {"router": keep("router", _normal((d, E), s_in, torch.float32,
+                                          generator, device)),
+         "w_up": per_expert("w_up", (d, f), s_in),
+         "w_down": per_expert("w_down", (f, d), s_out)}
     if cfg.mlp_act in ("swiglu", "geglu"):
-        p["w_gate"] = per_expert((d, f), s_in)
-    p["expert_ids"] = torch.tensor(held, dtype=torch.int32, device=device)
+        p["w_gate"] = per_expert("w_gate", (d, f), s_in)
+    p["expert_ids"] = keep("expert_ids", torch.tensor(
+        held, dtype=torch.int32, device=device))
     return p
 
 
@@ -574,10 +596,16 @@ def _mamba_streams(p: Params, xc: torch.Tensor, cfg):
     """From the conv output xc [..., Di]: SiLU(xc), and the scan's f32
     dt (softplus of dt_r @ dt_proj widened, + dt_bias), B and C (slices
     of the x_proj output, read through their strides) and A = -exp(A_log),
-    as the reference computes them."""
+    as the reference computes them.  On a rank's channels (fewer than
+    `d_inner`) the x_proj product is a partial sum: the ranks' f32
+    partials are summed over "model" and rounded once to xc's dtype, as
+    the reference rounds the whole product."""
     ds, dtr = cfg.mamba_d_state, cfg.mamba_dt_rank
     xc = F.silu(xc)
-    proj = (xc @ p["x_proj"]).float()
+    if xc.shape[-1] < cfg.mamba_d_inner:
+        proj = psum(xc.float() @ p["x_proj"].float()).to(xc.dtype).float()
+    else:
+        proj = (xc @ p["x_proj"]).float()
     dt_r, B_, C_ = proj.split([dtr, ds, ds], dim=-1)
     dt = F.softplus(dt_r @ p["dt_proj"].float() + p["dt_bias"])
     return xc, dt, B_, C_, -torch.exp(p["A_log"])

@@ -17,13 +17,15 @@ stack with `lax.scan`; here a Python loop runs over periods.
 
 Tensor parallel (serving): under `models.sharding.with_mesh(mesh,
 group)` a rank holds its pieces of the weights (`parallel.tensor`:
-heads, d_ff and vocab over "model") and the stack sums the partial
-outputs of the row-parallel products over "model" (`psum`) where the
-reference's `hint` makes GSPMD reduce: the mixer's and cross-attention's
-output, the MLP's, and the embedding of a vocab-sharded table
-(`embed_tokens`); the layers read their local head counts from the
-weights, the cache holds the rank's KV heads, and the logits stay
-vocab-sharded (the reference's `hint(logits, "data", None, "model")`).
+heads, d_ff (an expert's too), Mamba's d_inner and vocab over "model")
+and the stack sums the partial outputs of the row-parallel products
+over "model" (`psum`) where the reference's `hint` makes GSPMD reduce:
+the mixer's and cross-attention's output, the MLP's, and the embedding
+of a vocab-sharded table (`embed_tokens`); the layers read their local
+head counts and channels from the weights (a Mamba mixer sums its
+`x_proj` product over "model" itself), the cache holds the rank's KV
+heads and Mamba channels, and the logits stay vocab-sharded (the
+reference's `hint(logits, "data", None, "model")`).
 On one device `psum` is the identity.
 
 Sharded training: under `with_mesh(layout)` (this rank's
@@ -139,35 +141,51 @@ def _index(tree, i: int):
 
 
 # ------------------------------------------------------------------ block init
-def _block_init(spec: LayerSpec, cfg: ModelConfig, dtype, generator,
-                device, experts) -> Params:
-    p: Params = {"norm1": L.norm_init(cfg.d_model, cfg.norm, dtype, device)}
-    if spec.mixer == "attn":
-        p["mixer"] = L.attn_init(cfg, dtype, generator, device)
-    elif spec.mixer == "mamba":
-        p["mixer"] = L.mamba_init(cfg, dtype, generator, device)
-    else:
-        p["mixer"] = L.rwkv_init(cfg, dtype, generator, device)
-    if spec.cross_attn:
-        p["norm_x"] = L.norm_init(cfg.d_model, cfg.norm, dtype, device)
-        p["cross"] = L.attn_init(cfg, dtype, generator, device, cross=True)
-    p["norm2"] = L.norm_init(cfg.d_model, cfg.norm, dtype, device)
-    if spec.mlp == "dense":
-        p["mlp"] = L.mlp_init(cfg.d_model, cfg.d_ff, cfg.mlp_act, dtype,
-                              generator, device)
-    elif spec.mlp == "moe":
-        p["mlp"] = L.moe_init(cfg, dtype, generator, device, experts)
-    else:
-        p["mlp"] = L.rwkv_cmix_init(cfg, dtype, generator, device)
-    return p
-
-
 def _pieces(piece, prefix: str, tree) -> Params:
     """`tree` with each leaf replaced by `piece(path, leaf)` (path the
     "/"-joined path under `prefix`)."""
     return replace_leaves(tree, {
         p: piece(path_key((prefix, *p)), t)
         for p, t in leaves_with_path(tree)})
+
+
+def _block_init(spec: LayerSpec, cfg: ModelConfig, dtype, generator,
+                device, experts, keep, prefix: str) -> Params:
+    """One block's parameters, each part cut by `keep(path, leaf)` (paths
+    under `prefix`) as soon as it is drawn; a MoE layer's expert
+    matrices one expert at a time (`moe_init(keep=)`), so a rank never
+    holds a whole layer of experts."""
+    part = lambda name, tree: _pieces(keep, f"{prefix}/{name}", tree)
+    p: Params = {"norm1": part("norm1", L.norm_init(cfg.d_model, cfg.norm,
+                                                    dtype, device))}
+    if spec.mixer == "attn":
+        p["mixer"] = part("mixer", L.attn_init(cfg, dtype, generator,
+                                               device))
+    elif spec.mixer == "mamba":
+        p["mixer"] = part("mixer", L.mamba_init(cfg, dtype, generator,
+                                                device))
+    else:
+        p["mixer"] = part("mixer", L.rwkv_init(cfg, dtype, generator,
+                                               device))
+    if spec.cross_attn:
+        p["norm_x"] = part("norm_x", L.norm_init(cfg.d_model, cfg.norm,
+                                                 dtype, device))
+        p["cross"] = part("cross", L.attn_init(cfg, dtype, generator,
+                                               device, cross=True))
+    p["norm2"] = part("norm2", L.norm_init(cfg.d_model, cfg.norm, dtype,
+                                           device))
+    if spec.mlp == "dense":
+        p["mlp"] = part("mlp", L.mlp_init(cfg.d_model, cfg.d_ff,
+                                          cfg.mlp_act, dtype, generator,
+                                          device))
+    elif spec.mlp == "moe":
+        p["mlp"] = L.moe_init(cfg, dtype, generator, device, experts,
+                              keep=lambda name, t: keep(
+                                  f"{prefix}/mlp/{name}", t))
+    else:
+        p["mlp"] = part("mlp", L.rwkv_cmix_init(cfg, dtype, generator,
+                                                device))
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
@@ -180,7 +198,9 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
     `cfg.n_experts`), e.g. this card's share of an expert-parallel
     deployment.  `piece(path, t)`: what to keep of each leaf as it is
     drawn (a rank's slice: `parallel.tensor.init_local_params`), the
-    draws unchanged; a stacked leaf is handed one period at a time."""
+    draws unchanged; a stacked leaf is handed one period at a time, a
+    MoE layer's expert matrix one expert at a time (a leaf of one
+    expert, [1, D, F])."""
     dev = _device(device)
     dtype = torch_dtype(cfg.param_dtype)
     d, v = cfg.d_model, cfg.vocab_size
@@ -194,14 +214,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
                               L.norm_init(d, cfg.norm, dtype, dev)),
     }
     params["blocks"] = tuple(
-        _stacked(cfg.n_periods, lambda j=j, spec=spec: _pieces(
-            keep, f"blocks/{j}", _block_init(spec, cfg, dtype, generator,
-                                             dev, experts)))
+        _stacked(cfg.n_periods, lambda j=j, spec=spec: _block_init(
+            spec, cfg, dtype, generator, dev, experts, keep, f"blocks/{j}"))
         for j, spec in enumerate(cfg.pattern))
     if cfg.is_encoder_decoder:
         params["enc_blocks"] = _stacked(
-            cfg.n_encoder_layers, lambda: _pieces(keep, "enc_blocks", (
-                _block_init(ENC_SPEC, cfg, dtype, generator, dev, None))))
+            cfg.n_encoder_layers, lambda: _block_init(
+                ENC_SPEC, cfg, dtype, generator, dev, None, keep,
+                "enc_blocks"))
         params["enc_final_norm"] = _pieces(
             keep, "enc_final_norm", L.norm_init(d, cfg.norm, dtype, dev))
     return params
@@ -422,11 +442,15 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
     and "conv" for Mamba; "shift", "wkv" (f32) for RWKV's time-mix,
     "cmix_shift" for its channel-mix; "xk", "xv" (`encoder_len`
     entries) for cross-attention.  `model`: the size of the model axis
-    a rank's cache is cut over, its KV heads over it (as
-    `launch.shardings.cache_shardings` places them)."""
-    if cfg.n_kv_heads % model:
-        raise ValueError(f"{cfg.n_kv_heads} KV heads over a model axis of "
-                         f"{model}")
+    a rank's cache is cut over, its KV heads and Mamba's `d_inner`
+    channels over it (as `launch.shardings.cache_shardings` places
+    them)."""
+    names = ["n_kv_heads"] + ["mamba_d_inner"] * any(
+        spec.mixer == "mamba" for spec in cfg.pattern)
+    for name in names:
+        if getattr(cfg, name) % model:
+            raise ValueError(f"{name} {getattr(cfg, name)} over a model "
+                             f"axis of {model}")
     d, hd, nkv = cfg.d_model, cfg.head_dim, cfg.n_kv_heads // model
     T = min(cfg.sliding_window, seq_len) if cfg.sliding_window else seq_len
     cdt = torch_dtype(cfg.compute_dtype)
@@ -438,7 +462,7 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
             entry["k"] = ((np_, batch, T, nkv, hd), cdt)
             entry["v"] = ((np_, batch, T, nkv, hd), cdt)
         elif spec.mixer == "mamba":
-            di = cfg.mamba_d_inner
+            di = cfg.mamba_d_inner // model
             entry["ssm"] = ((np_, batch, di, cfg.mamba_d_state),
                             torch.float32)
             entry["conv"] = ((np_, batch, cfg.mamba_d_conv - 1, di), cdt)

@@ -6,44 +6,57 @@ vocab-sharded logits.
 The serving layout (`serve_specs`) is the Megatron rules of
 `launch.shardings` with neither FSDP nor ZeRO-2: query/KV heads and
 d_ff over "model" (`wq`/`wk`/`wv`/`w_up`/`w_gate` by columns, `wo`/
-`w_down` by rows), the vocabulary over "model" (`embed` by rows,
-`lm_head` by columns), norms replicated, nothing over "data", which
-splits the batch.  Two placements differ from the reference's.  The
-QKV biases, which the rules replicate, are cut as their products'
-columns are: a rank adds only those columns, so it holds only them.
-And the reference's serving placement replicates the embedding when a
-ZeRO-2 shard fits a card (`launch.specs.params_specs(serving=True)`);
-the port cuts it, a quarter of the table a rank at model 4, for one
-all-reduce of the embedded prompt (ROADMAP queue 3).
+`w_down` by rows; a MoE layer's experts each by their d_ff, the router
+replicated), Mamba's `d_inner` over "model" (`conv_w`, `dt_proj`,
+`dt_bias`, `A_log`, `D` and the rows of `x_proj` and `out_proj` by
+channel), the vocabulary over "model" (`embed` by rows, `lm_head` by
+columns), norms replicated, nothing over "data", which splits the
+batch.  Four placements differ from the reference's.  The QKV biases,
+which the rules replicate, are cut as their products' columns are: a
+rank adds only those columns, so it holds only them.  Mamba's `conv_b`,
+which the rules replicate (their three-entry spec meets a two-dim leaf
+in `sanitize`), is cut with `conv_w`'s channels for the same reason.
+Mamba's `in_proj` [D, 2·Di] holds x's Di columns and then z's: the
+rules cut it in m contiguous blocks, so at model 4 two ranks would hold
+x and two z (GSPMD reshards there); the port cuts each half over
+"model" (a `Paired` spec entry), so a rank's piece is [its x columns |
+its z columns], the same channels.  And the reference's serving
+placement replicates the embedding when a ZeRO-2 shard fits a card
+(`launch.specs.params_specs(serving=True)`); the port cuts it, a
+quarter of the table a rank at model 4, for one all-reduce of the
+embedded prompt (ROADMAP queue 3).
 
 A leaf's piece on a rank: along each dim whose spec names axes, the
 dim is cut into as many equal blocks as the axes have ranks together,
 and the rank keeps the block of its coordinates on them (row-major in
-the spec's order of axes, as GSPMD places a `NamedSharding`).
+the spec's order of axes, as GSPMD places a `NamedSharding`); a
+`Paired` dim is cut so block by block.
 
 `init_local_params` draws a rank's tree without ever holding the whole
 model: `init_params`' own draws, in its order and from the same
 generator, each leaf cut to the rank's piece as it is drawn (a stacked
 leaf one period at a time), so the rank's tree equals the piece of the
-unsharded tree of the same seed.  `shard_params` and `init_local_params`
-cut by the serving layout unless given another {leaf path: spec} tree
-(the training layout of `parallel.fsdp`); `gather_piece` puts a leaf
-back together from the ranks' pieces.
+unsharded tree of the same seed, an expert share (`experts=`) too.
+`shard_params` and `init_local_params` cut by the serving layout unless
+given another {leaf path: spec} tree (the training layout of
+`parallel.fsdp`); `gather_piece` puts a leaf back together from the
+ranks' pieces.
 
 Refused on a mesh of more than one device (`check_tp`, ValueError):
 a model degree that does not divide the KV heads (GSPMD would reshard
-part-heads; the port keeps whole heads on a rank), d_ff or the
-vocabulary; and the families whose sharded slices come later (Mamba,
-MoE, RWKV, encoder-decoder: `LATER`).  Training (`check_train`) refuses
-tensor-parallel training (a "tp" layout on a model axis of more than one
-rank) and a mesh with a "pod" axis (`TRAIN_LATER`), and nothing else: a
-dim the mesh does not divide is replicated by `sanitize`, as the
-reference places it.
+part-heads; the port keeps whole heads on a rank), d_ff, the
+vocabulary or, for a config with Mamba layers, `d_inner`; and the
+families whose sharded slices come later (RWKV, encoder-decoder:
+`LATER`).  Training (`check_train`) refuses tensor-parallel training (a
+"tp" layout on a model axis of more than one rank) and a mesh with a
+"pod" axis (`TRAIN_LATER`), and nothing else: a dim the mesh does not
+divide is replicated by `sanitize`, as the reference places it.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -52,13 +65,12 @@ from ..launch.shardings import param_shardings
 from ..models.config import ModelConfig
 from ..models.transformer import init_params
 from ..tree import leaves_with_path, path_key, replace_leaves
+from .group import piece_index
 
 # the families a mesh of several devices does not run yet, each with its
 # later slice
 LATER = {
-    "mamba": 'ROADMAP queue 1, "Sharded Mamba" (d_inner over model)',
     "rwkv": 'ROADMAP queue 1, "Sharded RWKV" (the replicated mixer)',
-    "moe": 'ROADMAP queue 1, "Sharded MoE" (the experts\' d_ff over model)',
     "encdec": 'ROADMAP queue 1, "Sharded Whisper" (the encoder and '
               'cross-attention)',
 }
@@ -90,7 +102,10 @@ def check_tp(cfg: ModelConfig, mesh: Mesh) -> None:
                 raise ValueError(f"{where}: {kind} layers are a later "
                                  f"slice ({LATER[kind]})")
     m = mesh.shape["model"]
-    for name in ("n_kv_heads", "d_ff", "vocab_size"):
+    names = ["n_kv_heads", "d_ff", "vocab_size"]
+    if any(spec.mixer == "mamba" for spec in cfg.pattern):
+        names.append("mamba_d_inner")
+    for name in names:
         n = getattr(cfg, name)
         if n % m:
             raise ValueError(
@@ -116,6 +131,15 @@ def check_train(cfg: ModelConfig, mesh: Mesh) -> None:
                          f"slice ({TRAIN_LATER['tp']})")
 
 
+@dataclass(frozen=True)
+class Paired:
+    """A spec entry for a dim of two equal halves side by side, each cut
+    over `axis` (an axis name or a tuple of them) on its own: a rank's
+    piece is its piece of the first half, then of the second.  Mamba's
+    `in_proj` [D, 2·Di] (x's columns, then z's) in the serving layout."""
+    axis: object
+
+
 def serve_specs(mesh: Mesh, cfg: ModelConfig, params) -> dict:
     """{leaf path: spec} of the serving layout (module docstring) over a
     tree shaped like `params` (a "meta" tree will do)."""
@@ -125,7 +149,19 @@ def serve_specs(mesh: Mesh, cfg: ModelConfig, params) -> dict:
         head, _, name = path.rpartition("/")
         if name in ("bq", "bk", "bv"):          # as w[qkv]'s columns
             specs[path] = spec[:-1] + (specs[f"{head}/w{name[1]}"][-1],)
+        elif name == "conv_b":                  # as conv_w's channels
+            specs[path] = spec[:-1] + (specs[f"{head}/conv_w"][-1],)
+        elif name == "in_proj" and spec[-1] is not None:
+            specs[path] = spec[:-1] + (Paired(spec[-1]),)
     return specs
+
+
+def _axes(entry) -> tuple:
+    """The axes a spec entry cuts its dim over, and the dim's blocks (2
+    for `Paired`, else 1), each cut over them."""
+    parts = 2 if isinstance(entry, Paired) else 1
+    axis = entry.axis if parts > 1 else entry
+    return (axis if isinstance(axis, tuple) else (axis,)), parts
 
 
 def local_slice(t: torch.Tensor, spec: tuple, mesh: Mesh,
@@ -133,19 +169,19 @@ def local_slice(t: torch.Tensor, spec: tuple, mesh: Mesh,
     """The piece of `t` under `spec` on the rank at `coords` (a copy, so
     the whole leaf can be freed)."""
     piece = t
-    for dim, axis in enumerate(spec):
-        if axis is None:
+    for dim, entry in enumerate(spec):
+        if entry is None:
             continue
-        axes = axis if isinstance(axis, tuple) else (axis,)
-        n, idx = 1, 0
-        for a in axes:
-            n *= mesh.shape[a]
-            idx = idx * mesh.shape[a] + coords[a]
-        if t.shape[dim] % n:
+        axes, parts = _axes(entry)
+        n = math.prod(mesh.shape[a] for a in axes)
+        idx = piece_index(coords, axes, mesh)
+        if t.shape[dim] % (parts * n):
             raise ValueError(f"dim {dim} of {tuple(t.shape)} does not cut "
-                             f"into {n} pieces ({spec})")
-        size = t.shape[dim] // n
-        piece = piece.narrow(dim, idx * size, size)
+                             f"into {parts * n} pieces ({spec})")
+        size = t.shape[dim] // (parts * n)
+        cut = [block.narrow(dim, idx * size, size)
+               for block in piece.chunk(parts, dim)]
+        piece = cut[0] if parts == 1 else torch.cat(cut, dim)
     return piece if piece is t else piece.contiguous().clone()
 
 
@@ -153,10 +189,17 @@ def gather_piece(x: torch.Tensor, spec: tuple, group) -> torch.Tensor:
     """The whole leaf from the ranks' pieces `x` under `spec` (every
     rank calls it and gets the whole leaf); `x` itself where nothing is
     cut."""
-    for dim, axis in enumerate(spec):
-        if axis is not None:
-            x = group.all_gather(x, axis if isinstance(axis, tuple)
-                                 else (axis,), dim=dim)
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes, parts = _axes(entry)
+        pieces = group.all_gather(x, axes, dim=dim)
+        if parts > 1:     # [rank 0's halves | rank 1's | ...] -> halves
+            ranks = pieces.chunk(pieces.shape[dim] // x.shape[dim], dim)
+            halves = [r.chunk(parts, dim) for r in ranks]
+            pieces = torch.cat([h[j] for j in range(parts)
+                                for h in halves], dim)
+        x = pieces
     return x
 
 
@@ -174,14 +217,15 @@ def shard_params(cfg: ModelConfig, params, mesh: Mesh, coords: dict,
 
 def init_local_params(cfg: ModelConfig, generator: torch.Generator,
                       mesh: Mesh, coords: dict, device=None,
-                      specs: dict = None):
+                      specs: dict = None, *, experts=None):
     """The rank at `coords`' tree of `init_params(cfg, generator,
-    device)` (equal to `shard_params` of it under the same `specs`, the
-    serving layout by default), drawn without holding the whole model
-    (module docstring)."""
+    device, experts=experts)` (equal to `shard_params` of it under the
+    same `specs`, the serving layout by default), drawn without holding
+    the whole model (module docstring)."""
     if specs is None:
         check_tp(cfg, mesh)
-        specs = serve_specs(mesh, cfg, init_params(cfg, None, "meta"))
+        specs = serve_specs(mesh, cfg, init_params(cfg, None, "meta",
+                                                   experts=experts))
 
     def piece(path: str, t: torch.Tensor) -> torch.Tensor:
         spec = specs[path]
@@ -189,7 +233,8 @@ def init_local_params(cfg: ModelConfig, generator: torch.Generator,
             spec = spec[1:]              # one period of a stacked leaf
         return local_slice(t, spec, mesh, coords)
 
-    return init_params(cfg, generator, device, piece=piece)
+    return init_params(cfg, generator, device, experts=experts,
+                       piece=piece)
 
 
 def _batch_dim(key: str, x: torch.Tensor):

@@ -33,7 +33,10 @@ version on every rank only while the ranks' stores take the same
 writes, so every rank raises, naming the LSNs, and none serves another
 version, where a rank's store lacks the commit or its WAL head is not
 rank 0's (a rank that took a write more or fewer).  The batch, prompt inputs included, splits over "data"; the
-model runs tensor parallel over "model" (`models.sharding`); the greedy
+model runs tensor parallel over "model" (`models.sharding`: the dense
+attention decoders and the Mamba and MoE families, Jamba and Mixtral,
+whose Mamba channels and experts' d_ff are cut too; RWKV6 and Whisper
+are refused by `parallel.tensor.check_tp`); the greedy
 choice over the vocab-sharded logits is gathered over "model"
 (`parallel.tensor.greedy`); and the tokens of the whole batch are
 gathered over "data", so every rank returns the same result.

@@ -96,6 +96,40 @@ def test_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())         # the reference removed
 
 
+def test_jamba_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """The sharded serve phase's Jamba at the smoke size, cut as on the
+    card (one period of 8 layers, experts 0-1 of 4 in each MoE layer) on
+    a mesh of (1, 2), two ranks over gloo on the CPU: the unsharded
+    path's routing written under TP_DIR and replayed into every rank,
+    each rank's Mamba cache of Di / 2 channels, every scan launch of
+    (s1) held against plain, (s2); no kernel launches off the card.  The
+    smoke variant's 128-wide bf16 layers put the sharded logits ~3e-2 of
+    their max-abs from the unsharded ones (the partial sums' bf16
+    roundings), so the rehearsal prints (s1) unbounded, as
+    `test_jamba_serve_phase_on_cpu` prints (a) and (b); the card holds
+    it at 3e-2."""
+    import numpy as np
+
+    arch = "jamba-1.5-large-398b"
+    for name, value in (("TP_B", 2), ("TP_S", 24), ("TP_STEPS", 4),
+                        ("TP_PUBLISH_AT", 2), ("TP_DIR", tmp_path)):
+        monkeypatch.setattr(smoke, name, value)
+    monkeypatch.setitem(smoke.SERVE_BF16_TOL, arch, None)
+    launches = smoke.tp_serve_phase(torch, np, device="cpu",
+                                    mesh_shape=(1, 2), arch=arch)
+    assert launches == {"flash_attention tp4": 0, "decode_attention tp4": 0,
+                        "ssm_scan tp4": 0, "ssm_scan step tp4": 0}
+    out = capsys.readouterr().out
+    assert "experts 0-1 of 4, mesh {'data': 1, 'model': 2}" in out
+    assert ("every rank's Mamba cache {'ssm': (1, 2, 128, 8), 'conv': "
+            "(1, 2, 3, 128)} (Di 128 of 256)") in out
+    assert "(s1)'s 35 ssm_scan launches a rank held against plain" in out
+    assert "MoE routing replayed in (s1): of 448 routing decisions" in out
+    assert "Jamba's bf16 noise floor at 8 layers" in out
+    assert "request 1 read v1 in all 5 calls" in out
+    assert not list(tmp_path.iterdir())         # reference and routing
+
+
 def test_fsdp_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     """The sharded train phase at the smoke size: Qwen1.5's smoke config
     under fsdp2d on a mesh of (1, 2), two ranks over gloo on the CPU,
@@ -491,6 +525,26 @@ def test_ssm_cost_and_bound(smoke):
     t, by = smoke._bound(*smoke._ssm_cost(8, 1, 16384, 16, 4, True),
                          "float32")
     assert by == "bytes" and abs(t - 0.0058) < 2e-4
+
+
+def test_tp_ssm_shape_cost_and_bound(smoke):
+    """The `ssm_scan` rows at one rank's shape of the sharded serve
+    phase's Jamba (TP_SSM_ROWS): 8 x 1,024 (then 1) x 4,096 of 16,384
+    channels at model 4, N 16, bf16 u; the bound's bytes and operations
+    (PERF.md row 10d)."""
+    assert smoke.tp_ssm_shape(smoke.TP_S) == (8, 1024, 4096, 16)
+    assert smoke.tp_ssm_shape(1) == (8, 1, 4096, 16)
+    nbytes, flops = smoke._ssm_cost(8, 1024, 4096, 16, 2, False)
+    assert nbytes == 8 * 1024 * 4096 * 10 + 2 * 8 * 1024 * 16 * 4 \
+        + 4096 * 16 * 4 + 4096 * 4 + 8 * 4096 * 16 * 4
+    assert flops == 8 * 8 * 1024 * 4096 * 16 + 3 * 8 * 1024 * 4096
+    t, by = smoke._bound(nbytes, flops, "float32")
+    assert by == "bytes" and abs(t - 0.10116) < 1e-4
+    t, by = smoke._bound(*smoke._ssm_cost(8, 1, 4096, 16, 2, True),
+                         "float32")
+    assert by == "bytes" and abs(t - 0.001434) < 1e-5
+    assert [row for _, row in smoke.TP_SSM_ROWS.values()] == [
+        "ssm_scan tp4", "ssm_scan step tp4"]
 
 
 def test_n_layers_counts_by_kind(smoke):

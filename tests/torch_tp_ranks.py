@@ -4,9 +4,11 @@ jobs)`, which `repro_torch.parallel.spawn` starts in one process a rank
 the test's reference).  Every job returns plain numpy and Python
 values."""
 
+import contextlib
+
 import torch
 
-from repro_torch.models import decode_step, prefill
+from repro_torch.models import decode_step, layers, prefill
 from repro_torch.models.sharding import with_mesh
 from repro_torch.parallel import shard_params
 from repro_torch.parallel.tensor import gather_vocab, split_batch
@@ -19,24 +21,62 @@ def run(group, jobs):
     return [JOBS[name](group, *args) for name, args in jobs]
 
 
-def logits(group, cfg, tree, batch, toks):
+@contextlib.contextmanager
+def replaying(routes, group):
+    """Inside the block, the i-th `layers.moe_route` call takes the
+    experts of routes[i] (the whole batch's [B, S, K]; under a `group`,
+    the rank's rows over "data") instead of its own top-k, with its own
+    router's softmax at them, renormalised, and its own slots.  Yields a
+    list whose one entry counts the choices where a call's own top-k
+    differed.  `routes` None: no replay."""
+    flips = [0]
+    if routes is None:
+        yield flips
+        return
+    route, calls = layers.moe_route, iter(routes)
+
+    def replayed(p, x, cfg, *, capacity_factor=0.0):
+        _, own, _ = route(p, x, cfg, capacity_factor=capacity_factor)
+        idx = next(calls)
+        if group is not None:
+            idx = split_batch({"tokens": idx}, group)["tokens"]
+        flips[0] += int((own != idx).sum())
+        vals = torch.softmax(x.float() @ p["router"], -1).gather(-1, idx)
+        vals = vals / vals.sum(-1, keepdim=True).clamp_min(1e-9)
+        C = layers.moe_capacity(cfg, x.shape[1], capacity_factor)
+        return vals, idx, layers.moe_slots(idx, cfg.n_experts, C)
+
+    layers.moe_route = replayed
+    try:
+        yield flips
+    finally:
+        layers.moe_route = route
+    if next(calls, None) is not None:
+        raise AssertionError("MoE calls left unreplayed")
+
+
+def logits(group, cfg, tree, batch, toks, routes=None):
     """The rank's pieces of the whole `tree`, its rows of the batch over
     "data", prefill and N teacher-forced decode steps of `toks` [B, N]
-    under the mesh:
+    under the mesh, the MoE layers replaying `routes` (`replaying`):
     (data rank, [prefill logits, step logits...] gathered over "model",
-    f32 numpy, the shape of the rank's first "k" cache)."""
+    f32 numpy, the shapes of the rank's cache entries [{name: shape}]
+    by pattern position, the routing choices that flipped)."""
     local = shard_params(cfg, tree, group.mesh, group.coords)
     b = split_batch(batch, group)
     t = split_batch({"tokens": toks}, group)["tokens"]
     S, N = b["tokens"].shape[1], t.shape[1]
-    with torch.no_grad(), with_mesh(group):
+    with torch.no_grad(), with_mesh(group), \
+            replaying(routes, group) as flips:
         lg, cache = prefill(local, cfg, b, cache_len=S + N)
         got = [gather_vocab(lg, group)]
         for k in range(N):
             lg, cache = decode_step(local, cfg, t[:, k:k + 1], cache, S + k)
             got.append(gather_vocab(lg, group))
-    return (group.data_rank, [x.float().numpy() for x in got],
-            tuple(cache["blocks"][0]["k"].shape))
+    shapes = [{k: tuple(x.shape) for k, x in entry.items()}
+              for entry in cache["blocks"]]
+    return (group.data_rank, [x.float().numpy() for x in got], shapes,
+            flips[0])
 
 
 def engine(group, cfg, tree, batch, n_steps):
