@@ -77,7 +77,11 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    (library) times (also at one rank's shapes of the sharded serve
    phase: flash 8 x 1,024 at 16 query and 2 KV heads, hd 128, causal,
    and decode B 8 over 1,040 slots at G 8, hd 128, the ranks' cache of
-   `TP_S` + `TP_STEPS`: `TP_ROWS`),
+   `TP_S` + `TP_STEPS`: `TP_ROWS`; at one rank's shapes of the gathered
+   serving: Qwen1.5-0.5B's flash 2 x 1,024 at 16/16 heads, hd 64, and
+   decode B 2 over 1,032 slots, `FSDP_SERVE_ROWS`; Mixtral-8x22B's flash
+   1 x 1,024 at 48/8 heads, hd 128, window 4,096, and decode B 1 over
+   1,028 slots at G 6, `FALLBACK_ROWS`),
    decode's kernel and library times again after a
    flush that leaves L2 clean, and decode at every split of the bf16
    route at each timed shape (each held against plain); the flash times
@@ -141,13 +145,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    decoder layers; 32 clips of 1,500 frames from seeded `enc_embeds` as
    `data.pipeline` makes them, the 4-token start-of-transcript prompt,
    124 decode steps: `SERVE_SHAPE`, `SERVE_PROMPT`), then Qwen2-VL-72B
-   (the first 32 of 80 layers at the published widths, ~61 GB:
+   (the first 8 of 80 layers at the published widths, ~19 GB:
    `SERVE_DEPTH`; 8 prompts of 1,024 tokens whose first 256 are the
    vision stub, on a 16 x 16 grid in `mrope_positions`), then
    Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
    launch splits the cache, which (c) checks) (`repro_torch.configs`, bf16, random weights from
-   torch.Generator seed 0; Qwen at full width and depth, RWKV at full
+   torch.Generator seed 0; Qwen at full width, 12 of 24 layers
+   (`SERVE_DEPTH`: the script's time; the sharded train phase serves it
+   whole), RWKV at full
    width, 4 of 32 layers (`SERVE_DEPTH`: the script's time), Jamba
    at full width, one period deep (8 of 72 layers), each MoE layer
    holding experts 0-7 of 16: one card's share of an expert-parallel
@@ -173,15 +179,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    f32 (1e-3); the bf16 ratios are printed.  Jamba adds the same
    per-launch check of `ssm_scan` (1e-4), its noise floor, and one
    full-width Mamba block in f32 (1e-3); (c) each kernel's launches per
-   request: Qwen 24 flash in prefill and 24 x 64 decode attention, RWKV
+   request: Qwen 12 flash in prefill and 12 x 64 decode attention, RWKV
    32 `wkv_scan` in prefill and 32 x 64 in decode, Jamba 7 `ssm_scan` in
    prefill and 7 x 64 in decode, 1 flash and 64 decode attention,
    Whisper 12 flash in prefill (4 encoder, 4 self, 4 cross) and 8 x 124
-   decode attention (4 self, 4 cross), Qwen2-VL 32 flash and 32 x 64
+   decode attention (4 self, 4 cross), Qwen2-VL 8 flash and 8 x 64
    decode attention, and the launches at the kernel rows' own shapes
    (`ATTN_ROWS`: the Whisper encoder, cross prefill and cross decode);
    the
-   decode attention launches that split: all 24 x 64 in the long run,
+   decode attention launches that split: all 12 x 64 in the long run,
    none in the others; the scans' launches by route: every prefill
    launch chunked, every decode launch a step; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
@@ -226,6 +232,26 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    decode times, peak memory and backend.  With two cards or more
    Qwen2-VL's runs again over NCCL, one rank a card; else it prints that
    this route was not run;
+11c. fallback serve step (`fallback_serve_phase`): Mixtral-8x22B, whose
+   model shard on a mesh of (data 1, model 4) passes the resident limit
+   (`launch.specs.serving_fallback`, asserted), at the published widths
+   cut to 1 of 56 layers (`FALLBACK_DEPTH`; ~2.5 B parameters, all eight
+   experts whole), under the placement `params_specs(serving=True)`
+   falls back on (fsdp2d, asserted equal leaf for leaf to the training
+   placement of the cut): four ranks on the one card over gloo, each
+   drawing its pieces (`init_local_params(specs=)`) and serving two
+   requests of 4 x 1,024 tokens and 4 decode steps through
+   `ServingEngine(group=, specs=)` (one prompt a rank, each layer's
+   whole weights gathered just before it runs), v2 published under
+   request 1's pin (`tp_rank`,
+   `serve_two`), request 1 keeping its logits and MoE routing.  Checks
+   (s1) here after the ranks (`gathered_s1`): the unsharded kernel path
+   on the same draws, teacher-forced with request 1's tokens and the
+   ranks' routing replayed (the decisions it would have made otherwise
+   printed), within 3e-2 of max-abs of each rank's request 1 logits;
+   (s2); each rank's 2 flash and 8 decode launches (rows `flash_attention
+   fallback`, `decode_attention fallback`), 10 gathers a request; per
+   rank the prefill and decode times and peak memory;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
    full width and depth, RWKV6-3B at full width, 4 of 32 layers
    (`TRAIN_CUT`: the script's time; d 2,560, f32 moments, batch 4:
@@ -293,9 +319,22 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    step times, peak memory, gathers and reduce-scatters a step, the
    launches (summed into rows `flash_attention`,
    `flash_attention_bwd` and `flash_attention_bwd fsdp4`), each line
-   beside the card's name and power limit.  With four cards or more it
-   runs again over NCCL, one rank a card; else it prints that this route
-   was not run;
+   beside the card's name and power limit.  Then (h): each rank serves
+   what it trained from its own store through `ServingEngine(group=,
+   specs=<the trainer's placement>)`, two requests of 8 x 1,024 tokens
+   (2 a rank) and 8 decode steps, a version published on every rank
+   under request 1's pin (`FSDP_SERVE`, `FSDP_PUBLISH_AT`): (h1) each
+   rank's request 1 logits within 3e-2 of max-abs of the unsharded
+   kernel path's, teacher-forced with request 1's tokens on the state
+   the ranks saved, restored onto one device here (`gathered_s1`); (h2)
+   one snapshot LSN a request on
+   every rank, request 1 served from its pinned version alone; (h3) the
+   gathers a request (the top-level leaves and each layer once a call),
+   whole-headed caches, the peak memory; 48 flash and 384 decode
+   launches a rank (rows `flash_attention fsdp serve`,
+   `decode_attention fsdp serve`) and no plain attention call.  With
+   four cards or more it runs again over NCCL, one rank a card; else it
+   prints that this route was not run;
 13. launch phase: `repro_torch.launch.train` (3 steps of 4 x 64
    tokens, a save every 2 steps under build/launch_ckpt, removed after,
    publishing) and `repro_torch.launch.serve` (2 trainer steps, then 2
@@ -310,8 +349,10 @@ each with its route's launches; the attention kernels have a row more
 for each shape of `ATTN_ROWS`, with the serve phases' launches at that
 shape, for each of `TP_ROWS`, with the sharded serve phase's
 launches summed over its ranks, `ssm_scan` two more for `TP_SSM_ROWS`
-likewise, and for `FSDP_ROWS`, with the sharded
-train phase's backward launches summed over its ranks), the card line,
+likewise, for `FSDP_SERVE_ROWS` and `FALLBACK_ROWS` with the gathered
+serving's launches summed over its ranks, and for `FSDP_ROWS`, with the
+sharded train phase's backward launches summed over its ranks), the card
+line,
 and last
 `{"ok": true, "device": {...}}`; the flash backward's row counts its
 launches in the train and launch phases' steps (`flash_attention_bwd
@@ -421,8 +462,15 @@ SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
 # Qwen2-VL-72B (80 layers, 145 GB in bf16) does not fit one card either:
 # a layer is 877.8 M parameters (1.756 GB), the embedding and lm_head
 # 4.98 GB, so 32 layers (61.2 GB, 66.2 GB with the writer's v2 embedding
-# and lm_head) at the published widths: one pipeline stage of a
-# deployment over 3 cards.
+# and lm_head) at the published widths would be one pipeline stage of a
+# deployment over 3 cards.  With the gathered serving's two sharded
+# steps (`fsdp_train_phase`'s (h), `fallback_serve_phase`) this script
+# took 1,040.4 s and 1,144.6 s with Qwen2-VL-72B at 32 and 16 layers
+# and Qwen1.5-0.5B whole (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6),
+# so both are served cut, at the published widths: Qwen2-VL-72B at 8
+# layers (19.0 GB; the sharded serve phase's depth) and Qwen1.5-0.5B at
+# 12 of its 24 (the sharded train phase serves it whole), each check
+# and noise floor at that depth.
 # RWKV6-3B fits the card whole, and served whole (32 layers) in
 # 111.5-167.2 s; cut to 4 of its 32 identical layers at the published
 # widths so that `chip_smoke.py` with the sharded train phase stays
@@ -431,9 +479,9 @@ SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
 # still held against the plain version, and (a), (b) run end to end in
 # f32 at that depth
 SERVE_DEPTH = {"rwkv6-3b": 4, "jamba-1.5-large-398b": 8,
-               "qwen2-vl-72b": 32}
+               "qwen2-vl-72b": 8, "qwen1.5-0.5b": 12}
 # the architectures whose serve phase measures the bf16 model's own noise
-# floor under attention (`_attn_noise_floor`): Qwen2-VL-72B's checks read
+# floor under attention (`_attn_noise_floor`): Qwen2-VL-72B's checks read, at 32 layers,
 # 0.0218 and 0.0203 of their 3e-2 bound (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md §6)
 SERVE_NOISE_FLOOR = ("qwen2-vl-72b",)
@@ -496,6 +544,40 @@ FSDP_TOL = 3e-2
 # Qwen's heads), a row of its own in the JSON line, its launches those of
 # the sharded train phase's ranks
 FSDP_ROWS = {"fsdp rank": "flash_attention_bwd fsdp4"}
+# ... after its steps each rank serves what it trained from its own
+# store (`ServingEngine(group=, specs=<the trainer's placement>)`, a layer
+# gathered at a time, the batch over both axes): two requests of
+# FSDP_SERVE (batch, prompt, decode steps), a version published on every
+# rank under request 1's pin after decode step FSDP_PUBLISH_AT; check
+# (h1) holds each rank's logits against the unsharded kernel path on the
+# state the ranks saved, restored onto one device
+FSDP_SERVE, FSDP_PUBLISH_AT = (8, 1024, 8), 4
+# the kernel phase's shapes of one rank of that serving (2 of the 8
+# prompts, Qwen's 16/16 heads, hd 64), rows of their own in the JSON
+# line, their launches those of the ranks' requests
+FSDP_SERVE_ROWS = {"fsdp serve prefill": "flash_attention fsdp serve",
+                   "fsdp serve decode": "decode_attention fsdp serve"}
+# (a rank's prompts, its cache's slots)
+FSDP_SERVE_RANK = (FSDP_SERVE[0] // math.prod(FSDP_MESH),
+                   FSDP_SERVE[1] + FSDP_SERVE[2])
+# fallback serve step: Mixtral-8x22B, whose model shard on a mesh of
+# (data 1, model 4) (70.3 GB in bf16) passes the resident limit, served
+# gathered under the placement `launch.specs.params_specs(serving=True)`
+# falls back on (fsdp2d: every weight cut four ways on its largest dim,
+# the embedding and lm_head whole), at the published widths cut to
+# FALLBACK_DEPTH of its 56 layers (~2.5 B parameters, 5.0 GB in bf16, all
+# eight experts whole; four ranks share the card, each gathering a whole
+# layer); two requests of FALLBACK_SERVE, v2 under request 1's pin after
+# decode step FALLBACK_PUBLISH_AT; (s1) at the bf16 bound
+FALLBACK_ARCH, FALLBACK_MESH, FALLBACK_DEPTH = "mixtral-8x22b", (1, 4), 1
+FALLBACK_SERVE, FALLBACK_PUBLISH_AT, FALLBACK_TOL = (4, 1024, 4), 2, 3e-2
+FALLBACK_DIR = ROOT / "build" / "fallback_serve"
+# the kernel phase's shapes of one rank of it (1 of the 4 prompts, 48/8
+# heads, hd 128, window 4,096), rows of their own
+FALLBACK_ROWS = {"fallback prefill": "flash_attention fallback",
+                 "fallback decode": "decode_attention fallback"}
+FALLBACK_RANK = (FALLBACK_SERVE[0] // math.prod(FALLBACK_MESH),
+                 FALLBACK_SERVE[1] + FALLBACK_SERVE[2])
 # the plain path's keys a chunk: its f32 scores are [B, S, H, PLAIN_CHUNK]
 # (Qwen2-VL's prefill at 256: 0.54 GB a copy, beside 66 GB of weights)
 PLAIN_CHUNK = 256
@@ -1696,10 +1778,12 @@ def attention_kernel_phase(torch, np, flush) -> dict:
         return err.max().item()
 
     # the labels with a row of their own
-    own = {**{label: r for label, (r, _) in ATTN_ROWS.items()}, **TP_ROWS}
+    own = {**{label: r for label, (r, _) in ATTN_ROWS.items()}, **TP_ROWS,
+           **FSDP_SERVE_ROWS, **FALLBACK_ROWS}
 
     def row(key, err, times):
-        """A row of its own for a shape of ATTN_ROWS or TP_ROWS."""
+        """A row of its own for a shape of ATTN_ROWS, TP_ROWS,
+        FSDP_SERVE_ROWS or FALLBACK_ROWS."""
         res = results.setdefault(key, {"max_abs_err": 0.0})
         res["max_abs_err"] = max(res["max_abs_err"], err)
         if times is not None:
@@ -1749,7 +1833,14 @@ def attention_kernel_phase(torch, np, flush) -> dict:
          True),
         # one rank's prefill of Qwen2-VL-72B at model 4 (TP_ROWS)
         ("tp prefill", "bfloat16", TP_B, TP_S, TP_S, 16, 2, 128, True, 0,
-         True)]
+         True),
+        # one rank's gathered prefill: Qwen1.5-0.5B's rows of the sharded
+        # train phase's serving (FSDP_SERVE_ROWS) and Mixtral-8x22B's of
+        # the fallback serve step (FALLBACK_ROWS), whole heads
+        ("fsdp serve prefill", "bfloat16", FSDP_SERVE_RANK[0], FSDP_SERVE[1],
+         FSDP_SERVE[1], 16, 16, 64, True, 0, True),
+        ("fallback prefill", "bfloat16", FALLBACK_RANK[0], FALLBACK_SERVE[1],
+         FALLBACK_SERVE[1], 48, 8, 128, True, 4096, True)]
     for (label, dt, B, S, T, H, K, hd, causal, window, timed) in flash_cases:
         q = randn((B, S, H, hd), dt)
         k, v = randn((B, T, K, hd), dt), randn((B, T, K, hd), dt)
@@ -1789,7 +1880,11 @@ def attention_kernel_phase(torch, np, flush) -> dict:
                                   ("G=1 long", 1, 8256, 16, 16, 64),
                                   ("cross", 32, 1500, 6, 6, 64),
                                   ("tp decode", TP_B, TP_S + TP_STEPS,
-                                   16, 2, 128)):
+                                   16, 2, 128),
+                                  ("fsdp serve decode", *FSDP_SERVE_RANK,
+                                   16, 16, 64),
+                                  ("fallback decode", *FALLBACK_RANK, 48, 8,
+                                   128)):
         q = randn((B, H, hd), "bfloat16")
         kc, vc = (randn((B, T, K, hd), "bfloat16") for _ in range(2))
         k, v = kc.transpose(1, 2), vc.transpose(1, 2)
@@ -3290,24 +3385,125 @@ def serve_profile(torch, run, wall_unprofiled: float, model: str) -> None:
 
 
 # ----------------------------------------------------------- sharded serving
+def serve_two(torch, eng, store, versions, batch: dict, N: int,
+              publish_at: int, sync, keep: bool = False) -> tuple[list, int]:
+    """Two requests of `batch` and N decode steps through `eng` over
+    `store`: request 1 while versions[1] is published (a commit, never
+    waiting) under its pin after decode step `publish_at`, then request 2,
+    refreshing between steps.  Returns (a dict a request: its snapshot
+    "lsn", "tokens", the version each prefill and decode call "read"
+    ("v1" for versions[0], "v2" for versions[1], else "?"),
+    "prefill_ms" and "decode_ms" a step; the visible lsn when versions[1]
+    was published).  `keep`: request 1's dict also holds the "logits" of
+    each of its calls (f32, on the CPU), the experts its MoE layers chose
+    in call order ("routing") and the shapes of its cache entries by
+    pattern position ("cache"), for a check by the caller (`gathered_s1`)."""
+    v1, v2 = versions
+    log: dict = {}
+    prefill_fn, decode_fn = eng._prefill, eng._decode
+
+    def rec_prefill(p, b):
+        out = prefill_fn(p, b)
+        sync()
+        log["t_prefill"] = time.perf_counter()
+        log["read"].append(p)
+        if log["keep"]:
+            log["logits"].append(out[0].float().cpu())
+            log["cache"] = [{k: tuple(x.shape) for k, x in entry.items()}
+                            for entry in out[1]["blocks"]]
+        return out
+
+    def rec_decode(p, t, c, n):
+        out = decode_fn(p, t, c, n)
+        log["read"].append(p)
+        if log["keep"]:
+            log["logits"].append(out[0].float().cpu())
+        if log["writer"] and len(log["read"]) == 1 + publish_at:
+            log["v2_lsn_before"] = store.visible_lsn()
+            store.publish(v2)                 # commit, never waits
+        return out
+
+    eng._prefill, eng._decode = rec_prefill, rec_decode
+    requests = []
+    try:
+        for writer in (True, False):
+            log.update(read=[], writer=writer, keep=keep and writer,
+                       logits=[])
+            with record_routing() if log["keep"] else \
+                    contextlib.nullcontext() as routing:
+                sync()
+                t = time.perf_counter()
+                res = eng.generate(batch, N, refresh_between_steps=True)
+                sync()
+            requests.append({
+                "lsn": res.snapshot_lsn, "tokens": res.tokens.cpu(),
+                "read": ["v1" if p is v1 else "v2" if p is v2 else "?"
+                         for p in log["read"]],
+                "prefill_ms": (log["t_prefill"] - t) * 1e3,
+                "decode_ms": (time.perf_counter() - log["t_prefill"]) / N
+                * 1e3})
+            if log["keep"]:
+                requests[-1].update(logits=log["logits"],
+                                    routing=[c.cpu() for c in routing],
+                                    cache=log["cache"])
+            eng.refresh()
+    finally:
+        eng._prefill, eng._decode = prefill_fn, decode_fn
+    return requests, log["v2_lsn_before"]
+
+
+def gathered_s1(torch, cfg, params, batch: dict, out: list) -> tuple:
+    """(s1) of a gathered serving run, here after its ranks: the unsharded
+    kernel path on `params` (the served version) teacher-forced with
+    request 1's tokens (every rank's, equal: `check_s2`), its MoE layers
+    replaying the ranks' own choices (each rank's rows of each call, in
+    batch-rank order), against each rank's request 1 logits of its rows
+    (`serve_two(keep=True)`; rows "rows" of the whole batch).  Returns
+    (the worst ratio of each rank, the routing decisions the unsharded
+    path would have made otherwise)."""
+    first = [r["requests"][0] for r in out]
+    toks = first[0]["tokens"].to(batch["tokens"].device)
+    S, N = batch["tokens"].shape[1], toks.shape[1]
+    order = sorted(range(len(out)), key=lambda i: out[i]["rows"][0])
+    routing = [torch.cat([first[i]["routing"][c] for i in order]).to(
+        toks.device) for c in range(len(first[0]["routing"]))] or None
+    with torch.no_grad(), replay_routing(torch, routing) as flips:
+        want = [x.float().cpu() for x in _teacher_forced(
+            cfg, params, batch, toks, S, N)]
+    ratios = []
+    for r, q in zip(out, first):
+        rows = slice(*r["rows"])
+        ratios.append(max(
+            _logits_close(torch, f"(s1) rank {r['rank']} call {k}", got,
+                          w[rows], None)
+            for k, (got, w) in enumerate(zip(q["logits"], want))))
+    return ratios, flips["differ"]
+
+
 def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
             publish_at: int, arch: str = TP_ARCH, experts=None,
-            routes_path: str = None) -> dict:
-    """One rank of the sharded serve phase (`parallel.spawn` runs it in a
+            routes_path: str = None, specs: dict = None) -> dict:
+    """One rank of a sharded serve phase (`parallel.spawn` runs it in a
     process of its own): its pieces of v1 drawn by
     `init_local_params` (torch.Generator seed 0 on its device, the
-    parent's draws; `experts` the MoE layers' share), published into its
-    own `VersionedParamStore(slots=2)` and served by a `ServingEngine`
-    over the mesh: request 1 with v2 (v1 with its embedding negated)
-    published under its pin after decode step `publish_at`, then request
-    2; the launches of `arch`'s kernels (SERVE_KERNELS; the scans' by
-    route too) counted from 0 just before request 1 and read after
-    request 2; then check (s1): the rank's prefill and teacher-forced
+    parent's draws; `experts` the MoE layers' share; `specs` the
+    placement, None for the tensor-parallel serving layout), published
+    into its own `VersionedParamStore(slots=2)` and served by a
+    `ServingEngine` over the mesh (with `specs`, gathered a layer at a
+    time): request 1 with v2 (v1 with its embedding negated) published
+    under its pin after decode step `publish_at`, then request 2
+    (`serve_two`); the launches of `arch`'s kernels (SERVE_KERNELS, the
+    attention kernels for another arch; the scans' by route too) counted
+    from 0 just before request 1 and read after request 2.  Tensor
+    parallel, then check (s1): the rank's prefill and teacher-forced
     decode logits (`toks`), gathered over "model", against the parent's
     unsharded ones at `ref_path`, with the parent's MoE routing at
     `routes_path` (None: no MoE) replayed, cut to the rank's rows, and
     every `ssm_scan` launch held against the plain version
-    (`checked_ssm`).  Returns what the parent checks and prints."""
+    (`checked_ssm`).  Gathered, request 1 keeps its logits and routing
+    for the parent's (s1) (`gathered_s1`; of `toks` only the number of
+    decode steps is read, `ref_path` and `routes_path` are unused).
+    Returns what the parent checks and prints."""
     import torch
 
     from repro_torch.kernels import cuda_build
@@ -3320,7 +3516,7 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
 
     dev = group.device
     on_card = dev.type == "cuda"
-    names = tuple(SERVE_KERNELS[arch])
+    names = tuple(SERVE_KERNELS.get(arch, ATTN_TPU))
     libs = {TP_LIBRARY.get(n, "attention") for n in names}
     if on_card and not all(cuda_build.library_path(lib).exists()
                            for lib in libs):
@@ -3332,7 +3528,7 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     g.manual_seed(0)
     t0 = time.perf_counter()
     v1 = init_local_params(cfg, g, group.mesh, group.coords, dev,
-                           experts=experts)
+                           specs=specs, experts=experts)
     v2 = dict(v1, embed=-v1["embed"])
     if on_card:
         torch.cuda.empty_cache()            # the draws' transient memory
@@ -3341,48 +3537,20 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     store.publish(v1)
     batch = {k: x.to(dev) for k, x in batch.items()}
     S, N = batch["tokens"].shape[1], toks.shape[1]
-    eng = ServingEngine(cfg, store, max_seq=S + N, device=dev, group=group)
+    eng = ServingEngine(cfg, store, max_seq=S + N, device=dev, group=group,
+                        specs=specs)
     eng.refresh()
     init_s = time.perf_counter() - t0
 
-    log: dict = {}
-    prefill_fn, decode_fn = eng._prefill, eng._decode
-
-    def rec_prefill(p, b):
-        out = prefill_fn(p, b)
-        sync()
-        log["t_prefill"] = time.perf_counter()
-        log["read"].append(p)
-        return out
-
-    def rec_decode(p, t, c, n):
-        out = decode_fn(p, t, c, n)
-        log["read"].append(p)
-        if log["writer"] and len(log["read"]) == 1 + publish_at:
-            log["v2_lsn_before"] = store.visible_lsn()
-            store.publish(v2)                 # commit, never waits
-        return out
-
-    eng._prefill, eng._decode = rec_prefill, rec_decode
     wrappers = {n: _kernel_wrappers()[n] for n in names}
     cuda_build.reset_counts(wrappers.values())
     dattn = wrappers.get("decode_attention")
     if dattn:
         dattn.split_launches = 0
-    requests = []
-    for writer in (True, False):
-        log.update(read=[], writer=writer)
-        sync()
-        t = time.perf_counter()
-        res = eng.generate(batch, N, refresh_between_steps=True)
-        sync()
-        requests.append({
-            "lsn": res.snapshot_lsn, "tokens": res.tokens.cpu(),
-            "read": ["v1" if p is v1 else "v2" if p is v2 else "?"
-                     for p in log["read"]],
-            "prefill_ms": (log["t_prefill"] - t) * 1e3,
-            "decode_ms": (time.perf_counter() - log["t_prefill"]) / N * 1e3})
-        eng.refresh()
+    view = eng.view
+    gathers = view.gathers if view is not None else 0
+    requests, v2_before = serve_two(torch, eng, store, (v1, v2), batch, N,
+                                    publish_at, sync, keep=view is not None)
     launches = {n: cuda_build.launch_count(fn)
                 for n, fn in wrappers.items()}
     launches.update({f"{n} {route}": k for n, fn in wrappers.items()
@@ -3390,6 +3558,15 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
                                              {}).items()})
     split = dattn.split_launches if dattn else 0
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
+    result = {"rank": group.rank, "coords": group.coords, "init_s": init_s,
+              "requests": requests, "v2_lsn_before": v2_before,
+              "launches": launches, "split": split, "peak_gb": peak}
+    if view is not None:
+        n = requests[0]["tokens"].shape[0] // view.batch_size
+        result.update(gathers=(view.gathers - gathers) / 2,
+                      rows=(view.batch_rank * n, (view.batch_rank + 1) * n),
+                      cache=requests[0]["cache"])
+        return result
 
     # (s1) against the parent's unsharded kernel path, its routing
     # replayed, each scan launch held against plain
@@ -3412,12 +3589,49 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
                 raise AssertionError(f"rank {group.rank}: non-finite logits")
             if k < N:
                 lg, cache = decode_step(v1, cfg, t[:, k:k + 1], cache, S + k)
-    return {"rank": group.rank, "coords": group.coords, "init_s": init_s,
-            "requests": requests, "v2_lsn_before": log["v2_lsn_before"],
-            "launches": launches, "split": split, "peak_gb": peak,
-            "s1": max(ratios), "flips": flips["differ"], "scans": scans,
-            "cache": [{k: tuple(x.shape) for k, x in entry.items()}
-                      for entry in cache["blocks"]]}
+    result.update(s1=max(ratios), flips=flips["differ"], scans=scans,
+                  cache=[{k: tuple(x.shape) for k, x in entry.items()}
+                         for entry in cache["blocks"]])
+    return result
+
+
+def check_s2(torch, out: list, B: int, N: int) -> tuple[int, int]:
+    """(s2) over the ranks' `serve_two` results (each rank's "requests"
+    and "v2_lsn_before"): one snapshot LSN a request on every rank,
+    request 1 read v1 in every call with v2 published under its pin at
+    that LSN's visibility, request 2 read v2 at a later LSN, and every
+    rank's [B, N] tokens equal.  Returns the two LSNs."""
+    lsn1 = {r["requests"][0]["lsn"] for r in out}
+    lsn2 = {r["requests"][1]["lsn"] for r in out}
+    if not (len(lsn1) == len(lsn2) == 1 and min(lsn2) > min(lsn1)):
+        raise AssertionError(f"(s2) snapshot lsns by rank: request 1 "
+                             f"{lsn1}, request 2 {lsn2}")
+    for r in out:
+        reads = [q["read"] for q in r["requests"]]
+        if reads != [["v1"] * (N + 1), ["v2"] * (N + 1)] \
+                or r["v2_lsn_before"] != min(lsn1):
+            raise AssertionError(f"(s2) rank {r['rank']} read {reads}")
+    for i in (0, 1):
+        first = out[0]["requests"][i]["tokens"]
+        if tuple(first.shape) != (B, N) or not all(
+                torch.equal(r["requests"][i]["tokens"], first) for r in out):
+            raise AssertionError(f"request {i + 1}: ranks differ in tokens")
+    return min(lsn1), min(lsn2)
+
+
+def _rank_devices(dev, backend: str, n: int) -> list:
+    """The ranks' devices: one card a rank over nccl, else all on `dev`
+    (gloo: ranks that share a card, or the CPU)."""
+    if backend == "nccl":
+        return [f"cuda:{r}" for r in range(n)]
+    return [f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"] * n
+
+
+def _how(backend: str, n: int, on_card: bool) -> str:
+    return (f"{n} ranks on one card over gloo: collectives pass through "
+            f"the host" if backend == "gloo" and on_card else
+            f"{n} ranks, one card each, over nccl" if on_card else
+            f"{n} ranks on the CPU over gloo")
 
 
 def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
@@ -3452,11 +3666,7 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     check_tp(cfg, mesh)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
-    if backend == "nccl":
-        devices = [f"cuda:{r}" for r in range(mesh.size)]
-    else:
-        devices = [f"cuda:{dev.index or 0}" if on_card else "cpu"] \
-            * mesh.size
+    devices = _rank_devices(dev, backend, mesh.size)
     B, S, N = TP_B, TP_S, TP_STEPS
     batch = serve_batch(torch, np, cfg, arch, B, S, dev)
     toks = torch.from_numpy(np.random.default_rng(1).integers(
@@ -3495,10 +3705,7 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
                                       toks.cpu(), ref_path, TP_PUBLISH_AT,
                                       arch, experts, routes_path))
         ranks_s = time.perf_counter() - t0
-    how = (f"{mesh.size} ranks on one card over gloo: collectives pass "
-           f"through the host" if backend == "gloo" and on_card else
-           f"{mesh.size} ranks, one card each, over nccl" if on_card else
-           f"{mesh.size} ranks on the CPU over gloo")
+    how = _how(backend, mesh.size, on_card)
     cut = "" if experts is None else \
         f", experts 0-{len(experts) - 1} of {cfg.n_experts}"
     run = f"{cfg.name} {cfg.n_layers} of {get_config(arch).n_layers} " \
@@ -3524,23 +3731,7 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     if tol is not None and not worst <= tol:
         raise AssertionError(f"(s1) sharded vs unsharded max |d| / max "
                              f"|logit| {[r['s1'] for r in out]} > {tol}")
-    # (s2) one snapshot on every rank: request 1 read v1 in every call,
-    # v2 published under its pin; request 2 read v2
-    lsn1 = {r["requests"][0]["lsn"] for r in out}
-    lsn2 = {r["requests"][1]["lsn"] for r in out}
-    if not (len(lsn1) == len(lsn2) == 1 and min(lsn2) > min(lsn1)):
-        raise AssertionError(f"(s2) snapshot lsns by rank: request 1 "
-                             f"{lsn1}, request 2 {lsn2}")
-    for r in out:
-        reads = [q["read"] for q in r["requests"]]
-        if reads != [["v1"] * (N + 1), ["v2"] * (N + 1)] \
-                or r["v2_lsn_before"] != min(lsn1):
-            raise AssertionError(f"(s2) rank {r['rank']} read {reads}")
-    for i in (0, 1):
-        first = out[0]["requests"][i]["tokens"]
-        if tuple(first.shape) != (B, N) or not all(
-                torch.equal(r["requests"][i]["tokens"], first) for r in out):
-            raise AssertionError(f"request {i + 1}: ranks differ in tokens")
+    lsn1, lsn2 = check_s2(torch, out, B, N)
     # launches in every rank, over both requests: each kernel's per layer
     # of its mixer, the scans' prefill launches chunked and decode
     # launches a step
@@ -3586,8 +3777,8 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     print(f"tp serve checks ({run}): (s1) sharded vs unsharded kernel path "
           f"max |d| / max |logit| {worst:.4g} (<= {tol}; by rank "
           f"{[round(r['s1'], 5) for r in out]}), beside {floor}; (s2) one "
-          f"snapshot a request on all {mesh.size} ranks: lsn {min(lsn1)} "
-          f"then {min(lsn2)}, request 1 read v1 in all {N + 1} calls with "
+          f"snapshot a request on all {mesh.size} ranks: lsn {lsn1} "
+          f"then {lsn2}, request 1 read v1 in all {N + 1} calls with "
           f"v2 published after step {TP_PUBLISH_AT}; every rank's tokens "
           f"equal; launches a rank over both requests {per}{extra}",
           flush=True)
@@ -3600,8 +3791,125 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
             for row, name in rows.items()}
 
 
+def fallback_serve_phase(torch, np, device: str = "cuda",
+                         backend: str = "gloo",
+                         mesh_shape: tuple = FALLBACK_MESH) -> dict:
+    """The fallback serve step (see the module docstring): FALLBACK_ARCH,
+    whose model shard passes the resident limit on a mesh of
+    `mesh_shape` (`launch.specs.serving_fallback`, asserted), cut to
+    FALLBACK_DEPTH layers at the published widths and served gathered
+    under the placement `params_specs(serving=True)` falls back on
+    (asserted equal, leaf for leaf, to the training placement of the
+    cut), its ranks spawned on `backend` as `tp_serve_phase`'s are, each
+    drawing its pieces (`init_local_params(specs=)`) and running
+    `tp_rank`.  Then (s1) here (`gathered_s1`): the unsharded kernel path
+    on the same weights, drawn again after the ranks exit, teacher-forced
+    with request 1's tokens and the ranks' MoE routing, against each
+    rank's request 1 logits; (s2), the launches in every rank; prints
+    the routing decisions the unsharded path would have made otherwise,
+    each rank's gathers a request and peak memory.  Returns the
+    launches of FALLBACK_ROWS, summed over the ranks."""
+    import tempfile
+
+    from repro_torch.configs import get_config, smoke_variant
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.specs import params_specs, serving_fallback
+    from repro_torch.models import init_params
+    from repro_torch.parallel import check_train, spawn
+    from repro_torch.tree import leaves
+
+    model = get_config(FALLBACK_ARCH)
+    mesh = Mesh(mesh_shape, ("data", "model"))
+    if not serving_fallback(mesh, model):
+        raise AssertionError(f"{model.name} keeps a resident model shard on "
+                             f"{mesh.shape}: no fallback to serve")
+    cfg = smoke_variant(model) if SERVE_SMOKE else model
+    cfg = cfg.with_overrides(n_layers=FALLBACK_DEPTH)
+    check_train(cfg, mesh)
+    specs = params_specs(mesh, cfg).specs
+    if not SERVE_SMOKE and specs != params_specs(mesh, model,
+                                                 serving=True).specs:
+        raise AssertionError("the fallback placement of the whole model is "
+                             "not the training placement of its cut")
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    devices = _rank_devices(dev, backend, mesh.size)
+    B, S, N = FALLBACK_SERVE
+    batch = serve_batch(torch, np, cfg, FALLBACK_ARCH, B, S, dev)
+    FALLBACK_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=FALLBACK_DIR) as tmp:
+        t0 = time.perf_counter()
+        out = spawn(tp_rank, mesh, backend=backend, devices=devices,
+                    tmpdir=tmp, args=(cfg, {k: x.cpu() for k, x in
+                                            batch.items()},
+                                      torch.zeros((B, N), dtype=torch.int64),
+                                      None, FALLBACK_PUBLISH_AT,
+                                      FALLBACK_ARCH, None, None, specs))
+        ranks_s = time.perf_counter() - t0
+    lsn1, lsn2 = check_s2(torch, out, B, N)
+    # (s1): the unsharded kernel path on the same draws
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = init_params(cfg, g, dev)
+    n_params = sum(x.numel() for x in leaves(params))
+    s1, flips = gathered_s1(torch, cfg, params, batch, out)
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    how = _how(backend, mesh.size, on_card)
+    card = card_line() if on_card else "the CPU"
+    run = (f"{cfg.name} {cfg.n_layers} of {model.n_layers} layers "
+           f"({n_params / 1e9:.3f} B parameters), all {cfg.n_experts} "
+           f"experts, the fallback placement on mesh {mesh.shape}, "
+           f"{backend}")
+    print(f"fallback serve: {run}: ranks {ranks_s:.1f} s ({how}), "
+          f"unsharded reference {ref_s:.1f} s; {card}", flush=True)
+    for r in out:
+        req = r["requests"]
+        peak = (f"{r['peak_gb']:.2f} GB peak" if r["peak_gb"] is not None
+                else "peak not measured (CPU)")
+        print(f"fallback serve rank {r['rank']} {r['coords']}: init "
+              f"{r['init_s']:.1f} s; request 1 prefill "
+              f"{req[0]['prefill_ms']:.1f} ms ({B}x{S}), decode "
+              f"{req[0]['decode_ms']:.2f} ms a step; request 2 prefill "
+              f"{req[1]['prefill_ms']:.1f} ms, decode "
+              f"{req[1]['decode_ms']:.2f} ms a step; {r['gathers']:g} "
+              f"gathers a request; {peak}; launches {r['launches']}; "
+              f"{card}", flush=True)
+    worst, tol = max(s1), FALLBACK_TOL
+    if not worst <= tol:
+        raise AssertionError(f"(s1) gathered vs unsharded max |d| / max "
+                             f"|logit| {s1} > {tol}")
+    n_attn = _n_layers(cfg, mixer="attn")
+    per = {"flash_attention": 2 * n_attn, "decode_attention": 2 * N * n_attn}
+    for r in out:
+        if on_card and r["launches"] != per:
+            raise AssertionError(f"rank {r['rank']} launches "
+                                 f"{r['launches']} != {per}")
+        if r["gathers"] != (N + 1) * (1 + cfg.n_layers):
+            raise AssertionError(f"rank {r['rank']}: {r['gathers']} gathers "
+                                 "a request")
+    n_dec = B * (S + N) * cfg.top_k * _n_layers(cfg, mlp="moe")
+    print(f"fallback serve checks ({run}): (s1) every rank's request 1 "
+          f"logits vs the unsharded kernel path teacher-forced with its "
+          f"tokens, max |d| / max |logit| {worst:.4g} (<= {tol}; by rank "
+          f"{[round(x, 6) for x in s1]}); the ranks' MoE routing replayed "
+          f"there: of {n_dec} routing decisions, the unsharded path would "
+          f"have made {flips} otherwise; (s2) one snapshot a request "
+          f"on all {mesh.size} ranks: lsn {lsn1} then {lsn2}, request 1 "
+          f"read v1 in all {N + 1} calls with v2 published after step "
+          f"{FALLBACK_PUBLISH_AT}; every rank's tokens equal; launches a "
+          f"rank over both requests {per}; {card}", flush=True)
+    return {FALLBACK_ROWS["fallback prefill"]:
+            sum(r["launches"]["flash_attention"] for r in out),
+            FALLBACK_ROWS["fallback decode"]:
+            sum(r["launches"]["decode_attention"] for r in out)}
+
+
 def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
-              n_steps: int) -> dict:
+              n_steps: int, serve: dict, serve_steps: int) -> dict:
     """One rank of the sharded train phase (`parallel.spawn` runs it in a
     process of its own): a `Trainer(group=)` drawing the rank's pieces of
     the state from seed 0 (the parent's draws) and publishing into its
@@ -3615,7 +3923,15 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
     after); (f4) the pinned read against v1; (f5) the state saved under
     the group into `ckpt_dir`, restored as the rank's pieces (bitwise)
     and, on rank 0, onto its one device whole (bitwise against every
-    gathered leaf).  Returns what the parent checks and prints."""
+    gathered leaf); (h) the newest version served from the rank's store by
+    `ServingEngine(group=, specs=<the trainer's placement>)`: two
+    requests of `serve`'s prompts and `serve_steps` decode steps
+    (`serve_two`, a version with the embedding negated published under
+    request 1's pin after decode step FSDP_PUBLISH_AT, request 1 keeping
+    its logits for the parent's (h1), `gathered_s1`; the attention
+    kernels' launches, the plain versions' calls, the gathers and the
+    peak memory counted over both).  Returns what the parent checks and
+    prints."""
     import torch
 
     from repro_torch.checkpoint import manager as ckpt
@@ -3624,6 +3940,7 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
     from repro_torch.launch.dryrun import residency
     from repro_torch.launch.specs import batch_specs, state_specs
     from repro_torch.parallel.tensor import gather_piece
+    from repro_torch.serve import ServingEngine
     from repro_torch.tensorstore import VersionedParamStore
     from repro_torch.train import Trainer
     from repro_torch.tree import leaves, leaves_with_path, path_key
@@ -3722,6 +4039,35 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
             f5_whole &= got.dtype == whole.dtype and torch.equal(got,
                                                                  whole)
     del one
+
+    # (h) serve what the ranks trained: the newest version (the state
+    # just saved), a layer gathered at a time under the trainer's
+    # placement, a version published on every rank under request 1's pin
+    serve = {k: x.to(dev) for k, x in serve.items()}
+    N = serve_steps
+    eng = ServingEngine(cfg, store, max_seq=serve["tokens"].shape[1] + N,
+                        device=dev, group=group, specs=layout.param_specs)
+    eng.refresh()
+    served = tr.state["params"]
+    wrappers = {n: _kernel_wrappers()[n] for n in ATTN_TPU}
+    cuda_build.reset_counts(wrappers.values())
+    served_gathers = eng.view.gathers
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    with count_plain() as plain:
+        requests, v2_before = serve_two(
+            torch, eng, store, (served, dict(served, embed=-served["embed"])),
+            serve, N, FSDP_PUBLISH_AT, sync, keep=True)
+    n = serve["tokens"].shape[0] // eng.view.batch_size
+    h = {"requests": requests, "v2_lsn_before": v2_before,
+         "launches": {n: cuda_build.launch_count(fn)
+                      for n, fn in wrappers.items()},
+         "plain": plain["calls"],
+         "gathers": (eng.view.gathers - served_gathers) / 2,
+         "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9 if on_card
+                     else None),
+         "rows": (eng.view.batch_rank * n, (eng.view.batch_rank + 1) * n),
+         "cache": requests[0]["cache"]}
     return {"rank": group.rank, "coords": group.coords, "init_s": init_s,
             "losses": [m["loss"] for m in log],
             "grad_norm": log[0]["grad_norm"], "step_ms": step_ms,
@@ -3729,7 +4075,7 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
             "launches": launches, "f2": f2, "f32": f32, "have": have,
             "plan": {k: plan[k] for k in have}, "f4": f4, "lsns": lsns,
             "f5": (f5_pieces, f5_whole if group.rank == 0 else None),
-            "save_s": save_s}
+            "save_s": save_s, "serve": h}
 
 
 def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
@@ -3742,11 +4088,17 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     here first, on the same weights and batch (and the gradients of the
     same weights in f32, TF32 off: the bf16 noise floor printed beside
     (f2)), and freed before the ranks start.  Checks (f1)-(f5) on every
-    rank; returns the ranks'
-    flash forward and backward launches, summed, under the kernels
-    line's keys and FSDP_ROWS' row."""
+    rank; then (h): each rank serves FSDP_SERVE's requests from its store
+    (`fsdp_rank`), (h1) its logits against the unsharded kernel path's on
+    the state the ranks saved, restored here onto one device, (h2) one
+    snapshot a request on every rank, (h3) its gathers a request and peak
+    memory printed; no plain attention called.  Returns the ranks' flash
+    forward and backward launches, summed, under the kernels line's keys
+    and FSDP_ROWS' row, and their serving launches under
+    FSDP_SERVE_ROWS'."""
     import tempfile
 
+    from repro_torch.checkpoint import manager as ckpt
     from repro_torch.data import SyntheticPipeline
     from repro_torch.launch.mesh import Mesh
     from repro_torch.models import init_params
@@ -3762,11 +4114,7 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     dev = torch.device(device)
     on_card = dev.type == "cuda"
     card = card_line() if on_card else "the CPU"
-    if backend == "nccl":
-        devices = [f"cuda:{r}" for r in range(mesh.size)]
-    else:
-        devices = [f"cuda:{dev.index or 0}" if on_card else "cpu"] \
-            * mesh.size
+    devices = _rank_devices(dev, backend, mesh.size)
     t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -3799,15 +4147,27 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
         ref_path = os.path.join(tmp, "reference.pt")
         torch.save(ref, ref_path)
         t0 = time.perf_counter()
+        sB, sS, sN = FSDP_SERVE
+        serve = serve_batch(torch, np, cfg, FSDP_ARCH, sB, sS, dev)
+        ckpt_dir = os.path.join(tmp, "ckpt")
         out = spawn(fsdp_rank, mesh, backend=backend, devices=devices,
                     tmpdir=tmp, args=(cfg, TRAIN_B, TRAIN_S, ref_path,
-                                      os.path.join(tmp, "ckpt"),
-                                      FSDP_STEPS))
+                                      ckpt_dir, FSDP_STEPS,
+                                      {k: x.cpu() for k, x in serve.items()},
+                                      sN))
         ranks_s = time.perf_counter() - t0
-    how = (f"{mesh.size} ranks on one card over gloo: collectives pass "
-           f"through the host" if backend == "gloo" and on_card else
-           f"{mesh.size} ranks, one card each, over nccl" if on_card else
-           f"{mesh.size} ranks on the CPU over gloo")
+        # (h1)'s unsharded kernel path: the saved state on one device
+        t0 = time.perf_counter()
+        hs = [dict(r["serve"], rank=r["rank"]) for r in out]
+        lsn1, lsn2 = check_s2(torch, hs, sB, sN)
+        state = ckpt.restore(ckpt_dir, {
+            "params": init_params(cfg, None, "meta")}, device=dev)
+        h1, _ = gathered_s1(torch, cfg, state["params"], serve, hs)
+        del state
+        if on_card:
+            torch.cuda.empty_cache()
+        h1_s = time.perf_counter() - t0
+    how = _how(backend, mesh.size, on_card)
     run = (f"{cfg.name} {cfg.n_layers} layers, {cfg.train_sharding}, mesh "
            f"{mesh.shape}, {backend}, {TRAIN_B}x{TRAIN_S} tokens a step")
     print(f"fsdp train: {run}: unsharded reference {ref_s:.1f} s, ranks "
@@ -3880,10 +4240,63 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
           f"after step {FSDP_STEPS} restored bitwise onto the mesh and onto "
           f"one device; losses {[round(x, 5) for x in out[0]['losses']]}; "
           f"{card}", flush=True)
+    # (h) what the ranks trained, served gathered from their stores
+    for h in hs:
+        req = h["requests"]
+        peak = (f"{h['peak_gb']:.2f} GB peak" if h["peak_gb"] is not None
+                else "peak not measured (CPU)")
+        print(f"fsdp serve rank {h['rank']} {out[h['rank']]['coords']}: "
+              f"request 1 prefill {req[0]['prefill_ms']:.1f} ms "
+              f"({sB}x{sS}, rows {h['rows'][0]}-{h['rows'][1] - 1}), decode "
+              f"{req[0]['decode_ms']:.2f} ms a step; request 2 prefill "
+              f"{req[1]['prefill_ms']:.1f} ms, decode "
+              f"{req[1]['decode_ms']:.2f} ms a step; {h['gathers']:g} "
+              f"gathers a request; {peak}; launches {h['launches']}; "
+              f"backend {backend}; {card}", flush=True)
+    # (h1) each rank's rows against the unsharded kernel path, (h2) one
+    # snapshot a request on every rank (`check_s2`, above)
+    tol = SERVE_BF16_TOL[FSDP_ARCH]
+    if not max(h1) <= tol:
+        raise AssertionError(f"(h1) gathered vs unsharded max |d| / max "
+                             f"|logit| {h1} > {tol}")
+    # (h3) whole-headed caches, a gather of each layer a call, launches
+    per = {"flash_attention": 2 * layers, "decode_attention": 2 * layers * sN}
+    kv = (cfg.n_periods, sB // mesh.size, sS + sN, cfg.n_kv_heads,
+          cfg.head_dim)
+    for h in hs:
+        if on_card and (h["launches"] != per or h["plain"]):
+            raise AssertionError(f"(h) rank {h['rank']} launches "
+                                 f"{h['launches']} != {per}, "
+                                 f"{h['plain']} plain attention calls")
+        if h["gathers"] != (sN + 1) * (1 + layers):
+            raise AssertionError(f"(h) rank {h['rank']}: {h['gathers']} "
+                                 "gathers a request")
+        if any(e != {"k": kv, "v": kv} for e in h["cache"]):
+            raise AssertionError(f"(h) rank {h['rank']} cache {h['cache']}")
+    print(f"fsdp serve checks ({run}; each rank serving its own store "
+          f"gathered under the trainer's placement, {sB}x{sS} prompts, "
+          f"{sN} steps): (h1) every rank's request 1 logits vs the "
+          f"unsharded kernel path teacher-forced with its tokens on the "
+          f"saved state restored onto one device ({h1_s:.1f} s) "
+          f"max |d| / max |logit| {max(h1):.4g} (<= {tol}; by rank "
+          f"{[round(x, 6) for x in h1]}; no partial sums); (h2) one "
+          f"snapshot a request on all {mesh.size} ranks: "
+          f"lsn {lsn1} then {lsn2}, request 1 read the served version in "
+          f"all {sN + 1} calls with another published after step "
+          f"{FSDP_PUBLISH_AT}, every rank's tokens equal; (h3) "
+          f"{hs[0]['gathers']:g} gathers a request (the top-level leaves and "
+          f"each of {layers} layers once a call), every rank's KV cache "
+          f"{kv}; launches a rank over both requests {per}, "
+          f"{sum(h['plain'] for h in hs)} plain attention calls; {card}",
+          flush=True)
     fwd = sum(r["launches"]["flash_attention"] for r in out)
     bwd = sum(r["launches"]["flash_attention_bwd"] for r in out)
     return {"flash_attention": fwd, "flash_attention_bwd": bwd,
-            FSDP_ROWS["fsdp rank"]: bwd}
+            FSDP_ROWS["fsdp rank"]: bwd,
+            FSDP_SERVE_ROWS["fsdp serve prefill"]:
+            sum(h["launches"]["flash_attention"] for h in hs),
+            FSDP_SERVE_ROWS["fsdp serve decode"]:
+            sum(h["launches"]["decode_attention"] for h in hs)}
 
 
 # ------------------------------------------------------------------ training
@@ -4545,6 +4958,15 @@ def main() -> int:
         print(f"tp serve phase {arch}: {time.perf_counter() - t0:.1f} s, "
               f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still "
               "allocated", flush=True)
+    # the fallback serve step: a model whose shard passes the resident
+    # limit, served gathered under the placement the rule falls back on
+    t0 = time.perf_counter()
+    for row, n in fallback_serve_phase(torch, np).items():
+        launches[row] = launches.get(row, 0) + n
+    torch.cuda.empty_cache()
+    print(f"fallback serve phase: {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB still allocated",
+          flush=True)
     cards = torch.cuda.device_count()
     if cards >= 2:
         mesh = (1, 4 if cards >= 4 else 2)
@@ -4605,6 +5027,8 @@ def main() -> int:
     shape_rows = [(row, row, "times", launches.get(row, 0))
                   for row in (*(r for r, _ in ATTN_ROWS.values()),
                               *TP_ROWS.values(),
+                              *FSDP_SERVE_ROWS.values(),
+                              *FALLBACK_ROWS.values(),
                               *(r for r, _ in BWD_ROWS.values()),
                               *FSDP_ROWS.values())]
     for row, _, _, n in scan_rows + bwd_rows + shape_rows:
@@ -4628,12 +5052,16 @@ def main() -> int:
                **{row: ATTN_SRC for row, _ in (*ATTN_ROWS.values(),
                                                 *BWD_ROWS.values())},
                **{row: ATTN_SRC for row in (*TP_ROWS.values(),
+                                            *FSDP_SERVE_ROWS.values(),
+                                            *FALLBACK_ROWS.values(),
                                             *FSDP_ROWS.values())},
                **{n: WKV_SRC for n in (*WKV_TPU, "wkv_scan bwd")},
                **{n: SSM_SRC for n in (*SSM_TPU, "ssm_scan bwd")}}
     tpu = {**ATTN_TPU, **ATTN_BWD_TPU, **WKV_TPU, **SSM_TPU,
            **{row: ATTN_TPU[shape[0]] for row, shape in ATTN_ROWS.values()},
-           **{row: ATTN_TPU[row.split()[0]] for row in TP_ROWS.values()},
+           **{row: ATTN_TPU[row.split()[0]]
+              for row in (*TP_ROWS.values(), *FSDP_SERVE_ROWS.values(),
+                          *FALLBACK_ROWS.values())},
            **{row: ATTN_BWD_TPU[shape[0]] for row, shape in BWD_ROWS.values()},
            **{row: ATTN_BWD_TPU["flash_attention_bwd"]
               for row in FSDP_ROWS.values()},

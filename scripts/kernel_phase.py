@@ -9,6 +9,7 @@
     python3 scripts/kernel_phase.py TREE --backwards
     python3 scripts/kernel_phase.py TREE --fsdp
     python3 scripts/kernel_phase.py TREE --tp ARCH
+    python3 scripts/kernel_phase.py TREE --fallback
 
 Builds the tree's `rss_scan_agg.cu` and `gather.cu` (into the tree's own
 `build/repro_torch/`), prints their ptxas lines, then runs the tree's
@@ -62,7 +63,15 @@ from `cuobjdump -sass` of the built library, where the toolkit has it.
 With `--fsdp` it builds the tree's `attention.cu` and runs the tree's own
 `chip_smoke.fsdp_train_phase` (Qwen1.5-0.5B whole under fsdp2d, four
 ranks on the card over gloo, checks (f1)-(f5), per-rank step times,
-memory, gathers and launches), timing it.
+memory, gathers and launches; where the tree has it, each rank then
+serving what it trained, checks (h1)-(h3)), timing it.
+
+With `--fallback` it builds the tree's `attention.cu` and runs the tree's
+own `chip_smoke.fallback_serve_phase` (Mixtral-8x22B at the published
+widths, one layer, served gathered under the placement
+`params_specs(serving=True)` falls back on, four ranks on the card over
+gloo, checks (s1) and (s2), per-rank times, gathers, memory and
+launches), timing it.
 
 With `--tp ARCH` it builds the tree's `attention.cu` and `ssm.cu` and
 runs the tree's own `chip_smoke.tp_serve_phase` for ARCH (one of
@@ -236,6 +245,20 @@ def fsdp_phase(torch, np, tree: Path) -> None:
     print(f"fsdp train phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def fallback_phase(torch, np, tree: Path) -> None:
+    """The tree's `chip_smoke.fallback_serve_phase`."""
+    import chip_smoke
+    from repro_torch.kernels import cuda_build
+
+    print(f"tree {tree}, fallback: {chip_smoke.card_line()}", flush=True)
+    cuda_build.build(["attention"])
+    t0 = time.perf_counter()
+    print(f"result: {chip_smoke.fallback_serve_phase(torch, np)}",
+          flush=True)
+    print(f"fallback serve phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def tp_phase(torch, np, tree: Path, arch: str) -> None:
     """The tree's `chip_smoke.tp_serve_phase` for `arch`, after its
     `ssm_kernel_phase` where `arch` has Mamba layers."""
@@ -287,6 +310,11 @@ def main() -> int:
     fsdp = "--fsdp" in args
     if fsdp:
         args.remove("--fsdp")
+    fallback = "--fallback" in args
+    if fallback:
+        args.remove("--fallback")
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     tree = Path(args[0] if args else ".").resolve()
     sys.path[:0] = [str(tree), str(tree / "src")]
     import numpy as np
@@ -316,6 +344,9 @@ def main() -> int:
         return 0
     if tp is not None:
         tp_phase(torch, np, tree, tp)
+        return 0
+    if fallback:
+        fallback_phase(torch, np, tree)
         return 0
     import chip_smoke
     from repro_torch.kernels import cuda_build

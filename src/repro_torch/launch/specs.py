@@ -10,6 +10,11 @@ from `repro.launch.specs`: where the reference builds sharding-annotated
   * decode : "params" (serving), "tokens", "cache" and "cache_len" for
              one decode step
 A single-tensor tree's one leaf has the path "".
+
+Serving keeps its parameters resident (model-sharded) unless a model
+shard passes SERVE_RESIDENT_LIMIT (`serving_fallback`); there
+`params_specs(serving=True)` falls back to the training placement,
+which `serve.ServingEngine(group=, specs=)` serves gathered.
 """
 
 from __future__ import annotations
@@ -50,17 +55,24 @@ def meta_params(cfg: ModelConfig):
     return init_params(cfg, None, META)
 
 
+def serving_fallback(mesh: Mesh, cfg: ModelConfig) -> bool:
+    """Whether `params_specs(mesh, cfg, serving=True)` falls back to the
+    training placement: a model shard of `cfg` in bf16 (2 bytes a
+    parameter over the model axis) passes SERVE_RESIDENT_LIMIT.  A
+    server then gathers the pieces a layer at a time
+    (`serve.ServingEngine(group=, specs=)`)."""
+    return 2 * cfg.param_count() / mesh.shape["model"] > \
+        SERVE_RESIDENT_LIMIT
+
+
 def params_specs(mesh: Mesh, cfg: ModelConfig, *,
                  serving: bool = False) -> Placed:
     params = meta_params(cfg)
-    force_zero2 = False
-    if serving:
-        # serving wants params RESIDENT (model-sharded, no per-step
-        # gathers); fall back to FSDP only when a model shard exceeds
-        # SERVE_RESIDENT_LIMIT (no config on a 16-way model axis;
-        # jamba-398B, mixtral-8x22B and qwen2-vl-72B on a 2-way one)
-        per_card = 2 * cfg.param_count() / mesh.shape["model"]
-        force_zero2 = per_card <= SERVE_RESIDENT_LIMIT
+    # serving wants params RESIDENT (model-sharded, no per-step
+    # gathers); fall back to FSDP only when a model shard exceeds
+    # SERVE_RESIDENT_LIMIT (no config on a 16-way model axis;
+    # jamba-398B, mixtral-8x22B and qwen2-vl-72B on a 2-way one)
+    force_zero2 = serving and not serving_fallback(mesh, cfg)
     return Placed(params, param_shardings(mesh, cfg, params,
                                           force_zero2=force_zero2))
 

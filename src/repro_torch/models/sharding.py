@@ -23,6 +23,13 @@ the forward, the gradient reduce-scattered into the piece in the
 backward), and `batch_sum` sums a count over the batch ranks (the loss's
 masked positions of the global batch).
 
+Serving a training placement (`with_mesh(view)`, this rank's
+`parallel.fsdp.ServeView`) runs no tensor parallelism either: `psum`
+and `model_index` are the identity (every weight is whole once gathered,
+so the caches hold every head and channel and the embedding is looked
+up in the whole table), and `gatherer` hands the model stack the view's
+gather, one layer's leaves at a time, with no autograd state.
+
 Without an active mesh, or on a mesh of one device, every function here
 is the identity (one card).  A mesh of more devices activated as a
 `launch.mesh.Mesh`, with no process group executing it, is a plan (`launch.dryrun`), not an execution: `hint`
@@ -50,13 +57,14 @@ _MESH: contextvars.ContextVar = contextvars.ContextVar("repro_torch_mesh",
 def with_mesh(mesh):
     """Activate `mesh`: a `launch.mesh.Mesh` to plan on, this rank's
     `parallel.MeshGroup` to serve on its mesh (tensor parallel over
-    "model"), this rank's `parallel.fsdp.Layout` to train on its mesh
-    (no tensor parallelism), or None (one device)."""
+    "model"), this rank's `parallel.fsdp.Layout` to train on its mesh or
+    `parallel.fsdp.ServeView` to serve a training placement on it (no
+    tensor parallelism: the pieces gathered), or None (one device)."""
     if mesh is None:
         active = None
     elif isinstance(mesh, Mesh):
         active = (mesh, None, None)
-    elif getattr(mesh, "trains", False):
+    elif getattr(mesh, "gathers_pieces", False):
         active = (mesh.group.mesh, mesh.group, mesh)
     else:
         active = (mesh.mesh, mesh, None)
@@ -87,27 +95,34 @@ def active_group():
     return group
 
 
-def training():
-    """The rank's training `Layout` under an active training mesh of
-    several devices, else None."""
+def placement():
+    """The rank's `parallel.fsdp` placement (a training `Layout` or a
+    `ServeView`) under an active mesh of several devices, else None."""
     active = _MESH.get()
     if active is None or active[0].size == 1:
         return None
     return active[2]
 
 
+def training():
+    """The rank's training `Layout` under an active training mesh of
+    several devices, else None."""
+    active = placement()
+    return active if active is not None and active.trains else None
+
+
 def gatherer():
-    """`gather(units, period=None)`, bound to the training layout active
-    now: {path prefix: subtree of this rank's pieces} as the whole
-    leaves under a training mesh, in one gather (`period`: the index of
-    the period of stacked leaves the subtrees are, None for unstacked
-    leaves); `units` itself otherwise.  Bound at the call, so the
-    backward's recompute, which the autograd engine runs on a card's own
-    thread outside this context, gathers too."""
-    layout = training()
-    if layout is None:
+    """`gather(units, period=None)`, bound to the placement active now:
+    {path prefix: subtree of this rank's pieces} as the whole leaves
+    under a training mesh or a serving view, in one gather (`period`:
+    the index of the period of stacked leaves the subtrees are, None for
+    unstacked leaves); `units` itself otherwise.  Bound at the call, so
+    the backward's recompute, which the autograd engine runs on a card's
+    own thread outside this context, gathers too."""
+    active = placement()
+    if active is None:
         return lambda units, period=None: units
-    return layout.gather
+    return active.gather
 
 
 def batch_sum(x: torch.Tensor) -> torch.Tensor:
@@ -131,17 +146,17 @@ def model_index() -> tuple[int, int]:
     """(this rank's coordinate on "model", the axis' size): (0, 1) on one
     device."""
     group = active_group()
-    if group is None or training() is not None:
+    if group is None or placement() is not None:
         return (0, 1)
     return (group.model_rank, group.model_size)
 
 
 def psum(x: torch.Tensor) -> torch.Tensor:
     """The sum of `x` over the ranks of "model" (the partial outputs of a
-    row-parallel product), IN PLACE; `x` itself on one device and under
-    a training mesh (no tensor parallelism)."""
+    row-parallel product), IN PLACE; `x` itself on one device, under a
+    training mesh and under a serving view (no tensor parallelism)."""
     group = active_group()
-    if group is None or group.model_size == 1 or training() is not None:
+    if group is None or group.model_size == 1 or placement() is not None:
         return x
     if x.requires_grad:
         raise ValueError(f"psum of {tuple(x.shape)} under autograd: the "

@@ -42,6 +42,13 @@ a period.  `loss_fn` divides the rank's NLL sum by the count of
 unmasked positions over the whole batch (`batch_sum`), so the ranks'
 losses sum to the reference's masked mean.
 
+Serving a training placement: under `with_mesh(view)` (this rank's
+`parallel.fsdp.ServeView`) `prefill` and `decode_step` gather the
+top-level leaves once a call and each layer's leaves just before that
+layer runs (the encoder's a layer at a time too), so a rank holds one
+layer's whole weights beside its pieces; `psum` is the identity and the
+cache whole-headed, as on one device.
+
 Training: `loss_fn` is the reference's causal-LM cross entropy (f32
 logsumexp, labels < 0 masked).  `cfg.remat` checkpoints each period as
 the reference's `_remat` wraps its scan body: "none"; "full", one
@@ -276,11 +283,27 @@ def _cmix_shift(spec: LayerSpec, ce: dict, i: int):
     return ce["cmix_shift"][i] if spec.mlp == "rwkv_cmix" else None
 
 
-def _layers(params: Params, cfg: ModelConfig):
-    """(period index, pattern spec, that layer's params) in model order."""
+def _layers(params: Params, cfg: ModelConfig, gather=None):
+    """(period index, pattern position, pattern spec, that layer's
+    params) in model order; `gather` (a `models.sharding.gatherer`):
+    each layer's whole leaves from its pieces, gathered as it is
+    reached."""
     for i in range(cfg.n_periods):
         for j, spec in enumerate(cfg.pattern):
-            yield i, j, spec, _index(params["blocks"][j], i)
+            pp = _index(params["blocks"][j], i)
+            if gather is not None:
+                pp = gather({f"blocks/{j}": pp}, i)[f"blocks/{j}"]
+            yield i, j, spec, pp
+
+
+def _gathered(params: Params):
+    """(`params` with its top-level leaves whole, the gather for its
+    layers), from `models.sharding.gatherer`: the identity on one device
+    and under tensor parallelism."""
+    gather = gatherer()
+    top = {k: v for k, v in params.items()
+           if k not in ("blocks", "enc_blocks")}
+    return dict(params, **gather(top)), gather
 
 
 # --------------------------------------------------------------------- encoder
@@ -396,9 +419,7 @@ def _remat(fn, cfg: ModelConfig, params=None):
 
 def forward(params: Params, cfg: ModelConfig, batch: dict) -> torch.Tensor:
     """Training / scoring forward -> logits [B,S,V]."""
-    gather = gatherer()
-    params = dict(params, **gather({k: v for k, v in params.items()
-                                    if k not in ("blocks", "enc_blocks")}))
+    params, gather = _gathered(params)
     x = embed_inputs(params, cfg, batch)
     positions = _positions(batch, x.shape[1], x.device)
     mrope_positions = batch.get("mrope_positions")
@@ -498,7 +519,10 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
     and Mamba's states do not grow with it).  The cache is allocated
     here, on the embedding's device, and filled in place; a
     cross-attention layer's "xk"/"xv" take the encoder output's K/V
-    once, and its attention runs over them."""
+    once, and its attention runs over them.  Under a serving view of a
+    training placement the top-level leaves are gathered once and each
+    layer's just before it runs (`_gathered`, `_layers(gather=)`)."""
+    params, gather = _gathered(params)
     x = embed_inputs(params, cfg, batch)
     B, S, _ = x.shape
     positions = _positions(batch, S, x.device)
@@ -506,7 +530,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
     enc_out = _enc_out(params, cfg, batch)
     cache = init_cache(cfg, B, cache_len, x.device,
                        model=model_index()[1])
-    for i, j, spec, pp in _layers(params, cfg):
+    for i, j, spec, pp in _layers(params, cfg, gather):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
         if spec.mixer == "attn":
@@ -537,9 +561,11 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     in the cache (a plain int, so the step makes no host-device sync).
     The new token sits at position cache_len (on all three M-RoPE
     streams); a cross-attention layer reads its "xk"/"xv" over
-    `encoder_len` slots.  Returns (logits [B,V], cache)."""
+    `encoder_len` slots.  Returns (logits [B,V], cache).  Gathers as
+    `prefill` does."""
+    params, gather = _gathered(params)
     x = embed_tokens(params["embed"], tokens, cfg.vocab_size)
-    for i, j, spec, pp in _layers(params, cfg):
+    for i, j, spec, pp in _layers(params, cfg, gather):
         ce = cache["blocks"][j]
         h = L.norm_apply(pp["norm1"], x, cfg.norm)
         if spec.mixer == "attn":

@@ -35,6 +35,16 @@ and gradients cut over "data", each updated piece all-gathered back into
 the replicated parameter) and plain data parallelism (Whisper-tiny's).
 `parallel.tensor.check_train` refuses the rest.
 
+Serving reads the same pieces (`ServeView`, with no optimizer state): a
+`serve.ServingEngine(group=, specs=)` over a store of the rank's pieces
+of every version (the versions `Trainer(group=)` publishes, or a model
+placed by the training placement that `launch.specs.params_specs(
+serving=True)` falls back on) gathers one layer's whole weights just
+before the layer runs and computes whole layers on the rank's rows, as
+GSPMD regathers a training placement inside the reference's jitted
+prefill and decode.  `Layout` and `ServeView` share `Placement`: the
+specs, the gather and the row cut.
+
 `init_local_state` draws a rank's state without holding the whole model
 (equal to `shard_state` of `train.step.init_state` of the same seed);
 `shard_state` / `gather_state` cut a whole state into the rank's pieces
@@ -129,30 +139,55 @@ class Gather(torch.autograd.Function):
         return (None, None, None) + (None,) * len(grads)
 
 
-class Layout:
-    """A rank's training placement: its `MeshGroup`, the specs of its
-    pieces (`train_specs` of `cfg` and `opt_cfg`), and the counts of its
-    gathers and reduce-scatters (`Gather` calls, forward and backward;
-    the step reads them).  `models.sharding.with_mesh(layout)` runs the
-    model stack on it."""
-    trains = True
+def _flatten(units: dict):
+    """The leaves of {prefix: subtree}: their (prefix, path) pairs, their
+    state keys and the leaves, in one order."""
+    paths, keys, pieces = [], [], []
+    for prefix, tree in units.items():
+        for p, x in leaves_with_path(tree):
+            paths.append((prefix, p))
+            keys.append(path_key((prefix, *p)))
+            pieces.append(x)
+    return paths, keys, pieces
 
-    def __init__(self, group, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
+
+def _rebuild(units: dict, paths: list, whole) -> dict:
+    """`units` with each leaf replaced by its whole leaf from `whole`."""
+    out = {}
+    for prefix, tree in units.items():
+        got = {p: w for (q, p), w in zip(paths, whole) if q == prefix}
+        out[prefix] = got[()] if () in got else replace_leaves(tree, got)
+    return out
+
+
+class Placement:
+    """A rank's pieces under a placement `parallel.fsdp` stores: its
+    `MeshGroup`, the specs of its pieces (`TrainSpecs`: {state leaf path:
+    spec}, the parameters' under "params/...", and the batch axes), the
+    count of its gathers, the gather of whole leaves from the ranks'
+    pieces (`_gather`) and the cut of a global batch to the rank's rows
+    (`rows`).  `Layout` trains on it, `ServeView` serves from it;
+    `models.sharding.with_mesh` runs the model stack on either.  Refuses
+    what `check_train` refuses."""
+    gathers_pieces = True
+    trains = False
+
+    def __init__(self, group, cfg: ModelConfig, specs: TrainSpecs,
+                 shapes: dict):
         check_train(cfg, group.mesh)
-        self.group, self.cfg, self.opt_cfg = group, cfg, opt_cfg
-        self.mesh = group.mesh
-        meta = init_params(cfg, None, "meta")
-        self.meta = {"params": meta, "opt": adamw.init(meta, opt_cfg)}
-        self._shapes = {path_key(p): tuple(x.shape)
-                        for p, x in leaves_with_path(self.meta)}
-        self.specs = train_specs(self.mesh, cfg, meta, self.meta["opt"])
+        self.group, self.cfg, self.mesh = group, cfg, group.mesh
+        self.specs, self._shapes = specs, shapes
         # the batch axes of more than one rank
-        self._batch = tuple(a for a in self.specs.batch
+        self._batch = tuple(a for a in specs.batch
                             if self.mesh.shape.get(a, 1) > 1)
         self.batch_size = math.prod(self.mesh.shape[a] for a in self._batch)
         self.batch_rank = piece_index(group.coords, self._batch, self.mesh)
-        self.gathers = self.reduce_scatters = 0
-        self._grads: dict = {}
+        self.gathers = 0
+
+    @property
+    def batch_axes(self) -> tuple:
+        """The axes of more than one rank that cut the batch."""
+        return self._batch
 
     # ----------------------------------------------------------- specs
     def spec(self, key: str, stacked: bool = False) -> tuple:
@@ -164,27 +199,9 @@ class Layout:
         """The shape of this rank's piece of state leaf `key`."""
         return piece_shape(self._shapes[key], self.spec(key), self.mesh)
 
-    # ------------------------------------------------------- the model
-    def gather(self, units: dict, period=None) -> dict:
-        """{prefix: subtree of pieces} as whole leaves, one `Gather`
-        (`period`: the index of the period of stacked leaves the pieces
-        are, None for unstacked leaves)."""
-        paths, keys, pieces = [], [], []
-        for prefix, tree in units.items():
-            for p, x in leaves_with_path(tree):
-                paths.append((prefix, p))
-                keys.append(path_key((prefix, *p)))
-                pieces.append(x)
-        whole = Gather.apply(self, tuple(keys), period, *pieces)
-        out = {}
-        for prefix, tree in units.items():
-            got = {p: w for (q, p), w in zip(paths, whole) if q == prefix}
-            out[prefix] = got[()] if () in got else replace_leaves(tree, got)
-        return out
-
     def _cut(self, spec: tuple):
         """(dim, axes) of the one dim `spec` cuts, None for a whole leaf.
-        The placements the port trains cut a leaf on one dim at most,
+        The placements the port stores cut a leaf on one dim at most,
         over the batch axes (module docstring); ValueError otherwise."""
         cuts = _cuts(spec, self.mesh)
         if not cuts:
@@ -213,6 +230,68 @@ class Layout:
                 out[i] = p.movedim(0, dim).flatten(dim, dim + 1)
                 off += x.numel()
         return out
+
+    # --------------------------------------------------------- the batch
+    def rows(self, batch: dict, microbatches: int = 1) -> dict:
+        """The rank's rows of a global batch: each of the `microbatches`
+        contiguous blocks of rows (the reference's split) cut over the
+        batch ranks in piece order, the rank's rows of the blocks in
+        block order (so the step's split of them gives its rows of each
+        block).  ValueError where the ranks do not divide a block."""
+        A, n, r = max(microbatches, 1), self.batch_size, self.batch_rank
+        out = {}
+        for k, x in batch.items():
+            dim = _batch_dim(k, x)
+            if dim is None or n == 1:
+                out[k] = x
+                continue
+            B = x.shape[dim]
+            if B % A or (B // A) % n:
+                raise ValueError(
+                    f"{k} {tuple(x.shape)}: {A} microbatches of {B / A:g} "
+                    f"rows over {n} batch ranks {self._batch}; the port "
+                    f"runs every rank in every microbatch ({ROWS_ITEM})")
+            out[k] = x.unflatten(dim, (A, n, B // A // n)).select(
+                dim + 1, r).flatten(dim, dim + 1).contiguous()
+        return out
+
+
+class Layout(Placement):
+    """A rank's training placement: its `MeshGroup`, the specs of its
+    pieces (`train_specs` of `cfg` and `opt_cfg`), and the counts of its
+    gathers and reduce-scatters (`Gather` calls, forward and backward;
+    the step reads them).  `models.sharding.with_mesh(layout)` runs the
+    model stack on it."""
+    trains = True
+
+    def __init__(self, group, cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
+        self.opt_cfg = opt_cfg
+        meta = init_params(cfg, None, "meta")
+        self.meta = {"params": meta, "opt": adamw.init(meta, opt_cfg)}
+        super().__init__(group, cfg,
+                         train_specs(group.mesh, cfg, meta, self.meta["opt"]),
+                         {path_key(p): tuple(x.shape)
+                          for p, x in leaves_with_path(self.meta)})
+        self.reduce_scatters = 0
+        self._grads: dict = {}
+
+    @property
+    def param_specs(self) -> dict:
+        """{parameter leaf path: spec}: the placement of the parameters
+        alone (what `Trainer(group=)` publishes under, and what
+        `ServingEngine(group=, specs=)` serves)."""
+        return {k.removeprefix("params/"): s
+                for k, s in self.specs.state.items()
+                if k.startswith("params/")}
+
+    # ------------------------------------------------------- the model
+    def gather(self, units: dict, period=None) -> dict:
+        """{prefix: subtree of pieces} as whole leaves, one `Gather`
+        (`period`: the index of the period of stacked leaves the pieces
+        are, None for unstacked leaves)."""
+        paths, keys, pieces = _flatten(units)
+        return _rebuild(units, paths,
+                        Gather.apply(self, tuple(keys), period, *pieces))
 
     def _reduce(self, keys, period, grads) -> None:
         """Each whole gradient summed over the batch ranks in f32, the
@@ -272,30 +351,6 @@ class Layout:
         """`x` (no gradient) summed over the batch ranks, a new tensor."""
         return self.group.all_reduce(x.detach().clone(), self._batch)
 
-    # --------------------------------------------------------- the batch
-    def rows(self, batch: dict, microbatches: int = 1) -> dict:
-        """The rank's rows of a global batch: each of the `microbatches`
-        contiguous blocks of rows (the reference's split) cut over the
-        batch ranks in piece order, the rank's rows of the blocks in
-        block order (so the step's split of them gives its rows of each
-        block).  ValueError where the ranks do not divide a block."""
-        A, n, r = max(microbatches, 1), self.batch_size, self.batch_rank
-        out = {}
-        for k, x in batch.items():
-            dim = _batch_dim(k, x)
-            if dim is None or n == 1:
-                out[k] = x
-                continue
-            B = x.shape[dim]
-            if B % A or (B // A) % n:
-                raise ValueError(
-                    f"{k} {tuple(x.shape)}: {A} microbatches of {B / A:g} "
-                    f"rows over {n} batch ranks; the port runs every rank "
-                    f"in every microbatch ({ROWS_ITEM})")
-            out[k] = x.unflatten(dim, (A, n, B // A // n)).select(
-                dim + 1, r).flatten(dim, dim + 1).contiguous()
-        return out
-
     # -------------------------------------------------------- the optimizer
     def norm_weight(self, key: str) -> float:
         """1 where this rank is the first of the ranks that hold the same
@@ -336,6 +391,76 @@ class Layout:
         return gather_piece(p, mspec, self.group)
 
 
+class ServeView(Placement):
+    """A rank's serving view of a placement that `parallel.fsdp` stores
+    (fsdp2d, FSDP, ZeRO-2, data parallel): its `MeshGroup`, the config
+    and the {parameter leaf path: spec} of its pieces, with no optimizer
+    config and no moments.  `models.sharding.with_mesh(view)` serves on
+    it: the model stack asks `gather` for the top-level leaves once a
+    prefill or decode call and for ONE layer's leaves just before that
+    layer runs, so a rank holds its pieces and one layer's whole weights
+    at a time, and computes whole layers on its rows of the batch
+    (`rows`, over the placement's batch axes).  It keeps no autograd
+    state: `gather` is `_gather`'s all-gather alone (no `Gather` node, no
+    gradient sink, no reduce-scatter).
+
+    Refused (ValueError): what `check_train` refuses (a "pod" axis,
+    "tp" at model > 1), a spec tree whose paths are not the parameter
+    tree's or that cuts a leaf other than on one dim over the batch
+    axes; `check` refuses pinned pieces whose shapes are not the specs'
+    pieces, naming the leaf."""
+
+    def __init__(self, group, cfg: ModelConfig, specs: dict):
+        check_train(cfg, group.mesh)
+        meta = init_params(cfg, None, "meta")
+        shapes = {f"params/{path_key(p)}": tuple(x.shape)
+                  for p, x in leaves_with_path(meta)}
+        state = {f"params/{k}": tuple(s) for k, s in specs.items()}
+        if set(state) != set(shapes):
+            raise ValueError(
+                f"specs of {cfg.name}: {sorted(set(state) - set(shapes))} "
+                f"are not leaves of its parameter tree, "
+                f"{sorted(set(shapes) - set(state))} have no spec")
+        super().__init__(group, cfg,
+                         TrainSpecs(state, train_dp_axes(group.mesh, cfg)),
+                         shapes)
+        for key, spec in state.items():
+            if any(e is not None and not isinstance(e, (str, tuple))
+                   for e in spec):
+                raise ValueError(f"{key}: spec {spec} is not a placement "
+                                 f"parallel.fsdp stores")
+            self._cut(spec)
+
+    def check(self, params) -> None:
+        """Raise ValueError, naming the leaf, where `params` is not this
+        rank's pieces of the config's parameter tree under the specs."""
+        seen = set()
+        for p, x in leaves_with_path(params):
+            key = f"params/{path_key(p)}"
+            if key not in self._shapes:
+                raise ValueError(f"pinned leaf {path_key(p)} is not in "
+                                 f"{self.cfg.name}'s parameter tree")
+            want = self.piece_shape(key)
+            if tuple(x.shape) != want:
+                raise ValueError(
+                    f"pinned leaf {path_key(p)} is {tuple(x.shape)}: its "
+                    f"piece under spec {self.spec(key)} on mesh "
+                    f"{self.mesh.shape} is {want}")
+            seen.add(key)
+        if seen != set(self._shapes):
+            raise ValueError(f"pinned tree lacks leaves "
+                             f"{sorted(set(self._shapes) - seen)}")
+
+    def gather(self, units: dict, period=None) -> dict:
+        """{prefix: subtree of pieces} as whole leaves, one collective for
+        each set of axes and dtype (`period`: the index of the period of
+        stacked leaves the pieces are, None for unstacked leaves)."""
+        self.gathers += 1
+        paths, keys, pieces = _flatten(units)
+        return _rebuild(units, paths,
+                        self._gather(keys, period is not None, pieces))
+
+
 def rank_device(group, device=None) -> torch.device:
     """The group's device, or `device` where they agree (ValueError
     otherwise); a card raises without a GPU."""
@@ -357,10 +482,8 @@ def init_local_state(cfg: ModelConfig, generator: torch.Generator, group,
     opt_cfg = opt_cfg or adamw.AdamWConfig(moment_dtype=cfg.moment_dtype)
     layout = Layout(group, cfg, opt_cfg)
     dev = rank_device(group, device)
-    pspecs = {k.removeprefix("params/"): s for k, s in
-              layout.specs.state.items() if k.startswith("params/")}
     params = init_local_params(cfg, generator, group.mesh, group.coords,
-                               dev, specs=pspecs)
+                               dev, specs=layout.param_specs)
     opt = replace_leaves(layout.meta["opt"], {
         p: torch.zeros(layout.piece_shape(f"opt/{path_key(p)}"),
                        dtype=x.dtype, device=dev)

@@ -217,7 +217,16 @@ class MeshGroup:
         ordered = [None] * len(ranks)
         for part, k in zip(parts, self._order(ranks, axis)):
             ordered[k] = part
-        return torch.cat(ordered, dim=dim).to(x.device)
+        if buf.device == x.device:
+            return torch.cat(ordered, dim=dim)
+        # gloo on a card: each host part copied into its place on the card
+        # (no whole concatenation in host memory first)
+        shape = list(x.shape)
+        shape[dim] *= len(ranks)
+        out = x.new_empty(shape)
+        for k, part in enumerate(ordered):
+            out.narrow(dim, k * x.shape[dim], x.shape[dim]).copy_(part)
+        return out
 
     def reduce_scatter(self, x: torch.Tensor, axis, dim: int = 0) \
             -> torch.Tensor:

@@ -40,6 +40,22 @@ are refused by `parallel.tensor.check_tp`); the greedy
 choice over the vocab-sharded logits is gathered over "model"
 (`parallel.tensor.greedy`); and the tokens of the whole batch are
 gathered over "data", so every rank returns the same result.
+
+With `specs=` ({parameter leaf path: spec}) the ranks' stores hold
+their pieces under a placement `parallel.fsdp` stores instead (the
+training placement a `Trainer(group=)` publishes under, or the one
+`launch.specs.params_specs(serving=True)` falls back on for a model
+whose shard passes the resident limit), and the engine serves it
+gathered (`parallel.fsdp.ServeView`): `check_train`'s rule applies in
+place of `check_tp`, the batch is cut over the placement's batch axes
+(`launch.mesh.train_dp_axes`: ("data", "model") under fsdp2d; a batch
+they do not divide is refused), each rank gathers one layer's whole
+weights before the layer runs and computes whole layers on its rows,
+takes the greedy choice over the whole vocabulary itself, and the
+tokens are gathered over the batch axes in piece order.  The pin is the
+same protocol.  The reference serves the training placement by GSPMD's
+regathers inside its jitted prefill and decode, its batch over "data"
+alone.
 """
 
 from __future__ import annotations
@@ -53,6 +69,7 @@ from ..kernels.config import resolve_device
 from ..models.config import ModelConfig
 from ..models.sharding import with_mesh
 from ..models.transformer import decode_step, prefill
+from ..parallel.fsdp import ServeView
 from ..parallel.tensor import check_tp, greedy, split_batch
 from ..tensorstore.versioned import VersionedParamStore
 from ..tree import leaves
@@ -67,22 +84,30 @@ class GenerationResult:
 
 class ServingEngine:
     def __init__(self, cfg: ModelConfig, store: VersionedParamStore, *,
-                 max_seq: int = 256, device=None, group=None):
+                 max_seq: int = 256, device=None, group=None,
+                 specs: dict = None):
         """`device=None` means "cuda" and raises without a GPU; the
         published parameter versions must live on that device.  `group`:
         this rank's `MeshGroup`, on `device` (ValueError otherwise, and
         for a config `parallel.tensor.check_tp` refuses on its mesh);
-        None, or a mesh of one device, serves on the one device."""
+        None, or a mesh of one device, serves on the one device.
+        `specs`: the {leaf path: spec} placement of the store's pieces,
+        served gathered (module docstring; ValueError where
+        `parallel.fsdp.ServeView` refuses it); None: the resident
+        tensor-parallel layout (`parallel.tensor.serve_specs`)."""
         self.cfg = cfg
         self.store = store
         self.max_seq = max_seq
         self.device = resolve_device(device)
-        self.group = None
+        self.group = self.view = None
         if group is not None and group.mesh.size > 1:
             if group.device != self.device:
                 raise ValueError(f"rank {group.rank} is on {group.device}, "
                                  f"the engine on {self.device}")
-            check_tp(cfg, group.mesh)
+            if specs is None:
+                check_tp(cfg, group.mesh)
+            else:
+                self.view = ServeView(group, cfg, specs)
             self.group = group
         self._prefill = lambda p, b: prefill(p, cfg, b, cache_len=max_seq)
         self._decode = lambda p, t, c, n: decode_step(p, cfg, t, c, n)
@@ -113,22 +138,29 @@ class ServingEngine:
         if S + n_steps > self.max_seq:
             raise ValueError(f"prompt {S} + {n_steps} steps exceeds "
                              f"max_seq {self.max_seq}")
-        g = self.group
-        if g is not None:
+        g, view = self.group, self.view
+        if view is not None:
+            batch = view.rows(batch)
+        elif g is not None:
             batch = split_batch(batch, g)
-            tokens = batch["tokens"]
+        tokens = batch["tokens"]
+        # the logits a rank holds: vocab-sharded under tensor
+        # parallelism, the whole vocabulary under a view
+        vocab_group = None if view is not None else g
         pin, params, lsn = self._pin()
         try:
             self._check_params(params)
-            with with_mesh(g):
+            if view is not None:
+                view.check(params)
+            with with_mesh(view or g):
                 logits, cache = self._prefill(params, batch)
                 toks = []
-                tok = greedy(logits, g)[:, None]
+                tok = greedy(logits, vocab_group)[:, None]
                 n = S
                 for _ in range(n_steps):
                     toks.append(tok)
                     logits, cache = self._decode(params, tok, cache, n)
-                    tok = greedy(logits, g)[:, None]
+                    tok = greedy(logits, vocab_group)[:, None]
                     n += 1
                     if refresh_between_steps:
                         # watermark may advance; THIS transaction stays
@@ -136,7 +168,9 @@ class ServingEngine:
                         self.refresh()
             out = torch.cat(toks, dim=1) if toks else \
                 tokens.new_zeros((tokens.shape[0], 0))
-            if g is not None:
+            if view is not None:
+                out = g.all_gather(out, view.batch_axes, dim=0)
+            elif g is not None:
                 out = g.all_gather(out, "data", dim=0)
         finally:
             self.store.release(pin)

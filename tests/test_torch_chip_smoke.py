@@ -133,21 +133,60 @@ def test_jamba_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
 def test_fsdp_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     """The sharded train phase at the smoke size: Qwen1.5's smoke config
     under fsdp2d on a mesh of (1, 2), two ranks over gloo on the CPU,
-    checks (f1)-(f5); no kernel launches off the card."""
+    checks (f1)-(f5), then each rank serving what it trained from its
+    own store, gathered under the trainer's placement, checks (h1)-(h3);
+    no kernel launches off the card."""
     import numpy as np
 
     monkeypatch.setattr(smoke, "FSDP_DIR", tmp_path)
+    monkeypatch.setattr(smoke, "FSDP_SERVE", (4, 16, 4))
+    monkeypatch.setattr(smoke, "FSDP_PUBLISH_AT", 2)
     launches = smoke.fsdp_train_phase(torch, np, device="cpu",
                                       mesh_shape=(1, 2))
     assert launches == {"flash_attention": 0, "flash_attention_bwd": 0,
-                        "flash_attention_bwd fsdp4": 0}
+                        "flash_attention_bwd fsdp4": 0,
+                        "flash_attention fsdp serve": 0,
+                        "decode_attention fsdp serve": 0}
     out = capsys.readouterr().out
     assert "2 ranks on the CPU over gloo" in out
     assert "fsdp train rank 1 {'data': 0, 'model': 1}" in out
     assert "3 gathers and 3 reduce-scatters a step" in out
     assert "== launch.dryrun.residency" in out
     assert "restored bitwise onto the mesh and onto one device" in out
+    assert "fsdp serve rank 1 {'data': 0, 'model': 1}" in out
+    assert "(4x16, rows 2-3)" in out
+    assert "(h2) one snapshot a request on all 2 ranks" in out
+    assert "request 1 read the served version in all 5 calls" in out
+    assert "(h3) 15 gathers a request" in out
+    assert "every rank's KV cache (2, 2, 20, 4, 32)" in out
     assert not list(tmp_path.iterdir())         # the state removed
+
+
+def test_fallback_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """The fallback serve step at the smoke size: Mixtral-8x22B's smoke
+    config, one layer, all its experts, under its training placement on
+    a mesh of (1, 2), two ranks over gloo on the CPU drawing their pieces
+    and serving gathered; the rule checked on the published config; (s1)
+    with the unsharded routing replayed, (s2); no kernel launches off
+    the card."""
+    import numpy as np
+
+    for name, value in (("FALLBACK_SERVE", (2, 24, 4)),
+                        ("FALLBACK_PUBLISH_AT", 2),
+                        ("FALLBACK_DIR", tmp_path)):
+        monkeypatch.setattr(smoke, name, value)
+    launches = smoke.fallback_serve_phase(torch, np, device="cpu",
+                                          mesh_shape=(1, 2))
+    assert launches == {"flash_attention fallback": 0,
+                        "decode_attention fallback": 0}
+    out = capsys.readouterr().out
+    assert "mixtral-8x22b-smoke 1 of 56 layers" in out
+    assert "the fallback placement on mesh {'data': 1, 'model': 2}" in out
+    assert "fallback serve rank 1 {'data': 0, 'model': 1}" in out
+    assert "10 gathers a request" in out
+    assert "(s1) every rank's request 1 logits vs the unsharded" in out
+    assert "request 1 read v1 in all 5 calls" in out
+    assert not list(tmp_path.iterdir())         # reference and routing
 
 
 def test_plain_attention_swaps_the_layers_and_restores_them(smoke):
