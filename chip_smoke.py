@@ -41,8 +41,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    with one seed must give equal metrics and OLAP outputs;
 5. driver phase: `run_single_node` at TPC-C's cardinalities (4
    warehouses, 10 districts, 3,000 customers per district, 100,000 items,
-   3,000 orders per district) with `check_scans` (every plan result
-   asserted equal to the per-key engine oracle), batched plans and
+   3,000 orders per district), `ROUNDS` rounds, with `check_scans`
+   (every plan result asserted equal to the per-key engine oracle),
+   batched plans and
    materialized views; every `rss_scan_agg` kernel must have launched;
    prints how many launches each made at which (P, G, M, BP) and route;
 6. snapshot-read path phase: a `SingleNodeHTAP` paged mirror at the same
@@ -115,6 +116,9 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    step for T = 1) and launch shape as the wrapper reports it, and
    kernel, plain and bound times of the prefill and of the decode, the
    decode also on the chunked route (forced), beside the step route;
+   and at one rank's shape of the sharded serve phase's RWKV6-3B (f32,
+   B = 4 of 8 prompts at data 2, T = 1,024 and T = 1 from its state,
+   every head: `tp_wkv_shape`, rows `TP_WKV_ROWS`);
 10. SSM kernel phase: `ssm_scan` at Jamba's prefill shape (f32, Bb = 8,
    T = 1,024, Di = 16,384, N = 16, Jamba's own scales) and decode shape
    (T = 1, the state as h0 and output, in place), and at edge shapes
@@ -145,13 +149,13 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    decoder layers; 32 clips of 1,500 frames from seeded `enc_embeds` as
    `data.pipeline` makes them, the 4-token start-of-transcript prompt,
    124 decode steps: `SERVE_SHAPE`, `SERVE_PROMPT`), then Qwen2-VL-72B
-   (the first 8 of 80 layers at the published widths, ~19 GB:
+   (the first 4 of 80 layers at the published widths, ~12 GB:
    `SERVE_DEPTH`; 8 prompts of 1,024 tokens whose first 256 are the
    vision stub, on a 16 x 16 grid in `mrope_positions`), then
    Qwen1.5-0.5B again at one long conversation
    (1 prompt of 8,192 tokens, 64 decode steps; every decode_attention
    launch splits the cache, which (c) checks) (`repro_torch.configs`, bf16, random weights from
-   torch.Generator seed 0; Qwen at full width, 12 of 24 layers
+   torch.Generator seed 0; Qwen at full width, 6 of 24 layers
    (`SERVE_DEPTH`: the script's time; the sharded train phase serves it
    whole), RWKV at full
    width, 4 of 32 layers (`SERVE_DEPTH`: the script's time), Jamba
@@ -179,15 +183,15 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    f32 (1e-3); the bf16 ratios are printed.  Jamba adds the same
    per-launch check of `ssm_scan` (1e-4), its noise floor, and one
    full-width Mamba block in f32 (1e-3); (c) each kernel's launches per
-   request: Qwen 12 flash in prefill and 12 x 64 decode attention, RWKV
-   32 `wkv_scan` in prefill and 32 x 64 in decode, Jamba 7 `ssm_scan` in
+   request: Qwen 6 flash in prefill and 6 x 64 decode attention, RWKV
+   4 `wkv_scan` in prefill and 4 x 64 in decode, Jamba 7 `ssm_scan` in
    prefill and 7 x 64 in decode, 1 flash and 64 decode attention,
    Whisper 12 flash in prefill (4 encoder, 4 self, 4 cross) and 8 x 124
-   decode attention (4 self, 4 cross), Qwen2-VL 8 flash and 8 x 64
+   decode attention (4 self, 4 cross), Qwen2-VL 4 flash and 4 x 64
    decode attention, and the launches at the kernel rows' own shapes
    (`ATTN_ROWS`: the Whisper encoder, cross prefill and cross decode);
    the
-   decode attention launches that split: all 12 x 64 in the long run,
+   decode attention launches that split: all 6 x 64 in the long run,
    none in the others; the scans' launches by route: every prefill
    launch chunked, every decode launch a step; (d)
    request 2's snapshot LSN above request 1's, and request 1 served from
@@ -198,7 +202,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    torch.profiler for the device's busy time, idle share, peak memory
    and time by kernel kind;
 11b. sharded serve phase (`tp_serve_phase`), once per architecture of
-   `TP_ARCHS`: Qwen2-VL-72B at the
+   `TP_ARCHS` (each on its mesh, `TP_MESHES`): Qwen2-VL-72B at the
    published widths cut to 8 of 80 layers (`TP_DEPTH`, ~19 GB
    unsharded), then Jamba-1.5-Large at the published widths, one period
    (8 of 72 layers), experts 0-7 of each MoE layer as the serve phase
@@ -229,7 +233,17 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    flash, 32 decode), summed into rows `flash_attention tp4`,
    `decode_attention tp4`, `ssm_scan tp4` and `ssm_scan step tp4`;
    every rank's Mamba cache of Di / 4 channels; per rank the prefill and
-   decode times, peak memory and backend.  With two cards or more
+   decode times, peak memory and backend.  Then RWKV6-3B at the
+   published widths cut to the serve phase's 4 of 32 layers over (data
+   2, model 2): each rank holds the whole time mix and channel mix and
+   half the vocabulary (`embed` rows, `lm_head` columns), serves 4 of the
+   8 prompts, and nothing is summed after its mixes; its (s1) runs the
+   unsharded kernel path on each data rank's rows (the ranks' product
+   shapes; RWKV's bf16 logits amplify f32-level differences, see 11) at
+   3e-2 (`TP_TOL`), every `wkv_scan` launch of it held against plain
+   (1e-4); each rank's 8 chunked and 128 step `wkv_scan` launches (rows
+   `wkv_scan tp4`, `wkv_scan step tp4`), whole-headed states, no plain
+   version called in the two requests.  With two cards or more
    Qwen2-VL's runs again over NCCL, one rank a card; else it prints that
    this route was not run;
 11c. fallback serve step (`fallback_serve_phase`): Mixtral-8x22B, whose
@@ -240,7 +254,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    falls back on (fsdp2d, asserted equal leaf for leaf to the training
    placement of the cut): four ranks on the one card over gloo, each
    drawing its pieces (`init_local_params(specs=)`) and serving two
-   requests of 4 x 1,024 tokens and 4 decode steps through
+   requests of 4 x 1,024 tokens and 2 decode steps through
    `ServingEngine(group=, specs=)` (one prompt a rank, each layer's
    whole weights gathered just before it runs), v2 published under
    request 1's pin (`tp_rank`,
@@ -249,8 +263,8 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    on the same draws, teacher-forced with request 1's tokens and the
    ranks' routing replayed (the decisions it would have made otherwise
    printed), within 3e-2 of max-abs of each rank's request 1 logits;
-   (s2); each rank's 2 flash and 8 decode launches (rows `flash_attention
-   fallback`, `decode_attention fallback`), 10 gathers a request; per
+   (s2); each rank's 2 flash and 4 decode launches (rows `flash_attention
+   fallback`, `decode_attention fallback`), 6 gathers a request; per
    rank the prefill and decode times and peak memory;
 12. train phase, once per architecture of TRAIN_ARCH: Qwen1.5-0.5B at
    full width and depth, RWKV6-3B at full width, 4 of 32 layers
@@ -322,7 +336,7 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    beside the card's name and power limit.  Then (h): each rank serves
    what it trained from its own store through `ServingEngine(group=,
    specs=<the trainer's placement>)`, two requests of 8 x 1,024 tokens
-   (2 a rank) and 8 decode steps, a version published on every rank
+   (2 a rank) and 2 decode steps, a version published on every rank
    under request 1's pin (`FSDP_SERVE`, `FSDP_PUBLISH_AT`): (h1) each
    rank's request 1 logits within 3e-2 of max-abs of the unsharded
    kernel path's, teacher-forced with request 1's tokens on the state
@@ -330,11 +344,21 @@ Phases, in order (any failure exits non-zero; no phase catches its own):
    one snapshot LSN a request on
    every rank, request 1 served from its pinned version alone; (h3) the
    gathers a request (the top-level leaves and each layer once a call),
-   whole-headed caches, the peak memory; 48 flash and 384 decode
+   whole-headed caches, the peak memory; 48 flash and 96 decode
    launches a rank (rows `flash_attention fsdp serve`,
-   `decode_attention fsdp serve`) and no plain attention call.  With
-   four cards or more it runs again over NCCL, one rank a card; else it
-   prints that this route was not run;
+   `decode_attention fsdp serve`) and no plain attention call.  Then
+   (i), once those ranks have exited, the same model on the reference's
+   pod mesh cut to (pod 2, data 1, model 2) (`POD_MESH`): four ranks,
+   each a `Trainer(group=)` on its 4 of the 8 rows (the batch over
+   ("pod", "data"), the two ranks along "model" on the same rows) in
+   `POD_MICROBATCHES` microbatches, every layer's weights and moments
+   cut over ("data", "model"), FSDP_STEPS steps; checks (f1)-(f4)
+   against the same unsharded step, and after every step each rank's
+   pieces equal, bit for bit, to its pod replica's (`bits_digest`
+   gathered over "pod"); their flash launches into rows
+   `flash_attention` and `flash_attention_bwd`.  With four cards or
+   more it runs again over NCCL, one rank a card; else it prints that
+   this route was not run;
 13. launch phase: `repro_torch.launch.train` (3 steps of 4 x 64
    tokens, a save every 2 steps under build/launch_ckpt, removed after,
    publishing) and `repro_torch.launch.serve` (2 trainer steps, then 2
@@ -348,8 +372,9 @@ chunked prefill and `wkv_scan step` / `ssm_scan step` for the decode,
 each with its route's launches; the attention kernels have a row more
 for each shape of `ATTN_ROWS`, with the serve phases' launches at that
 shape, for each of `TP_ROWS`, with the sharded serve phase's
-launches summed over its ranks, `ssm_scan` two more for `TP_SSM_ROWS`
-likewise, for `FSDP_SERVE_ROWS` and `FALLBACK_ROWS` with the gathered
+launches summed over its ranks, `ssm_scan` and `wkv_scan` two more each
+for `TP_SSM_ROWS` and `TP_WKV_ROWS` likewise, for `FSDP_SERVE_ROWS` and
+`FALLBACK_ROWS` with the gathered
 serving's launches summed over its ranks, and for `FSDP_ROWS`, with the
 sharded train phase's backward launches summed over its ranks), the card
 line,
@@ -419,7 +444,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # SMs, 1.98 GHz boost clock
 SFU_PER_S = 16 * 132 * 1.98e9
 SLEEP_CYCLES = 20_000_000          # lets the host enqueue ahead of a timing
-ROUNDS = 150                       # driver rounds at TPC-C scale
+ROUNDS = 100                       # driver rounds at TPC-C scale
 PATH_TXNS = 3000                   # OLTP transactions before the read
 # TPC-C cardinalities (TPC-C spec 1.4 / 4.3.3.1; CH-benCHmark): 4
 # warehouses, 10 districts each, 3,000 customers per district, 100,000
@@ -470,16 +495,23 @@ SERVE_BF16_TOL = {"qwen1.5-0.5b": 3e-2, "rwkv6-3b": None,
 # so both are served cut, at the published widths: Qwen2-VL-72B at 8
 # layers (19.0 GB; the sharded serve phase's depth) and Qwen1.5-0.5B at
 # 12 of its 24 (the sharded train phase serves it whole), each check
-# and noise floor at that depth.
+# and noise floor at that depth; since the pod step, at 4 and 6 (below).
 # RWKV6-3B fits the card whole, and served whole (32 layers) in
 # 111.5-167.2 s; cut to 4 of its 32 identical layers at the published
 # widths so that `chip_smoke.py` with the sharded train phase stays
 # inside its time limit (it took 1,185.0 s with RWKV whole on an NVIDIA
 # H100 80GB HBM3, 700.00 W; PERF.md §6): every `wkv_scan` launch is
 # still held against the plain version, and (a), (b) run end to end in
-# f32 at that depth
+# f32 at that depth.
+# With the pod step and RWKV6-3B's sharded serve added, this script ran
+# ~1,185 s on one host (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), so
+# the serve phases run Qwen2-VL-72B at 4 of 80 layers and Qwen1.5-0.5B at
+# 6 of 24 (8 and 12 before), the gathered serving steps two decode steps
+# a request (FSDP_SERVE, FALLBACK_SERVE) and the driver 100 rounds
+# (ROUNDS, 150 before; at 100 every `rss_scan_agg` kernel still
+# dispatches, the grouped scan once, on the CPU at the same seed)
 SERVE_DEPTH = {"rwkv6-3b": 4, "jamba-1.5-large-398b": 8,
-               "qwen2-vl-72b": 8, "qwen1.5-0.5b": 12}
+               "qwen2-vl-72b": 4, "qwen1.5-0.5b": 6}
 # the architectures whose serve phase measures the bf16 model's own noise
 # floor under attention (`_attn_noise_floor`): Qwen2-VL-72B's checks read, at 32 layers,
 # 0.0218 and 0.0203 of their 3e-2 bound (NVIDIA H100 80GB HBM3, 700.00 W;
@@ -502,8 +534,22 @@ TP_B, TP_S, TP_STEPS, TP_PUBLISH_AT = 8, 1024, 16, 8
 # rank): a rank holds 4,096 of 16,384 Mamba channels, 16 of 64 query
 # and 2 of 8 KV heads, 6,144 of 24,576 d_ff and 16,384 of 65,536
 # vocabulary rows
-TP_ARCHS = ("qwen2-vl-72b", "jamba-1.5-large-398b")
-TP_DEPTH = {"qwen2-vl-72b": 8, "jamba-1.5-large-398b": 8}
+# ... then RWKV6-3B at the published widths cut to the serve phase's 4
+# of 32 layers (SERVE_DEPTH), over a mesh of (data 2, model 2): a rank
+# holds the whole time mix and channel mix (the layout cuts only the
+# vocabulary: 32,768 of 65,536 rows of `embed` and columns of `lm_head`)
+# and serves 4 of the 8 prompts, so its `wkv_scan` runs at B 4
+TP_ARCHS = ("qwen2-vl-72b", "jamba-1.5-large-398b", "rwkv6-3b")
+TP_DEPTH = {"qwen2-vl-72b": 8, "jamba-1.5-large-398b": 8, "rwkv6-3b": 4}
+TP_MESHES = {"qwen2-vl-72b": TP_MESH, "jamba-1.5-large-398b": TP_MESH,
+             "rwkv6-3b": (2, 2)}
+# RWKV6-3B's bf16 logits move by ~8% of their max-abs for a 1e-6
+# relative change of a WKV output (SERVE_BF16_TOL has no bound for it),
+# so its (s1) runs the unsharded kernel path on each data rank's rows:
+# the ranks' own product shapes, whose arithmetic the replicated mixes
+# repeat; there (s1) takes the bf16 bound, TP_TOL (the other
+# architectures take SERVE_BF16_TOL's)
+TP_TOL = 3e-2
 # Qwen2-VL-72B's bf16 noise floor under attention at the phase's own
 # depth, TP_DEPTH layers (`scripts/tp_witness.py`, which runs
 # `_attn_noise_floor` on the phase's config, batch and weights, on an
@@ -522,6 +568,9 @@ TP_ROWS = {"tp prefill": "flash_attention tp4",
 # own, their launches the ranks' "ssm_scan chunked" and "ssm_scan step"
 TP_SSM_ROWS = {"chunked": ("times_tp", "ssm_scan tp4"),
                "step": ("times_tp_step", "ssm_scan step tp4")}
+# ... and `wkv_scan` at one rank's shape of RWKV6-3B's (`tp_wkv_shape`)
+TP_WKV_ROWS = {"chunked": ("times_tp", "wkv_scan tp4"),
+               "step": ("times_tp_step", "wkv_scan step tp4")}
 # the CUDA library of each serve kernel that is not in attention.cu's
 TP_LIBRARY = {"ssm_scan": "ssm", "wkv_scan": "wkv"}
 # sharded train phase: Qwen1.5-0.5B whole (24 layers at the published
@@ -551,7 +600,7 @@ FSDP_ROWS = {"fsdp rank": "flash_attention_bwd fsdp4"}
 # rank under request 1's pin after decode step FSDP_PUBLISH_AT; check
 # (h1) holds each rank's logits against the unsharded kernel path on the
 # state the ranks saved, restored onto one device
-FSDP_SERVE, FSDP_PUBLISH_AT = (8, 1024, 8), 4
+FSDP_SERVE, FSDP_PUBLISH_AT = (8, 1024, 2), 1
 # the kernel phase's shapes of one rank of that serving (2 of the 8
 # prompts, Qwen's 16/16 heads, hd 64), rows of their own in the JSON
 # line, their launches those of the ranks' requests
@@ -560,6 +609,18 @@ FSDP_SERVE_ROWS = {"fsdp serve prefill": "flash_attention fsdp serve",
 # (a rank's prompts, its cache's slots)
 FSDP_SERVE_RANK = (FSDP_SERVE[0] // math.prod(FSDP_MESH),
                    FSDP_SERVE[1] + FSDP_SERVE[2])
+# ... then, once those ranks have exited, the same steps on the
+# reference's pod mesh ("pod", "data", "model"), cut to (pod 2, data 1,
+# model 2): the batch over ("pod", "data") (4 of the 8 rows a rank, the
+# ranks along "model" computing the same rows), every layer's weights
+# and moments cut over ("data", "model") (two ways), held against the
+# same unsharded step; the pod replicas' pieces compared after every
+# step (`pod_replicas_equal`).  A rank's 4 rows run as POD_MICROBATCHES
+# microbatches of 2 (the config's own knob, the reference's split of the
+# same batch): at 4 rows at once a rank's backward ran out of the card's
+# memory beside the other three (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md §6)
+POD_MESH, POD_MICROBATCHES = (2, 1, 2), 2
 # fallback serve step: Mixtral-8x22B, whose model shard on a mesh of
 # (data 1, model 4) (70.3 GB in bf16) passes the resident limit, served
 # gathered under the placement `launch.specs.params_specs(serving=True)`
@@ -570,7 +631,7 @@ FSDP_SERVE_RANK = (FSDP_SERVE[0] // math.prod(FSDP_MESH),
 # layer); two requests of FALLBACK_SERVE, v2 under request 1's pin after
 # decode step FALLBACK_PUBLISH_AT; (s1) at the bf16 bound
 FALLBACK_ARCH, FALLBACK_MESH, FALLBACK_DEPTH = "mixtral-8x22b", (1, 4), 1
-FALLBACK_SERVE, FALLBACK_PUBLISH_AT, FALLBACK_TOL = (4, 1024, 4), 2, 3e-2
+FALLBACK_SERVE, FALLBACK_PUBLISH_AT, FALLBACK_TOL = (4, 1024, 2), 1, 3e-2
 FALLBACK_DIR = ROOT / "build" / "fallback_serve"
 # the kernel phase's shapes of one rank of it (1 of the 4 prompts, 48/8
 # heads, hd 128, window 4,096), rows of their own
@@ -2116,7 +2177,9 @@ def wkv_kernel_phase(torch, np, flush) -> dict:
     "times": (ms, plain, bound, None, by)} of the prefill shape (the
     chunked route) and "times_step", the same of the decode shape (the
     step route); the decode is also timed on the chunked route, forced,
-    and printed beside it."""
+    and printed beside it; "times_tp" and "times_tp_step" the same at one
+    rank's shapes of the sharded serve phase's RWKV6-3B (`tp_wkv_shape`,
+    rows `TP_WKV_ROWS`)."""
     from repro_torch.kernels.wkv_scan import kernel as WK
     from repro_torch.kernels.wkv_scan.ops import wkv
 
@@ -2228,9 +2291,37 @@ def wkv_kernel_phase(torch, np, flush) -> dict:
                 _wkv_cost(8, 1, 40, 64, 4, True))[0]
     print(f"kernel wkv_scan decode: step route {res['times_step'][0]:.4f} "
           f"ms, chunked route {ms:.4f} ms", flush=True)
-    print(f"kernel wkv_scan: {len(cases) + 2} shapes within {tol} of "
+    # one rank's share of the sharded serve phase's RWKV6-3B: the prefill
+    # of its rows, then a step from its state, read and written in place
+    s0 = None
+    for key, T in (("times_tp", TP_S), ("times_tp_step", 1)):
+        B, T, H, N = tp_wkv_shape(T)
+        r, k, v, w_log, u = inputs(B, T, H, N, "float32", "rwkv6")
+        want = _wkv_plain(r, k, v, w_log, u, s0)
+        got = wkv(r, k, v, w_log, u, s0, state_out=s0)
+        label = (f"tp rank f32 B={B} T={T} H={H} N={N} s0="
+                 f"{'state_out (in place)' if s0 is not None else False} "
+                 f"[{_launch_txt(WK.wkv_scan.last_route)}]")
+        check(label, got, want, normwise=True)
+        res[key] = report(
+            label, lambda: wkv(r, k, v, w_log, u, s0, state_out=s0),
+            lambda: _wkv_plain(r, k, v, w_log, u, s0, state_out=s0),
+            _wkv_cost(B, T, H, N, 4, s0 is not None))
+        s0 = got[1]
+    print(f"kernel wkv_scan: {len(cases) + 4} shapes within {tol} of "
           f"plain, max |d| {res['max_abs_err']:.4g}", flush=True)
     return res
+
+
+def tp_wkv_shape(T: int) -> tuple:
+    """(B, T, H, N) of one rank's `wkv_scan` in the sharded serve phase
+    of RWKV6-3B: its rows of the batch over "data" (TP_MESHES), every
+    head (the layout keeps the time mix whole)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config("rwkv6-3b")
+    return (TP_B // TP_MESHES[cfg.name][0], T,
+            cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim)
 
 
 # -------------------------------------------------------------- SSM kernel
@@ -2840,25 +2931,9 @@ def _wkv_checks(torch, cfg, params, batch, toks, S: int, N: int) -> str:
     from repro_torch.models import layers
     from repro_torch.tree import tree_map
 
-    kernel_wkv, worst = layers.wkv, 0.0
-
-    def checked(r, k, v, w_log, u, s0=None, *, state_out=None):
-        nonlocal worst
-        want = _wkv_plain(r, k, v, w_log, u, s0)  # before s0 is written
-        got = kernel_wkv(r, k, v, w_log, u, s0, state_out=state_out)
-        for what, a, b in zip(("o", "S"), got, want):
-            ratio = ((a - b).abs().max() / b.abs().max()).item()
-            if not ratio <= 1e-4:
-                raise AssertionError(f"(a) wkv_scan launch, {what}: max |d|"
-                                     f" / max = {ratio:.4g} > 1e-4")
-            worst = max(worst, ratio)
-        return got
-
-    layers.wkv = checked
-    try:
+    with checked_wkv(torch) as scans:
         _teacher_forced(cfg, params, batch, toks, S, N)
-    finally:
-        layers.wkv = kernel_wkv
+    worst = scans["worst"]
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 compute_dtype="float32")
     p32 = tree_map(lambda x: x.float(), params)
@@ -2883,6 +2958,36 @@ def _wkv_checks(torch, cfg, params, batch, toks, S: int, N: int) -> str:
             f"x (1 + 1e-6 z)) {floor:.3g}; (a) per wkv_scan launch max |d| "
             f"/ max {worst:.3g} (<= 1e-4); f32 end to end (a) {a32:.3g}, "
             f"(b) {b32:.3g} (<= 1e-3)")
+
+
+@contextlib.contextmanager
+def checked_wkv(torch):
+    """Inside the block, every `layers.wkv` launch is held against the
+    plain version (`_wkv_plain`) on the same inputs, taken before s0 is
+    written: o and S within 1e-4 of their max-abs.  Yields a dict whose
+    "n" and "worst" (read after the block) are the launches checked and
+    the worst ratio."""
+    from repro_torch.models import layers
+
+    kernel_wkv, stats = layers.wkv, {"n": 0, "worst": 0.0}
+
+    def checked(r, k, v, w_log, u, s0=None, *, state_out=None):
+        want = _wkv_plain(r, k, v, w_log, u, s0)  # before s0 is written
+        got = kernel_wkv(r, k, v, w_log, u, s0, state_out=state_out)
+        for what, a, b in zip(("o", "S"), got, want):
+            ratio = ((a - b).abs().max() / b.abs().max()).item()
+            if not ratio <= 1e-4:
+                raise AssertionError(f"wkv_scan launch {stats['n']}, {what}"
+                                     f": max |d| / max = {ratio:.4g} > 1e-4")
+            stats["worst"] = max(stats["worst"], ratio)
+        stats["n"] += 1
+        return got
+
+    layers.wkv = checked
+    try:
+        yield stats
+    finally:
+        layers.wkv = kernel_wkv
 
 
 @contextlib.contextmanager
@@ -3499,10 +3604,12 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     decode logits (`toks`), gathered over "model", against the parent's
     unsharded ones at `ref_path`, with the parent's MoE routing at
     `routes_path` (None: no MoE) replayed, cut to the rank's rows, and
-    every `ssm_scan` launch held against the plain version
-    (`checked_ssm`).  Gathered, request 1 keeps its logits and routing
-    for the parent's (s1) (`gathered_s1`; of `toks` only the number of
-    decode steps is read, `ref_path` and `routes_path` are unused).
+    every `ssm_scan` and `wkv_scan` launch held against the plain version
+    (`checked_ssm`, `checked_wkv`).  The plain versions' calls over the
+    two requests are counted (`count_plain`).  Gathered, request 1 keeps
+    its logits and routing for the parent's (s1) (`gathered_s1`; of
+    `toks` only the number of decode steps is read, `ref_path` and
+    `routes_path` are unused).
     Returns what the parent checks and prints."""
     import torch
 
@@ -3549,8 +3656,10 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
         dattn.split_launches = 0
     view = eng.view
     gathers = view.gathers if view is not None else 0
-    requests, v2_before = serve_two(torch, eng, store, (v1, v2), batch, N,
-                                    publish_at, sync, keep=view is not None)
+    with count_plain() as plain:
+        requests, v2_before = serve_two(torch, eng, store, (v1, v2), batch,
+                                        N, publish_at, sync,
+                                        keep=view is not None)
     launches = {n: cuda_build.launch_count(fn)
                 for n, fn in wrappers.items()}
     launches.update({f"{n} {route}": k for n, fn in wrappers.items()
@@ -3560,7 +3669,8 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
     result = {"rank": group.rank, "coords": group.coords, "init_s": init_s,
               "requests": requests, "v2_lsn_before": v2_before,
-              "launches": launches, "split": split, "peak_gb": peak}
+              "launches": launches, "split": split, "peak_gb": peak,
+              "plain": plain["calls"]}
     if view is not None:
         n = requests[0]["tokens"].shape[0] // view.batch_size
         result.update(gathers=(view.gathers - gathers) / 2,
@@ -3578,7 +3688,8 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
     routing = None if routes_path is None else [
         c[rows].to(dev) for c in torch.load(routes_path)]
     ratios = []
-    with torch.no_grad(), with_mesh(group), checked_ssm(torch) as scans, \
+    with torch.no_grad(), with_mesh(group), checked_ssm(torch) as ssm, \
+            checked_wkv(torch) as wkvs, \
             replay_routing(torch, routing) as flips:
         lg, cache = prefill(v1, cfg, b, cache_len=S + N)
         for k in range(N + 1):
@@ -3589,7 +3700,8 @@ def tp_rank(group, cfg, batch: dict, toks, ref_path: str,
                 raise AssertionError(f"rank {group.rank}: non-finite logits")
             if k < N:
                 lg, cache = decode_step(v1, cfg, t[:, k:k + 1], cache, S + k)
-    result.update(s1=max(ratios), flips=flips["differ"], scans=scans,
+    result.update(s1=max(ratios), flips=flips["differ"],
+                  scans={"ssm_scan": ssm, "wkv_scan": wkvs},
                   cache=[{k: tuple(x.shape) for k, x in entry.items()}
                          for entry in cache["blocks"]])
     return result
@@ -3635,19 +3747,21 @@ def _how(backend: str, n: int, on_card: bool) -> str:
 
 
 def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
-                   mesh_shape: tuple = TP_MESH,
+                   mesh_shape: tuple = None,
                    arch: str = TP_ARCH) -> dict:
     """The sharded serve phase (see the module docstring): `arch` cut to
     TP_DEPTH layers at the published widths (a MoE model holding
-    SERVE_EXPERT_CARDS' share of the experts) on a mesh of `mesh_shape`,
-    its ranks spawned on `backend`, all on the one `device` (gloo: the
-    ranks share the card) or one card a rank (nccl); the unsharded
-    kernel path's teacher-forced logits (and a MoE model's routing)
-    computed here first, on the same weights and tokens, and freed
-    before the ranks start.  Checks (s1) and (s2), the launches in
-    every rank, a Mamba model's cache and scan launches; returns the
-    launches of the per-rank shape rows (TP_ROWS, and TP_SSM_ROWS for a
-    Mamba model), summed over the ranks."""
+    SERVE_EXPERT_CARDS' share of the experts) on a mesh of `mesh_shape`
+    (None: the architecture's, TP_MESHES), its ranks spawned on
+    `backend`, all on the one `device` (gloo: the ranks share the card)
+    or one card a rank (nccl); the unsharded kernel path's teacher-forced
+    logits (and a MoE model's routing) computed here first, on the same
+    weights and tokens (for RWKV, on each data rank's rows in turn), and
+    freed before the ranks start.  Checks (s1) and (s2),
+    the launches in every rank and no plain version called, a scan
+    model's caches and scan launches; returns the launches of the
+    per-rank shape rows (TP_ROWS for an attention model, TP_SSM_ROWS for
+    a Mamba model, TP_WKV_ROWS for RWKV), summed over the ranks."""
     import tempfile
 
     from repro_torch.configs import get_config, smoke_variant
@@ -3662,7 +3776,8 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
         if arch in SERVE_EXPERT_CARDS else None
     moe = any(s.mlp == "moe" for s in cfg.pattern)
     mamba = "ssm_scan" in SERVE_KERNELS[arch]
-    mesh = Mesh(mesh_shape, ("data", "model"))
+    rwkv = "wkv_scan" in SERVE_KERNELS[arch]
+    mesh = Mesh(mesh_shape or TP_MESHES[arch], ("data", "model"))
     check_tp(cfg, mesh)
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -3676,11 +3791,21 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     g.manual_seed(0)
     params = init_params(cfg, g, dev, experts=experts)
     with record_routing() if moe else contextlib.nullcontext() as calls:
-        want = _teacher_forced(cfg, params, batch, toks, S, N)
+        if rwkv:                            # (its batch is tokens alone)
+            n = B // mesh.shape["data"]
+            want = [torch.cat(parts) for parts in zip(*(_teacher_forced(
+                cfg, params, {k: x[i:i + n] for k, x in batch.items()},
+                toks[i:i + n], S, N) for i in range(0, B, n)))]
+        else:
+            want = _teacher_forced(cfg, params, batch, toks, S, N)
     if mamba:
         floor = (f"Jamba's bf16 noise floor at {cfg.n_layers} layers "
                  f"{_ssm_noise_floor(torch, cfg, params, batch, S, calls):.4g}"
                  f" (measured here, as the serve phase measures it)")
+    elif rwkv:
+        floor = (f"the unsharded kernel path run on each data rank's "
+                 f"{B // mesh.shape['data']} rows (RWKV6-3B's bf16 logits "
+                 f"move ~8% of max-abs for a 1e-6 change of a WKV output)")
     else:
         floor = (f"Qwen2-VL's bf16 noise floor under attention at "
                  f"{TP_DEPTH[arch]} layers {TP_NOISE_FLOOR} "
@@ -3725,9 +3850,11 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
               f"{ {k: v for e in r['cache'] for k, v in e.items()} }; "
               f"launches {r['launches']} ({r['split']} decode "
               f"launches split); backend {backend} "
-              f"({how})", flush=True)
+              f"({how}); {card_line() if on_card else 'the CPU'}",
+              flush=True)
     # (s1) each rank's logits against the unsharded kernel path
-    worst, tol = max(r["s1"] for r in out), SERVE_BF16_TOL[arch]
+    worst = max(r["s1"] for r in out)
+    tol = TP_TOL if rwkv else SERVE_BF16_TOL[arch]
     if tol is not None and not worst <= tol:
         raise AssertionError(f"(s1) sharded vs unsharded max |d| / max "
                              f"|logit| {[r['s1'] for r in out]} > {tol}")
@@ -3738,13 +3865,37 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     per = {}
     for name, (pre, dec) in _serve_launches(cfg, arch, N).items():
         per[name] = 2 * (pre + dec)
-        if name in SSM_TPU:
+        if name in (*SSM_TPU, *WKV_TPU):
             per.update({f"{name} chunked": 2 * pre, f"{name} step": 2 * dec})
     for r in out:
-        if on_card and r["launches"] != per:
+        if on_card and (r["launches"] != per or r["plain"]):
             raise AssertionError(f"rank {r['rank']} launches "
-                                 f"{r['launches']} != {per}")
+                                 f"{r['launches']} != {per}, "
+                                 f"{r['plain']} plain version calls")
     extra = ""
+    if rwkv:
+        # every rank's recurrent state whole-headed over its rows; every
+        # scan launch of its (s1) run held against plain
+        rows = B // mesh.shape["data"]
+        H, Nh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        want_cache = {"shift": (cfg.n_periods, rows, cfg.d_model),
+                      "wkv": (cfg.n_periods, rows, H, Nh, Nh),
+                      "cmix_shift": (cfg.n_periods, rows, cfg.d_model)}
+        n_scan = _n_layers(cfg, mixer="rwkv") * (N + 1)
+        for r in out:
+            if any(c != want_cache for c in r["cache"]):
+                raise AssertionError(f"rank {r['rank']} RWKV cache "
+                                     f"{r['cache']} != {want_cache}")
+            if r["scans"]["wkv_scan"]["n"] != n_scan:
+                raise AssertionError(
+                    f"rank {r['rank']} checked "
+                    f"{r['scans']['wkv_scan']['n']} wkv_scan launches, "
+                    f"not {n_scan}")
+        extra += (f"; every rank's RWKV state {want_cache} (all {H} "
+                  f"heads); (s1)'s {n_scan} wkv_scan launches a rank held "
+                  f"against plain, max |d| / max "
+                  f"{max(r['scans']['wkv_scan']['worst'] for r in out):.3g}"
+                  f" (<= 1e-4)")
     if mamba:
         # every rank's Mamba cache holds its share of d_inner; every
         # scan launch of its (s1) run held against plain
@@ -3760,14 +3911,16 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
             if any(c != want_cache for c in caches):
                 raise AssertionError(f"rank {r['rank']} Mamba cache "
                                      f"{caches} != {want_cache}")
-            if r["scans"]["n"] != n_scan:
-                raise AssertionError(f"rank {r['rank']} checked "
-                                     f"{r['scans']['n']} ssm_scan launches, "
-                                     f"not {n_scan}")
+            if r["scans"]["ssm_scan"]["n"] != n_scan:
+                raise AssertionError(
+                    f"rank {r['rank']} checked "
+                    f"{r['scans']['ssm_scan']['n']} ssm_scan launches, not "
+                    f"{n_scan}")
         extra += (f"; every rank's Mamba cache {want_cache} (Di {di} of "
                   f"{cfg.mamba_d_inner}); (s1)'s {n_scan} ssm_scan launches "
                   f"a rank held against plain, max |d| / max "
-                  f"{max(r['scans']['worst'] for r in out):.3g} (<= 1e-4)")
+                  f"{max(r['scans']['ssm_scan']['worst'] for r in out):.3g}"
+                  f" (<= 1e-4)")
     if moe:
         n_dec = (B // mesh.shape["data"]) * (S + N) * cfg.top_k \
             * _n_layers(cfg, mlp="moe")
@@ -3780,13 +3933,18 @@ def tp_serve_phase(torch, np, device: str = "cuda", backend: str = "gloo",
           f"snapshot a request on all {mesh.size} ranks: lsn {lsn1} "
           f"then {lsn2}, request 1 read v1 in all {N + 1} calls with "
           f"v2 published after step {TP_PUBLISH_AT}; every rank's tokens "
-          f"equal; launches a rank over both requests {per}{extra}",
-          flush=True)
-    rows = {TP_ROWS["tp prefill"]: "flash_attention",
-            TP_ROWS["tp decode"]: "decode_attention"}
-    if mamba:
-        rows.update({row: f"ssm_scan {route}"
-                     for route, (_, row) in TP_SSM_ROWS.items()})
+          f"equal; launches a rank over both requests {per}, "
+          f"{sum(r['plain'] for r in out)} plain version calls{extra}; "
+          f"{card_line() if on_card else 'the CPU'}", flush=True)
+    rows = {}
+    if "flash_attention" in per:
+        rows = {TP_ROWS["tp prefill"]: "flash_attention",
+                TP_ROWS["tp decode"]: "decode_attention"}
+    for scan, scan_rows in (("ssm_scan", TP_SSM_ROWS),
+                            ("wkv_scan", TP_WKV_ROWS)):
+        if scan in per:
+            rows.update({row: f"{scan} {route}"
+                         for route, (_, row) in scan_rows.items()})
     return {row: sum(r["launches"][name] for r in out)
             for row, name in rows.items()}
 
@@ -3930,11 +4088,13 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
     request 1's pin after decode step FSDP_PUBLISH_AT, request 1 keeping
     its logits for the parent's (h1), `gathered_s1`; the attention
     kernels' launches, the plain versions' calls, the gathers and the
-    peak memory counted over both).  Returns what the parent checks and
+    peak memory counted over both).  On a mesh with a "pod" axis, after
+    each step (outside its time), whether the rank's pieces equal its pod
+    replicas' (`pod_replicas_equal`).  `ckpt_dir` None skips (f5),
+    `serve` None skips (h).  Returns what the parent checks and
     prints."""
     import torch
 
-    from repro_torch.checkpoint import manager as ckpt
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.launch.dryrun import residency
@@ -3956,7 +4116,7 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
     store = VersionedParamStore(slots=2)
     tr = Trainer(cfg, batch=B, seq_len=S, seed=0, store=store, device=dev,
                  group=group)
-    layout, specs = tr.layout, tr.layout.specs.state
+    layout = tr.layout
     sync()
     init_s = time.perf_counter() - t0
 
@@ -3972,7 +4132,7 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
 
     # (f2) step 1's gradients, gathered leaf by leaf
     want = torch.load(ref_path, mmap=True)
-    _, grads = tr.step_fn.value_and_grad(tr.state["params"], tr.batch_at(0))
+    grads = _step_grads(tr, 0)
     f2, f32 = {}, {}
     ratio = lambda a, b: ((a - b).abs().max() / b.abs().max()
                           .clamp_min(1e-30)).item()
@@ -3994,20 +4154,24 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
     gathers, scatters = layout.gathers, layout.reduce_scatters
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
-    ends = []
+    starts, ends, replicas = [], [], []
+    pod = "pod" in group.mesh.axis_names
 
     def after(i, metrics):
         sync()
         ends.append(time.perf_counter())
+        if pod:
+            replicas.append(pod_replicas_equal(torch, group, tr.state))
+        starts.append(time.perf_counter())
 
     sync()
-    start = time.perf_counter()
+    starts.append(time.perf_counter())
     log = tr.run(n_steps, after_step=after)
     launches = {n: cuda_build.launch_count(fn) for n, fn in wrappers.items()}
     gathers = (layout.gathers - gathers) / n_steps
     scatters = (layout.reduce_scatters - scatters) / n_steps
     peak = torch.cuda.max_memory_allocated(dev) / 1e9 if on_card else None
-    step_ms = [(b - a) * 1e3 for a, b in zip([start] + ends, ends)]
+    step_ms = [(b - a) * 1e3 for a, b in zip(starts, ends)]
     store.refresh()
     f4 = len(v1) == len(leaves(pinned)) and all(
         torch.equal(a, b) for a, b in zip(leaves(pinned), v1))
@@ -4015,30 +4179,19 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
     store.release(pin)
     del v1, pinned
 
-    # (f5) saved under the group, restored onto the mesh and onto one
-    # device
-    t0 = time.perf_counter()
-    ckpt.save(tr.state, n_steps, ckpt_dir, group=group, specs=specs)
-    save_s = time.perf_counter() - t0
-    mine = ckpt.restore(ckpt_dir, tr.state, device=dev, group=group,
-                        specs=specs)
-    f5_pieces = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
-                    zip(leaves(mine), leaves(tr.state)))
-    del mine
-    one = None
-    if group.rank == 0:
-        template = dict(layout.meta, step=torch.zeros(
-            (), dtype=torch.int32, device="meta"))
-        one = dict(leaves_with_path(ckpt.restore(ckpt_dir, template,
-                                                 device=dev)))
-    f5_whole = True
-    for path, x in leaves_with_path(tr.state):
-        whole = gather_piece(x, specs[path_key(path)], group)
-        if one is not None:
-            got = one.pop(path)
-            f5_whole &= got.dtype == whole.dtype and torch.equal(got,
-                                                                 whole)
-    del one
+    result = {"rank": group.rank, "coords": group.coords, "init_s": init_s,
+              "losses": [m["loss"] for m in log],
+              "grad_norm": log[0]["grad_norm"], "step_ms": step_ms,
+              "peak_gb": peak, "gathers": gathers,
+              "reduce_scatters": scatters, "launches": launches, "f2": f2,
+              "f32": f32, "have": have,
+              "plan": {k: plan[k] for k in have}, "f4": f4, "lsns": lsns,
+              "replicas": replicas, "f5": None, "serve": None}
+    if ckpt_dir is not None:
+        result.update(_fsdp_save_restore(torch, group, tr, ckpt_dir,
+                                         n_steps))
+    if serve is None:
+        return result
 
     # (h) serve what the ranks trained: the newest version (the state
     # just saved), a layer gathered at a time under the trainer's
@@ -4059,23 +4212,105 @@ def fsdp_rank(group, cfg, B: int, S: int, ref_path: str, ckpt_dir: str,
             torch, eng, store, (served, dict(served, embed=-served["embed"])),
             serve, N, FSDP_PUBLISH_AT, sync, keep=True)
     n = serve["tokens"].shape[0] // eng.view.batch_size
-    h = {"requests": requests, "v2_lsn_before": v2_before,
-         "launches": {n: cuda_build.launch_count(fn)
-                      for n, fn in wrappers.items()},
-         "plain": plain["calls"],
-         "gathers": (eng.view.gathers - served_gathers) / 2,
-         "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9 if on_card
-                     else None),
-         "rows": (eng.view.batch_rank * n, (eng.view.batch_rank + 1) * n),
-         "cache": requests[0]["cache"]}
-    return {"rank": group.rank, "coords": group.coords, "init_s": init_s,
-            "losses": [m["loss"] for m in log],
-            "grad_norm": log[0]["grad_norm"], "step_ms": step_ms,
-            "peak_gb": peak, "gathers": gathers, "reduce_scatters": scatters,
-            "launches": launches, "f2": f2, "f32": f32, "have": have,
-            "plan": {k: plan[k] for k in have}, "f4": f4, "lsns": lsns,
-            "f5": (f5_pieces, f5_whole if group.rank == 0 else None),
-            "save_s": save_s, "serve": h}
+    result["serve"] = {
+        "requests": requests, "v2_lsn_before": v2_before,
+        "launches": {n: cuda_build.launch_count(fn)
+                     for n, fn in wrappers.items()},
+        "plain": plain["calls"],
+        "gathers": (eng.view.gathers - served_gathers) / 2,
+        "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9 if on_card
+                    else None),
+        "rows": (eng.view.batch_rank * n, (eng.view.batch_rank + 1) * n),
+        "cache": requests[0]["cache"]}
+    return result
+
+
+def _step_grads(tr, step: int):
+    """The rank's f32 gradient pieces of `tr`'s batch of `step` as its
+    train step takes them: the mean of its microbatches' (`train.step`)."""
+    from repro_torch.train.step import _split_microbatches
+    from repro_torch.tree import tree_map
+
+    A = max(tr.cfg.microbatches, 1)
+    batch = tr.batch_at(step)
+    if A == 1:
+        return tr.step_fn.value_and_grad(tr.state["params"], batch)[1]
+    blocks = _split_microbatches(batch, A)
+    total = None
+    for i in range(A):
+        g = tr.step_fn.value_and_grad(tr.state["params"],
+                                      {k: x[i] for k, x in blocks.items()})[1]
+        total = g if total is None else tree_map(lambda a, b: a + b, total, g)
+        del g
+    return tree_map(lambda x: x / A, total)
+
+
+def _fsdp_save_restore(torch, group, tr, ckpt_dir: str, step: int) -> dict:
+    """(f5) of `fsdp_rank`: the trainer's state saved under the group as
+    `step` into `ckpt_dir`, restored onto the mesh (the rank's pieces,
+    bitwise) and, on rank 0, onto its one device (bitwise against every
+    gathered leaf): {"f5": (pieces, whole or None off rank 0), "save_s"}."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.parallel.tensor import gather_piece
+    from repro_torch.tree import leaves, leaves_with_path, path_key
+
+    dev, specs = group.device, tr.layout.specs.state
+    t0 = time.perf_counter()
+    ckpt.save(tr.state, step, ckpt_dir, group=group, specs=specs)
+    save_s = time.perf_counter() - t0
+    mine = ckpt.restore(ckpt_dir, tr.state, device=dev, group=group,
+                        specs=specs)
+    f5_pieces = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+                    zip(leaves(mine), leaves(tr.state)))
+    del mine
+    one = None
+    if group.rank == 0:
+        template = dict(tr.layout.meta, step=torch.zeros(
+            (), dtype=torch.int32, device="meta"))
+        one = dict(leaves_with_path(ckpt.restore(ckpt_dir, template,
+                                                 device=dev)))
+    f5_whole = True
+    for path, x in leaves_with_path(tr.state):
+        whole = gather_piece(x, specs[path_key(path)], group)
+        if one is not None:
+            got = one.pop(path)
+            f5_whole &= got.dtype == whole.dtype and torch.equal(got,
+                                                                 whole)
+    return {"f5": (f5_pieces, f5_whole if group.rank == 0 else None),
+            "save_s": save_s}
+
+
+def bits_digest(torch, x, block: int = 1 << 16, rows: int = 256):
+    """A digest of `x`'s bits: its words as integers (int8/16/32, by its
+    element size; 8-byte elements as two int32 words), zero-padded to
+    blocks of `block`, and per block their sum and the sum of each times
+    its place in the block (1 to `block`), as int64 [blocks, 2].  Leaves
+    equal bit for bit give equal digests; one element that differs
+    changes its block's first sum.  No sum overflows: a word is below
+    2^31 in magnitude, a block's weighted sum of 2^16 terms below 2^63."""
+    words = {1: torch.int8, 2: torch.int16}.get(x.element_size(),
+                                                 torch.int32)
+    w = x.detach().contiguous().reshape(-1).view(words)
+    padded = w.new_zeros(-(-w.numel() // block) * block)
+    padded[:w.numel()] = w
+    w = padded.view(-1, block)
+    place = torch.arange(1, block + 1, dtype=torch.int64, device=x.device)
+    out = []
+    for i in range(0, w.shape[0], rows):
+        c = w[i:i + rows].to(torch.int64)
+        out.append(torch.stack([c.sum(1), (c * place).sum(1)], 1))
+    return torch.cat(out)
+
+
+def pod_replicas_equal(torch, group, state) -> bool:
+    """Whether every leaf of the rank's `state` equals, bit for bit, the
+    same leaf on each rank that differs from it on "pod" alone: their
+    digests (`bits_digest`) gathered over "pod" equal."""
+    from repro_torch.tree import leaves
+
+    mine = torch.cat([bits_digest(torch, x) for x in leaves(state)])
+    every = group.all_gather(mine[None], ("pod",))
+    return all(torch.equal(row, mine) for row in every)
 
 
 def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
@@ -4092,10 +4327,14 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
     (`fsdp_rank`), (h1) its logits against the unsharded kernel path's on
     the state the ranks saved, restored here onto one device, (h2) one
     snapshot a request on every rank, (h3) its gathers a request and peak
-    memory printed; no plain attention called.  Returns the ranks' flash
-    forward and backward launches, summed, under the kernels line's keys
-    and FSDP_ROWS' row, and their serving launches under
-    FSDP_SERVE_ROWS'."""
+    memory printed; no plain attention called.  Then (i), once those
+    ranks have exited: FSDP_STEPS steps on the reference's pod mesh
+    POD_MESH (`fsdp_rank` without (f5) and (h)), checks (f1)-(f4)
+    against the same unsharded step and the pod replicas' pieces equal
+    after every step.  Returns the ranks' flash forward and backward
+    launches, summed over both meshes, under the kernels line's keys, the
+    (data, model) mesh's backward launches under FSDP_ROWS' row, and
+    their serving launches under FSDP_SERVE_ROWS'."""
     import tempfile
 
     from repro_torch.checkpoint import manager as ckpt
@@ -4156,6 +4395,13 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
                                       {k: x.cpu() for k, x in serve.items()},
                                       sN))
         ranks_s = time.perf_counter() - t0
+        how = _how(backend, mesh.size, on_card)
+        run = (f"{cfg.name} {cfg.n_layers} layers, {cfg.train_sharding}, "
+               f"mesh {mesh.shape}, {backend}, {TRAIN_B}x{TRAIN_S} tokens a "
+               f"step")
+        print(f"fsdp train: {run}: unsharded reference {ref_s:.1f} s, ranks "
+              f"{ranks_s:.1f} s ({how}); {card}", flush=True)
+        _train_rank_checks(out, ref, cfg, "fsdp train", run, card, on_card)
         # (h1)'s unsharded kernel path: the saved state on one device
         t0 = time.perf_counter()
         hs = [dict(r["serve"], rank=r["rank"]) for r in out]
@@ -4163,84 +4409,61 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
         state = ckpt.restore(ckpt_dir, {
             "params": init_params(cfg, None, "meta")}, device=dev)
         h1, _ = gathered_s1(torch, cfg, state["params"], serve, hs)
-        del state
+        del state, serve
         if on_card:
             torch.cuda.empty_cache()
         h1_s = time.perf_counter() - t0
-    how = _how(backend, mesh.size, on_card)
-    run = (f"{cfg.name} {cfg.n_layers} layers, {cfg.train_sharding}, mesh "
-           f"{mesh.shape}, {backend}, {TRAIN_B}x{TRAIN_S} tokens a step")
-    print(f"fsdp train: {run}: unsharded reference {ref_s:.1f} s, ranks "
-          f"{ranks_s:.1f} s ({how}); {card}", flush=True)
-    for r in out:
-        peak = (f"{r['peak_gb']:.2f} GB peak" if r["peak_gb"] is not None
-                else "peak not measured (CPU)")
-        print(f"fsdp train rank {r['rank']} {r['coords']}: init "
-              f"{r['init_s']:.1f} s; steps "
-              f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms; {peak}; "
-              f"{r['gathers']:g} gathers and {r['reduce_scatters']:g} "
-              f"reduce-scatters a step; launches {r['launches']} over "
-              f"{FSDP_STEPS} steps; resident params {r['have']['params']} "
-              f"B, opt {r['have']['opt']} B; save {r['save_s']:.1f} s; "
-              f"backend {backend}; {card}", flush=True)
-    # (f1) step 1's loss, (f2) its gradients and grad norm
-    for r in out:
-        d = abs(r["losses"][0] - ref["loss"]) / abs(ref["loss"])
-        if not d <= FSDP_TOL:
-            raise AssertionError(f"(f1) rank {r['rank']} loss "
-                                 f"{r['losses'][0]} vs {ref['loss']}")
-        d = abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
-        worst = max(r["f2"].values())
-        if not (d <= FSDP_TOL and worst <= FSDP_TOL):
-            raise AssertionError(f"(f2) rank {r['rank']} grad_norm "
-                                 f"{r['grad_norm']} vs {ref['grad_norm']}, "
-                                 f"worst leaf {worst:.4g}")
-    # (f3) to the byte, (f4) bitwise, (f5) bitwise
-    for r in out:
-        if r["have"] != r["plan"]:
-            raise AssertionError(f"(f3) rank {r['rank']} holds {r['have']},"
-                                 f" the dry-run plans {r['plan']}")
-        if not r["f4"]:
-            raise AssertionError(f"(f4) rank {r['rank']}: the pinned v1 "
-                                 "read changed")
-        if not r["f5"][0] or r["f5"][1] is False:
-            raise AssertionError(f"(f5) rank {r['rank']}: restored "
-                                 f"{r['f5']}")
-    if len({r["lsns"] for r in out}) != 1:
-        raise AssertionError(f"store lsns by rank {[r['lsns'] for r in out]}")
+        _serve_rank_checks(hs, out, h1, h1_s, (lsn1, lsn2), cfg, mesh, run,
+                           backend, card, on_card)
+        # (i) the same steps on the pod mesh, against the same reference
+        pod = Mesh(POD_MESH, ("pod", "data", "model"))
+        pod_cfg = cfg.with_overrides(microbatches=POD_MICROBATCHES)
+        check_train(pod_cfg, pod)
+        t0 = time.perf_counter()
+        pod_out = spawn(fsdp_rank, pod, backend=backend,
+                        devices=_rank_devices(dev, backend, pod.size),
+                        tmpdir=tmp, args=(pod_cfg, TRAIN_B, TRAIN_S,
+                                          ref_path, None, FSDP_STEPS, None,
+                                          0))
+        pod_s = time.perf_counter() - t0
+    # (i) the pod mesh: (f1)-(f4) against the same unsharded step, the pod
+    # replicas' pieces equal after every step
+    rows = TRAIN_B // math.prod(pod.shape[a] for a in ("pod", "data"))
+    pod_run = (f"{cfg.name} {cfg.n_layers} layers, {cfg.train_sharding}, "
+               f"pod mesh {pod.shape}, {backend}, {TRAIN_B}x{TRAIN_S} "
+               f"tokens a step, {rows} rows a rank in {POD_MICROBATCHES} "
+               f"microbatches")
+    print(f"pod train: {pod_run}: ranks {pod_s:.1f} s "
+          f"({_how(backend, pod.size, on_card)}); {card}", flush=True)
+    _train_rank_checks(pod_out, ref, pod_cfg, "pod train", pod_run, card,
+                       on_card)
+    for r in pod_out:
+        if r["replicas"] != [True] * FSDP_STEPS:
+            raise AssertionError(f"(i) rank {r['rank']}: pod replicas "
+                                 f"equal after each step {r['replicas']}")
+    print(f"pod train checks ({pod_run}): every rank's pieces equal, bit "
+          f"for bit, to its pod replica's after each of {FSDP_STEPS} "
+          f"steps (`pod_replicas_equal`); {card}", flush=True)
+    fwd = sum(r["launches"]["flash_attention"] for r in out + pod_out)
+    bwd = sum(r["launches"]["flash_attention_bwd"] for r in out)
+    pod_bwd = sum(r["launches"]["flash_attention_bwd"] for r in pod_out)
+    return {"flash_attention": fwd, "flash_attention_bwd": bwd + pod_bwd,
+            FSDP_ROWS["fsdp rank"]: bwd,
+            FSDP_SERVE_ROWS["fsdp serve prefill"]:
+            sum(h["launches"]["flash_attention"] for h in hs),
+            FSDP_SERVE_ROWS["fsdp serve decode"]:
+            sum(h["launches"]["decode_attention"] for h in hs)}
+
+
+def _serve_rank_checks(hs, out, h1, h1_s, lsns, cfg, mesh, run: str,
+                       backend: str, card: str, on_card: bool) -> None:
+    """The sharded train phase's checks of (h), each rank's line printed
+    first: (h1) every rank's request 1 logits against the unsharded
+    kernel path (`h1`, their ratios), (h2) one snapshot a request (its
+    LSNs `lsns`, `check_s2`), (h3) whole-headed caches, a gather of each
+    layer a call, the launches and no plain attention call."""
+    sB, sS, sN = FSDP_SERVE
     layers = cfg.n_layers
-    for r in out:
-        if on_card and r["launches"] != {"flash_attention": layers
-                                         * FSDP_STEPS,
-                                         "flash_attention_bwd": layers
-                                         * FSDP_STEPS}:
-            raise AssertionError(f"rank {r['rank']} launches "
-                                 f"{r['launches']}")
-        if cfg.remat != "none" and r["gathers"] != 2 * cfg.n_periods + 1:
-            raise AssertionError(f"rank {r['rank']}: {r['gathers']} gathers"
-                                 " a step")
-    worst = max(max(r["f2"].values()) for r in out)
-    leaf = max(out[0]["f2"], key=out[0]["f2"].get)
-    pinned, visible = out[0]["lsns"]
-    print(f"fsdp train checks ({run}): (f1) step 1's loss on every rank "
-          f"{[round(r['losses'][0], 5) for r in out]} vs unsharded "
-          f"{ref['loss']:.5f} (<= {FSDP_TOL} relative); (f2) every gathered "
-          f"gradient leaf within {worst:.4g} of its max-abs (the worst, "
-          f"{leaf}: against the same weights' f32 gradient the unsharded "
-          f"bf16 step reads {ref['floor'][leaf]:.4g}, the sharded "
-          f"{out[0]['f32'][leaf]:.4g}; worst over the leaves "
-          f"{max(ref['floor'].values()):.4g} and "
-          f"{max(out[0]['f32'].values()):.4g}), grad_norm "
-          f"{[round(r['grad_norm'], 5) for r in out]} vs "
-          f"{ref['grad_norm']:.5f} (<= {FSDP_TOL}); (f3) resident params "
-          f"{out[0]['plan']['params']} B and opt {out[0]['plan']['opt']} B "
-          f"a rank == launch.dryrun.residency; (f4) the reader pinned at "
-          f"lsn {pinned} read v1 bitwise after {FSDP_STEPS} publishes "
-          f"(visible lsn {visible}) on every rank; (f5) the state saved "
-          f"after step {FSDP_STEPS} restored bitwise onto the mesh and onto "
-          f"one device; losses {[round(x, 5) for x in out[0]['losses']]}; "
-          f"{card}", flush=True)
-    # (h) what the ranks trained, served gathered from their stores
     for h in hs:
         req = h["requests"]
         peak = (f"{h['peak_gb']:.2f} GB peak" if h["peak_gb"] is not None
@@ -4253,13 +4476,10 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
               f"{req[1]['decode_ms']:.2f} ms a step; {h['gathers']:g} "
               f"gathers a request; {peak}; launches {h['launches']}; "
               f"backend {backend}; {card}", flush=True)
-    # (h1) each rank's rows against the unsharded kernel path, (h2) one
-    # snapshot a request on every rank (`check_s2`, above)
     tol = SERVE_BF16_TOL[FSDP_ARCH]
     if not max(h1) <= tol:
         raise AssertionError(f"(h1) gathered vs unsharded max |d| / max "
                              f"|logit| {h1} > {tol}")
-    # (h3) whole-headed caches, a gather of each layer a call, launches
     per = {"flash_attention": 2 * layers, "decode_attention": 2 * layers * sN}
     kv = (cfg.n_periods, sB // mesh.size, sS + sN, cfg.n_kv_heads,
           cfg.head_dim)
@@ -4281,22 +4501,96 @@ def fsdp_train_phase(torch, np, device: str = "cuda", backend: str = "gloo",
           f"max |d| / max |logit| {max(h1):.4g} (<= {tol}; by rank "
           f"{[round(x, 6) for x in h1]}; no partial sums); (h2) one "
           f"snapshot a request on all {mesh.size} ranks: "
-          f"lsn {lsn1} then {lsn2}, request 1 read the served version in "
-          f"all {sN + 1} calls with another published after step "
+          f"lsn {lsns[0]} then {lsns[1]}, request 1 read the served version "
+          f"in all {sN + 1} calls with another published after step "
           f"{FSDP_PUBLISH_AT}, every rank's tokens equal; (h3) "
           f"{hs[0]['gathers']:g} gathers a request (the top-level leaves and "
           f"each of {layers} layers once a call), every rank's KV cache "
           f"{kv}; launches a rank over both requests {per}, "
           f"{sum(h['plain'] for h in hs)} plain attention calls; {card}",
           flush=True)
-    fwd = sum(r["launches"]["flash_attention"] for r in out)
-    bwd = sum(r["launches"]["flash_attention_bwd"] for r in out)
-    return {"flash_attention": fwd, "flash_attention_bwd": bwd,
-            FSDP_ROWS["fsdp rank"]: bwd,
-            FSDP_SERVE_ROWS["fsdp serve prefill"]:
-            sum(h["launches"]["flash_attention"] for h in hs),
-            FSDP_SERVE_ROWS["fsdp serve decode"]:
-            sum(h["launches"]["decode_attention"] for h in hs)}
+
+
+def _train_rank_checks(out, ref, cfg, label: str, run: str, card: str,
+                       on_card: bool) -> None:
+    """The sharded train phase's checks of its ranks' `fsdp_rank`
+    results against the unsharded step `ref`, each rank's line printed
+    first: (f1) step 1's loss, (f2) its gathered gradients and grad norm,
+    all within FSDP_TOL; (f3) the resident bytes to the byte; (f4) the
+    pinned v1 bitwise; (f5), where the ranks saved, bitwise; one store
+    LSN pair on every rank; each rank's flash launches and gathers a
+    step (a microbatch of `cfg.microbatches` each: its forward and
+    backward launches, its gathers)."""
+    for r in out:
+        peak = (f"{r['peak_gb']:.2f} GB peak" if r["peak_gb"] is not None
+                else "peak not measured (CPU)")
+        save = "" if r["f5"] is None else f"save {r['save_s']:.1f} s; "
+        print(f"{label} rank {r['rank']} {r['coords']}: init "
+              f"{r['init_s']:.1f} s; steps "
+              f"{', '.join(f'{t:.1f}' for t in r['step_ms'])} ms; {peak}; "
+              f"{r['gathers']:g} gathers and {r['reduce_scatters']:g} "
+              f"reduce-scatters a step; launches {r['launches']} over "
+              f"{FSDP_STEPS} steps; resident params {r['have']['params']} "
+              f"B, opt {r['have']['opt']} B; {save}{card}", flush=True)
+    # (f1) step 1's loss, (f2) its gradients and grad norm
+    for r in out:
+        d = abs(r["losses"][0] - ref["loss"]) / abs(ref["loss"])
+        if not d <= FSDP_TOL:
+            raise AssertionError(f"(f1) rank {r['rank']} loss "
+                                 f"{r['losses'][0]} vs {ref['loss']}")
+        d = abs(r["grad_norm"] - ref["grad_norm"]) / ref["grad_norm"]
+        worst = max(r["f2"].values())
+        if not (d <= FSDP_TOL and worst <= FSDP_TOL):
+            raise AssertionError(f"(f2) rank {r['rank']} grad_norm "
+                                 f"{r['grad_norm']} vs {ref['grad_norm']}, "
+                                 f"worst leaf {worst:.4g}")
+    # (f3) to the byte, (f4) bitwise, (f5) bitwise
+    for r in out:
+        if r["have"] != r["plan"]:
+            raise AssertionError(f"(f3) rank {r['rank']} holds {r['have']},"
+                                 f" the dry-run plans {r['plan']}")
+        if not r["f4"]:
+            raise AssertionError(f"(f4) rank {r['rank']}: the pinned v1 "
+                                 "read changed")
+        if r["f5"] is not None and (not r["f5"][0]
+                                    or r["f5"][1] is False):
+            raise AssertionError(f"(f5) rank {r['rank']}: restored "
+                                 f"{r['f5']}")
+    if len({r["lsns"] for r in out}) != 1:
+        raise AssertionError(f"store lsns by rank {[r['lsns'] for r in out]}")
+    A = max(cfg.microbatches, 1)
+    per = cfg.n_layers * FSDP_STEPS * A
+    for r in out:
+        if on_card and r["launches"] != {"flash_attention": per,
+                                         "flash_attention_bwd": per}:
+            raise AssertionError(f"rank {r['rank']} launches "
+                                 f"{r['launches']}")
+        if cfg.remat != "none" and \
+                r["gathers"] != A * (2 * cfg.n_periods + 1):
+            raise AssertionError(f"rank {r['rank']}: {r['gathers']} gathers"
+                                 " a step")
+    worst = max(max(r["f2"].values()) for r in out)
+    leaf = max(out[0]["f2"], key=out[0]["f2"].get)
+    pinned, visible = out[0]["lsns"]
+    saved = "" if out[0]["f5"] is None else (
+        f"(f5) the state saved after step {FSDP_STEPS} restored bitwise "
+        f"onto the mesh and onto one device; ")
+    print(f"{label} checks ({run}): (f1) step 1's loss on every rank "
+          f"{[round(r['losses'][0], 5) for r in out]} vs unsharded "
+          f"{ref['loss']:.5f} (<= {FSDP_TOL} relative); (f2) every gathered "
+          f"gradient leaf within {worst:.4g} of its max-abs (the worst, "
+          f"{leaf}: against the same weights' f32 gradient the unsharded "
+          f"bf16 step reads {ref['floor'][leaf]:.4g}, the sharded "
+          f"{out[0]['f32'][leaf]:.4g}; worst over the leaves "
+          f"{max(ref['floor'].values()):.4g} and "
+          f"{max(out[0]['f32'].values()):.4g}), grad_norm "
+          f"{[round(r['grad_norm'], 5) for r in out]} vs "
+          f"{ref['grad_norm']:.5f} (<= {FSDP_TOL}); (f3) resident params "
+          f"{out[0]['plan']['params']} B and opt {out[0]['plan']['opt']} B "
+          f"a rank == launch.dryrun.residency; (f4) the reader pinned at "
+          f"lsn {pinned} read v1 bitwise after {FSDP_STEPS} publishes "
+          f"(visible lsn {visible}) on every rank; {saved}losses "
+          f"{[round(x, 5) for x in out[0]['losses']]}; {card}", flush=True)
 
 
 # ------------------------------------------------------------------ training
@@ -5014,9 +5308,11 @@ def main() -> int:
                  for name in (*WKV_TPU, *SSM_TPU)
                  for suffix, key, route in (("", "times", "chunked"),
                                             (" step", "times_step", "step"))]
-    # ... and ssm_scan's at one rank's shape of the sharded serve phase
-    scan_rows += [(row, "ssm_scan", key, launches.get(row, 0))
-                  for key, row in TP_SSM_ROWS.values()]
+    # ... and the scans' at one rank's shape of the sharded serve phase
+    scan_rows += [(row, name, key, launches.get(row, 0))
+                  for name, tp_rows in (("ssm_scan", TP_SSM_ROWS),
+                                        ("wkv_scan", TP_WKV_ROWS))
+                  for key, row in tp_rows.values()]
     for name in (*ATTN_TPU, *ATTN_BWD_TPU, *WKV_TPU, *SSM_TPU):
         if launches[name] == 0:
             raise AssertionError(f"{name} never launched")

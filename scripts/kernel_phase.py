@@ -63,8 +63,10 @@ from `cuobjdump -sass` of the built library, where the toolkit has it.
 With `--fsdp` it builds the tree's `attention.cu` and runs the tree's own
 `chip_smoke.fsdp_train_phase` (Qwen1.5-0.5B whole under fsdp2d, four
 ranks on the card over gloo, checks (f1)-(f5), per-rank step times,
-memory, gathers and launches; where the tree has it, each rank then
-serving what it trained, checks (h1)-(h3)), timing it.
+memory, gathers and launches; where the tree has them, each rank then
+serving what it trained, checks (h1)-(h3), and the same steps on the
+reference's pod mesh (pod 2, data 1, model 2), checks (f1)-(f4) and the
+pod replicas bitwise equal after every step), timing it.
 
 With `--fallback` it builds the tree's `attention.cu` and runs the tree's
 own `chip_smoke.fallback_serve_phase` (Mixtral-8x22B at the published
@@ -73,14 +75,16 @@ widths, one layer, served gathered under the placement
 gloo, checks (s1) and (s2), per-rank times, gathers, memory and
 launches), timing it.
 
-With `--tp ARCH` it builds the tree's `attention.cu` and `ssm.cu` and
-runs the tree's own `chip_smoke.tp_serve_phase` for ARCH (one of
-`chip_smoke.TP_ARCHS`: four ranks on the card over gloo, checks (s1)
-and (s2), per-rank times, memory, cache and launches), timing it; for
-an architecture with Mamba layers it runs the tree's
+With `--tp ARCH` it builds the tree's `attention.cu`, `ssm.cu` and
+`wkv.cu` and runs the tree's own `chip_smoke.tp_serve_phase` for ARCH
+(one of `chip_smoke.TP_ARCHS`: four ranks on the card over gloo, checks
+(s1) and (s2), per-rank times, memory, cache and launches), timing it;
+for an architecture with Mamba layers it runs the tree's
 `chip_smoke.ssm_kernel_phase` first and prints the rows at one rank's
-shape (`TP_SSM_ROWS`).  Like `chip_smoke.py`, it lets the CUDA caching
-allocator grow segments in place.
+shape (`TP_SSM_ROWS`), for RWKV6-3B its `chip_smoke.wkv_kernel_phase`
+and the rows `TP_WKV_ROWS`.  With `--tp`, `--fsdp` and `--fallback`,
+like `chip_smoke.py`, it lets the CUDA caching allocator grow segments
+in place.
 """
 
 import collections
@@ -261,16 +265,23 @@ def fallback_phase(torch, np, tree: Path) -> None:
 
 def tp_phase(torch, np, tree: Path, arch: str) -> None:
     """The tree's `chip_smoke.tp_serve_phase` for `arch`, after its
-    `ssm_kernel_phase` where `arch` has Mamba layers."""
+    `ssm_kernel_phase` where `arch` has Mamba layers, its
+    `wkv_kernel_phase` where it has RWKV layers (and the tree has the
+    rank rows of that scan)."""
     import chip_smoke
     from repro_torch.kernels import cuda_build
 
     print(f"tree {tree}, tp {arch}: {chip_smoke.card_line()}", flush=True)
-    cuda_build.build(["attention", "ssm"])
-    if "ssm_scan" in chip_smoke.SERVE_KERNELS[arch]:
+    scans = {"ssm_scan": ("ssm", "ssm_kernel_phase", "TP_SSM_ROWS"),
+             "wkv_scan": ("wkv", "wkv_kernel_phase", "TP_WKV_ROWS")}
+    cuda_build.build(["attention", *(lib for lib, _, _ in scans.values())])
+    for scan, (_, phase, rows) in scans.items():
+        if scan not in chip_smoke.SERVE_KERNELS[arch] \
+                or not hasattr(chip_smoke, rows):
+            continue
         flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-        res = chip_smoke.ssm_kernel_phase(torch, np, flush)
-        for key, row in chip_smoke.TP_SSM_ROWS.values():
+        res = getattr(chip_smoke, phase)(torch, np, flush)
+        for key, row in getattr(chip_smoke, rows).values():
             print(f"result {row}: {res[key]}", flush=True)
         del flush
         torch.cuda.empty_cache()
@@ -310,6 +321,8 @@ def main() -> int:
     fsdp = "--fsdp" in args
     if fsdp:
         args.remove("--fsdp")
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
     fallback = "--fallback" in args
     if fallback:
         args.remove("--fallback")

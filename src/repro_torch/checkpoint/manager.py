@@ -13,11 +13,14 @@ in a daemon thread off a host copy.
 
 A sharded state (`group=`, this rank's `parallel.MeshGroup`, and
 `specs=`, {leaf path: spec} of its pieces, `parallel.fsdp.Layout
-.specs.state`): `save`, called by every rank, gathers each leaf whole and
-rank 0 writes the format above, so any mesh, or either package on one
-device, restores it; `restore(..., group=, specs=)` keeps the rank's
-piece of each leaf under the specs of its own mesh, which need not be
-the saver's (the reference's elastic `restore(..., shardings=)`).
+.specs.state`): `save`, called by every rank, gathers each leaf whole
+from one replica of its pieces (the ranks at coordinate 0 on every axis
+that does not cut it: on the pod mesh pod 0's, never once per pod
+replica) and rank 0 writes the format above, so any mesh, or either
+package on one device, restores it; `restore(..., group=, specs=)`
+keeps the rank's piece of each leaf under the specs of its own mesh,
+which need not be the saver's (the reference's elastic `restore(...,
+shardings=)`).
 """
 
 from __future__ import annotations
@@ -90,11 +93,17 @@ def save(state, step: int, ckpt_dir: str, *, keep: int = 3, group=None,
 
 
 def _save_sharded(state, step, ckpt_dir, keep, group, specs):
-    """Each leaf gathered whole on every rank, kept on rank 0's host
-    only; rank 0 writes; every rank waits for the write."""
+    """Each leaf gathered whole by the ranks of one replica of its pieces
+    (rank 0's), kept on rank 0's host only; rank 0 writes; every rank
+    waits for the write."""
     host = {}
     for p, x in leaves_with_path(state):
-        whole = gather_piece(x, specs[path_key(p)], group)
+        spec = specs[path_key(p)]
+        cut = {a for e in spec if e is not None
+               for a in (e if isinstance(e, tuple) else (e,))}
+        if any(c for a, c in group.coords.items() if a not in cut):
+            continue            # another replica of the same pieces
+        whole = gather_piece(x, spec, group)
         if group.rank == 0:
             host[p] = whole.detach().to("cpu", copy=True)
     out = None

@@ -25,8 +25,12 @@ of a vocab-sharded table (`embed_tokens`); the layers read their local
 head counts and channels from the weights (a Mamba mixer sums its
 `x_proj` product over "model" itself), the cache holds the rank's KV
 heads and Mamba channels, and the logits stay vocab-sharded (the
-reference's `hint(logits, "data", None, "model")`).
-On one device `psum` is the identity.
+reference's `hint(logits, "data", None, "model")`).  RWKV6's time mix
+and channel mix are replicated (the rules keep their heads whole), so
+each rank computes their whole outputs and nothing is summed there
+(`_partial`: a hint on a replicated value is no collective in GSPMD);
+only its embedding and logits are cut.  On one device `psum` is the
+identity.
 
 Sharded training: under `with_mesh(layout)` (this rank's
 `parallel.fsdp.Layout`) a rank holds its pieces of every leaf under the
@@ -235,6 +239,18 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
 
 
 # ----------------------------------------------------------------- block apply
+# the layer kinds whose weights the serving layout replicates (RWKV6's
+# time mix and channel mix): their outputs are whole on every rank
+REPLICATED = ("rwkv", "rwkv_cmix")
+
+
+def _partial(kind: str, y: torch.Tensor) -> torch.Tensor:
+    """The output `y` of a layer of `kind` summed over "model" where the
+    layout cuts its weights (`psum`: a row-parallel product's partial
+    sums), `y` itself where it replicates them."""
+    return y if kind in REPLICATED else psum(y)
+
+
 def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
                x: torch.Tensor, cmix_shift: Optional[torch.Tensor] = None,
                decode: bool = False) -> torch.Tensor:
@@ -255,7 +271,7 @@ def _apply_mlp(pp: Params, spec: LayerSpec, cfg: ModelConfig,
         y = L.rwkv_cmix_apply(pp["mlp"], h, h_prev)
         if cmix_shift is not None:
             cmix_shift.copy_(h[:, -1])
-    return x + psum(y.to(x.dtype))
+    return x + _partial(spec.mlp, y.to(x.dtype))
 
 
 def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
@@ -269,7 +285,7 @@ def _block_full(pp: Params, spec: LayerSpec, cfg: ModelConfig,
         y, _ = L.mamba_apply(pp["mixer"], h, cfg)
     else:
         y, _ = L.rwkv_apply(pp["mixer"], h, cfg)
-    x = x + psum(y.to(x.dtype))
+    x = x + _partial(spec.mixer, y.to(x.dtype))
     if spec.cross_attn and enc_out is not None:
         h = L.norm_apply(pp["norm_x"], x, cfg.norm)
         x = x + psum(L.attention(pp["cross"], h, cfg, positions=positions,
@@ -466,7 +482,9 @@ def cache_spec(cfg: ModelConfig, batch: int, seq_len: int, *,
     a rank's cache is cut over, its KV heads and Mamba's `d_inner`
     channels over it (as `launch.shardings.cache_shardings` places
     them)."""
-    names = ["n_kv_heads"] + ["mamba_d_inner"] * any(
+    attn = any(spec.mixer == "attn" or spec.cross_attn
+               for spec in cfg.pattern)
+    names = ["n_kv_heads"] * attn + ["mamba_d_inner"] * any(
         spec.mixer == "mamba" for spec in cfg.pattern)
     for name in names:
         if getattr(cfg, name) % model:
@@ -543,7 +561,7 @@ def prefill(params: Params, cfg: ModelConfig, batch: dict, *,
         else:
             y, _ = L.rwkv_apply(pp["mixer"], h, cfg, state={
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
-        x = x + psum(y.to(x.dtype))
+        x = x + _partial(spec.mixer, y.to(x.dtype))
         if spec.cross_attn and enc_out is not None:
             h = L.norm_apply(pp["norm_x"], x, cfg.norm)
             x = x + psum(L.cross_attention_prefill(
@@ -578,7 +596,7 @@ def decode_step(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             y, _ = L.rwkv_decode(pp["mixer"], h, cfg, {
                 "shift": ce["shift"][i], "wkv": ce["wkv"][i]})
-        x = x + psum(y.to(x.dtype))
+        x = x + _partial(spec.mixer, y.to(x.dtype))
         if spec.cross_attn:
             h = L.norm_apply(pp["norm_x"], x, cfg.norm)
             y = L.attention_decode(pp["cross"], h, cfg,

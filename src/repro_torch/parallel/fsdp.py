@@ -17,23 +17,37 @@ layout:
   inside the period's remat, one collective for every leaf cut over the
   same axes;
 - each rank computes whole layers on its rows of the batch: its rows of
-  every microbatch (`Layout.rows`), every rank in every microbatch;
+  every microbatch (`Layout.rows`, over the batch axes `train_dp_axes`),
+  every rank in every microbatch; ranks that differ only on axes that do
+  not cut the batch compute the same rows;
 - in the backward, `Gather` sums the whole gradient over the batch ranks
   in f32 whatever the leaf's dtype (the reference widens its summed
   gradients to f32 before AdamW) and keeps the rank's piece under the
-  optimizer's spec: reduce-scattered where the leaf is cut (always over
-  the batch axes, on one dim), all-reduced where it is whole (fsdp2d's
-  `embed` and `lm_head`, a leaf `sanitize` left whole);
+  optimizer's spec, each rank's rows counted once (`Layout._reduce`):
+  where the leaf is cut (on one dim), the rank takes the blocks of its
+  own coordinates on the cut axes that do not cut the batch,
+  reduce-scatters them over the cut axes that do and all-reduces its
+  piece over the batch axes that do not cut the leaf; where it is whole
+  (fsdp2d's `embed` and `lm_head`, a leaf `sanitize` left whole) it is
+  all-reduced over the batch axes;
 - AdamW updates the pieces (`optim.adamw.update(..., layout=)`), its
   global norm the pieces' squared sums all-reduced with each piece
   counted once, its int8 compression scaled by the whole leaf's max.
 
-This covers fsdp2d ("model" folded into the batch axes) and the "tp"
-placement on a mesh whose model axis is 1: FSDP over "data" with
-`fsdp=True`, ZeRO-2 with `zero2=True` (parameters replicated, moments
-and gradients cut over "data", each updated piece all-gathered back into
-the replicated parameter) and plain data parallelism (Whisper-tiny's).
-`parallel.tensor.check_train` refuses the rest.
+This covers fsdp2d ("model" folded into the batch axes on a (data,
+model) mesh) and the "tp" placement on a mesh whose model axis is 1:
+FSDP over "data" with `fsdp=True`, ZeRO-2 with `zero2=True` (parameters
+replicated, moments and gradients cut over "data", each updated piece
+all-gathered back into the replicated parameter) and plain data
+parallelism (Whisper-tiny's).  On the reference's pod mesh ("pod",
+"data", "model") the batch goes over ("pod", "data") alone while fsdp2d
+cuts every weight over ("data", "model") (`launch.mesh.train_dp_axes`,
+`launch.shardings`): a weight's gradient is reduce-scattered over
+"data" from the blocks of the rank's "model" coordinate and all-reduced
+over "pod", so the pod replicas hold equal pieces, bit for bit, after
+every step; FSDP and ZeRO-2 there are hybrid sharded (cut over "data",
+summed over "pod" too).  `parallel.tensor.check_train` refuses the
+rest.
 
 Serving reads the same pieces (`ServeView`, with no optimizer state): a
 `serve.ServingEngine(group=, specs=)` over a store of the rank's pieces
@@ -201,16 +215,19 @@ class Placement:
 
     def _cut(self, spec: tuple):
         """(dim, axes) of the one dim `spec` cuts, None for a whole leaf.
-        The placements the port stores cut a leaf on one dim at most,
-        over the batch axes (module docstring); ValueError otherwise."""
+        The placements the port stores cut a leaf on one dim at most
+        (module docstring); ValueError otherwise."""
         cuts = _cuts(spec, self.mesh)
         if not cuts:
             return None
-        if len(cuts) > 1 or set(cuts[0][1]) != set(self._batch):
+        if len(cuts) > 1:
             raise ValueError(f"a leaf cut {spec} on mesh {self.mesh.shape}:"
-                             f" the port cuts one dim over the batch axes "
-                             f"{self._batch}")
+                             f" the port cuts one dim")
         return cuts[0]
+
+    def _pieces(self, axes: tuple) -> int:
+        """The number of pieces a dim cut over `axes` has."""
+        return math.prod(self.mesh.shape[a] for a in axes)
 
     def _gather(self, keys, stacked, pieces) -> list:
         out = list(pieces)
@@ -222,7 +239,7 @@ class Placement:
         for (axes, _), members in buckets.items():
             flat = torch.cat([pieces[i].reshape(-1) for i, _ in members])
             every = self.group.all_gather(flat, axes).view(
-                self.batch_size, -1)
+                self._pieces(axes), -1)
             off = 0
             for i, dim in members:
                 x = pieces[i]
@@ -294,9 +311,14 @@ class Layout(Placement):
                         Gather.apply(self, tuple(keys), period, *pieces))
 
     def _reduce(self, keys, period, grads) -> None:
-        """Each whole gradient summed over the batch ranks in f32, the
-        rank's piece under the optimizer's spec added to `_grads` (at
-        `period` of a stacked leaf)."""
+        """Each whole gradient summed over the batch ranks in f32, each
+        rank's rows counted once, the rank's piece under the optimizer's
+        spec added to `_grads` (at `period` of a stacked leaf).  A cut
+        leaf's pieces: the blocks of the rank's own coordinates on the cut
+        axes that do not cut the batch (its peers there computed the same
+        rows, so hold the same gradient), reduce-scattered over the cut
+        axes that do, all-reduced over the batch axes that do not cut the
+        leaf (on the pod mesh under fsdp2d: "model", "data", "pod")."""
         whole, buckets = [], {}
         for key, g in zip(keys, grads):
             cut = self._cut(self.spec(f"opt/m/{key}", period is not None))
@@ -305,17 +327,29 @@ class Layout(Placement):
                 whole.append((key, g))
                 continue
             dim, axes = cut
+            n = self._pieces(axes)
             # [n, the piece's elements]: row k is piece k
-            rows = g.unflatten(dim, (self.batch_size, -1)).movedim(dim, 0) \
-                .reshape(self.batch_size, -1)
+            rows = g.unflatten(dim, (n, -1)).movedim(dim, 0).reshape(n, -1)
             buckets.setdefault(axes, []).append((key, g, dim, rows))
         for axes, members in buckets.items():
             flat = torch.cat([rows for *_, rows in members], dim=1)
-            mine = self.group.reduce_scatter(flat, axes, dim=0)[0]
+            # rows by coordinate on each cut axis; keep the rank's own on
+            # the axes that do not cut the batch (last first, so the
+            # earlier dims keep their places)
+            flat = flat.view(*(self.mesh.shape[a] for a in axes), -1)
+            for i in reversed(range(len(axes))):
+                if axes[i] not in self._batch:
+                    flat = flat.select(i, self.group.coords[axes[i]])
+            summed = tuple(a for a in axes if a in self._batch)
+            flat = flat.reshape(-1, flat.shape[-1])
+            mine = self.group.reduce_scatter(flat, summed, dim=0)[0] \
+                if summed else flat[0]
+            self.group.all_reduce(mine, tuple(a for a in self._batch
+                                              if a not in axes))
             off = 0
             for key, g, dim, rows in members:
                 shape = list(g.shape)
-                shape[dim] //= self.batch_size
+                shape[dim] //= self._pieces(axes)
                 self._add(key, period,
                           mine[off:off + rows.shape[1]].view(shape))
                 off += rows.shape[1]
@@ -404,11 +438,10 @@ class ServeView(Placement):
     state: `gather` is `_gather`'s all-gather alone (no `Gather` node, no
     gradient sink, no reduce-scatter).
 
-    Refused (ValueError): what `check_train` refuses (a "pod" axis,
-    "tp" at model > 1), a spec tree whose paths are not the parameter
-    tree's or that cuts a leaf other than on one dim over the batch
-    axes; `check` refuses pinned pieces whose shapes are not the specs'
-    pieces, naming the leaf."""
+    Refused (ValueError): what `check_train` refuses ("tp" at model >
+    1), a spec tree whose paths are not the parameter tree's or that
+    cuts a leaf on more than one dim; `check` refuses pinned pieces
+    whose shapes are not the specs' pieces, naming the leaf."""
 
     def __init__(self, group, cfg: ModelConfig, specs: dict):
         check_train(cfg, group.mesh)

@@ -5,14 +5,18 @@ A rank's coordinates on the mesh follow the reference's device order:
 row-major over the mesh's axes, the last axis ("model") fastest, so on a
 ("data", "model") mesh of (2, 2) rank 1 is (data 0, model 1) and rank 2
 is (data 1, model 0).  `MeshGroup` holds a rank's coordinates, its
-device and a sub-group for each of two axes: "model" (tensor parallel:
-the ranks that hold the other pieces of the same weights) and "data"
-(the batch: the ranks over `launch.mesh.dp_axes`); "mesh" names all the
-ranks.  A collective takes one of those names or a tuple of the mesh's
-axis names (the ranks that differ only in those axes); a tuple must
-name the ranks of one of the three groups, or one rank.  Pieces over
-several axes are in GSPMD's order: row-major over the coordinates on
-the axes in the order given (`parallel.tensor.local_slice`'s order).
+device and a sub-group for every set of the mesh's axes (the ranks
+that differ only in those axes).  A collective takes a name or a tuple
+of the mesh's axis names: "model" (tensor parallel: the ranks that hold
+the other pieces of the same weights), "data" (the batch: the ranks
+over `launch.mesh.dp_axes`, ("pod", "data") on a pod mesh) and "mesh"
+(all the ranks) by name, a tuple as it is.  Pieces over several axes
+are in GSPMD's order: row-major over the coordinates on the axes in the
+order given (`parallel.tensor.local_slice`'s order).  On the reference's
+pod mesh ("pod", "data", "model") the training placement needs groups
+beside "model" and "data": fsdp2d gathers its weights over ("data",
+"model"), reduce-scatters their gradients over "data" and sums them
+over "pod" (`parallel.fsdp`).
 
 Nothing is chosen behind the caller's back: the backend and every rank's
 device are arguments.  "nccl" needs one card a rank and refuses two ranks
@@ -110,8 +114,8 @@ def check_devices(mesh: Mesh, backend: str, devices) -> list:
 @dataclass
 class MeshGroup:
     """One rank's view of the mesh: its coordinates, device and the
-    process groups of its "model" and "data" axes (None where the axis
-    has one rank)."""
+    process group of each set of axes of more than one rank and fewer
+    than the mesh's (keyed by the axes in mesh order)."""
     mesh: Mesh
     rank: int
     backend: str
@@ -175,8 +179,7 @@ class MeshGroup:
             if self.members.get(name) == ranks:
                 return g, ranks, index
         raise ValueError(f"no process group over {axes} on mesh "
-                         f"{self.mesh.shape}: the ranks have groups over "
-                         f"\"model\", \"data\" and the mesh")
+                         f"{self.mesh.shape}")
 
     def _order(self, ranks: list, axes) -> list:
         """Each member's piece index over `axes`, in group order."""
@@ -289,13 +292,26 @@ def init_group(mesh: Mesh, rank: int, *, backend: str, devices,
     coords = coords_of(mesh, rank)
     groups, members = {}, {}
     # every rank creates every sub-group, in one order
-    for axis, axes in (("model", ("model",)), ("data", dp_axes(mesh))):
-        size = math.prod(mesh.shape.get(a, 1) for a in axes)
+    for axes in sub_axes(mesh):
         for ranks in axis_ranks(mesh, axes):
-            g = dist.new_group(ranks) if size > 1 else None
+            g = dist.new_group(ranks)
             if rank in ranks:
-                groups[axis], members[axis] = g, ranks
+                groups[axes], members[axes] = g, ranks
     return MeshGroup(mesh, rank, backend, dev, coords, groups, members)
+
+
+def sub_axes(mesh: Mesh) -> list:
+    """The sets of the mesh's axes (each in mesh order) whose ranks form
+    groups of more than one rank and fewer than the mesh's, one set for
+    each partition of the ranks (an axis of one rank adds none)."""
+    names, seen, out = mesh.axis_names, set(), []
+    for bits in range(1, 2 ** len(names)):
+        axes = tuple(a for i, a in enumerate(names) if bits >> i & 1)
+        parts = tuple(map(tuple, axis_ranks(mesh, axes)))
+        if 1 < len(parts[0]) < mesh.size and parts not in seen:
+            seen.add(parts)
+            out.append(axes)
+    return out
 
 
 def _worker(rank: int, fn: Callable, mesh: Mesh, backend: str, devices,

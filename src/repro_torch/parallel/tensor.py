@@ -10,10 +10,18 @@ d_ff over "model" (`wq`/`wk`/`wv`/`w_up`/`w_gate` by columns, `wo`/
 replicated), Mamba's `d_inner` over "model" (`conv_w`, `dt_proj`,
 `dt_bias`, `A_log`, `D` and the rows of `x_proj` and `out_proj` by
 channel), the vocabulary over "model" (`embed` by rows, `lm_head` by
-columns), norms replicated, nothing over "data", which splits the
-batch.  Four placements differ from the reference's.  The QKV biases,
-which the rules replicate, are cut as their products' columns are: a
-rank adds only those columns, so it holds only them.  Mamba's `conv_b`,
+columns), RWKV's time mix and channel mix whole (only its vocabulary is
+cut), norms replicated, nothing over "data", which splits the batch.
+Five placements differ from the reference's.  RWKV6's time mix: the
+rules mean to replicate it (its heads are often indivisible), but their
+attention patterns match its `wk` and `wv` (cut by columns) and `wo`
+(by rows) before its own, so GSPMD cuts those three over "model" (at a
+16-way model axis into part-heads, 2.5 of RWKV6-3B's 40) and reshards
+around the recurrence; the port keeps every leaf of it whole, so a rank
+runs the whole recurrence on its rows and sums nothing
+(`models.transformer.REPLICATED`).  The QKV biases, which the rules
+replicate, are cut as their products' columns are: a rank adds only
+those columns, so it holds only them.  Mamba's `conv_b`,
 which the rules replicate (their three-entry spec meets a two-dim leaf
 in `sanitize`), is cut with `conv_w`'s channels for the same reason.
 Mamba's `in_proj` [D, 2·Di] holds x's Di columns and then z's: the
@@ -43,14 +51,16 @@ given another {leaf path: spec} tree (the training layout of
 ranks' pieces.
 
 Refused on a mesh of more than one device (`check_tp`, ValueError):
-a model degree that does not divide the KV heads (GSPMD would reshard
-part-heads; the port keeps whole heads on a rank), d_ff, the
-vocabulary or, for a config with Mamba layers, `d_inner`; and the
-families whose sharded slices come later (RWKV, encoder-decoder:
-`LATER`).  Training (`check_train`) refuses tensor-parallel training (a
-"tp" layout on a model axis of more than one rank) and a mesh with a
-"pod" axis (`TRAIN_LATER`), and nothing else: a dim the mesh does not
-divide is replicated by `sanitize`, as the reference places it.
+a model degree that does not divide a dim the layout cuts (GSPMD would
+reshard part-heads; the port keeps whole heads on a rank): the
+vocabulary, and where the config has such layers the KV heads, d_ff and
+Mamba's `d_inner` (RWKV6 has none, so only its vocabulary is checked);
+and the encoder-decoder, whose sharded slice comes later (`LATER`).
+Training (`check_train`) refuses tensor-parallel training (a "tp"
+layout on a model axis of more than one rank, `TRAIN_LATER`), and
+nothing else: a dim the mesh does not divide is replicated by
+`sanitize`, as the reference places it, and the pod mesh trains
+(`parallel.fsdp`).
 """
 
 from __future__ import annotations
@@ -63,14 +73,13 @@ import torch
 from ..launch.mesh import Mesh
 from ..launch.shardings import param_shardings
 from ..models.config import ModelConfig
-from ..models.transformer import init_params
+from ..models.transformer import REPLICATED, init_params
 from ..tree import leaves_with_path, path_key, replace_leaves
 from .group import piece_index
 
 # the families a mesh of several devices does not run yet, each with its
 # later slice
 LATER = {
-    "rwkv": 'ROADMAP queue 1, "Sharded RWKV" (the replicated mixer)',
     "encdec": 'ROADMAP queue 1, "Sharded Whisper" (the encoder and '
               'cross-attention)',
 }
@@ -81,9 +90,6 @@ TRAIN_LATER = {
     "tp": 'ROADMAP queue 1, "Tensor-parallel training" (train_sharding '
           '"tp" at model > 1, Whisper\'s encoder and cross-attention '
           'with it)',
-    "pod": 'ROADMAP queue 1, "Training on a pod mesh" (the batch over '
-           '(pod, data) while fsdp2d cuts the weights over (data, '
-           'model))',
 }
 
 
@@ -96,22 +102,28 @@ def check_tp(cfg: ModelConfig, mesh: Mesh) -> None:
     if cfg.is_encoder_decoder:
         raise ValueError(f"{where}: an encoder-decoder is a later slice "
                          f"({LATER['encdec']})")
-    for spec in cfg.pattern:
-        for kind in (spec.mixer, spec.mlp):
-            if kind in LATER:
-                raise ValueError(f"{where}: {kind} layers are a later "
-                                 f"slice ({LATER[kind]})")
     m = mesh.shape["model"]
-    names = ["n_kv_heads", "d_ff", "vocab_size"]
-    if any(spec.mixer == "mamba" for spec in cfg.pattern):
-        names.append("mamba_d_inner")
-    for name in names:
+    for name in cut_dims(cfg):
         n = getattr(cfg, name)
         if n % m:
             raise ValueError(
                 f"{where}: a model degree of {m} does not divide {name} "
                 f"{n}; GSPMD would cut part-heads or reshard, the port "
                 f"keeps whole pieces on a rank ({DEVIATION})")
+
+
+def cut_dims(cfg: ModelConfig) -> list:
+    """The config's dims that the serving layout cuts over "model": the
+    vocabulary, the KV heads of its attention layers, the d_ff of its
+    dense and MoE MLPs, Mamba's `d_inner`."""
+    kinds = {k for spec in cfg.pattern for k in (spec.mixer, spec.mlp)}
+    if any(spec.cross_attn for spec in cfg.pattern):
+        kinds.add("attn")
+    return [name for name, kind in (("n_kv_heads", {"attn"}),
+                                    ("d_ff", {"dense", "moe"}),
+                                    ("vocab_size", None),
+                                    ("mamba_d_inner", {"mamba"}))
+            if kind is None or kinds & kind]
 
 
 def check_train(cfg: ModelConfig, mesh: Mesh) -> None:
@@ -121,9 +133,6 @@ def check_train(cfg: ModelConfig, mesh: Mesh) -> None:
         return
     where = f"training {cfg.name} on a mesh of {mesh.size} devices " \
             f"{mesh.shape}"
-    if "pod" in mesh.axis_names:
-        raise ValueError(f"{where}: a pod axis is a later slice "
-                         f"({TRAIN_LATER['pod']})")
     if cfg.train_sharding != "fsdp2d" and mesh.shape.get("model", 1) > 1:
         raise ValueError(f"{where}: train_sharding "
                          f"{cfg.train_sharding!r} cuts heads and d_ff over "
@@ -147,7 +156,11 @@ def serve_specs(mesh: Mesh, cfg: ModelConfig, params) -> dict:
     specs = param_shardings(mesh, tp, params)
     for path, spec in specs.items():
         head, _, name = path.rpartition("/")
-        if name in ("bq", "bk", "bv"):          # as w[qkv]'s columns
+        parts = path.split("/")
+        if parts[0] == "blocks" and parts[2] in ("mixer", "mlp") and \
+                getattr(cfg.pattern[int(parts[1])], parts[2]) in REPLICATED:
+            specs[path] = (None,) * len(spec)   # RWKV's mixes whole
+        elif name in ("bq", "bk", "bv"):        # as w[qkv]'s columns
             specs[path] = spec[:-1] + (specs[f"{head}/w{name[1]}"][-1],)
         elif name == "conv_b":                  # as conv_w's channels
             specs[path] = spec[:-1] + (specs[f"{head}/conv_w"][-1],)

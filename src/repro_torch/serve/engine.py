@@ -35,8 +35,10 @@ version, where a rank's store lacks the commit or its WAL head is not
 rank 0's (a rank that took a write more or fewer).  The batch, prompt inputs included, splits over "data"; the
 model runs tensor parallel over "model" (`models.sharding`: the dense
 attention decoders and the Mamba and MoE families, Jamba and Mixtral,
-whose Mamba channels and experts' d_ff are cut too; RWKV6 and Whisper
-are refused by `parallel.tensor.check_tp`); the greedy
+whose Mamba channels and experts' d_ff are cut too, and RWKV6, whose
+time mix and channel mix stay whole on every rank and whose vocabulary
+alone is cut; Whisper is refused by `parallel.tensor.check_tp`); on
+the reference's pod mesh "data" is ("pod", "data"); the greedy
 choice over the vocab-sharded logits is gathered over "model"
 (`parallel.tensor.greedy`); and the tokens of the whole batch are
 gathered over "data", so every rank returns the same result.
@@ -48,11 +50,12 @@ training placement a `Trainer(group=)` publishes under, or the one
 whose shard passes the resident limit), and the engine serves it
 gathered (`parallel.fsdp.ServeView`): `check_train`'s rule applies in
 place of `check_tp`, the batch is cut over the placement's batch axes
-(`launch.mesh.train_dp_axes`: ("data", "model") under fsdp2d; a batch
-they do not divide is refused), each rank gathers one layer's whole
-weights before the layer runs and computes whole layers on its rows,
-takes the greedy choice over the whole vocabulary itself, and the
-tokens are gathered over the batch axes in piece order.  The pin is the
+(`launch.mesh.train_dp_axes`: ("data", "model") under fsdp2d, ("pod",
+"data") on the pod mesh; a batch they do not divide is refused), each
+rank gathers one layer's whole weights before the layer runs and
+computes whole layers on its rows, takes the greedy choice over the
+whole vocabulary itself, and the tokens are gathered over the batch
+axes in piece order.  The pin is the
 same protocol.  The reference serves the training placement by GSPMD's
 regathers inside its jitted prefill and decode, its batch over "data"
 alone.

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.flash_attention.ref import attention_ref as j_attention
 

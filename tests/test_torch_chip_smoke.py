@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -130,14 +131,46 @@ def test_jamba_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     assert not list(tmp_path.iterdir())         # reference and routing
 
 
+def test_rwkv_tp_serve_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
+    """The sharded serve phase's RWKV6 at the smoke size on its mesh of
+    (2, 2) (`TP_MESHES`), four ranks over gloo on the CPU: the unsharded
+    kernel path run on each data rank's row, (s1) within the bf16 bound,
+    every rank's state whole-headed, every `wkv_scan` launch of (s1) held
+    against plain, (s2), no plain version called in the requests' count;
+    no kernel launches off the card."""
+    import numpy as np
+
+    for name, value in (("TP_B", 2), ("TP_S", 24), ("TP_STEPS", 4),
+                        ("TP_PUBLISH_AT", 2), ("TP_DIR", tmp_path)):
+        monkeypatch.setattr(smoke, name, value)
+    launches = smoke.tp_serve_phase(torch, np, device="cpu",
+                                    arch="rwkv6-3b")
+    assert launches == {"wkv_scan tp4": 0, "wkv_scan step tp4": 0}
+    out = capsys.readouterr().out
+    assert "rwkv6-3b-smoke 2 of 32 layers, mesh {'data': 2, 'model': 2}" \
+        in out
+    assert "4 ranks on the CPU over gloo" in out
+    assert "tp serve rank 3 {'data': 1, 'model': 1}" in out
+    assert "the unsharded kernel path run on each data rank's 1 rows" in out
+    assert ("every rank's RWKV state {'shift': (2, 1, 128), 'wkv': "
+            "(2, 1, 4, 32, 32), 'cmix_shift': (2, 1, 128)}") in out
+    assert "(s1)'s 10 wkv_scan launches a rank held against plain" in out
+    assert "request 1 read v1 in all 5 calls" in out
+    assert not list(tmp_path.iterdir())         # the reference removed
+
+
 def test_fsdp_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     """The sharded train phase at the smoke size: Qwen1.5's smoke config
     under fsdp2d on a mesh of (1, 2), two ranks over gloo on the CPU,
     checks (f1)-(f5), then each rank serving what it trained from its
     own store, gathered under the trainer's placement, checks (h1)-(h3);
-    no kernel launches off the card."""
+    then the pod step (i) on (pod 2, data 1, model 2), four ranks, checks
+    (f1)-(f4) against the same unsharded step and the pod replicas equal
+    after each step; no kernel launches off the card.  Four rows a step,
+    so each pod rank's two rows run as POD_MICROBATCHES microbatches."""
     import numpy as np
 
+    monkeypatch.setattr(smoke, "TRAIN_B", 4)
     monkeypatch.setattr(smoke, "FSDP_DIR", tmp_path)
     monkeypatch.setattr(smoke, "FSDP_SERVE", (4, 16, 4))
     monkeypatch.setattr(smoke, "FSDP_PUBLISH_AT", 2)
@@ -159,6 +192,13 @@ def test_fsdp_train_phase_on_cpu(smoke, capsys, monkeypatch, tmp_path):
     assert "request 1 read the served version in all 5 calls" in out
     assert "(h3) 15 gathers a request" in out
     assert "every rank's KV cache (2, 2, 20, 4, 32)" in out
+    assert "pod mesh {'pod': 2, 'data': 1, 'model': 2}" in out
+    assert "4 ranks on the CPU over gloo" in out
+    assert "pod train rank 3 {'pod': 1, 'data': 0, 'model': 1}" in out
+    assert "pod train checks" in out and "(f1) step 1's loss" in out
+    assert "2 rows a rank in 2 microbatches" in out
+    assert "6 gathers and 6 reduce-scatters a step" in out    # 2 a period
+    assert "to its pod replica's after each of 2 steps" in out
     assert not list(tmp_path.iterdir())         # the state removed
 
 

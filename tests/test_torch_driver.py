@@ -16,6 +16,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro import mvcc as ref_mvcc  # noqa: E402
 from repro_torch import mvcc as port_mvcc  # noqa: E402

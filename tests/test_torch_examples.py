@@ -13,6 +13,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 

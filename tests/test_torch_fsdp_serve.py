@@ -47,6 +47,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.configs as JC
 import repro.models as JM
@@ -545,8 +546,8 @@ def _stub(shape, rank=0, mesh=None):
 
 
 @pytest.mark.parametrize("arch,mesh,match", [
-    (QWEN, Mesh((2, 1, 1), ("pod", "data", "model")),
-     "Training on a pod mesh"),
+    (WHISPER, Mesh((2, 1, 2), ("pod", "data", "model")),
+     "Tensor-parallel training"),
     (WHISPER, Mesh((1, 2), ("data", "model")), "Tensor-parallel training"),
 ])
 def test_placements_the_port_does_not_serve_gathered_are_refused(arch, mesh,
@@ -556,6 +557,27 @@ def test_placements_the_port_does_not_serve_gathered_are_refused(arch, mesh,
     with pytest.raises(ValueError, match=match):
         TEngine(cfg, TStore(slots=2), device="cpu",
                 group=_stub(None, mesh=mesh), specs=specs)
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 1, 2), (2, 2, 2)])
+def test_a_pod_mesh_placement_is_served_over_pod_and_data(shape):
+    """The engine takes Qwen's training placement on the reference's pod
+    mesh: the rows over ("pod", "data") (its axes of more than one
+    rank), fsdp2d's cut over ("data", "model"); the ranks along "model"
+    take the same rows."""
+    mesh = Mesh(shape, ("pod", "data", "model"))
+    cfg = smoke_variant(get_config(QWEN))
+    specs = params_specs(mesh, cfg).specs
+    views = [TEngine(cfg, TStore(slots=2), device="cpu",
+                     group=_stub(None, r, mesh), specs=specs).view
+             for r in range(mesh.size)]
+    assert views[0].batch_axes == tuple(a for a in ("pod", "data")
+                                        if mesh.shape[a] > 1)
+    rows = [v.rows({"tokens": torch.arange(4)[:, None]})["tokens"][:, 0]
+            .tolist() for v in views]
+    m = shape[2]
+    assert all(rows[r] == rows[r - r % m] for r in range(mesh.size))
+    assert sorted(sum(rows[::m], [])) == [0, 1, 2, 3]
 
 
 def test_a_batch_the_batch_ranks_do_not_divide_is_refused():
@@ -572,9 +594,9 @@ def test_a_batch_the_batch_ranks_do_not_divide_is_refused():
 
 
 def test_specs_that_are_not_a_stored_placement_are_refused():
-    """The serving layout (Mamba's paired `in_proj` cut), a leaf cut
-    over "model" alone where the batch axes are ("data", "model"), and
-    a spec tree missing a leaf; then pieces of another shape."""
+    """The serving layout (Mamba's paired `in_proj` cut), a leaf cut on
+    two dims, and a spec tree missing a leaf; then pieces of another
+    shape."""
     cfg = smoke_variant(get_config(JAMBA))
     mesh = _mesh((1, 2))
     meta = TM.init_params(cfg, None, "meta")
@@ -582,9 +604,8 @@ def test_specs_that_are_not_a_stored_placement_are_refused():
         ServeView(_stub((1, 2)), cfg, serve_specs(mesh, cfg, meta))
     qwen = smoke_variant(get_config(QWEN))
     specs = params_specs(_mesh((2, 2)), qwen).specs
-    bad = dict(specs, **{"blocks/0/mixer/wq": (None, None, "model")})
-    with pytest.raises(ValueError, match="the port cuts one dim over the "
-                                         "batch axes"):
+    bad = dict(specs, **{"blocks/0/mixer/wq": (None, "data", "model")})
+    with pytest.raises(ValueError, match="the port cuts one dim"):
         ServeView(_stub((2, 2)), qwen, bad)
     with pytest.raises(ValueError, match=r"\['params/embed'\] have no spec"):
         ServeView(_stub((2, 2)), qwen, {k: s for k, s in specs.items()

@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.configs as JC
 import repro.models as JM
@@ -446,12 +447,16 @@ def test_elastic_restore_across_meshes_twin(ranks):
         assert x.dtype == y.dtype and torch.equal(x, y), path_key(p)
 
 
+POD = ("pod", "data", "model")
+
+
 @pytest.mark.parametrize("overrides,mesh,match", [
     ({"train_sharding": "tp", "fsdp": True}, Mesh((1, 2), ("data",
                                                            "model")),
      "Tensor-parallel training"),
-    ({}, Mesh((2, 1, 1), ("pod", "data", "model")),
-     "Training on a pod mesh"),
+    # "tp" at model 2 stays refused on the pod mesh too
+    ({"train_sharding": "tp", "fsdp": True}, Mesh((2, 1, 2), POD),
+     "Tensor-parallel training"),
 ])
 def test_training_placements_the_port_does_not_run_are_refused(
         overrides, mesh, match):
@@ -462,6 +467,27 @@ def test_training_placements_the_port_does_not_run_are_refused(
     check_train(cfg, _mesh((1, 1)))             # one device: trains
     check_train(cfg.with_overrides(train_sharding="fsdp2d"),
                 _mesh((2, 2)))
+
+
+@pytest.mark.parametrize("shape", [(2, 1, 1), (2, 2, 1), (2, 1, 2)])
+def test_training_on_a_pod_mesh_is_accepted(shape):
+    """The reference's pod mesh trains: fsdp2d cuts a weight over
+    ("data", "model") and the batch goes over ("pod", "data") alone (a
+    layout of one axis of one rank keeps only the others); "tp" with
+    FSDP at model 1 cuts over "data" (hybrid sharded)."""
+    mesh = Mesh(shape, POD)
+    cfg = smoke_variant(get_config("qwen1.5-0.5b"))
+    check_train(cfg, mesh)
+    group = PG.MeshGroup(mesh, 0, "gloo", torch.device("cpu"),
+                         PG.coords_of(mesh, 0))
+    layout = Layout(group, cfg, AdamWConfig())
+    big = tuple(a for a in ("pod", "data") if mesh.shape[a] > 1)
+    assert layout.batch_axes == big
+    cut = tuple(a for a in ("data", "model") if mesh.shape[a] > 1)
+    assert layout._cut(layout.spec("params/blocks/0/mixer/wq")) == \
+        ((1, cut) if cut else None)
+    hybrid = cfg.with_overrides(train_sharding="tp", fsdp=True)
+    check_train(hybrid, Mesh(shape[:2] + (1,), POD))
 
 
 def test_microbatches_the_batch_ranks_do_not_divide_are_refused():

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.rss_gather import kernel as jk_rss  # noqa: E402
 from repro.kernels.rss_gather import ref as jref_rss  # noqa: E402

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.rss_gather.ref import rss_gather_ref as jax_rss  # noqa
 from repro.kernels.version_gather.ref import \

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.core as rcore  # noqa: E402
 import repro.tensorstore as rts  # noqa: E402

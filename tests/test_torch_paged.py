@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.tensorstore as jts  # noqa: E402
 import repro_torch.tensorstore as tts  # noqa: E402

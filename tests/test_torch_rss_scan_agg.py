@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import jax.numpy as jnp  # noqa: E402
 

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.configs as JC  # noqa: E402
 import repro.models as JM  # noqa: E402

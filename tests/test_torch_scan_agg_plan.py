@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.rss_scan_agg import kernel as jk  # noqa: E402
 from repro.kernels.rss_scan_agg import ref as jr  # noqa: E402

@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as j_ssm_ref  # noqa
 from repro.kernels.wkv_scan.ref import wkv_scan_ref as j_wkv_ref  # noqa

@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.ssm_scan.kernel import ssm_scan as j_ssm_scan  # noqa
 from repro.kernels.wkv_scan.kernel import wkv_scan as j_wkv_scan  # noqa

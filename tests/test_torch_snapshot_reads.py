@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.core.replica as jrep  # noqa: E402
 import repro.mvcc as jmvcc  # noqa: E402

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.ssm_scan.kernel import ssm_scan as j_ssm_scan  # noqa
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as j_ssm_ref  # noqa

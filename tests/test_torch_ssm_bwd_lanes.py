@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.models.layers import _mamba_scan_chunked  # noqa: E402
 

@@ -45,6 +45,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 import repro.configs as JC
 import repro.models as JM
@@ -542,7 +543,8 @@ def test_shard_aware_init_of_mamba_and_moe_equals_the_slice(mesh_name,
      "does not divide mamba_d_inner 130"),
     # the production mesh's 16-way model axis over Mixtral's 8 KV heads
     (MIXTRAL, None, (1, 16), "does not divide n_kv_heads 8"),
-    ("rwkv6-3b", {}, (1, 2), "Sharded RWKV"),
+    # Whisper on the reference's pod mesh
+    ("whisper-tiny", {}, (2, 1, 2), "Sharded Whisper"),
     ("whisper-tiny", {}, (1, 2), "Sharded Whisper"),
 ])
 def test_configs_the_mesh_does_not_run_are_refused(arch, overrides,
@@ -550,7 +552,8 @@ def test_configs_the_mesh_does_not_run_are_refused(arch, overrides,
     cfg = get_config(arch)
     if overrides is not None:
         cfg = smoke_variant(cfg).with_overrides(**overrides)
-    mesh = Mesh(mesh_shape, ("data", "model"))
+    mesh = Mesh(mesh_shape, ("data", "model") if len(mesh_shape) == 2
+                else ("pod", "data", "model"))
     with pytest.raises(ValueError, match=match):
         check_tp(cfg, mesh)
     check_tp(cfg, Mesh((1, 1), ("data", "model")))      # one device: runs

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+from torch_threads import shared_cores  # noqa: E402,F401 (autouse)
 
 from repro.kernels.wkv_scan import ops as JO  # noqa: E402
 from repro.kernels.wkv_scan.kernel import wkv_scan as j_wkv_scan  # noqa
